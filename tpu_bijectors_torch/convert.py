@@ -1,0 +1,45 @@
+"""Build the port's distributions from a plain description.
+
+A spec is a nested dict of type names and numpy arrays, so that the same
+parameters can be handed to the JAX package and to the port:
+
+  {"type": "NamedProduct", "children": {"mu": spec, ...}}
+  {"type": "IIDProduct", "inner": spec, "n": 8}
+  {"type": "Dirichlet", "params": {"alpha": np.ndarray}}
+  {"type": "LKJ", "dim": 16, "params": {"eta": np.ndarray}}
+
+Any key other than "type", "params", "children" and "inner" is a static
+argument of the constructor (an int such as `n` or `dim`).
+"""
+
+from __future__ import annotations
+
+from . import dists
+
+_LEAVES = {
+    "Normal": dists.Normal,
+    "LogNormal": dists.LogNormal,
+    "Dirichlet": dists.Dirichlet,
+    "LKJ": dists.LKJ,
+}
+
+
+def dist_from_spec(spec: dict, *, device, dtype):
+    """The port's distribution for `spec`, its parameters as `dtype`
+    tensors on `device`."""
+    kind = spec["type"]
+    if kind == "NamedProduct":
+        return dists.NamedProduct.of(
+            **{
+                name: dist_from_spec(c, device=device, dtype=dtype)
+                for name, c in spec["children"].items()
+            }
+        )
+    if kind == "IIDProduct":
+        return dists.IIDProduct(
+            dist_from_spec(spec["inner"], device=device, dtype=dtype), int(spec["n"])
+        )
+    if kind not in _LEAVES:
+        raise NotImplementedError(f"no ported distribution named {kind!r}")
+    static = {k: v for k, v in spec.items() if k not in ("type", "params")}
+    return _LEAVES[kind](**static, **spec.get("params", {}), device=device, dtype=dtype)

@@ -1,0 +1,108 @@
+"""Distribution base, PyTorch counterpart of `tpu_bijectors/dists/base.py`.
+
+Every distribution is a frozen dataclass. Leaf families hold their
+parameters as tensors on one device, chosen at construction: `cuda` unless
+the caller passes `device=` (see `utils.resolve_device`). `logpdf(x)` sums
+over event dims and broadcasts over leading batch dims; `support` is the
+static metadata the `bijector(d)` registry dispatches on (reference
+src/Bijectors.jl:268-320).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import KW_ONLY, InitVar, dataclass
+from typing import ClassVar
+
+import numpy as np
+import torch
+
+from ..utils import resolve_device
+
+
+@dataclass(frozen=True)
+class Support:
+    """Static support descriptor: kind 'interval' (with bounds and their
+    finiteness), 'simplex', 'corr' or 'product'."""
+
+    kind: str = "interval"
+    lower: float = -math.inf
+    upper: float = math.inf
+    lower_finite: bool = False
+    upper_finite: bool = False
+
+
+def real_line() -> Support:
+    return Support("interval", -math.inf, math.inf, False, False)
+
+
+def positive() -> Support:
+    return Support("interval", 0.0, math.inf, True, False)
+
+
+SIMPLEX = Support("simplex")
+CORRELATION = Support("corr")
+
+
+class Distribution:
+    """Abstract distribution."""
+
+    event_ndims: int = 0
+
+    @property
+    def event_shape(self) -> tuple:
+        return ()
+
+    @property
+    def batch_shape(self) -> tuple:
+        return ()
+
+    @property
+    def support(self) -> Support:
+        return real_line()
+
+    def logpdf(self, x):
+        raise NotImplementedError(type(self).__name__)
+
+    def to(self, device) -> "Distribution":
+        """The same distribution with every parameter on `device`."""
+        raise NotImplementedError(type(self).__name__)
+
+
+def _as_param(v, device, dtype):
+    if isinstance(v, torch.Tensor):
+        if dtype is None and not v.is_floating_point():
+            dtype = torch.get_default_dtype()
+        return v.to(device=device, dtype=dtype)
+    # a copy: the distribution does not alias the caller's array
+    return torch.tensor(
+        np.asarray(v), dtype=dtype or torch.get_default_dtype(), device=device
+    )
+
+
+@dataclass(frozen=True)
+class LeafDistribution(Distribution):
+    """A family with tensor parameters (named by `_params`), converted at
+    construction to tensors of `dtype` (default: a floating tensor keeps
+    its own, anything else takes torch's default) on `device`."""
+
+    _params: ClassVar[tuple] = ()
+    _: KW_ONLY
+    device: InitVar[object] = None
+    dtype: InitVar[object] = None
+
+    def __post_init__(self, device, dtype):
+        dev = resolve_device(device)
+        for name in self._params:
+            object.__setattr__(self, name, _as_param(getattr(self, name), dev, dtype))
+
+    @property
+    def batch_shape(self) -> tuple:
+        n = self.event_ndims
+        shapes = [tuple(getattr(self, p).shape) for p in self._params]
+        return tuple(torch.broadcast_shapes(*(s[: len(s) - n] for s in shapes)))
+
+    def to(self, device):
+        moved = {p: getattr(self, p).to(device) for p in self._params}
+        return dataclasses.replace(self, device=device, **moved)

@@ -1,0 +1,63 @@
+"""Distribution -> bijector registry, PyTorch counterpart of
+`tpu_bijectors/registry.py` (reference src/transformed_distribution.jl:40-149
+and src/Bijectors.jl:249-262).
+
+`bijector(d)` resolves from the distribution's static `support`:
+simplex -> SimplexBijector, corr -> VecCorrBijector, interval -> the
+Truncated(lb, ub) branch its finite bounds select, or Identity on the
+real line. Other support kinds are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .bijectors.base import Bijector, Identity, elementwise
+from .bijectors.corr import VecCorrBijector
+from .bijectors.scalar import Truncated
+from .bijectors.simplex import SimplexBijector
+from .dists.base import Distribution
+from .utils import _eps
+
+
+def bijector(d: Distribution) -> Bijector:
+    """The constrained -> unconstrained bijector for `d`."""
+    s = d.support
+    n = d.event_ndims
+    if s.kind == "simplex":
+        return SimplexBijector()
+    if s.kind == "corr":
+        return VecCorrBijector()
+    if s.kind == "interval":
+        if not s.lower_finite and not s.upper_finite:
+            return elementwise(Identity(), n)
+        b = Truncated(
+            s.lower if s.lower_finite else -math.inf,
+            s.upper if s.upper_finite else math.inf,
+            lower_finite=s.lower_finite,
+            upper_finite=s.upper_finite,
+        )
+        return elementwise(b, n)
+    raise NotImplementedError(
+        f"no bijector ported for {type(d).__name__} ({s.kind})"
+    )
+
+
+def logpdf_with_trans(d: Distribution, x, transform: bool = False):
+    """logpdf(d, x) - logabsdetjac(bijector(d), x), with the reference's
+    Dirichlet eps-nudge logpdf(d, x .+ eps) (src/Bijectors.jl:253)."""
+    x = torch.as_tensor(x)
+    if d.support.kind == "simplex":
+        lp = d.logpdf(x + _eps(x.dtype))
+    else:
+        lp = d.logpdf(x)
+    if not transform:
+        return lp
+    b = bijector(d)
+    ld = b.forward_and_log_det(x)[1]
+    extra = d.event_ndims - int(b.event_ndims_in)
+    if extra > 0:
+        ld = torch.sum(ld, dim=tuple(range(-extra, 0)))
+    return lp - ld

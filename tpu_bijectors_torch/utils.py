@@ -1,0 +1,117 @@
+"""Numeric utilities (layer L0), PyTorch counterpart of `tpu_bijectors/utils.py`.
+
+Keeps the reference's epsilon semantics (`_eps`, clamps), the numerically
+stable special functions, and the column-major strict-upper-triangle index
+sets (built with numpy, so packing is a static gather). Also holds the
+device rule every entry point of the port follows (`resolve_device`).
+"""
+
+from __future__ import annotations
+
+import math
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+LOG2 = math.log(2.0)
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: `cuda` unless the caller names
+    another. Raises when CUDA is asked for (or defaulted to) and absent —
+    the port never moves work to the CPU because no GPU was found."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+def _eps(dtype) -> float:
+    """Machine epsilon of a floating dtype (reference `_eps`,
+    src/Bijectors.jl:91-93)."""
+    return float(torch.finfo(dtype).eps)
+
+
+def clamp(x, lo, hi):
+    """Clamp to [lo, hi] (reference `_clamp`, src/Bijectors.jl:95-100);
+    NaNs propagate."""
+    return torch.clamp(x, lo, hi)
+
+
+def logit(p):
+    return torch.log(p) - torch.log1p(-p)
+
+
+def logistic(x):
+    return torch.sigmoid(x)
+
+
+def log1pexp(x):
+    """softplus(x) = max(x, 0) + log1p(exp(-|x|)), stable for every x (the
+    form of `jax.nn.softplus`; torch's own softplus switches to the
+    identity above a threshold)."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def logcosh(x):
+    """log(cosh(x)) = |x| + log1p(exp(-2|x|)) - log 2, stable for every x."""
+    a = torch.abs(x)
+    return a + log1pexp(-2.0 * a) - LOG2
+
+
+@lru_cache(maxsize=None)
+def _triu_index_arrays(n: int, k: int):
+    """(rows, cols) of the upper triangle with offset k, column-major order
+    (reference update_triu_from_vec loop order, src/utils.jl:77-85)."""
+    rows, cols = [], []
+    for j in range(n):
+        for i in range(0, min(j + 1 - k, n)):
+            rows.append(i)
+            cols.append(j)
+    return np.asarray(rows, dtype=np.int64), np.asarray(cols, dtype=np.int64)
+
+
+def triu1_dim_from_length(d: int) -> int:
+    """n such that n(n-1)/2 == d (reference `_triu1_dim_from_length`,
+    src/utils.jl:99)."""
+    n = (1 + math.isqrt(1 + 8 * d)) // 2
+    if n * (n - 1) // 2 != d:
+        raise ValueError(f"{d} is not of the form n(n-1)/2")
+    return n
+
+
+def triu_to_vec(X, k: int = 0):
+    """Pack the upper triangle (offset k) of the trailing (n, n) dims,
+    column-major, over any leading batch dims."""
+    rows, cols = _triu_index_arrays(X.shape[-1], k)
+    return X[..., torch.as_tensor(rows), torch.as_tensor(cols)]
+
+
+def vec_to_triu(v, k: int, n: int):
+    """Inverse of `triu_to_vec`; zeros elsewhere."""
+    rows, cols = _triu_index_arrays(n, k)
+    X = v.new_zeros(v.shape[:-1] + (n, n))
+    X[..., torch.as_tensor(rows), torch.as_tensor(cols)] = v
+    return X
+
+
+def pd_from_upper(U):
+    """U^T U with U forced upper-triangular (src/utils.jl:18-21)."""
+    U = torch.triu(U)
+    return U.transpose(-1, -2) @ U
+
+
+def cholesky_upper(X):
+    """Upper Cholesky factor of a symmetrised SPD matrix (src/utils.jl:50)."""
+    Xs = 0.5 * (X + X.transpose(-1, -2))
+    return torch.linalg.cholesky(Xs).transpose(-1, -2)
+
+
+def sum_last(x, ndims: int):
+    """Sum over the trailing `ndims` axes (0 -> identity)."""
+    if ndims == 0:
+        return x
+    return torch.sum(x, dim=tuple(range(-ndims, 0)))

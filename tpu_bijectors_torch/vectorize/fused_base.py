@@ -1,0 +1,187 @@
+"""The slab closed form of the whole-model fused evaluation, PyTorch
+counterpart of `tpu_bijectors/vectorize/fused_base.py`, and the PLAIN
+versions of the three slab kernels (`fused_kernel.py`, `kernels/csrc/`).
+
+With D = V - m and U = |D|, every slab row's linked log-density is exactly
+
+  lp_row = c0 + c1*V + cq*D^2 + where(D>=0, c3p, c3n)*U
+         + c4*softplus(sa*U + sb) + c5*exp(ea*V + eb) + c6*log1p((la*D)^2)
+
+with sa <= 0, so the softplus argument is <= 0 and softplus is
+log1p(exp(.)) without overflow. The (dim, NCF) coefficient table holds
+one row per state row: the 14 coefficient columns and a trailing
+OWNERSHIP column. A row whose ownership is 0 has V masked to 0 before any
+term is formed, and every term of a zero coefficient is an exact 0
+(`_zguard`), even where V = +/-inf.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+LOG2 = math.log(2.0)
+LOG2PI = math.log(2.0 * math.pi)
+
+
+class _Unsupported(Exception):
+    """A leaf with no slab form; the message names it."""
+
+
+_COEF_KEYS = (
+    "m", "c0", "c1", "cq", "c3p", "c3n", "c4", "sa", "sb", "c5", "ea", "eb",
+    "c6", "la",
+)
+_CI = {k: i for i, k in enumerate(_COEF_KEYS)}
+NK = len(_COEF_KEYS)
+_MASK_COL = NK  # trailing slab-ownership column
+NCF = NK + 1
+
+# one term group per WEIGHT key; the auxiliary columns (m, sa, sb, ea, eb,
+# la) ride with their weight key's group, and c0 (no V dependence) is
+# summed outside the evaluation
+_WEIGHT_OF = {
+    "lin": frozenset({"c1"}),
+    "quad": frozenset({"cq"}),
+    "absv": frozenset({"c3p", "c3n"}),
+    "sp": frozenset({"c4"}),
+    "exp": frozenset({"c5"}),
+    "l1p": frozenset({"c6"}),
+}
+
+
+def _zguard(c, term):
+    """Exact 0 on zero-coefficient rows even at V = +/-inf (0 * inf would
+    be NaN); rows with a finite coefficient keep the exact term."""
+    return torch.where(c == 0.0, torch.zeros_like(term), term)
+
+
+def _slab_mask_v(V, cf):
+    """Zero the V of rows the slab does not own (ownership column 0)."""
+    return torch.where(cf[:, _MASK_COL][:, None] > 0, V, torch.zeros_like(V))
+
+
+def _slab_segment_val_par(
+    groups, V, cf, used, *, value=True, partial=False, skip_mask=False
+):
+    """Every term group in `groups` over the rows of V (cf sliced to the
+    same rows), each group evaluated on its own. Returns (val, par), each
+    (rows, B) summed over the groups, or None when not requested. With
+    both requested each group shares its transcendental between the value
+    and the derivative (softplus' = sigmoid through the same exp). `used`
+    names the coefficient keys assigned on these rows (a missing m/sb/eb is
+    structurally 0, so its subtract/add is skipped); `skip_mask` says every
+    row is slab-owned. Tie convention of the partials: sign(0) = 0."""
+    val_acc = par_acc = None
+    for g in groups:
+        val, par = _group_val_par(g, V, cf, used, value, partial, skip_mask)
+        if val is not None:
+            val_acc = val if val_acc is None else val_acc + val
+        if par is not None:
+            par_acc = par if par_acc is None else par_acc + par
+    return val_acc, par_acc
+
+
+def _group_val_par(group, V, cf, used, value, partial, skip_mask):
+    def col(k):
+        return cf[:, _CI[k]][:, None]
+
+    Vm = V if skip_mask else _slab_mask_v(V, cf)
+    D = (Vm - col("m")) if "m" in used else Vm
+    val = par = None
+    if group == "lin":
+        c1 = col("c1")
+        if value:
+            val = _zguard(c1, c1 * Vm)
+        if partial:
+            par = c1.expand(Vm.shape)
+    elif group == "quad":
+        cq = col("cq")
+        t = cq * D
+        if value:
+            val = _zguard(cq, t * D)
+        if partial:
+            par = _zguard(cq, 2.0 * t)
+    elif group == "absv":
+        sel3 = torch.where(D >= 0, col("c3p"), col("c3n"))
+        if value and partial:
+            s = sel3 * torch.sign(D)  # the derivative; s*D == sel3*|D|
+            val = _zguard(sel3, s * D)
+            par = s
+        elif value:
+            val = _zguard(sel3, sel3 * torch.abs(D))
+        else:
+            par = sel3 * torch.sign(D)
+    elif group == "sp":
+        c4 = col("c4")
+        sp_arg = col("sa") * torch.abs(D)
+        if "sb" in used:
+            sp_arg = sp_arg + col("sb")
+        # sp_arg <= 0: e = exp(sp_arg) lies in (0, 1]; softplus is
+        # log1p(e) and sigmoid is e / (1 + e)
+        e = torch.exp(sp_arg)
+        if value:
+            val = _zguard(c4, c4 * torch.log1p(e))
+        if partial:
+            par = _zguard(c4, c4 * col("sa") * torch.sign(D) * (e / (1.0 + e)))
+    elif group == "exp":
+        c5 = col("c5")
+        e_arg = col("ea") * Vm
+        if "eb" in used:
+            e_arg = e_arg + col("eb")
+        e = torch.exp(e_arg)
+        if value:
+            val = _zguard(c5, c5 * e)
+        if partial:
+            par = _zguard(c5, c5 * col("ea") * e)
+    elif group == "l1p":
+        c6 = col("c6")
+        la = col("la")
+        t = la * D
+        t2 = t * t
+        if value:
+            val = _zguard(c6, c6 * torch.log1p(t2))
+        if partial:
+            par = _zguard(c6, c6 * (2.0 * la * la * D) / (1.0 + t2))
+    else:
+        raise KeyError(group)
+    return val, par
+
+
+def _groups_and_used(cf):
+    """The term groups and coefficient keys that `cf` assigns anywhere."""
+    nz = (cf[:, :NK] != 0).any(dim=0).tolist()
+    used = frozenset(k for k, on in zip(_COEF_KEYS, nz) if on)
+    groups = tuple(g for g, ks in _WEIGHT_OF.items() if ks & used)
+    return groups, used
+
+
+def _plain(vT, cf, value, partial):
+    groups, used = _groups_and_used(cf)
+    val, par = _slab_segment_val_par(
+        groups, vT, cf, used, value=value, partial=partial
+    )
+    if val is None:
+        val = torch.zeros_like(vT)
+    if par is None:
+        par = torch.zeros_like(vT)
+    return val.sum(0), par
+
+
+def slab_value_plain(vT, cf):
+    """Plain version of the value kernel: lp (B,) = sum over rows of the
+    slab form without c0, for vT (dim, B) and cf (dim, NCF)."""
+    return _plain(vT, cf, True, False)[0]
+
+
+def slab_value_and_grad_plain(vT, cf):
+    """Plain version of the value-and-gradient kernel: (lp (B,), g (dim, B))
+    with g = d lp / d vT."""
+    return _plain(vT, cf, True, True)
+
+
+def slab_vjp_plain(vT, cf, ct):
+    """Plain version of the vector-Jacobian kernel: g = (d lp / d vT) * ct,
+    ct (B,)."""
+    return _plain(vT, cf, False, True)[1] * ct
