@@ -5,58 +5,21 @@ per-leaf transposed log-density, the batch-major linked log-density and
 its gradient, and the from_linked_vec / to_linked_vec round trip.
 """
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_fused import CPU64, spec_of
+from test_torch_fused import MODELS as FUSED_MODELS
 
 from tpu_bijectors import dists as jd
 from tpu_bijectors.vectorize import unconstrain as junconstrain
 
 import tpu_bijectors_torch as tbt
 
-CPU64 = dict(device="cpu", dtype=torch.float64)
-
-
-def spec_of(d):
-    """A JAX distribution as a `dist_from_spec` description."""
-    kind = type(d).__name__
-    if kind == "NamedProduct":
-        return {"type": kind, "children": {n: spec_of(c) for n, c in zip(d.names, d.components)}}
-    if kind == "IIDProduct":
-        return {"type": kind, "inner": spec_of(d.base), "n": d.n}
-    spec = {"type": kind, "params": {}}
-    for f in dataclasses.fields(d):
-        v = getattr(d, f.name)
-        if isinstance(v, int) and not isinstance(v, bool):
-            spec[f.name] = v
-        else:
-            spec["params"][f.name] = np.asarray(v)
-    return spec
-
-
 MODELS = {
-    "bench": lambda: jd.NamedProduct.of(
-        mu=jd.IIDProduct(jd.Normal(0.0, 2.0), 8),
-        sigma=jd.IIDProduct(jd.LogNormal(0.0, 0.5), 8),
-        w=jd.Dirichlet(jnp.ones(16)),
-        corr=jd.LKJ(16, 2.0),
-    ),
-    "variant": lambda: jd.NamedProduct.of(
-        mu=jd.IIDProduct(jd.Normal(0.3, 1.5), 3),
-        sigma=jd.IIDProduct(jd.LogNormal(-0.2, 0.7), 2),
-        w=jd.Dirichlet(jnp.asarray([1.3, 2.0, 0.8, 1.1, 0.6])),
-        corr=jd.LKJ(5, 3.0),
-    ),
-    # IID blocks of structured leaves: one slab entry per copy
-    "iid_mv": lambda: jd.NamedProduct.of(
-        w=jd.IIDProduct(jd.Dirichlet(jnp.asarray([1.2, 0.9, 2.0])), 3),
-        c=jd.IIDProduct(jd.LKJ(3, 1.5), 2),
-        x=jd.Normal(0.2, 0.8),
-    ),
+    **{k: FUSED_MODELS[k] for k in ("bench", "variant", "iid_mv")},
     "leaves": lambda: jd.NamedProduct.of(
         a=jd.Normal(-1.0, 0.4),
         b=jd.LogNormal(0.5, 1.2),

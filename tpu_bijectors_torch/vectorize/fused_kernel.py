@@ -12,6 +12,8 @@ vector-Jacobian kernel.
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 from .. import kernels
@@ -26,14 +28,19 @@ from .fused_base import (
 from .fused_plan import _plan, _plan_with_reason
 
 
+# unconstrainer -> {(dtype, device): (cf, c0sum)}; the unconstrainers hash
+# by identity (eq=False), and an entry goes with its unconstrainer
+_PREP_CACHE: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
 def _prep(u, vT):
-    """(cf (dim, NCF), c0sum) in vT's dtype on vT's device. Memoised on the
-    unconstrainer per (dtype, device): its distribution parameters are
+    """(cf (dim, NCF), c0sum) in vT's dtype on vT's device. Memoised per
+    unconstrainer and (dtype, device): its distribution parameters are
     fixed for the life of the object. Raises NotImplementedError naming a
     leaf with no slab form, and ValueError on a state of the wrong shape."""
     if vT.ndim != 2:
         raise ValueError(f"the state must be (dim, B); got shape {tuple(vT.shape)}")
-    cache = vars(u).setdefault("_prep_cache", {})
+    cache = _PREP_CACHE.setdefault(u, {})
     key = (vT.dtype, vT.device)
     if key in cache:
         cf, c0sum = cache[key]
