@@ -153,10 +153,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 def test_model_parts_not_ported_raise():
     d = td.Normal(0.0, 1.0, **CPU64)
+    g = torch.Generator().manual_seed(0)
+    # a bare leaf has no fused plan: 'auto' would pick the batch-major
+    # kernel, and the laplace/pathfinder inits need unported engines
     with pytest.raises(NotImplementedError):
-        tbt.Model(d, loglik=lambda x: 0.0, device="cpu")
+        tbt.Model(d, loglik=lambda x: x, device="cpu").sample(g)
     with pytest.raises(NotImplementedError):
-        tbt.Model(d, device="cpu").sample()
+        tbt.Model(d, device="cpu").sample(g, init="laplace")
     with pytest.raises(NotImplementedError):
         tbt.dist_from_spec({"type": "Gamma", "params": {}}, **CPU64)
 

@@ -13,20 +13,26 @@ masked cumulative sum along the row axis:
       W[i,j] = z[i,j] exp(lr_excl[i,j]) (i<j),  W[j,j] = exp(lr_incl[j-1,j])
 
 Packing is column-major over the strict upper triangle (src/utils.jl:77-85).
+
+The inverse (X, logJ, log diag W) is a `torch.autograd.Function`: the CUDA
+kernel for a CUDA tensor, these cumulative sums for a CPU tensor
+(kernels/lkj.py), and the closed-form backward of `_vec_corr_vjp` on both.
+Any leading batch axes are flattened into the kernel's batch.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import lru_cache
 
 import numpy as np
 import torch
 
 from ..utils import (
     _triu_index_arrays,
+    _triu_index_tensors,
     cholesky_upper,
     logcosh,
-    pd_from_upper,
     triu1_dim_from_length,
     triu_to_vec,
     vec_to_triu,
@@ -34,8 +40,15 @@ from ..utils import (
 from .base import Bijector
 
 
+@lru_cache(maxsize=None)
+def _tri_masks(K, device):
+    """(strict upper, upper) boolean (K, K) masks on `device`, made once."""
+    ones = torch.ones(K, K, dtype=torch.bool, device=device)
+    return torch.triu(ones, 1), torch.triu(ones)
+
+
 def _up_mask(K, like):
-    return torch.triu(torch.ones(K, K, dtype=torch.bool, device=like.device), 1)
+    return _tri_masks(K, like.device)[0]
 
 
 def _link_chol_lkj(W):
@@ -86,9 +99,14 @@ def _inv_link_chol_lkj_with_logdiag(Y):
 def _logabsdetjac_inv_corr_vec(y):
     """-sum_s (K - i_s) logcosh(y_s), 0-based row i_s (corr.jl:474-483)."""
     K = triu1_dim_from_length(y.shape[-1])
+    return -torch.sum(_row_coeff(K, y.dtype, y.device) * logcosh(y), dim=-1)
+
+
+@lru_cache(maxsize=None)
+def _row_coeff(K, dtype, device):
+    """K - i_s per packed slot s (its 0-based row i_s), made once."""
     rows, _ = _triu_index_arrays(K, 1)
-    coeff = torch.as_tensor(K - rows, dtype=y.dtype, device=y.device)
-    return -torch.sum(coeff * logcosh(y), dim=-1)
+    return torch.as_tensor(K - rows, dtype=dtype, device=device)
 
 
 def _diag_coeff(K, like):
@@ -104,12 +122,68 @@ def _vec_corr_logdet(y):
     return logJ + torch.sum(_diag_coeff(K, y) * log_diag, dim=-1), log_diag
 
 
+def _vec_corr_vjp(y, W, gX, glogJ, glog_diag):
+    """Closed-form vector-Jacobian product of y (N, P) -> (X = W'W, logJ,
+    log diag W) given the factor W (N, K, K) and the cotangents (each may
+    be None). With t = tanh(y), lc = logcosh(y) and lr_excl the running sum
+    before row k of column j:
+
+      gW    = W (gX + gX'), kept to the upper triangle
+      gy_kj = gW_kj sech^2(y_kj) exp(lr_excl_kj)
+              - t_kj sum_{k<i<=j} gW_ij W_ij
+      gy   -= (K - k) t_kj glogJ + t_kj glog_diag_j
+
+    (the logJ and log-diagonal slopes are the vec-corr coefficients of
+    corr.py:346-367). sech^2 exp(lr_excl) is taken as exp(lr_excl - 2 lc),
+    in the log domain, so it underflows to 0 rather than forming 0 * inf
+    at 1e10 states."""
+    K = W.shape[-1]
+    t = torch.tanh(y)
+    gy = torch.zeros_like(y)
+    if gX is not None:
+        lc = logcosh(y)
+        LC = vec_to_triu(lc, 1, K)
+        lr_excl = LC - torch.cumsum(LC, dim=-2)
+        gW = (W @ (gX + gX.transpose(-1, -2))) * _tri_masks(K, y.device)[1]
+        P = gW * W
+        # sum over i > k of P_ij within column j (P is upper triangular)
+        below = torch.flip(torch.cumsum(torch.flip(P, (-2,)), dim=-2), (-2,)) - P
+        gY = gW * torch.exp(lr_excl - 2.0 * LC) - vec_to_triu(t, 1, K) * below
+        gy = triu_to_vec(gY, 1)
+    if glogJ is not None:
+        gy = gy - _row_coeff(K, y.dtype, y.device) * t * glogJ[..., None]
+    if glog_diag is not None:
+        gy = gy - t * glog_diag[..., _triu_index_tensors(K, 1, y.device)[1]]
+    return gy
+
+
+class _VecCorrInverse(torch.autograd.Function):
+    """(X, logJ, log diag W) of y (N, K(K-1)/2). Forward: the kernel on the
+    card, the plain masked cumulative sums on the CPU; backward: the closed
+    form of `_vec_corr_vjp` on both, from the factor W that the forward
+    writes when a gradient is needed."""
+
+    @staticmethod
+    def forward(ctx, y, K):
+        from ..kernels.lkj import lkj_inverse
+
+        X, logJ, log_diag, W = lkj_inverse(y, K, want_w=ctx.needs_input_grad[0])
+        ctx.save_for_backward(y, W)
+        ctx.set_materialize_grads(False)  # an unused output's cotangent is None
+        return X, logJ, log_diag
+
+    @staticmethod
+    def backward(ctx, gX, glogJ, glog_diag):
+        y, W = ctx.saved_tensors
+        return _vec_corr_vjp(y, W, gX, glogJ, glog_diag), None
+
+
 def _vec_corr_inverse_all(y):
-    """(X, logJ, log diag W)."""
+    """(X, logJ, log diag W) over any leading axes of y (..., K(K-1)/2)."""
     K = triu1_dim_from_length(y.shape[-1])
-    W, logJ, log_diag = _inv_link_chol_lkj_with_logdiag(vec_to_triu(y, 1, K))
-    logJ = logJ + torch.sum(_diag_coeff(K, y) * log_diag, dim=-1)
-    return pd_from_upper(W), logJ, log_diag
+    lead = y.shape[:-1]
+    X, logJ, log_diag = _VecCorrInverse.apply(y.reshape(-1, y.shape[-1]), K)
+    return X.reshape(lead + (K, K)), logJ.reshape(lead), log_diag.reshape(lead + (K,))
 
 
 @dataclass(frozen=True)

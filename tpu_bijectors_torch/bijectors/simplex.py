@@ -1,5 +1,5 @@
 """Stick-breaking simplex bijector, PyTorch counterpart of
-`tpu_bijectors/bijectors/simplex.py` (plain path only).
+`tpu_bijectors/bijectors/simplex.py`.
 
 Math (0-based k, eps = machine epsilon of the dtype; reference
 src/bijectors/simplex.jl:28-138):
@@ -10,24 +10,41 @@ src/bijectors/simplex.jl:28-138):
             y_k = logit(z_k) + log(K-1-k)
   inverse:  the same recurrence in the running sum, clamped per step
             (simplex.jl:84-100).
+
+The inverse (with its log-det, and with the Dirichlet data term wlog) is a
+`torch.autograd.Function`: its forward is the CUDA kernel for a CUDA
+tensor and the plain recurrence for a CPU tensor
+(kernels/simplex.py); its backward is the closed-form vector-Jacobian
+product of `_simplex_vjp`, in torch ops on either device. Any leading batch
+axes are flattened into the kernel's batch.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import lru_cache
 
 import numpy as np
 import torch
 
-from ..utils import _eps, clamp, logistic, logit
+from ..utils import _eps, clamp, clamp_slope, logistic, logit, max_slope
 from .base import Bijector
 
 
+@lru_cache(maxsize=None)
+def _log_coeffs(K: int, dtype, device):
+    return torch.as_tensor(np.log(np.arange(K - 1, 0, -1)), dtype=dtype, device=device)
+
+
 def _log_km1_minus_k(K: int, like):
-    # log(K-1-k) for k = 0..K-2
-    return torch.as_tensor(
-        np.log(np.arange(K - 1, 0, -1)), dtype=like.dtype, device=like.device
-    )
+    # log(K-1-k) for k = 0..K-2, made once per (K, dtype, device)
+    return _log_coeffs(K, like.dtype, like.device)
+
+
+@lru_cache(maxsize=None)
+def _first(n: int, device):
+    # (n,) mask of coordinate 0
+    return torch.arange(n, device=device) == 0
 
 
 def _exclusive_prefix(x, K):
@@ -58,32 +75,30 @@ class SimplexBijector(Bijector):
         xk = x[..., : K - 1]
         z_first = xk * (1 - 2 * eps) + eps
         z_rest = (xk + eps) * (1 - 2 * eps) / ((1 + eps) - s)
-        k_is_zero = torch.arange(K - 1, device=x.device) == 0
+        k_is_zero = _first(K - 1, x.device)
         z = torch.where(k_is_zero, z_first, z_rest)
         return logit(z) + _log_km1_minus_k(K, x)
 
     def forward_log_det_jacobian(self, x):
         K = x.shape[-1]
-        eps = _eps(x.dtype)
+        eps = x.new_tensor(_eps(x.dtype))
         s = _exclusive_prefix(x, K)
-        rem = torch.clamp_min(1.0 - s, eps)
+        rem = torch.maximum(1.0 - s, eps)
         xk = x[..., : K - 1]
-        k_is_zero = torch.arange(K - 1, device=x.device) == 0
+        k_is_zero = _first(K - 1, x.device)
         z = torch.where(k_is_zero, xk, xk / rem)
-        lp = torch.log(torch.clamp_min(z, eps)) + torch.log(
-            torch.clamp_min(1.0 - z, eps)
-        )
+        lp = torch.log(torch.maximum(z, eps)) + torch.log(torch.maximum(1.0 - z, eps))
         lp = lp + torch.where(k_is_zero, torch.zeros_like(rem), torch.log(rem))
         return -torch.sum(lp, dim=-1)
 
     def inverse_and_log_det(self, y):
-        x = _simplex_inverse(y)
-        return x, -self.forward_log_det_jacobian(x)
+        x, ld, _ = _simplex_inverse_logdet_wlog(y, None)
+        return x, ld
 
 
 def _simplex_inverse(y):
     """Exact reference recurrence (simplex.jl:84-100) over K-1 steps; every
-    batch dim rides along in each step."""
+    batch dim rides along in each step. The plain version of the kernel."""
     K = y.shape[-1] + 1
     eps = _eps(y.dtype)
     z = logistic(y - _log_km1_minus_k(K, y))
@@ -101,9 +116,115 @@ def _simplex_inverse(y):
     return torch.stack(xs, dim=-1)
 
 
-def _simplex_inverse_logdet_wlog(y, am1):
-    """(x, inverse log-det, sum_k am1[k] log(x_k + eps)). The eps-nudge is
-    the reference's transformed-path Dirichlet density logpdf(d, x .+ eps)
+def _ld_vjp(x, s, gld):
+    """Cotangent of x (..., K) from ld(x) = -forward_log_det_jacobian(x)
+    given its cotangent gld (...,): the transpose of the JAX package's
+    jvp of `_ld_from_x` (bijectors/simplex.py:182, :363), with
+    `torch.maximum`'s slopes."""
+    K = x.shape[-1]
+    eps = _eps(x.dtype)
+    k0 = _first(K - 1, x.device)
+    xk = x[..., : K - 1]
+    u = 1.0 - s
+    rem = torch.clamp_min(u, eps)
+    zl = torch.where(k0, xk, xk / rem)
+    # d ld / d zl, per coordinate
+    a = max_slope(zl, eps) / torch.clamp_min(zl, eps) - max_slope(
+        1.0 - zl, eps
+    ) / torch.clamp_min(1.0 - zl, eps)
+    g = gld[..., None]
+    gxk = g * torch.where(k0, a, a / rem)
+    # rem_k enters through zl = x_k / rem_k and log(rem_k) (k >= 1)
+    grem = g * torch.where(k0, torch.zeros_like(a), 1.0 / rem - a * xk / (rem * rem))
+    gs = -max_slope(u, eps) * grem
+    # s_k = sum_{i<k} x_i: x_i gets the sum of gs_k over k > i
+    rev = torch.flip(torch.cumsum(torch.flip(gs, (-1,)), dim=-1), (-1,))
+    gxk = gxk + (rev - gs)
+    return torch.cat([gxk, torch.zeros_like(x[..., :1])], dim=-1)
+
+
+@lru_cache(maxsize=None)
+def _tri(K: int, device):
+    """(K, K-1) mask of l >= j and (K, K) mask of i > j, made once."""
+    j = torch.arange(K, device=device)[:, None]
+    return j <= torch.arange(K - 1, device=device), j < torch.arange(K, device=device)
+
+
+def _simplex_vjp(y, x, gx):
+    """d<gx, x(y)>/dy for x = _simplex_inverse(y) (rows of y (N, K-1)): the
+    transpose of the affine running-sum tangent `_simplex_inverse_tangent`
+    (tpu_bijectors/bijectors/simplex.py:132-179), with the clamp slopes of
+    the forward's clamps.
+
+    x_k = clamp(pre_k) moves with s_k by ds_k = -m_k z_k / c12 (k >= 1) and
+    with z_k by dz_k; s_{k+1} = s_k + x_k. So the adjoint of the running
+    sum runs backwards as gs_k = gs_{k+1} (1 + ds_k) + gx_k ds_k from
+    gs_{K-1} = -m_last gx_{K-1}; unrolled, gs_j = sum_{i >= j} c_i
+    prod_{j <= l < i} (1 + ds_l) with c = (gx_k ds_k ..., gs_{K-1}): one
+    masked cumulative product and one small batched product, not a loop
+    over K."""
+    N, K = x.shape
+    eps = _eps(x.dtype)
+    c12 = 1 - 2 * eps
+    z = logistic(y - _log_km1_minus_k(K, y))
+    s = _exclusive_prefix(x, K)
+    k0 = _first(K - 1, x.device)
+    pre = torch.where(k0, (z - eps) / c12, ((1 + eps) - s) / c12 * z - eps)
+    m = clamp_slope(pre)
+    ds = torch.where(k0, torch.zeros_like(z), -m * z / c12)
+    dz = m * torch.where(k0, torch.full_like(s, 1.0 / c12), ((1 + eps) - s) / c12)
+    g_last = -clamp_slope(1.0 - (s[:, -1] + x[:, K - 2])) * gx[:, K - 1]
+    tail, upper = _tri(K, x.device)
+    # T[j, i] = prod_{j <= l < i} (1 + ds_l) for i > j, 1 at i = j, 0 below
+    C = torch.cumprod(torch.where(tail, (1.0 + ds)[:, None, :], 1.0), dim=-1)
+    T = torch.where(upper, torch.nn.functional.pad(C, (1, 0)), 0.0) + torch.eye(
+        K, dtype=x.dtype, device=x.device
+    )
+    c = torch.cat([gx[:, : K - 1] * ds, g_last[:, None]], dim=-1)
+    gs = (T @ c[:, :, None])[:, 1:, 0]  # adjoint of s_{k+1}, k = 0..K-2
+    return (gx[:, : K - 1] + gs) * dz * z * (1.0 - z)
+
+
+class _SimplexInverse(torch.autograd.Function):
+    """(x or None, ld, wlog or None) of y (N, K-1) and the optional weights
+    am1 (K,). Forward: the kernel on the card, the plain recurrence on the
+    CPU; backward: the closed forms above, on both."""
+
+    @staticmethod
+    def forward(ctx, y, am1, want_x):
+        from ..kernels.simplex import simplex_inverse_logdet
+
+        need_x = want_x or any(ctx.needs_input_grad[:2])
+        x, ld, wlog = simplex_inverse_logdet(y, am1, want_x=need_x)
+        ctx.save_for_backward(y, x, am1)
+        ctx.want_x = want_x
+        ctx.set_materialize_grads(False)  # an unused output's cotangent is None
+        return (x if want_x else None), ld, wlog
+
+    @staticmethod
+    def backward(ctx, gx, gld, gwlog):
+        y, x, am1 = ctx.saved_tensors
+        g = gx if (ctx.want_x and gx is not None) else torch.zeros_like(x)
+        s = _exclusive_prefix(x, x.shape[-1])
+        if gld is not None:
+            g = g + _ld_vjp(x, s, gld)
+        gam1 = None
+        if am1 is not None and gwlog is not None:
+            logx = torch.log(x + _eps(x.dtype))
+            g = g + gwlog[..., None] * am1 / (x + _eps(x.dtype))
+            if ctx.needs_input_grad[1]:
+                gam1 = torch.sum(gwlog[..., None] * logx, dim=0)
+        gy = _simplex_vjp(y, x, g) if ctx.needs_input_grad[0] else None
+        return gy, gam1, None
+
+
+def _simplex_inverse_logdet_wlog(y, am1, want_x: bool = True):
+    """(x or None, inverse log-det, sum_k am1[k] log(x_k + eps) or None when
+    am1 is None) over any leading axes of y (..., K-1). The eps-nudge is the
+    reference's transformed-path Dirichlet density logpdf(d, x .+ eps)
     (src/Bijectors.jl:253): finite when the clamps saturate x to 0."""
-    x, ld = SimplexBijector().inverse_and_log_det(y)
-    return x, ld, torch.sum(am1 * torch.log(x + _eps(x.dtype)), dim=-1)
+    lead = y.shape[:-1]
+    x, ld, wlog = _SimplexInverse.apply(y.reshape(-1, y.shape[-1]), am1, want_x)
+    if x is not None:
+        x = x.reshape(lead + (x.shape[-1],))
+    return x, ld.reshape(lead), (None if wlog is None else wlog.reshape(lead))

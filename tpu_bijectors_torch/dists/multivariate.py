@@ -34,11 +34,12 @@ class Dirichlet(LeafDistribution):
     def fused_linked_logdensity(self, bijector, y, want_x: bool = True):
         """Composed linked density with the reference's eps-nudged weighted
         log term (src/Bijectors.jl:253), finite at 1e10 jumps. Returns
-        (x or None, logpdf + logdetJ), or None to decline."""
+        (x or None, logpdf + logdetJ), or None to decline. On the card the
+        inverse, its log-det and the data term are one kernel launch."""
         if type(bijector) is not SimplexBijector or self.alpha.ndim != 1:
             return None
-        x, ld, wlog = _simplex_inverse_logdet_wlog(y, self.alpha - 1.0)
-        return (x if want_x else None), wlog - self._lognorm() + ld
+        x, ld, wlog = _simplex_inverse_logdet_wlog(y, self.alpha - 1.0, want_x)
+        return x, wlog - self._lognorm() + ld
 
     @property
     def support(self):

@@ -1,31 +1,46 @@
 """Model abstraction, PyTorch counterpart of `tpu_bijectors/infer/model.py`.
 
-A `Model` holds priors (any distribution `unconstrain` supports, typically
-a NamedProduct) on one device. Its batched transposed log-density is what
-a sampler or a server evaluates: on the (dim, B) state, one fused kernel
-for the value and one for the value and gradient.
+A `Model` is (priors, loglik) on one device: priors is any distribution
+`unconstrain` supports (typically a NamedProduct), loglik maps one sample
+dict to a scalar (batched with `torch.func.vmap`, as the JAX package uses
+`jax.vmap`). The unconstrained target density is
+
+    logp(v) = priors.logpdf(x) + loglik(x) + logdetJ,   (x, logdetJ) = from_linked_vec(v)
+
+Its batched transposed form is what a sampler or a server evaluates on the
+(dim, B) state: the prior term as one fused kernel for the value and one
+for the value and gradient, the likelihood term through the inverse link
+(the simplex and LKJ kernels on the card) and autograd.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..dists.base import Distribution
+from ..dists.base import Distribution, LeafDistribution
+from ..dists.product import IIDProduct, NamedProduct
 from ..utils import resolve_device
 from ..vectorize.core import unconstrain
 
 
+def _param_dtype(d: Distribution):
+    """The floating dtype of a distribution's parameters (its first leaf's)."""
+    while isinstance(d, (NamedProduct, IIDProduct)):
+        d = d.components[0] if isinstance(d, NamedProduct) else d.base
+    if isinstance(d, LeafDistribution) and d._params:
+        return getattr(d, d._params[0]).dtype
+    return torch.get_default_dtype()
+
+
 class Model:
-    """Priors, and (not ported yet) a log-likelihood, on `device` (default
-    `cuda`; raises when CUDA is absent and no device was given)."""
+    """Priors and an optional log-likelihood on `device` (default `cuda`;
+    raises when CUDA is absent and no device was given)."""
 
     def __init__(self, priors: Distribution, loglik=None, *, device=None):
-        if loglik is not None:
-            raise NotImplementedError(
-                "a log-likelihood is not ported yet; Model takes priors only"
-            )
         self.device = resolve_device(device)
         self.priors = priors.to(self.device)
+        self.loglik = loglik
+        self.dtype = _param_dtype(self.priors)
         self._u = unconstrain(self.priors, device=self.device)
 
     def unconstrainer(self):
@@ -35,15 +50,19 @@ class Model:
         return self._u.linked_vec_length
 
     def constrain(self, v):
-        """Flat unconstrained vectors (B, dim) -> sample dict."""
+        """Flat unconstrained vectors (..., dim) -> sample dict with the same
+        leading axes."""
         return self._u.from_linked_vec(v)[0]
 
     def batched_logdensity_t_fn(self):
         """logp on the transposed (dim, B) state, (B,) out. Its
-        `value_and_grad_fn(vT)` returns (lp, d sum(lp) / d vT) in one fused
-        pass; for a CPU state whose model has no fused plan it
-        differentiates the composed path instead."""
+        `value_and_grad_fn(vT)` returns (lp, d sum(lp) / d vT): the prior
+        term from the fused one-pass kernel (for a CPU state whose model
+        has no fused plan, autograd through the composed path), plus the
+        likelihood term and its reverse pass through the inverse link on
+        the swapped view of vT."""
         u = self._u
+        loglik = self.loglik
 
         def _prior_vg(vT):
             from ..vectorize.fused_kernel import try_mega_value_and_grad
@@ -57,11 +76,95 @@ class Model:
                 (g,) = torch.autograd.grad(lp.sum(), v)
             return lp.detach(), g
 
-        def prior_logdensity_t(vT):
-            return u.linked_logdensity_t(vT)
+        if loglik is None:
 
-        prior_logdensity_t.value_and_grad_fn = _prior_vg
-        return prior_logdensity_t
+            def prior_logdensity_t(vT):
+                return u.linked_logdensity_t(vT)
 
-    def sample(self, *args, **kwargs):
-        raise NotImplementedError("NUTS sampling is not ported yet")
+            prior_logdensity_t.value_and_grad_fn = _prior_vg
+            return prior_logdensity_t
+
+        def lik_t(vT):
+            x = u.from_linked_vec(vT.transpose(0, 1))[0]
+            return torch.func.vmap(loglik)(x)
+
+        def logdensity_t(vT):
+            return u.linked_logdensity_t(vT) + lik_t(vT)
+
+        def _full_vg(vT):
+            lp_p, g_p = _prior_vg(vT)
+            with torch.enable_grad():
+                v = vT.detach().requires_grad_(True)
+                lp_l = lik_t(v)
+                (g_l,) = torch.autograd.grad(lp_l.sum(), v)
+            return lp_p + lp_l.detach(), g_p + g_l
+
+        logdensity_t.value_and_grad_fn = _full_vg
+        return logdensity_t
+
+    def init_positions(self, generator, n_chains: int, scale: float = 1.0):
+        """scale * N(0, 1) starting positions (n_chains, dim), drawn from
+        `generator` on the model's device."""
+        return scale * torch.randn(
+            (n_chains, self.dim()), generator=generator, dtype=self.dtype,
+            device=self.device,
+        )
+
+    def sample(
+        self,
+        generator,
+        n_chains: int = 8,
+        n_warmup: int = 500,
+        n_samples: int = 500,
+        kernel: str = "auto",
+        constrained: bool = True,
+        init: str = "random",
+        **kwargs,
+    ):
+        """One-call NUTS: windowed-adaptation warmup + sampling.
+
+        kernel='auto' picks the transposed-layout multi-chain kernel
+        (`nuts_batched_t`) whenever the model has a fused plan, on either
+        device; the leapfrog then runs the one-pass fused value-and-grad
+        kernel (and, with a likelihood, the inverse-link kernels). Where
+        the JAX package would pick the batch-major kernel it raises
+        NotImplementedError: that kernel is not ported yet. Returns
+        (samples, state, stats): samples is the constrained dict with
+        leading (n_kept, n_chains) axes when `constrained=True`, else the
+        raw (n_kept, n_chains, dim) linked tensor. Every random draw comes
+        from `generator` (on the model's device).
+
+        init='random' draws N(0, 1) starting positions; 'laplace' and
+        'pathfinder' are not ported yet and raise."""
+        from .sampler import sample_with_kernel
+
+        if kernel == "auto":
+            from .. import kernels
+            from ..vectorize.core import TreeUnconstrainer
+            from ..vectorize.fused_plan import _plan
+
+            u = self._u
+            if not (
+                kernels.enabled()
+                and isinstance(u, TreeUnconstrainer)
+                and _plan(u) is not None
+            ):
+                raise NotImplementedError(
+                    "kernel='auto' picks the batch-major 'nuts_batched' for this "
+                    "model (no fused plan, or the kernels are disabled); it is "
+                    "not ported yet"
+                )
+            kernel = "nuts_batched_t"
+        if init in ("laplace", "pathfinder"):
+            raise NotImplementedError(f"init={init!r} is not ported yet")
+        if init != "random":
+            raise ValueError(f"unknown init {init!r}")
+        fn = self.batched_logdensity_t_fn()
+        q0 = self.init_positions(generator, n_chains)
+        samples, state, stats = sample_with_kernel(
+            fn, generator, q0, n_warmup=n_warmup, n_samples=n_samples,
+            kernel=kernel, **kwargs,
+        )
+        if constrained:
+            samples = self.constrain(samples)
+        return samples, state, stats

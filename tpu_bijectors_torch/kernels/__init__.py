@@ -8,11 +8,21 @@ the card. `LAUNCHES` counts, per wrapper, the kernel launches it made.
 `enable(False)` sends CPU tensors down the composed per-leaf path instead
 of the fused one; on the card, where the composed path's own kernels are
 not ported yet, a call with the kernels off raises.
+
+Wrappers: `vectorize/fused_kernel.py` (slab_value, slab_value_and_grad,
+slab_vjp), `kernels/simplex.py` (simplex_inverse_logdet) and
+`kernels/lkj.py` (lkj_inverse).
 """
 
 _ENABLED = True
 
-LAUNCHES = {"slab_value": 0, "slab_value_and_grad": 0, "slab_vjp": 0}
+LAUNCHES = {
+    "slab_value": 0,
+    "slab_value_and_grad": 0,
+    "slab_vjp": 0,
+    "simplex_inverse_logdet": 0,
+    "lkj_inverse": 0,
+}
 
 
 def enable(flag: bool = True):
@@ -27,3 +37,20 @@ def enabled() -> bool:
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def launch(fn: str, name: str, device, *args):
+    """Call the C function `fn` of the kernel library on `device`'s current
+    stream (the stream is appended to `args`); raise on a nonzero
+    cudaError_t, else count one launch of `name`."""
+    import torch
+
+    from . import build
+
+    lib = build.load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, fn)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} launch failed: {lib.tbt_error_string(err).decode()}")
+    LAUNCHES[name] += 1

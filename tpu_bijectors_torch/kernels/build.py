@@ -2,9 +2,11 @@
 
 The sources in `csrc/` are compiled by `nvcc` for `sm_90a` into a shared
 library with a plain C interface, loaded with ctypes (no PyTorch headers,
-so a build takes seconds). The library goes under `build/torch_ext/` at
-the root of the checkout, named by a hash of the sources and flags, and is
-built at first use. A failed build raises.
+so a build takes seconds). Every source is compiled by its own `nvcc`
+process, all started together, and the objects are linked into one
+library. The library goes under `build/torch_ext/` at the root of the
+checkout, named by a hash of the sources and flags, and is built at first
+use. A failed build raises.
 """
 
 from __future__ import annotations
@@ -18,15 +20,9 @@ import tempfile
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("fused_slab.cu", "slab_api.cpp")
-_FLAGS = (
-    "-gencode=arch=compute_90a,code=sm_90a",
-    "-std=c++17",
-    "-O3",
-    "-shared",
-    "-Xcompiler",
-    "-fPIC",
-)
+_SOURCES = ("fused_slab.cu", "slab_api.cpp", "simplex_inv.cu", "lkj_inv.cu")
+_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
+_COMPILE = ("-c", "-Xcompiler", "-fPIC")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 
 _lib = None
@@ -43,10 +39,23 @@ def _nvcc() -> str:
 
 
 def _library_path() -> Path:
-    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_FLAGS + _COMPILE).encode())
     for name in _SOURCES:
         h.update((_CSRC / name).read_bytes())
-    return BUILD_DIR / f"libtbt_slab_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libtbt_{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds):
+    """Run the commands in parallel; raise naming the first that failed."""
+    cmds = list(cmds)
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate() for p in procs]
+    for c, p, (_, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(c)}\n{err}")
 
 
 def build() -> Path:
@@ -55,16 +64,16 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *_FLAGS, "-o", tmp, *(str(_CSRC / s) for s in _SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}"
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, s + ".o") for s in _SOURCES]
+        _run_all(
+            [nvcc, *_FLAGS, *_COMPILE, "-o", o, str(_CSRC / s)]
+            for s, o in zip(_SOURCES, objs)
         )
-    os.replace(tmp, so)  # atomic: a concurrent process sees all or nothing
+        out = os.path.join(tmp, "lib.so")
+        _run_all([[nvcc, *_FLAGS, "-shared", "-o", out, *objs]])
+        os.replace(out, so)  # atomic: a concurrent process sees all or nothing
     return so
 
 
@@ -74,10 +83,18 @@ def load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.tbt_slab_value.argtypes = [p, p, p, i, ll, p]
-        lib.tbt_slab_value_and_grad.argtypes = [p, p, p, p, i, ll, p]
-        lib.tbt_slab_vjp.argtypes = [p, p, p, p, i, ll, p]
-        for fn in (lib.tbt_slab_value, lib.tbt_slab_value_and_grad, lib.tbt_slab_vjp):
+        sigs = {
+            "tbt_slab_value": [p, p, p, i, ll, p],
+            "tbt_slab_value_and_grad": [p, p, p, p, i, ll, p],
+            "tbt_slab_vjp": [p, p, p, p, i, ll, p],
+            # y, y strides (batch, coordinate), am1, x, ld, wlog, K-1, B, stream
+            "tbt_simplex_inverse_logdet": [p, ll, ll, p, p, p, p, i, ll, p],
+            # y, y strides (batch, slot), X, logJ, log diag W, W, K, B, stream
+            "tbt_lkj_inverse": [p, ll, ll, p, p, p, p, i, ll, p],
+        }
+        for name, args in sigs.items():
+            fn = getattr(lib, name)
+            fn.argtypes = args
             fn.restype = i
         lib.tbt_error_string.argtypes = [i]
         lib.tbt_error_string.restype = ctypes.c_char_p

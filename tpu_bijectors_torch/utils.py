@@ -37,8 +37,22 @@ def _eps(dtype) -> float:
 
 def clamp(x, lo, hi):
     """Clamp to [lo, hi] (reference `_clamp`, src/Bijectors.jl:95-100);
-    NaNs propagate."""
-    return torch.clamp(x, lo, hi)
+    NaNs propagate. Written as min(max(x, lo), hi), as `jnp.clip` is, so
+    that autograd splits the slope at a bound the same way (1/2 there)."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
+def max_slope(v, floor):
+    """d max(v, floor) / dv: 1 above the floor, 0 below, 1/2 at it (the
+    convention of `jnp.maximum` and `torch.maximum`)."""
+    return (v > floor).to(v.dtype) + 0.5 * (v == floor).to(v.dtype)
+
+
+def clamp_slope(v, lo=0.0, hi=1.0):
+    """d clamp(v, lo, hi) / dv with `clamp`'s convention at the bounds (1/2
+    at either one)."""
+    inside = ((v > lo) & (v < hi)).to(v.dtype)
+    return inside + 0.5 * ((v == lo) | (v == hi)).to(v.dtype)
 
 
 def logit(p):
@@ -83,18 +97,25 @@ def triu1_dim_from_length(d: int) -> int:
     return n
 
 
+@lru_cache(maxsize=None)
+def _triu_index_tensors(n: int, k: int, device: torch.device):
+    """`_triu_index_arrays` as index tensors on `device`, made once."""
+    rows, cols = _triu_index_arrays(n, k)
+    return torch.as_tensor(rows, device=device), torch.as_tensor(cols, device=device)
+
+
 def triu_to_vec(X, k: int = 0):
     """Pack the upper triangle (offset k) of the trailing (n, n) dims,
     column-major, over any leading batch dims."""
-    rows, cols = _triu_index_arrays(X.shape[-1], k)
-    return X[..., torch.as_tensor(rows), torch.as_tensor(cols)]
+    rows, cols = _triu_index_tensors(X.shape[-1], k, X.device)
+    return X[..., rows, cols]
 
 
 def vec_to_triu(v, k: int, n: int):
     """Inverse of `triu_to_vec`; zeros elsewhere."""
-    rows, cols = _triu_index_arrays(n, k)
+    rows, cols = _triu_index_tensors(n, k, v.device)
     X = v.new_zeros(v.shape[:-1] + (n, n))
-    X[..., torch.as_tensor(rows), torch.as_tensor(cols)] = v
+    X[..., rows, cols] = v
     return X
 
 

@@ -100,16 +100,8 @@ def _check_cuda(vT, cf, ct=None):
 
 
 def _launch(fn, name, vT, cf, *ptrs):
-    from ..kernels import build
-
-    lib = build.load()
     dim, B = vT.shape
-    with torch.cuda.device(vT.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, fn)(vT.data_ptr(), cf.data_ptr(), *ptrs, dim, B, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn} launch failed: {lib.tbt_error_string(err).decode()}")
-    kernels.LAUNCHES[name] += 1
+    kernels.launch(fn, name, vT.device, vT.data_ptr(), cf.data_ptr(), *ptrs, dim, B)
 
 
 def slab_value(vT, cf):
