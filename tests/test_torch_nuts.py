@@ -24,11 +24,12 @@ from tpu_bijectors import dists as jd
 from tpu_bijectors.infer import Model as JModel
 from tpu_bijectors.infer import adapt as jadapt
 from tpu_bijectors.infer.hmc import _trailing_zeros as j_trailing_zeros
+from tpu_bijectors.infer.hmc import apply_inv_mass as j_apply_inv_mass
 
 import tpu_bijectors_torch as tbt
 from tpu_bijectors_torch import diagnostics, kernels
 from tpu_bijectors_torch.infer import adapt, hmc_batched
-from tpu_bijectors_torch.infer.hmc import _trailing_zeros
+from tpu_bijectors_torch.infer.hmc import _trailing_zeros, apply_inv_mass, sample_momentum
 
 TOL = dict(rtol=1e-12, atol=1e-12)
 MODEL_TOL = dict(rtol=1e-10, atol=1e-10)
@@ -122,6 +123,23 @@ def test_trailing_zeros_matches_jax():
     n = np.arange(1, 1025, dtype=np.int32)
     ref = np.asarray(j_trailing_zeros(jnp.asarray(n)))
     np.testing.assert_array_equal([_trailing_zeros(int(k)) for k in n], ref)
+
+
+def test_inverse_mass_and_momentum(rng):
+    """The diagonal M^-1 p against the JAX package's, batch-major and, with
+    (dim, 1) weights, on the transposed state; the momentum is the
+    generator's standard normal draw scaled by sqrt(M)."""
+    inv_mass, p = rng.uniform(0.5, 2.0, 5), rng.standard_normal((7, 5))
+    ref = np.asarray(j_apply_inv_mass(jnp.asarray(inv_mass), jnp.asarray(p)))
+    im = torch.as_tensor(inv_mass)
+    np.testing.assert_allclose(apply_inv_mass(im, torch.as_tensor(p)).numpy(), ref, **TOL)
+    np.testing.assert_allclose(
+        apply_inv_mass(im[:, None], torch.as_tensor(p.T)).numpy(), ref.T, **TOL
+    )
+    q = torch.zeros(5, 4096, dtype=torch.float64)
+    mom = sample_momentum(torch.Generator().manual_seed(3), q, im[:, None])
+    z = torch.randn(q.shape, generator=torch.Generator().manual_seed(3), dtype=q.dtype)
+    np.testing.assert_allclose((mom * torch.sqrt(im)[:, None]).numpy(), z.numpy(), rtol=1e-15)
 
 
 def test_diagnostics_match_jax(rng):

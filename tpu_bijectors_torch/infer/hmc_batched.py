@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from .hmc import MAX_ENERGY_DELTA, NutsInfo, _trailing_zeros
+from .hmc import MAX_ENERGY_DELTA, NutsInfo, _trailing_zeros, apply_inv_mass, sample_momentum
 
 # device -> host reads made by the tree loops' conditions
 SYNCS = {"any_active": 0}
@@ -53,7 +53,7 @@ def _batched_logp_and_grad(logp_batched):
 
 def _aim(inv_mass, p):
     """M^{-1} p for a diagonal metric on (dim, C) or a (S, dim, C) stack."""
-    return inv_mass[:, None] * p
+    return apply_inv_mass(inv_mass[:, None], p)
 
 
 def _vdot(a, b):
@@ -152,8 +152,7 @@ def nuts_kernel_batched(logp_batched, max_depth: int = 10):
     def kernel(generator, q, logp, grad, eps, inv_mass):
         dim, C = q.shape
         dtype, dev = q.dtype, q.device
-        z = torch.randn(q.shape, generator=generator, dtype=dtype, device=dev)
-        p0 = z / torch.sqrt(inv_mass)[:, None]
+        p0 = sample_momentum(generator, q, inv_mass[:, None])
         energy0 = -logp + 0.5 * _vdot(p0, _aim(inv_mass, p0))
         neg_inf = torch.full((C,), -torch.inf, dtype=dtype, device=dev)
 
