@@ -12,23 +12,27 @@ a user calls, on two paths:
    `value_and_grad_fn` (the one-pass value-and-gradient kernel) and
    `torch.autograd.grad` through `linked_logdensity_t` (the
    vector-Jacobian kernel);
-2. NUTS with a likelihood: `Model(priors, loglik=hier_loglik).sample(...)`
-   with 64 chains, max_depth 8, 300 warmup and 200 kept transitions, target
-   acceptance 0.95 (see TARGET_ACCEPT). Every
-   leapfrog runs the one-pass slab kernel for the prior and the
-   stick-breaking and LKJ inverse-link kernels for the likelihood term;
-   returning the constrained draws runs the two link kernels once more.
+2. NUTS with a likelihood on `Model(priors, loglik=hier_loglik)`, with 64
+   chains, max_depth 8, 300 warmup and 200 kept transitions, target
+   acceptance 0.95 (see TARGET_ACCEPT): `Model.sample` with n_samples=0
+   runs the warmup, `resume_sampling` the 200 transitions from its state
+   (the draws of one uninterrupted `Model.sample`, timed apart), and
+   `Model.constrain` maps the draws. Every leapfrog runs the one-pass slab
+   kernel for the prior and the stick-breaking and LKJ inverse-link
+   kernels for the likelihood term; constraining the draws runs the two
+   link kernels once more.
 
 The launch counters are set to 0 just before each path and read just after
 it; each kernel must have launched. Each kernel is held against its plain
-PyTorch version on the same inputs at B = 131072 (the link kernels in both
-input layouts, and their closed-form backward against autograd through the
-plain version), the log-density also against the composed per-leaf path
-and the plain path in float64, the likelihood model against its float64
-plain version on the CPU, and the sampler's draws against the known
-Dirichlet(1 + counts) posterior of `w` (within 5 MCSE), with R-hat <= 1.05
-and divergences <= 1%. Every kernel and its plain version is timed with
-CUDA events.
+PyTorch version on the same inputs: the slab kernels at B = 131072, the
+link kernels at B = 131072 in both input layouts and at the sampler's own
+shapes (64 chains, and the 200 x 64 draws), with their closed-form backward
+against autograd through the plain version. The log-density is also held
+against the composed per-leaf path and the plain path in float64, the
+likelihood model (at 64 and 4096 states) against its float64 plain version
+on the CPU, and the sampler's draws against the known Dirichlet(1 + counts)
+posterior of `w` (within 5 MCSE), with R-hat <= 1.05 and divergences <= 1%.
+Every kernel and its plain version is timed with CUDA events.
 
 Prints the card's name and power limit, one JSON line per kernel, a
 `sampler` line, a `{"kernels": [...]}` line, and as the last line
@@ -97,8 +101,10 @@ OPS_LKJ_SLOT = 12
 # sigma; N(0, 1) starting positions reach log sigma ~ -3, six prior sd out,
 # where at the default 0.8 the adapted step is unstable: a chain that
 # warmup leaves there diverges at every transition (five of 64 chains in a
-# run of this script at 0.8 on the H100). The smaller steps of 0.95 keep
-# warmup from stranding chains there.
+# run of this script at 0.8 on the H100). The JAX package's sampler strands
+# chains there too (tests/test_torch_funnel.py, run as a script, counts
+# them in either package). The smaller steps of 0.95 keep warmup from
+# stranding chains there.
 CHAINS, WARMUP, KEPT, MAX_DEPTH, TARGET_ACCEPT = 64, 300, 200, 8, 0.95
 
 failures = []
@@ -200,11 +206,14 @@ C_ROWS = slice(31, 151)  # the LKJ(16) leaf's 120 linked rows
 
 
 def check_link_kernels(dev, vT, vxT, counts):
-    """The simplex and LKJ kernels against their plain versions at
-    B = 131072, in both input layouts (a contiguous (B, P) tensor and the
-    swapped view of the (dim, B) state), their closed-form backward against
-    autograd through the plain versions, and finite outputs and gradients at
-    1e10 states. Returns the max absolute error of each kernel."""
+    """The simplex and LKJ kernels against their plain versions, and their
+    closed-form backward against autograd through the plain versions: at
+    B = 131072 in both input layouts (a contiguous (B, P) tensor and the
+    swapped view of the (dim, B) state), and at the sampler path's own
+    shapes (the leapfrog's swapped view of 64 chains, a partial block of
+    every kernel, and `constrain`'s strided slices of the (200, 64, dim)
+    draws); and finite outputs and gradients at 1e10 states. Returns the
+    max absolute error of each kernel."""
     from tpu_bijectors_torch.bijectors.corr import _vec_corr_inverse_all
     from tpu_bijectors_torch.bijectors.simplex import _simplex_inverse_logdet_wlog
     from tpu_bijectors_torch.kernels import lkj as kl
@@ -220,12 +229,17 @@ def check_link_kernels(dev, vT, vxT, counts):
     def one(t):
         return torch.ones_like(t)
 
-    layouts = {
-        "contiguous": lambda s_, st: st[s_].T.contiguous(),
-        "swapped": lambda s_, st: st[s_].T,
+    B = vT.shape[1]
+    draws = vT[:, : KEPT * CHAINS].T.contiguous().reshape(KEPT, CHAINS, -1)
+    cases = {  # tag: (simplex y, LKJ y)
+        f"contiguous, B = {B}": (vT[W_ROWS].T.contiguous(), vT[C_ROWS].T.contiguous()),
+        f"swapped, B = {B}": (vT[W_ROWS].T, vT[C_ROWS].T),
+        f"swapped, B = {CHAINS}": (vT[W_ROWS, :CHAINS].T, vT[C_ROWS, :CHAINS].T),
+        f"draws' slices, B = {KEPT * CHAINS}": (
+            draws[..., W_ROWS].reshape(-1, 15), draws[..., C_ROWS].reshape(-1, 120)
+        ),
     }
-    for lay, mk in layouts.items():
-        y = mk(W_ROWS, vT)
+    for lay, (y, yc) in cases.items():
         xk, ldk, wlk = ks.simplex_inverse_logdet(y, am1)
         xp, ldp, wlp = ks.simplex_inverse_logdet_plain(y, am1)
         e = err["simplex_inverse_logdet"]
@@ -237,7 +251,6 @@ def check_link_kernels(dev, vT, vxT, counts):
                xn is None and torch.equal(ldn, ldk))
         err["simplex_inverse_logdet"] = e
 
-        yc = mk(C_ROWS, vT)
         Xk, ljk, dwk, Wk = kl.lkj_inverse(yc, 16, want_w=True)
         Xp, ljp, dwp, Wp = kl.lkj_inverse_plain(yc, 16, want_w=True)
         e = err["lkj_inverse"]
@@ -252,20 +265,21 @@ def check_link_kernels(dev, vT, vxT, counts):
 
         # backward: the closed form (kernel forward) against autograd
         # through the plain version, on the same card and inputs
-        B = y.shape[0]
-        cts = (torch.randn((B, 16), generator=gen, device=dev),
-               torch.randn(B, generator=gen, device=dev),
-               torch.randn(B, generator=gen, device=dev))
+        n = y.shape[0]
+        cts = (torch.randn((n, 16), generator=gen, device=dev),
+               torch.randn(n, generator=gen, device=dev),
+               torch.randn(n, generator=gen, device=dev))
         g_k = vjp(lambda v: _simplex_inverse_logdet_wlog(v, am1), y, cts)
         g_p = vjp(lambda v: ks.simplex_inverse_logdet_plain(v, am1), y, cts)
         check(f"simplex backward vs autograd of plain ({lay})", g_k, g_p, RTOL_VJP)
-        cts = (torch.randn((B, 16, 16), generator=gen, device=dev),
-               torch.randn(B, generator=gen, device=dev),
-               torch.randn((B, 16), generator=gen, device=dev))
+        cts = (torch.randn((n, 16, 16), generator=gen, device=dev),
+               torch.randn(n, generator=gen, device=dev),
+               torch.randn((n, 16), generator=gen, device=dev))
         g_k = vjp(_vec_corr_inverse_all, yc, cts)
         g_p = vjp(lambda v: kl.lkj_inverse_plain(v, 16)[:3], yc, cts)
         check(f"lkj backward vs autograd of plain ({lay})", g_k, g_p, RTOL_VJP)
         del xk, xp, Xk, Xp, Wk, Wp, g_k, g_p, cts
+    del draws
 
     # 1e10 states: finite outputs that agree with the plain versions, and
     # a finite backward
@@ -323,72 +337,67 @@ def check_link_entry_points(dev, vT, loglik, counts):
              lambda: f.value_and_grad_fn(v64.T.contiguous()),
              ("slab_value_and_grad",) + links)
 
-    # the likelihood model in float32 on the card against float64 on the CPU
+    # the likelihood model in float32 on the card against float64 on the
+    # CPU, at the leapfrog's batch of 64 chains and at 4096
     ll_cpu, _ = hier_loglik_and_counts("cpu")  # the same float32 data
     cpu = tbt.Model(bench_model(dists, "cpu", torch.float64), loglik=ll_cpu, device="cpu")
-    vs = vT[:, :4096].contiguous()
-    lp, g = f.value_and_grad_fn(vs)
-    lp64, g64 = cpu.batched_logdensity_t_fn().value_and_grad_fn(vs.double().cpu())
-    check("likelihood model lp vs float64 CPU", lp.cpu(), lp64, 2e-5,
-          lp64.abs() + 1e-3 * lp64.abs().max())
-    # a gradient entry is a float32 sum of terms as large as the largest
-    # entry (counts / w through the stick-breaking Jacobian), so its error
-    # scales with max |g|
-    check("likelihood model g vs float64 CPU", g.cpu(), g64, 1e-4,
-          g64.abs() + 1e-2 * g64.abs().max())
+    for n in (CHAINS, 4096):
+        vs = vT[:, :n].contiguous()
+        lp, g = f.value_and_grad_fn(vs)
+        lp64, g64 = cpu.batched_logdensity_t_fn().value_and_grad_fn(vs.double().cpu())
+        check(f"likelihood model lp vs float64 CPU, B = {n}", lp.cpu(), lp64, 2e-5,
+              lp64.abs() + 1e-3 * lp64.abs().max())
+        # a gradient entry is a float32 sum of terms as large as the largest
+        # entry (counts / w through the stick-breaking Jacobian), so its
+        # error scales with max |g|
+        check(f"likelihood model g vs float64 CPU, B = {n}", g.cpu(), g64, 1e-4,
+              g64.abs() + 1e-2 * g64.abs().max())
 
 
 def run_sampler(dev, loglik, counts):
-    """The second main path: Model.sample on the bench model with the
-    likelihood. The launch counters are zeroed just before the call and
-    read just after. The sampler's own sampling loop
-    (`infer/sampler._run_sampling`) is wrapped to time the warmup and
-    sampling phases apart (each between torch.cuda.synchronize() calls)
-    and to keep the raw linked draws for the diagnostics."""
+    """The second main path: NUTS on the bench model with the likelihood,
+    driven through public entry points in two calls so that warmup and
+    sampling are timed apart (each between torch.cuda.synchronize()
+    calls): `Model.sample` with n_samples=0 runs the warmup, and
+    `resume_sampling` continues from its state (the draws an uninterrupted
+    `Model.sample` would give); `Model.constrain` maps the linked draws.
+    The launch counters are zeroed just before the first call and read
+    after the last."""
     import tpu_bijectors_torch as tbt
     from tpu_bijectors_torch import diagnostics, dists, kernels
-    from tpu_bijectors_torch.infer import hmc_batched, sampler
+    from tpu_bijectors_torch.infer import hmc_batched, resume_sampling
 
     model = tbt.Model(bench_model(dists, dev, torch.float32), loglik=loglik, device=dev)
-    rec = {}
-    run_sampling = sampler._run_sampling
-
-    def timed(*args, **kw):
-        torch.cuda.synchronize()
-        rec["t1"] = time.perf_counter()
-        rec["at_warmup_end"] = (dict(kernels.LAUNCHES), hmc_batched.SYNCS["any_active"])
-        out = run_sampling(*args, **kw)
-        torch.cuda.synchronize()
-        rec["t2"] = time.perf_counter()
-        rec["at_sampling_end"] = (dict(kernels.LAUNCHES), hmc_batched.SYNCS["any_active"])
-        rec["raw"] = out[0]
-        return out
-
-    sampler._run_sampling = timed
-    try:
-        gen = torch.Generator(device=dev).manual_seed(SEED)
-        torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        hmc_batched.reset_sync_count()
-        t0 = time.perf_counter()
-        samples, state, stats = model.sample(
-            gen, n_chains=CHAINS, n_warmup=WARMUP, n_samples=KEPT, max_depth=MAX_DEPTH,
-            target_accept=TARGET_ACCEPT,
-        )
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        launches = dict(kernels.LAUNCHES)
-    finally:
-        sampler._run_sampling = run_sampling
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    hmc_batched.reset_sync_count()
+    t0 = time.perf_counter()
+    _, state, _ = model.sample(
+        gen, n_chains=CHAINS, n_warmup=WARMUP, n_samples=0, max_depth=MAX_DEPTH,
+        target_accept=TARGET_ACCEPT, constrained=False,
+    )
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    l1, s1 = dict(kernels.LAUNCHES), hmc_batched.SYNCS["any_active"]
+    raw, state, stats = resume_sampling(
+        model.batched_logdensity_t_fn(), state, KEPT, kernel="nuts_batched_t",
+        max_depth=MAX_DEPTH,
+    )
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    l2, s2 = dict(kernels.LAUNCHES), hmc_batched.SYNCS["any_active"]
+    samples = model.constrain(raw)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = dict(kernels.LAUNCHES)
     print(f"launches on the sampler path: {launches}", flush=True)
     for k in ("slab_value_and_grad",) + tuple(SOURCES):
         expect(f"{k} launched on the sampler path", launches[k] > 0)
 
-    (l1, s1), (l2, s2) = rec["at_warmup_end"], rec["at_sampling_end"]
     during = {k: l2[k] - l1[k] for k in l2}
     leapfrogs = during["slab_value_and_grad"]  # one per batched leapfrog
-    sampling_s = rec["t2"] - rec["t1"]
-    raw = rec["raw"]
+    sampling_s = t2 - t1
     expect("raw draws (200, 64, 151) and finite",
            tuple(raw.shape) == (KEPT, CHAINS, 151) and bool(torch.isfinite(raw).all()))
     r_hat = diagnostics.rhat(raw)
@@ -401,9 +410,9 @@ def run_sampler(dev, loglik, counts):
     line = {
         "chains": CHAINS, "warmup": WARMUP, "kept": KEPT, "max_depth": MAX_DEPTH,
         "target_accept": TARGET_ACCEPT,
-        "warmup_s": rec["t1"] - t0,
+        "warmup_s": t1 - t0,
         "sampling_s": sampling_s,
-        "constrain_s": t3 - rec["t2"],
+        "constrain_s": t3 - t2,
         "draws_per_s": CHAINS * KEPT / sampling_s,
         "leapfrogs_per_transition": float(stats.n_steps.float().mean()),
         "batched_leapfrogs": leapfrogs,

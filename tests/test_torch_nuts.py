@@ -4,13 +4,17 @@ package, float64 on the CPU.
 Adaptation (schedule, dual averaging, Welford), the tree counter's bit
 trick and the diagnostics on the same numpy inputs (1e-12); the leapfrog
 step against the same formula evaluated with the JAX package's
-value-and-gradient; `Model(loglik=...)`'s transposed log-density and its
+value-and-gradient; the sampler's `inv_mass0` and `thin` against the JAX
+package's on a deterministic stand-in transition, and `resume_sampling`'s
+continuation; `Model(loglik=...)`'s transposed log-density and its
 value-and-gradient against the JAX package's on a scaled-down bench model
 with a likelihood (1e-10); and a whole seeded `Model.sample` run held to
 the known Dirichlet(1 + counts) posterior of its `w` block. The random
 streams differ (torch generators, JAX keys), so whole runs are compared in
 distribution, not draw by draw.
 """
+
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -23,12 +27,13 @@ from tpu_bijectors import diagnostics as jdiag
 from tpu_bijectors import dists as jd
 from tpu_bijectors.infer import Model as JModel
 from tpu_bijectors.infer import adapt as jadapt
+from tpu_bijectors.infer import sampler as jsampler
 from tpu_bijectors.infer.hmc import _trailing_zeros as j_trailing_zeros
 from tpu_bijectors.infer.hmc import apply_inv_mass as j_apply_inv_mass
 
 import tpu_bijectors_torch as tbt
 from tpu_bijectors_torch import diagnostics, kernels
-from tpu_bijectors_torch.infer import adapt, hmc_batched
+from tpu_bijectors_torch.infer import adapt, hmc_batched, sampler
 from tpu_bijectors_torch.infer.hmc import _trailing_zeros, apply_inv_mass, sample_momentum
 
 TOL = dict(rtol=1e-12, atol=1e-12)
@@ -213,6 +218,105 @@ def test_leapfrog_matches_formula_with_jax_gradient(rng):
     )
     for a, b in zip(got, (q1, p1, lp1, g1)):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **MODEL_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the sampler's options: inv_mass0 and thin
+# ---------------------------------------------------------------------------
+
+
+class _Info(NamedTuple):
+    accept_prob: object
+    diverging: object
+    n_steps: object
+    tree_depth: object
+
+
+def _fake_transition(q, to_int):
+    """A deterministic stand-in for the NUTS transition, the same in both
+    packages: every coordinate moves by 1, and the stats are functions of
+    the chain's first coordinate."""
+    c = q[:, 0]
+    return q + 1.0, _Info((0.37 * c) % 1.0, (c % 3) == 0, to_int(c % 5 + 1), to_int(c % 4))
+
+
+def _vkernel(gen, q, lp, g, eps, im):
+    q1, info = _fake_transition(q, lambda t: t.to(torch.int32))
+    return q1, lp, g, info
+
+
+def _jvkernel(keys, q, lp, g, eps, im):
+    q1, info = _fake_transition(q, lambda t: t.astype(jnp.int32))
+    return q1, lp, g, info
+
+
+def _init_both(q0, inv_mass0):
+    state = sampler.init_sampler(
+        lambda q: -0.5 * torch.sum(q * q, dim=-1), torch.Generator().manual_seed(0),
+        torch.as_tensor(q0), inv_mass0=inv_mass0,
+    )
+    jstate = jsampler.init_sampler(
+        lambda q: -0.5 * jnp.sum(q * q, axis=-1), jax.random.PRNGKey(0), jnp.asarray(q0),
+        batched=True, inv_mass0=inv_mass0,
+    )
+    return state, jstate
+
+
+@pytest.mark.parametrize("thin", [1, 3])
+def test_run_sampling_thin_and_inv_mass0_match_jax(thin):
+    """inv_mass0 seeds the state's inverse mass in place of the identity,
+    and `thin` keeps every thin-th state and aggregates the block's stats
+    (mean accept, any divergence, summed steps, max depth) as the JAX
+    package does: 7 transitions at thin 3 give 2 kept states."""
+    q0 = np.arange(12.0).reshape(4, 3)
+    inv_mass0 = np.array([0.5, 2.0, 1.5])
+    state, jstate = _init_both(q0, inv_mass0)
+    np.testing.assert_array_equal(state.inv_mass.numpy(), inv_mass0)
+    for f in ("inv_mass", "logp", "grad"):
+        np.testing.assert_allclose(
+            getattr(state, f).numpy(), np.asarray(getattr(jstate, f)), **TOL
+        )
+    samples, state, stats = sampler._run_sampling(_vkernel, state, 7, thin)
+    jsamples, jstate, jstats = jsampler._run_sampling(_jvkernel, jstate, 7, thin)
+    assert samples.shape == (7 // thin, 4, 3) and state.iteration == int(jstate.iteration)
+    np.testing.assert_allclose(samples.numpy(), np.asarray(jsamples), **TOL)
+    for f in sampler.RunStats._fields:
+        got, ref = getattr(stats, f).numpy(), np.asarray(getattr(jstats, f))
+        assert got.shape == ref.shape
+        np.testing.assert_allclose(got.astype(np.float64), ref.astype(np.float64), **TOL)
+
+
+def test_resume_sampling_repeats_the_tail_of_an_uninterrupted_run():
+    """warmup_and_sample with n_samples=0 returns the post-warmup state (and
+    empty draws and stats); resume_sampling from it gives the draws and
+    stats of one uninterrupted run, bit for bit, as in the JAX package."""
+    scale = torch.tensor([0.5, 1.0, 3.0], dtype=torch.float64)
+
+    def ld(vT):
+        return -0.5 * torch.sum((vT / scale[:, None]) ** 2, dim=0)
+
+    q0 = torch.randn((4, 3), generator=torch.Generator().manual_seed(2), dtype=torch.float64)
+    kw = dict(n_warmup=30, kernel="nuts_batched_t", max_depth=4)
+    full = sampler.warmup_and_sample(ld, torch.Generator().manual_seed(1), q0, n_samples=6, **kw)
+    empty, state, stats = sampler.warmup_and_sample(
+        ld, torch.Generator().manual_seed(1), q0, n_samples=0, **kw
+    )
+    assert empty.shape == (0, 4, 3) and all(f.shape == (0, 4) for f in stats)
+    assert [f.dtype for f in stats] == [f.dtype for f in full[2]]
+    part = sampler.resume_sampling(ld, state, 6, kernel="nuts_batched_t", max_depth=4)
+    assert torch.equal(part[0], full[0]) and torch.equal(part[1].q, full[1].q)
+    for a, b in zip(part[2], full[2]):
+        assert torch.equal(a, b)
+
+
+def test_inv_mass0_of_the_wrong_shape_raises_as_in_jax():
+    q0 = np.zeros((2, 3))
+    with pytest.raises(ValueError, match="inv_mass0 shape"):
+        sampler.init_sampler(lambda q: -torch.sum(q * q, -1), torch.Generator(),
+                             torch.as_tensor(q0), inv_mass0=np.ones(4))
+    with pytest.raises(ValueError, match="inv_mass0 shape"):
+        jsampler.init_sampler(lambda q: -jnp.sum(q * q, -1), jax.random.PRNGKey(0),
+                              jnp.asarray(q0), batched=True, inv_mass0=np.ones(4))
 
 
 # ---------------------------------------------------------------------------

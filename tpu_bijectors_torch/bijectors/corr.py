@@ -14,9 +14,10 @@ masked cumulative sum along the row axis:
 
 Packing is column-major over the strict upper triangle (src/utils.jl:77-85).
 
-The inverse (X, logJ, log diag W) is a `torch.autograd.Function`: the CUDA
-kernel for a CUDA tensor, these cumulative sums for a CPU tensor
-(kernels/lkj.py), and the closed-form backward of `_vec_corr_vjp` on both.
+The inverse (X, logJ, log diag W) is a `torch.autograd.Function`: its
+forward is `kernels/lkj.py`'s wrapper (the CUDA kernel for a CUDA tensor,
+the plain cumulative sums there for a CPU tensor), its backward the closed
+form of `_vec_corr_vjp` on both.
 Any leading batch axes are flattened into the kernel's batch.
 """
 
@@ -25,9 +26,15 @@ from __future__ import annotations
 from dataclasses import dataclass
 from functools import lru_cache
 
-import numpy as np
 import torch
 
+from ..kernels.lkj import (
+    _diag_coeff,
+    _inv_link_chol_lkj_with_logdiag,
+    _tri_masks,
+    _up_mask,
+    lkj_inverse,
+)
 from ..utils import (
     _triu_index_arrays,
     _triu_index_tensors,
@@ -38,17 +45,6 @@ from ..utils import (
     vec_to_triu,
 )
 from .base import Bijector
-
-
-@lru_cache(maxsize=None)
-def _tri_masks(K, device):
-    """(strict upper, upper) boolean (K, K) masks on `device`, made once."""
-    ones = torch.ones(K, K, dtype=torch.bool, device=device)
-    return torch.triu(ones, 1), torch.triu(ones)
-
-
-def _up_mask(K, like):
-    return _tri_masks(K, like.device)[0]
 
 
 def _link_chol_lkj(W):
@@ -67,35 +63,6 @@ def _link_chol_lkj(W):
     return torch.where(up, y, torch.zeros_like(y))
 
 
-def _inv_link_chol_lkj_with_logdiag(Y):
-    """(W, logJ, log diag W) from the strict-upper y-matrix. The
-    log-diagonal comes straight from the running sums, never log(exp(.)):
-    at |y| ~ 1e10 the diagonal underflows to 0 and its log would be -inf."""
-    K = Y.shape[-1]
-    up = _up_mask(K, Y)
-    zero = torch.zeros_like(Y)
-    Yu = torch.where(up, Y, zero)
-    z = torch.where(up, torch.tanh(Yu), zero)
-    lc = torch.where(up, logcosh(Yu), zero)
-    lr_incl = -torch.cumsum(lc, dim=-2)
-    lr_excl = lr_incl + lc
-    W_off = z * torch.exp(lr_excl)
-    diag_lr = torch.cat(
-        [
-            Y.new_zeros(Y.shape[:-2] + (1,)),
-            torch.diagonal(lr_incl[..., :-1, 1:], dim1=-2, dim2=-1),
-        ],
-        dim=-1,
-    )
-    W = torch.where(up, W_off, zero)
-    W = W + torch.exp(diag_lr)[..., None, :] * torch.eye(
-        K, dtype=Y.dtype, device=Y.device
-    )
-    logJ = torch.sum(torch.where(up, lr_incl, zero), dim=(-2, -1))
-    logJ = logJ + torch.sum(diag_lr, dim=-1)
-    return W, logJ, diag_lr
-
-
 def _logabsdetjac_inv_corr_vec(y):
     """-sum_s (K - i_s) logcosh(y_s), 0-based row i_s (corr.jl:474-483)."""
     K = triu1_dim_from_length(y.shape[-1])
@@ -107,12 +74,6 @@ def _row_coeff(K, dtype, device):
     """K - i_s per packed slot s (its 0-based row i_s), made once."""
     rows, _ = _triu_index_arrays(K, 1)
     return torch.as_tensor(K - rows, dtype=dtype, device=device)
-
-
-def _diag_coeff(K, like):
-    # corr.jl:74-81: logJ += sum_j (K-1-j) log W[j,j] for j >= 1 (0-based)
-    c = np.concatenate([[0.0], np.maximum(np.arange(K - 2, -1, -1), 0)])
-    return torch.as_tensor(c, dtype=like.dtype, device=like.device)
 
 
 def _vec_corr_logdet(y):
@@ -165,8 +126,6 @@ class _VecCorrInverse(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, y, K):
-        from ..kernels.lkj import lkj_inverse
-
         X, logJ, log_diag, W = lkj_inverse(y, K, want_w=ctx.needs_input_grad[0])
         ctx.save_for_backward(y, W)
         ctx.set_materialize_grads(False)  # an unused output's cotangent is None

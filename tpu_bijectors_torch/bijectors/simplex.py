@@ -12,9 +12,9 @@ src/bijectors/simplex.jl:28-138):
             (simplex.jl:84-100).
 
 The inverse (with its log-det, and with the Dirichlet data term wlog) is a
-`torch.autograd.Function`: its forward is the CUDA kernel for a CUDA
-tensor and the plain recurrence for a CPU tensor
-(kernels/simplex.py); its backward is the closed-form vector-Jacobian
+`torch.autograd.Function`: its forward is `kernels/simplex.py`'s
+wrapper (the CUDA kernel for a CUDA tensor, the plain recurrence there for
+a CPU tensor); its backward is the closed-form vector-Jacobian
 product of `_simplex_vjp`, in torch ops on either device. Any leading batch
 axes are flattened into the kernel's batch.
 """
@@ -24,33 +24,17 @@ from __future__ import annotations
 from dataclasses import dataclass
 from functools import lru_cache
 
-import numpy as np
 import torch
 
-from ..utils import _eps, clamp, clamp_slope, logistic, logit, max_slope
+from ..kernels.simplex import (
+    _exclusive_prefix,
+    _first,
+    _inverse_logdet_from_x,
+    _log_km1_minus_k,
+    simplex_inverse_logdet,
+)
+from ..utils import _eps, clamp_slope, logistic, logit, max_slope
 from .base import Bijector
-
-
-@lru_cache(maxsize=None)
-def _log_coeffs(K: int, dtype, device):
-    return torch.as_tensor(np.log(np.arange(K - 1, 0, -1)), dtype=dtype, device=device)
-
-
-def _log_km1_minus_k(K: int, like):
-    # log(K-1-k) for k = 0..K-2, made once per (K, dtype, device)
-    return _log_coeffs(K, like.dtype, like.device)
-
-
-@lru_cache(maxsize=None)
-def _first(n: int, device):
-    # (n,) mask of coordinate 0
-    return torch.arange(n, device=device) == 0
-
-
-def _exclusive_prefix(x, K):
-    # s_k = sum_{i<k} x_i for k = 0..K-2
-    s = torch.cumsum(x[..., : K - 2], dim=-1)
-    return torch.cat([torch.zeros_like(x[..., :1]), s], dim=-1)
 
 
 @dataclass(frozen=True)
@@ -80,40 +64,11 @@ class SimplexBijector(Bijector):
         return logit(z) + _log_km1_minus_k(K, x)
 
     def forward_log_det_jacobian(self, x):
-        K = x.shape[-1]
-        eps = x.new_tensor(_eps(x.dtype))
-        s = _exclusive_prefix(x, K)
-        rem = torch.maximum(1.0 - s, eps)
-        xk = x[..., : K - 1]
-        k_is_zero = _first(K - 1, x.device)
-        z = torch.where(k_is_zero, xk, xk / rem)
-        lp = torch.log(torch.maximum(z, eps)) + torch.log(torch.maximum(1.0 - z, eps))
-        lp = lp + torch.where(k_is_zero, torch.zeros_like(rem), torch.log(rem))
-        return -torch.sum(lp, dim=-1)
+        return -_inverse_logdet_from_x(x)
 
     def inverse_and_log_det(self, y):
         x, ld, _ = _simplex_inverse_logdet_wlog(y, None)
         return x, ld
-
-
-def _simplex_inverse(y):
-    """Exact reference recurrence (simplex.jl:84-100) over K-1 steps; every
-    batch dim rides along in each step. The plain version of the kernel."""
-    K = y.shape[-1] + 1
-    eps = _eps(y.dtype)
-    z = logistic(y - _log_km1_minus_k(K, y))
-    s = torch.zeros_like(z[..., 0])
-    xs = []
-    for k in range(K - 1):
-        zk = z[..., k]
-        if k == 0:
-            xk = clamp((zk - eps) / (1 - 2 * eps), 0.0, 1.0)
-        else:
-            xk = clamp(((1 + eps) - s) / (1 - 2 * eps) * zk - eps, 0.0, 1.0)
-        s = s + xk
-        xs.append(xk)
-    xs.append(clamp(1.0 - s, 0.0, 1.0))
-    return torch.stack(xs, dim=-1)
 
 
 def _ld_vjp(x, s, gld):
@@ -151,7 +106,7 @@ def _tri(K: int, device):
 
 
 def _simplex_vjp(y, x, gx):
-    """d<gx, x(y)>/dy for x = _simplex_inverse(y) (rows of y (N, K-1)): the
+    """d<gx, x(y)>/dy for x = kernels/simplex.py::_simplex_inverse(y) (rows of y (N, K-1)): the
     transpose of the affine running-sum tangent `_simplex_inverse_tangent`
     (tpu_bijectors/bijectors/simplex.py:132-179), with the clamp slopes of
     the forward's clamps.
@@ -192,8 +147,6 @@ class _SimplexInverse(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, y, am1, want_x):
-        from ..kernels.simplex import simplex_inverse_logdet
-
         need_x = want_x or any(ctx.needs_input_grad[:2])
         x, ld, wlog = simplex_inverse_logdet(y, am1, want_x=need_x)
         ctx.save_for_backward(y, x, am1)

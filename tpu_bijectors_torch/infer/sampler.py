@@ -131,13 +131,22 @@ def _stats(info) -> RunStats:
     return RunStats(info.accept_prob, info.diverging, info.n_steps, info.tree_depth)
 
 
-def _stack(stats) -> RunStats:
+def _stack(stats, q) -> RunStats:
+    """RunStats of (n, chains) from n per-transition stats; with n = 0, empty
+    stats of the kernel's dtypes for the chains of q (chains, dim)."""
+    if not stats:
+        return RunStats(*(
+            torch.empty((0, q.shape[0]), dtype=dt, device=q.device)
+            for dt in (q.dtype, torch.bool, torch.int32, torch.int32)
+        ))
     return RunStats(*(torch.stack(f) for f in zip(*stats)))
 
 
 def _run_sampling(vkernel, state: SamplerState, n_samples: int, thin: int):
-    """The post-warmup sampling loop: (samples (n_samples // thin, chains,
-    dim), final state, RunStats of (n_kept, chains))."""
+    """The post-warmup sampling loop, shared by warmup_and_sample and
+    resume_sampling so that a resumed run repeats the tail of an
+    uninterrupted one: (samples (n_samples // thin, chains, dim), final
+    state, RunStats of (n_kept, chains))."""
 
     def step(state):
         q, logp, grad, info = vkernel(
@@ -157,7 +166,7 @@ def _run_sampling(vkernel, state: SamplerState, n_samples: int, thin: int):
             for _ in range(thin):
                 state, info = step(state)
                 block.append(_stats(info))
-            block = _stack(block)
+            block = _stack(block, state.q)
             # aggregate over the thin block: subsampling would silently
             # discard divergences from the skipped transitions
             stats.append(RunStats(
@@ -167,7 +176,23 @@ def _run_sampling(vkernel, state: SamplerState, n_samples: int, thin: int):
                 tree_depth=torch.amax(block.tree_depth, dim=0),
             ))
             samples.append(state.q)
-    return torch.stack(samples), state, _stack(stats)
+    if not samples:
+        return state.q.new_empty((0,) + tuple(state.q.shape)), state, _stack(stats, state.q)
+    return torch.stack(samples), state, _stack(stats, state.q)
+
+
+def resume_sampling(
+    logdensity_fn, state: SamplerState, n_samples: int, kernel: str = "nuts_batched_t",
+    max_depth: int = 10, thin: int = 1,
+):
+    """Continue post-warmup sampling from a SamplerState, e.g. the state a
+    warmup_and_sample run with n_samples=0 returns. With the same density
+    and kernel settings, the continuation repeats the tail of an
+    uninterrupted warmup_and_sample run draw for draw (the state carries
+    its generator). Returns (samples, state, stats) like
+    warmup_and_sample."""
+    vkernel, _ = _build_vkernel(logdensity_fn, kernel, max_depth)
+    return _run_sampling(vkernel, state, n_samples, thin)
 
 
 def warmup_and_sample(

@@ -87,8 +87,9 @@ def load():
             "tbt_slab_value": [p, p, p, i, ll, p],
             "tbt_slab_value_and_grad": [p, p, p, p, i, ll, p],
             "tbt_slab_vjp": [p, p, p, p, i, ll, p],
-            # y, y strides (batch, coordinate), am1, x, ld, wlog, K-1, B, stream
-            "tbt_simplex_inverse_logdet": [p, ll, ll, p, p, p, p, i, ll, p],
+            # y, y strides (batch, coordinate), log(K-1-k) table, am1, x, ld,
+            # wlog, K-1, B, stream
+            "tbt_simplex_inverse_logdet": [p, ll, ll, p, p, p, p, p, i, ll, p],
             # y, y strides (batch, slot), X, logJ, log diag W, W, K, B, stream
             "tbt_lkj_inverse": [p, ll, ll, p, p, p, p, i, ll, p],
         }

@@ -6,7 +6,7 @@
 //
 // Replaces the TPU kernel tpu_bijectors/kernels/lkj.py::lkj_inverse_pallas.
 // Numerics are those of the plain version
-// (tpu_bijectors_torch/bijectors/corr.py: _inv_link_chol_lkj_with_logdiag
+// (tpu_bijectors_torch/kernels/lkj.py: _inv_link_chol_lkj_with_logdiag
 // and pd_from_upper): t = tanh(y), the stable logcosh
 // |y| + log1p(exp(-2|y|)) - log 2, a running sum lr = -sum logcosh down
 // each column, W_ij = t_ij exp(lr before row i), W_jj = exp(lr), and

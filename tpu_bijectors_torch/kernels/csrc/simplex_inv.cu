@@ -6,8 +6,8 @@
 // Replaces the TPU kernel tpu_bijectors/kernels/simplex.py::
 // _simplex_fused_pallas (entries simplex_inverse_logdet_pallas and
 // simplex_inverse_logdet_wlog_pallas). Numerics are those of the plain
-// version (tpu_bijectors_torch/bijectors/simplex.py: _simplex_inverse and
-// SimplexBijector.forward_log_det_jacobian): the same eps algebra, the
+// version (tpu_bijectors_torch/kernels/simplex.py: _simplex_inverse and
+// _inverse_logdet_from_x): the same eps algebra, the
 // same per-step clamps, the log-det from the running sum of x.
 //
 // Layout: y is read through its two strides (batch, coordinate), so a
@@ -44,7 +44,8 @@ __device__ __forceinline__ float maxp(float a, float b) {
 template <bool WANT_X, bool WLOG>
 __global__ void __launch_bounds__(kThreads)
 simplex_inv_kernel(const float* __restrict__ y, long long sb, long long sk,
-                   const float* __restrict__ am1, float* __restrict__ x,
+                   const float* __restrict__ lc, const float* __restrict__ am1,
+                   float* __restrict__ x,
                    float* __restrict__ ld, float* __restrict__ wlog, int Km1,
                    long long B) {
   const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -57,8 +58,9 @@ simplex_inv_kernel(const float* __restrict__ y, long long sb, long long sk,
   float* xb = WANT_X ? x + b * (long long)K : nullptr;
   float s = 0.0f, lp = 0.0f, wl = 0.0f;
   for (int k = 0; k < Km1; ++k) {
-    // log(K-1-k), rounded from double as the plain version's table is
-    const float t = yb[k * sk] - (float)log((double)(Km1 - k));
+    // lc[k] = log(K-1-k), rounded from double on the host: the plain
+    // version's table, read through the cache by every thread
+    const float t = yb[k * sk] - lc[k];
     const float z = 1.0f / (1.0f + expf(-t));
     float xk;
     if (k == 0) {
@@ -82,11 +84,12 @@ simplex_inv_kernel(const float* __restrict__ y, long long sb, long long sk,
 }
 
 template <bool WANT_X, bool WLOG>
-cudaError_t launch(const float* y, long long sb, long long sk, const float* am1, float* x,
-                   float* ld, float* wlog, int Km1, long long B, cudaStream_t stream) {
+cudaError_t launch(const float* y, long long sb, long long sk, const float* lc,
+                   const float* am1, float* x, float* ld, float* wlog, int Km1, long long B,
+                   cudaStream_t stream) {
   const long long blocks = (B + kThreads - 1) / kThreads;
   simplex_inv_kernel<WANT_X, WLOG><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      y, sb, sk, am1, x, ld, wlog, Km1, B);
+      y, sb, sk, lc, am1, x, ld, wlog, Km1, B);
   return cudaGetLastError();
 }
 
@@ -95,17 +98,18 @@ cudaError_t launch(const float* y, long long sb, long long sk, const float* am1,
 
 extern "C" {
 
-// y (B, K-1) with element strides (sb, sk) -> ld (B,), and x (B, K)
-// contiguous when x is not null, and wlog (B,) from am1 (K,) when am1 is not
-// null. Launches on `stream`, does not synchronise, returns the cudaError_t.
-int tbt_simplex_inverse_logdet(const float* y, long long sb, long long sk, const float* am1,
-                               float* x, float* ld, float* wlog, int Km1, long long B,
-                               void* stream) {
+// y (B, K-1) with element strides (sb, sk) and the table lc (K-1,) of
+// log(K-1-k) -> ld (B,), and x (B, K) contiguous when x is not null, and
+// wlog (B,) from am1 (K,) when am1 is not null. Launches on `stream`, does
+// not synchronise, returns the cudaError_t.
+int tbt_simplex_inverse_logdet(const float* y, long long sb, long long sk, const float* lc,
+                               const float* am1, float* x, float* ld, float* wlog, int Km1,
+                               long long B, void* stream) {
   if (B == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (x && am1) return (int)tbt::launch<true, true>(y, sb, sk, am1, x, ld, wlog, Km1, B, st);
-  if (x) return (int)tbt::launch<true, false>(y, sb, sk, am1, x, ld, wlog, Km1, B, st);
-  if (am1) return (int)tbt::launch<false, true>(y, sb, sk, am1, x, ld, wlog, Km1, B, st);
-  return (int)tbt::launch<false, false>(y, sb, sk, am1, x, ld, wlog, Km1, B, st);
+  if (x && am1) return (int)tbt::launch<true, true>(y, sb, sk, lc, am1, x, ld, wlog, Km1, B, st);
+  if (x) return (int)tbt::launch<true, false>(y, sb, sk, lc, am1, x, ld, wlog, Km1, B, st);
+  if (am1) return (int)tbt::launch<false, true>(y, sb, sk, lc, am1, x, ld, wlog, Km1, B, st);
+  return (int)tbt::launch<false, false>(y, sb, sk, lc, am1, x, ld, wlog, Km1, B, st);
 }
 }

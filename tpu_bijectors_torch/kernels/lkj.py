@@ -8,21 +8,73 @@ log diag W (B, K), and the upper factor W (B, K, K) when `want_w` (else
 None), which the backward of the inverse link uses. For a CUDA tensor it
 launches `csrc/lkj_inv.cu` or raises; for a CPU tensor it runs
 `lkj_inverse_plain`. y may be any 2-D strided view (read in place).
+
+The plain version's masked cumulative sums live here, beside the kernel
+they define; `bijectors/corr.py` builds the bijector on them.
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
+
+import numpy as np
 import torch
 
 from .. import kernels
+from ..utils import logcosh, pd_from_upper, vec_to_triu
+
+
+@lru_cache(maxsize=None)
+def _tri_masks(K, device):
+    """(strict upper, upper) boolean (K, K) masks on `device`, made once."""
+    ones = torch.ones(K, K, dtype=torch.bool, device=device)
+    return torch.triu(ones, 1), torch.triu(ones)
+
+
+def _up_mask(K, like):
+    return _tri_masks(K, like.device)[0]
+
+
+def _inv_link_chol_lkj_with_logdiag(Y):
+    """(W, logJ, log diag W) from the strict-upper y-matrix (corr.jl:344-399:
+    z = tanh(y), lc = logcosh(y), lr_incl[i,j] = -sum_{k<=i} lc[k,j],
+    lr_excl = lr_incl + lc, W[i,j] = z exp(lr_excl) above the diagonal and
+    W[j,j] = exp(lr_incl[j-1,j])). The log-diagonal comes straight from the
+    running sums, never log(exp(.)): at |y| ~ 1e10 the diagonal underflows
+    to 0 and its log would be -inf."""
+    K = Y.shape[-1]
+    up = _up_mask(K, Y)
+    zero = torch.zeros_like(Y)
+    Yu = torch.where(up, Y, zero)
+    z = torch.where(up, torch.tanh(Yu), zero)
+    lc = torch.where(up, logcosh(Yu), zero)
+    lr_incl = -torch.cumsum(lc, dim=-2)
+    lr_excl = lr_incl + lc
+    W_off = z * torch.exp(lr_excl)
+    diag_lr = torch.cat(
+        [
+            Y.new_zeros(Y.shape[:-2] + (1,)),
+            torch.diagonal(lr_incl[..., :-1, 1:], dim1=-2, dim2=-1),
+        ],
+        dim=-1,
+    )
+    W = torch.where(up, W_off, zero)
+    W = W + torch.exp(diag_lr)[..., None, :] * torch.eye(
+        K, dtype=Y.dtype, device=Y.device
+    )
+    logJ = torch.sum(torch.where(up, lr_incl, zero), dim=(-2, -1))
+    logJ = logJ + torch.sum(diag_lr, dim=-1)
+    return W, logJ, diag_lr
+
+
+def _diag_coeff(K, like):
+    # corr.jl:74-81: logJ += sum_j (K-1-j) log W[j,j] for j >= 1 (0-based)
+    c = np.concatenate([[0.0], np.maximum(np.arange(K - 2, -1, -1), 0)])
+    return torch.as_tensor(c, dtype=like.dtype, device=like.device)
 
 
 def lkj_inverse_plain(y, K: int, want_w: bool = False):
-    """The plain PyTorch version (bijectors/corr.py's masked cumulative
-    sums)."""
-    from ..bijectors.corr import _diag_coeff, _inv_link_chol_lkj_with_logdiag
-    from ..utils import pd_from_upper, vec_to_triu
-
+    """The plain PyTorch version (the masked cumulative sums above)."""
     W, logJ, log_diag = _inv_link_chol_lkj_with_logdiag(vec_to_triu(y, 1, K))
     logJ = logJ + torch.sum(_diag_coeff(K, y) * log_diag, dim=-1)
     return pd_from_upper(W), logJ, log_diag, (W if want_w else None)

@@ -8,23 +8,86 @@ am1 (K,), the Dirichlet data term wlog = sum_k am1[k] log(x_k + eps) (B,)
 for a CPU tensor it runs `simplex_inverse_logdet_plain`. y may be any 2-D
 strided view: the kernel reads it through its strides, so the swapped view
 of a transposed (dim, B) state is read in place.
+
+The plain version's recurrence and log-det live here, beside the kernel
+they define; `bijectors/simplex.py` builds the bijector on them.
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
+
+import numpy as np
 import torch
 
 from .. import kernels
+from ..utils import _eps, clamp, logistic
+
+
+@lru_cache(maxsize=None)
+def _log_coeffs(K: int, dtype, device):
+    """log(K-1-k) for k = 0..K-2, from float64 rounded to `dtype`, made once
+    per (K, dtype, device); the kernel reads the float32 table."""
+    return torch.as_tensor(np.log(np.arange(K - 1, 0, -1)), dtype=dtype, device=device)
+
+
+def _log_km1_minus_k(K: int, like):
+    return _log_coeffs(K, like.dtype, like.device)
+
+
+@lru_cache(maxsize=None)
+def _first(n: int, device):
+    # (n,) mask of coordinate 0
+    return torch.arange(n, device=device) == 0
+
+
+def _exclusive_prefix(x, K):
+    # s_k = sum_{i<k} x_i for k = 0..K-2
+    s = torch.cumsum(x[..., : K - 2], dim=-1)
+    return torch.cat([torch.zeros_like(x[..., :1]), s], dim=-1)
+
+
+def _simplex_inverse(y):
+    """Exact reference recurrence (simplex.jl:84-100) over K-1 steps; every
+    batch dim rides along in each step. The plain version of the kernel."""
+    K = y.shape[-1] + 1
+    eps = _eps(y.dtype)
+    z = logistic(y - _log_km1_minus_k(K, y))
+    s = torch.zeros_like(z[..., 0])
+    xs = []
+    for k in range(K - 1):
+        zk = z[..., k]
+        if k == 0:
+            xk = clamp((zk - eps) / (1 - 2 * eps), 0.0, 1.0)
+        else:
+            xk = clamp(((1 + eps) - s) / (1 - 2 * eps) * zk - eps, 0.0, 1.0)
+        s = s + xk
+        xs.append(xk)
+    xs.append(clamp(1.0 - s, 0.0, 1.0))
+    return torch.stack(xs, dim=-1)
+
+
+def _inverse_logdet_from_x(x):
+    """The inverse log-det as a function of the simplex point x (..., K):
+    minus the forward log-det (simplex.jl:104-138), from the running sum of
+    x with the reference's floors."""
+    K = x.shape[-1]
+    eps = x.new_tensor(_eps(x.dtype))
+    s = _exclusive_prefix(x, K)
+    rem = torch.maximum(1.0 - s, eps)
+    xk = x[..., : K - 1]
+    k_is_zero = _first(K - 1, x.device)
+    z = torch.where(k_is_zero, xk, xk / rem)
+    lp = torch.log(torch.maximum(z, eps)) + torch.log(torch.maximum(1.0 - z, eps))
+    lp = lp + torch.where(k_is_zero, torch.zeros_like(rem), torch.log(rem))
+    return torch.sum(lp, dim=-1)
 
 
 def simplex_inverse_logdet_plain(y, am1=None, want_x: bool = True):
-    """The plain PyTorch version (bijectors/simplex.py's recurrence and
-    log-det, the eps algebra and clamps of the reference)."""
-    from ..bijectors.simplex import SimplexBijector, _simplex_inverse
-    from ..utils import _eps
-
+    """The plain PyTorch version: the recurrence, the log-det from x, and
+    wlog with the reference's eps algebra and clamps."""
     x = _simplex_inverse(y)
-    ld = -SimplexBijector().forward_log_det_jacobian(x)
+    ld = _inverse_logdet_from_x(x)
     wlog = None if am1 is None else torch.sum(am1 * torch.log(x + _eps(x.dtype)), dim=-1)
     return (x if want_x else None), ld, wlog
 
@@ -53,7 +116,7 @@ def simplex_inverse_logdet(y, am1=None, want_x: bool = True):
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     kernels.launch(
         "tbt_simplex_inverse_logdet", "simplex_inverse_logdet", y.device,
-        y.data_ptr(), y.stride(0), y.stride(1), ptr(am1), ptr(x), ld.data_ptr(),
-        ptr(wlog), Km1, B,
+        y.data_ptr(), y.stride(0), y.stride(1), _log_km1_minus_k(Km1 + 1, y).data_ptr(),
+        ptr(am1), ptr(x), ld.data_ptr(), ptr(wlog), Km1, B,
     )
     return x, ld, wlog
