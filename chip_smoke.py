@@ -5,39 +5,51 @@
 Builds every kernel in `tpu_bijectors_torch/kernels/csrc/` (one nvcc per
 source, all at once), then drives the bench model (8 Normal, 8 LogNormal,
 Dirichlet(16), LKJ(16): linked dim 151) in float32 through the entry points
-a user calls, on two paths:
+a user calls, on four paths:
 
-1. the batched linked log-density at B = 131072:
-   `Model.batched_logdensity_t_fn()` (the slab value kernel), its
-   `value_and_grad_fn` (the one-pass value-and-gradient kernel) and
-   `torch.autograd.grad` through `linked_logdensity_t` (the
-   vector-Jacobian kernel);
-2. NUTS with a likelihood on `Model(priors, loglik=hier_loglik)`, with 64
-   chains, max_depth 8, 300 warmup and 200 kept transitions, target
-   acceptance 0.95 (see TARGET_ACCEPT): `Model.sample` with n_samples=0
-   runs the warmup, `resume_sampling` the 200 transitions from its state
-   (the draws of one uninterrupted `Model.sample`, timed apart), and
-   `Model.constrain` maps the draws. Every leapfrog runs the one-pass slab
-   kernel for the prior and the stick-breaking and LKJ inverse-link
-   kernels for the likelihood term; constraining the draws runs the two
-   link kernels once more.
+1. transposed serving at B = 131072: `Model.batched_logdensity_t_fn()`
+   (the slab value kernel), its `value_and_grad_fn` (the one-pass
+   value-and-gradient kernel) and `torch.autograd.grad` through
+   `linked_logdensity_t` (the vector-Jacobian kernel);
+2. transposed NUTS with a likelihood on `Model(priors, loglik=hier_loglik)`
+   (`kernel='nuts_batched_t'`), with 64 chains, max_depth 8, 300 warmup and
+   200 kept transitions, target acceptance 0.95 (see TARGET_ACCEPT):
+   `Model.sample` with n_samples=0 runs the warmup, `resume_sampling` the
+   200 transitions from its state (the draws of one uninterrupted
+   `Model.sample`, timed apart), and `Model.constrain` maps the draws.
+   Every leapfrog runs the one-pass slab kernel for the prior and the
+   stick-breaking and LKJ inverse-link kernels for the likelihood term;
+3. batch-major serving at B = 131072 on (B, 151) states:
+   `Model.batched_logdensity_fn()` and its autograd gradient (the LKJ
+   log-det kernel and the simplex inverse kernel without x), the round
+   trip `to_linked_vec(from_linked_vec(v))` (the simplex forward kernel),
+   the classic `inverse(bijector(Dirichlet(ones(16))))` in both directions
+   (the x-only simplex inverse and the simplex forward kernels), and the
+   likelihood model's `batched_logdensity_fn` at 64 states;
+4. batch-major NUTS with the same likelihood and settings
+   (`kernel='nuts_batched'`): every leapfrog runs the simplex and LKJ
+   inverse-link kernels on the (64, 151) state.
 
 The launch counters are set to 0 just before each path and read just after
-it; each kernel must have launched. Each kernel is held against its plain
-PyTorch version on the same inputs: the slab kernels at B = 131072, the
-link kernels at B = 131072 in both input layouts and at the sampler's own
-shapes (64 chains, and the 200 x 64 draws), with their closed-form backward
-against autograd through the plain version. The log-density is also held
-against the composed per-leaf path and the plain path in float64, the
-likelihood model (at 64 and 4096 states) against its float64 plain version
-on the CPU, and the sampler's draws against the known Dirichlet(1 + counts)
-posterior of `w` (within 5 MCSE), with R-hat <= 1.05 and divergences <= 1%.
-Every kernel and its plain version is timed with CUDA events.
+it; each kernel of the path must have launched. Each kernel is held against
+its plain PyTorch version on the same inputs: the slab kernels at
+B = 131072; the link kernels at B = 131072 in both input layouts (a
+contiguous (B, P) tensor and the swapped view of the (dim, B) state) and at
+the sampler's own shapes (64 chains, and the 200 x 64 draws); the LKJ
+log-det (both variants) and the simplex inverse and forward kernels at
+B = 131072, 64 and a partial block in both layouts, and at 1e10 states; all
+with their closed-form backward against autograd through the plain version.
+The log-densities are also held against the composed per-leaf path and the
+plain path in float64, the likelihood model (at 64 and 4096 states) against
+its float64 plain version on the CPU, and each sampler's draws against the
+known Dirichlet(1 + counts) posterior of `w` (within 5 MCSE), with
+R-hat <= 1.05 and divergences <= 1%. Every kernel and its plain version is
+timed with CUDA events.
 
 Prints the card's name and power limit, one JSON line per kernel, a
-`sampler` line, a `{"kernels": [...]}` line, and as the last line
-`{"ok": true, "device": {...}}`. Exits non-zero, with no result, when CUDA
-is absent or any check fails.
+`sampler` line per layout, a `{"kernels": [...]}` line, and as the last
+line `{"ok": true, "device": {...}}`. Exits non-zero, with no result, when
+CUDA is absent or any check fails.
 """
 
 import json
@@ -77,10 +89,19 @@ REPLACES = {
     "slab_vjp": "tpu_bijectors/vectorize/fused_kernel.py:321",
     "simplex_inverse_logdet": "tpu_bijectors/kernels/simplex.py:181",
     "lkj_inverse": "tpu_bijectors/kernels/lkj.py:167",
+    "lkj_logdet": "tpu_bijectors/kernels/lkj.py:88",
+    "simplex_inverse": "tpu_bijectors/kernels/simplex.py:59",
+    "simplex_forward_logdet": "tpu_bijectors/kernels/simplex.py:252",
 }
 SOURCES = {
     "simplex_inverse_logdet": "tpu_bijectors_torch/kernels/csrc/simplex_inv.cu",
     "lkj_inverse": "tpu_bijectors_torch/kernels/csrc/lkj_inv.cu",
+}
+# the kernels of the batch-major path (this script's path 3)
+BATCH_MAJOR_SOURCES = {
+    "lkj_logdet": "tpu_bijectors_torch/kernels/csrc/lkj_logdet.cu",
+    "simplex_inverse": "tpu_bijectors_torch/kernels/csrc/simplex_inv.cu",
+    "simplex_forward_logdet": "tpu_bijectors_torch/kernels/csrc/simplex_fwd.cu",
 }
 # the link kernels against their plain versions, float32: x and X are
 # bounded by 1 and held absolutely; the log-dets and wlog are sums of 15-120
@@ -88,6 +109,12 @@ SOURCES = {
 # against autograd through the plain version (another order of operations)
 ATOL_UNIT = 2e-6
 RTOL_SUM = 1e-5
+# the simplex forward link's y against its plain version: the plain
+# version's prefix sum (torch.cumsum) and the kernel's running sum round
+# differently, and y_k = logit(z_k) + log(K-1-k) magnifies an ulp of s_k by
+# 1 / ((1+eps) - s_k); y is O(1) and held absolutely (1.5e-5 at most at
+# B = 131072 on the H100)
+ATOL_LOGIT = 1e-4
 RTOL_VJP = 1e-4
 # operations per element of the link kernels (each arithmetic operation,
 # comparison and transcendental counts one, so this is a floor): the
@@ -95,6 +122,26 @@ RTOL_VJP = 1e-4
 # 816 multiply-adds (2 operations each) at K = 16
 OPS_SIMPLEX_COORD = 22
 OPS_LKJ_SLOT = 12
+# the batch-major kernels, counted alike: a logcosh and two running sums
+# per LKJ slot; the x-only stick-breaking step; the forward step (z, the
+# logit, and the log-det's three logs and floors) per coordinate
+OPS_LKJ_LOGDET_SLOT = 8
+OPS_SIMPLEX_X_COORD = 11
+OPS_SIMPLEX_FWD_COORD = 22
+# the float32 round trip v -> x -> v of the bench model. The scalar and
+# simplex rows are held absolutely (1.1e-6 at most on the H100 at
+# B = 131072). The LKJ rows pass through torch.linalg.cholesky of a 16 x 16
+# correlation matrix X, whose error grows with its condition number kappa
+# (up to 3.9e6 among these states): a row's largest error is held to
+# kappa * eps32 + ATOL_ROUNDTRIP (at most 0.14 of that on the H100). The
+# log-det is held relative to its magnitude (2.6e-4 at most on the H100).
+ATOL_ROUNDTRIP = 1e-4
+RTOL_ROUNDTRIP_LD = 1e-3
+# the batch-major likelihood model's gradient against float64: as the
+# transposed one's (1e-4, which it meets at 9.5e-5), plus the composed
+# prior's own float32 sums of the same magnitude (1.05e-4 on the H100 at
+# 64 states)
+RTOL_G_BATCH_MAJOR_LIK = 2e-4
 # the sampler run: bench.py's NUTS settings (64 chains, max_depth 8, 300
 # warmup transitions) and 200 kept draws, at a target acceptance of 0.95.
 # The likelihood's (ybar - mu)^2 / (sigma^2 + 1e-3) term makes a funnel in
@@ -304,6 +351,17 @@ def check_link_kernels(dev, vT, vxT, counts):
     return err
 
 
+def launched(what, fn, names):
+    """Expect one call of fn to launch each kernel of `names`."""
+    from tpu_bijectors_torch import kernels
+
+    kernels.reset_launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    got = {k: kernels.LAUNCHES[k] for k in names}
+    expect(f"{what} launches {names}: {got}", all(n > 0 for n in got.values()))
+
+
 def check_link_entry_points(dev, vT, loglik, counts):
     """from_linked_vec, Model.constrain, Dirichlet.fused_linked_logdensity
     and the likelihood term of value_and_grad_fn each launch the link
@@ -317,13 +375,6 @@ def check_link_entry_points(dev, vT, loglik, counts):
     u, dim = model.unconstrainer(), model.dim()
     v64 = vT[:, :64].T.contiguous()  # 64 batch-major states
     f = model.batched_logdensity_t_fn()
-
-    def launched(what, fn, names):
-        kernels.reset_launch_counts()
-        fn()
-        torch.cuda.synchronize()
-        got = {k: kernels.LAUNCHES[k] for k in names}
-        expect(f"{what} launches {names}: {got}", all(n > 0 for n in got.values()))
 
     links = ("simplex_inverse_logdet", "lkj_inverse")
     launched("from_linked_vec", lambda: u.from_linked_vec(v64), links)
@@ -354,19 +405,329 @@ def check_link_entry_points(dev, vT, loglik, counts):
               g64.abs() + 1e-2 * g64.abs().max())
 
 
-def run_sampler(dev, loglik, counts):
-    """The second main path: NUTS on the bench model with the likelihood,
-    driven through public entry points in two calls so that warmup and
-    sampling are timed apart (each between torch.cuda.synchronize()
-    calls): `Model.sample` with n_samples=0 runs the warmup, and
-    `resume_sampling` continues from its state (the draws an uninterrupted
-    `Model.sample` would give); `Model.constrain` maps the linked draws.
-    The launch counters are zeroed just before the first call and read
-    after the last."""
+def face_points(rng, n):
+    """Simplex points (n, 16) on the simplex's faces, where 1e10 states
+    put the inverse: vertices and points with 2 or 3 nonzero coordinates,
+    with dyadic masses so that every prefix sum is exact (the images of
+    1e10 states carry 1e-32 remainders beside a prefix sum of 1, where the
+    forward link is infinite in the kernel and its plain version alike)."""
+    x = np.zeros((n, 16))
+    masses = ([1.0], [0.5, 0.5], [0.5, 0.25, 0.25])
+    for r in range(n):
+        m = masses[rng.integers(0, 3)]
+        x[r, rng.choice(16, len(m), replace=False)] = m
+    return x
+
+
+def check_batch_major_kernels(dev, vT, vxT, xfaces):
+    """The LKJ log-det kernel (both variants), the x-only simplex inverse
+    and the simplex forward kernel against their plain versions, and their
+    closed-form backward against autograd through the plain versions: at
+    B = 131072, 64 and 1000 (a partial block), each in the batch-major
+    slice of a (B, 151) state that the batch-major path reads, a
+    contiguous (B, P) tensor, and the swapped view of the (dim, B) state;
+    and at 1e10 states (the forward kernel at points on the simplex's
+    faces). Returns the max absolute error of each kernel."""
+    from tpu_bijectors_torch.bijectors import SimplexBijector
+    from tpu_bijectors_torch.bijectors.corr import _lkj_logdet_all
+    from tpu_bijectors_torch.kernels import lkj as kl
+    from tpu_bijectors_torch.kernels import simplex as ks
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    err = {k: 0.0 for k in BATCH_MAJOR_SOURCES}
+
+    def rel(t):
+        return t.abs() + 1e-3 * t.abs().max()
+
+    def one(t):
+        return torch.ones_like(t)
+
+    def layouts(rows, n):
+        """(tag, tensor) of the three layouts of vT's `rows` at batch n."""
+        v = vT[:, :n].T.contiguous()  # the batch-major state (n, 151)
+        return (
+            (f"batch-major slice, B = {n}", v[:, rows]),
+            (f"contiguous, B = {n}", vT[rows, :n].T.contiguous()),
+            (f"swapped, B = {n}", vT[rows, :n].T),
+        )
+
+    B = vT.shape[1]
+    for n in (B, CHAINS, 1000):
+        for lay, yc in layouts(C_ROWS, n):
+            for chol in (False, True):
+                tag = f"lkj_logdet chol={chol} ({lay})"
+                got = kl.lkj_logdet(yc, 16, chol)
+                ref = kl.lkj_logdet_plain(yc, 16, chol)
+                e = err["lkj_logdet"]
+                e = max(e, check(f"{tag} logJ vs plain", got[0], ref[0], RTOL_SUM, rel(ref[0])))
+                e = max(e, check(f"{tag} log diag W vs plain", got[1], ref[1], RTOL_SUM,
+                                 rel(ref[1])))
+                err["lkj_logdet"] = e
+                if not chol:  # the inverse-link kernel's logJ, the same sums
+                    lj_inv = kl.lkj_inverse(yc, 16)[1]
+                    check(f"{tag} logJ vs lkj_inverse's", got[0], lj_inv, RTOL_SUM, rel(lj_inv))
+                cts = (torch.randn(n, generator=gen, device=dev),
+                       torch.randn((n, 16), generator=gen, device=dev))
+                check(f"{tag} backward vs autograd of plain",
+                      vjp(lambda v, c=chol: _lkj_logdet_all(v, c), yc, cts),
+                      vjp(lambda v, c=chol: kl.lkj_logdet_plain(v, 16, c), yc, cts), RTOL_VJP)
+        for lay, y in layouts(W_ROWS, n):
+            x = ks.simplex_inverse(y)
+            xp = ks.simplex_inverse_plain(y)
+            err["simplex_inverse"] = max(err["simplex_inverse"], check(
+                f"simplex_inverse x vs plain ({lay})", x, xp, ATOL_UNIT, one(xp)))
+            x7 = ks.simplex_inverse_logdet(y)[0]
+            expect(f"simplex_inverse x equals simplex_inverse_logdet's bit for bit ({lay})",
+                   torch.equal(x, x7))
+            ct = (torch.randn((n, 16), generator=gen, device=dev),)
+            check(f"simplex_inverse backward vs autograd of plain ({lay})",
+                  vjp(lambda v: (SimplexBijector().inverse(v),), y, ct),
+                  vjp(lambda v: (ks.simplex_inverse_plain(v),), y, ct), RTOL_VJP)
+        # the forward kernel reads simplex points: the plain inverse's x
+        # of the same rows, in the three layouts
+        xs = ks.simplex_inverse_plain(vT[W_ROWS, :n].T.contiguous())
+        xv = torch.zeros((n, 151), device=dev)
+        xv[:, :16] = xs
+        for lay, x in ((f"batch-major slice, B = {n}", xv[:, :16]),
+                       (f"contiguous, B = {n}", xs),
+                       (f"swapped, B = {n}", xs.T.contiguous().T)):
+            got = ks.simplex_forward_logdet(x)
+            ref = ks.simplex_forward_logdet_plain(x)
+            e = err["simplex_forward_logdet"]
+            e = max(e, check(f"simplex_forward y vs plain ({lay})", got[0], ref[0], ATOL_LOGIT,
+                             one(ref[0])))
+            e = max(e, check(f"simplex_forward ld vs plain ({lay})", got[1], ref[1], RTOL_SUM,
+                             rel(ref[1])))
+            err["simplex_forward_logdet"] = e
+            cts = (torch.randn((n, 15), generator=gen, device=dev),
+                   torch.randn(n, generator=gen, device=dev))
+            check(f"simplex_forward backward vs autograd of plain ({lay})",
+                  vjp(SimplexBijector().forward_and_log_det, x, cts),
+                  vjp(ks.simplex_forward_logdet_plain, x, cts), RTOL_VJP)
+        del xs, xv
+
+    # 1e10 states (and points on the simplex's faces for the forward link):
+    # finite outputs that agree with the plain versions, finite backward
+    yc, y = vxT[C_ROWS].T, vxT[W_ROWS].T
+    for chol in (False, True):
+        outs = kl.lkj_logdet(yc, 16, chol)
+        expect(f"1e10: lkj_logdet chol={chol} finite",
+               all(bool(torch.isfinite(t).all()) for t in outs))
+        for got, ref, nm in zip(outs, kl.lkj_logdet_plain(yc, 16, chol), ("logJ", "ldw")):
+            check(f"1e10: lkj_logdet chol={chol} {nm} vs plain", got, ref, RTOL_SUM,
+                  rel(ref) + 1e-6)
+        g = vjp(lambda v, c=chol: _lkj_logdet_all(v, c), yc,
+                (torch.ones(yc.shape[0], device=dev), torch.ones((yc.shape[0], 16), device=dev)))
+        expect(f"1e10: lkj_logdet chol={chol} backward finite", bool(torch.isfinite(g).all()))
+    x = ks.simplex_inverse(y)
+    check("1e10: simplex_inverse x vs plain", x, ks.simplex_inverse_plain(y), ATOL_UNIT, one(x))
+    g = vjp(lambda v: (SimplexBijector().inverse(v),), y, (torch.ones_like(x),))
+    expect("1e10: simplex_inverse backward finite", bool(torch.isfinite(g).all()))
+    xf = torch.as_tensor(xfaces, dtype=torch.float32, device=dev)
+    outs = ks.simplex_forward_logdet(xf)
+    expect("faces: simplex_forward finite", all(bool(torch.isfinite(t).all()) for t in outs))
+    ref = ks.simplex_forward_logdet_plain(xf)
+    check("faces: simplex_forward y vs plain", outs[0], ref[0], ATOL_LOGIT, one(ref[0]))
+    check("faces: simplex_forward ld vs plain", outs[1], ref[1], RTOL_SUM, rel(ref[1]) + 1e-6)
+    g = vjp(SimplexBijector().forward_and_log_det, xf,
+            (torch.ones((xf.shape[0], 15), device=dev), torch.ones(xf.shape[0], device=dev)))
+    expect("faces: simplex_forward backward finite", bool(torch.isfinite(g).all()))
+    return err
+
+
+def run_batch_major_serving(dev, vT, scale, loglik):
+    """Path 3: the batch-major entry points on (B, 151) states, with the
+    launch counters zeroed just before and read just after. Checks the
+    density against the fused transposed one of the same states and
+    against the float64 plain path on the CPU, its gradient against
+    float64, the round trip v -> x -> v and the log-det's sign, the
+    classic inverse link both ways, and the likelihood model at 64 states
+    against float64. Returns (launches, the entry points' times)."""
+    import tpu_bijectors_torch as tbt
+    from tpu_bijectors_torch import dists, kernels
+
+    model = tbt.Model(bench_model(dists, dev, torch.float32), device=dev)
+    u = model.unconstrainer()
+    lik = tbt.Model(bench_model(dists, dev, torch.float32), loglik=loglik, device=dev)
+    v = vT.T.contiguous()  # (B, 151), batch-major
+    v64 = v[:CHAINS].contiguous()
+    f, fl = model.batched_logdensity_fn(), lik.batched_logdensity_fn()
+    dirichlet = dists.Dirichlet(np.ones(16), device=dev, dtype=torch.float32)
+    ib = tbt.inverse(tbt.bijector(dirichlet))
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    lp = f(v)
+    lp_vg, g = f.value_and_grad_fn(v)
+    x, ld = u.from_linked_vec(v)
+    v2, ld2 = u.to_linked_vec(x)
+    xw = ib.forward(v[:, W_ROWS])  # the x-only simplex inverse
+    yw, ldw = ib.inverse_and_log_det(xw)  # the simplex forward link
+    lpl, gl = fl.value_and_grad_fn(v64)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    print(f"launches on the batch-major serving path: {launches}", flush=True)
+    for k in tuple(BATCH_MAJOR_SOURCES) + tuple(SOURCES):
+        expect(f"{k} launched on the batch-major serving path", launches[k] > 0)
+
+    expect("batch-major lp (B,) and g (B, 151)",
+           lp.shape == (BATCH,) and g.shape == (BATCH, 151))
+    check("batch-major lp vs value_and_grad_fn lp", lp_vg, lp, RTOL_LP, scale)
+    # the fused kernel's Dirichlet is un-nudged, the composed one nudged
+    # (docs/kernels.md:170-183); at alpha = 1 the nudge's weights are 0
+    lp_t, g_t = model.batched_logdensity_t_fn().value_and_grad_fn(vT)
+    check("batch-major lp vs fused transposed lp", lp, lp_t, RTOL_COMPOSED, scale)
+    check("batch-major g vs fused transposed g", g, g_t.T, RTOL_VJP,
+          g_t.abs().T + 1e-2 * g_t.abs().max())
+    rows = slice(0, 4096)
+    cpu = tbt.Model(bench_model(dists, "cpu", torch.float64), device="cpu")
+    lp64, g64 = cpu.batched_logdensity_fn().value_and_grad_fn(v[rows].double().cpu())
+    check("batch-major lp vs float64 CPU, 4096 rows", lp[rows].cpu(), lp64, RTOL_COMPOSED,
+          scale[rows].cpu())
+    check("batch-major g vs float64 CPU, 4096 rows", g[rows].cpu(), g64, RTOL_VJP,
+          g64.abs() + 1e-2 * g64.abs().max())
+    del g_t, lp_t
+
+    check("round trip v -> x -> v, scalar and simplex rows", v2[:, :31], v[:, :31],
+          ATOL_ROUNDTRIP, torch.ones_like(v[:, :31]))
+    # cuSOLVER's batched eigensolver refuses 131072 matrices: on the CPU
+    ev = torch.linalg.eigvalsh(x["corr"].double().cpu())
+    kappa = ev[:, -1] / ev[:, 0]
+    row_err = (v2[:, C_ROWS] - v[:, C_ROWS]).abs().amax(dim=1).double().cpu()
+    ratio = float((row_err / (kappa * np.finfo(np.float32).eps + ATOL_ROUNDTRIP)).max())
+    print(f"round trip, LKJ rows: max row error {float(row_err.max()):.3e}, max kappa "
+          f"{float(kappa.max()):.3e}, max error / (kappa eps32 + {ATOL_ROUNDTRIP:g}) "
+          f"{ratio:.3e}", flush=True)
+    expect("round trip v -> x -> v, LKJ rows within kappa(X) eps32", ratio <= 1.0)
+    check("round trip: to_linked_vec's log-det is minus from_linked_vec's", ld2, -ld,
+          RTOL_ROUNDTRIP_LD, ld.abs() + 1e-3 * ld.abs().max())
+    expect("x-only inverse equals from_linked_vec's w bit for bit", torch.equal(xw, x["w"]))
+    check("inverse(bijector(Dirichlet)) both ways: y", yw, v[:, W_ROWS], ATOL_ROUNDTRIP,
+          torch.ones_like(yw))
+    ldi = tbt.bijector(dirichlet).inverse_and_log_det(v[:, W_ROWS])[1]
+    check("inverse(bijector(Dirichlet)) both ways: log-det", ldw, -ldi, RTOL_SUM,
+          ldi.abs() + 1e-3 * ldi.abs().max())
+    del x, v2, ev
+
+    # the likelihood model at 64 states against float64 on the CPU
+    ll_cpu, _ = hier_loglik_and_counts("cpu")
+    cpu = tbt.Model(bench_model(dists, "cpu", torch.float64), loglik=ll_cpu, device="cpu")
+    lp64, g64 = cpu.batched_logdensity_fn().value_and_grad_fn(v64.double().cpu())
+    check("batch-major likelihood model lp vs float64 CPU, B = 64", lpl.cpu(), lp64, 2e-5,
+          lp64.abs() + 1e-3 * lp64.abs().max())
+    check("batch-major likelihood model g vs float64 CPU, B = 64", gl.cpu(), g64,
+          RTOL_G_BATCH_MAJOR_LIK, g64.abs() + 1e-2 * g64.abs().max())
+
+    # each entry point of the slice on its own, at 64 states
+    lkj = u.children[u.names.index("corr")]
+    launched("LeafUnconstrainer.linked_logdensity of the LKJ leaf",
+             lambda: lkj.linked_logdensity(v64[:, C_ROWS]), ("lkj_logdet",))
+    leaf_w = u.children[u.names.index("w")]
+    w64 = leaf_w.from_linked_vec(v64[:, W_ROWS])[0]
+    launched("to_linked_vec of the Dirichlet leaf", lambda: leaf_w.to_linked_vec(w64),
+             ("simplex_forward_logdet",))
+    launched("SimplexBijector.inverse", lambda: tbt.bijector(dirichlet).inverse(v64[:, W_ROWS]),
+             ("simplex_inverse",))
+
+    # the entry points as a caller sees them, host dispatch included
+    e2e = {
+        "batch_major_value_ms_B131072": time_ms(lambda: f(v), device_only=False),
+        "batch_major_value_and_grad_ms_B131072": time_ms(
+            lambda: f.value_and_grad_fn(v), device_only=False
+        ),
+        "batch_major_value_ms_B64": time_ms(lambda: f(v64), device_only=False),
+        "batch_major_value_and_grad_ms_B64": time_ms(
+            lambda: f.value_and_grad_fn(v64), device_only=False
+        ),
+        "batch_major_likelihood_value_and_grad_ms_B64": time_ms(
+            lambda: fl.value_and_grad_fn(v64), device_only=False
+        ),
+    }
+    return launches, e2e
+
+
+def time_batch_major_kernels(vT, launches, err):
+    """The batch-major kernels at B = 131072, in the three layouts, kernel
+    and plain version timed alike. A row's `ms` is the layout the
+    batch-major path reads (the slice of the (B, 151) state); the other
+    layouts go to a variants line."""
+    from tpu_bijectors_torch.kernels import lkj as kl
+    from tpu_bijectors_torch.kernels import simplex as ks
+
+    B = vT.shape[1]
+    v = vT.T.contiguous()
+    xs = ks.simplex_inverse_plain(vT[W_ROWS].T.contiguous())
+    xv = torch.zeros_like(v)
+    xv[:, :16] = xs
+    lay = {
+        "lkj_logdet": {"slice": v[:, C_ROWS], "contiguous": vT[C_ROWS].T.contiguous(),
+                       "swapped": vT[C_ROWS].T},
+        "simplex_inverse": {"slice": v[:, W_ROWS], "contiguous": vT[W_ROWS].T.contiguous(),
+                            "swapped": vT[W_ROWS].T},
+        "simplex_forward_logdet": {"slice": xv[:, :16], "contiguous": xs,
+                                   "swapped": xs.T.contiguous().T},
+    }
+    fns = {
+        "lkj_logdet": (lambda y: kl.lkj_logdet(y, 16), lambda y: kl.lkj_logdet_plain(y, 16)),
+        "simplex_inverse": (ks.simplex_inverse, ks.simplex_inverse_plain),
+        "simplex_forward_logdet": (ks.simplex_forward_logdet, ks.simplex_forward_logdet_plain),
+    }
+    work = {  # (bytes, operations): each input read once, each output written once
+        "lkj_logdet": (B * 4 * (120 + 1 + 16), B * 120 * OPS_LKJ_LOGDET_SLOT),
+        "simplex_inverse": (B * 4 * (15 + 16), B * 15 * OPS_SIMPLEX_X_COORD),
+        "simplex_forward_logdet": (B * 4 * (16 + 15 + 1), B * 15 * OPS_SIMPLEX_FWD_COORD),
+    }
+    rows, variants = [], {}
+    for k, (kern, plain) in fns.items():
+        nbytes, ops = work[k]
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+        ms = {name: time_ms(lambda y=y: kern(y)) for name, y in lay[k].items()}
+        plain_ms = time_ms(lambda: plain(lay[k]["slice"]))
+        row = {
+            "name": k,
+            "route": "cuda",
+            "source": BATCH_MAJOR_SOURCES[k],
+            "replaces": REPLACES[k],
+            "launches": launches[k],
+            "max_abs_err": err[k],
+            "ms": ms["slice"],
+            "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None,
+        }
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        print(json.dumps({"bound_inputs": {"name": k, "bytes": nbytes, "ops": ops}}), flush=True)
+        variants.update({f"{k}_{name}_ms": t for name, t in ms.items()})
+        variants.update({f"{k}_{name}_byte_bound_share": t_bytes / t for name, t in ms.items()})
+    variants["lkj_logdet_chol_swapped_ms"] = time_ms(
+        lambda: kl.lkj_logdet(lay["lkj_logdet"]["swapped"], 16, True)
+    )
+    print(json.dumps({"batch_major_variants": variants}), flush=True)
+    return rows
+
+
+def run_sampler(dev, loglik, counts, kernel):
+    """A sampler path: NUTS on the bench model with the likelihood, with
+    the transposed (`nuts_batched_t`) or the batch-major (`nuts_batched`)
+    kernel, driven through public entry points in two calls so that
+    warmup and sampling are timed apart (each between
+    torch.cuda.synchronize() calls): `Model.sample` with n_samples=0 runs
+    the warmup, and `resume_sampling` continues from its state (the draws
+    an uninterrupted `Model.sample` would give); `Model.constrain` maps the
+    linked draws. The launch counters are zeroed just before the first
+    call and read after the last."""
     import tpu_bijectors_torch as tbt
     from tpu_bijectors_torch import diagnostics, dists, kernels
     from tpu_bijectors_torch.infer import hmc_batched, resume_sampling
 
+    transposed = kernel == "nuts_batched_t"
+    # one launch per batched leapfrog: the fused value-and-gradient kernel
+    # of the transposed density, the LKJ inverse link of the batch-major one
+    per_leapfrog = "slab_value_and_grad" if transposed else "lkj_inverse"
+    path = (("slab_value_and_grad",) if transposed else ()) + tuple(SOURCES)
     model = tbt.Model(bench_model(dists, dev, torch.float32), loglik=loglik, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     torch.cuda.synchronize()
@@ -375,14 +736,14 @@ def run_sampler(dev, loglik, counts):
     t0 = time.perf_counter()
     _, state, _ = model.sample(
         gen, n_chains=CHAINS, n_warmup=WARMUP, n_samples=0, max_depth=MAX_DEPTH,
-        target_accept=TARGET_ACCEPT, constrained=False,
+        target_accept=TARGET_ACCEPT, constrained=False, kernel=kernel,
     )
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     l1, s1 = dict(kernels.LAUNCHES), hmc_batched.SYNCS["any_active"]
+    density = model.batched_logdensity_t_fn() if transposed else model.batched_logdensity_fn()
     raw, state, stats = resume_sampling(
-        model.batched_logdensity_t_fn(), state, KEPT, kernel="nuts_batched_t",
-        max_depth=MAX_DEPTH,
+        density, state, KEPT, kernel=kernel, max_depth=MAX_DEPTH,
     )
     torch.cuda.synchronize()
     t2 = time.perf_counter()
@@ -391,14 +752,14 @@ def run_sampler(dev, loglik, counts):
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     launches = dict(kernels.LAUNCHES)
-    print(f"launches on the sampler path: {launches}", flush=True)
-    for k in ("slab_value_and_grad",) + tuple(SOURCES):
-        expect(f"{k} launched on the sampler path", launches[k] > 0)
+    print(f"launches on the {kernel} sampler path: {launches}", flush=True)
+    for k in path:
+        expect(f"{k} launched on the {kernel} sampler path", launches[k] > 0)
 
     during = {k: l2[k] - l1[k] for k in l2}
-    leapfrogs = during["slab_value_and_grad"]  # one per batched leapfrog
+    leapfrogs = during[per_leapfrog]
     sampling_s = t2 - t1
-    expect("raw draws (200, 64, 151) and finite",
+    expect(f"{kernel}: raw draws (200, 64, 151) and finite",
            tuple(raw.shape) == (KEPT, CHAINS, 151) and bool(torch.isfinite(raw).all()))
     r_hat = diagnostics.rhat(raw)
     ess = diagnostics.ess_bulk(raw)
@@ -408,6 +769,7 @@ def run_sampler(dev, loglik, counts):
     dev_w = np.abs(w.double().mean(dim=(0, 1)).cpu().numpy() - post) / mcse
     n_div = int(stats.diverging.sum())
     line = {
+        "kernel": kernel,
         "chains": CHAINS, "warmup": WARMUP, "kept": KEPT, "max_depth": MAX_DEPTH,
         "target_accept": TARGET_ACCEPT,
         "warmup_s": t1 - t0,
@@ -431,11 +793,12 @@ def run_sampler(dev, loglik, counts):
         "min_ess_bulk": float(np.min(ess)),
         "max_w_dev_in_mcse": float(np.max(dev_w)),
     }
-    expect(f"max R-hat {line['max_rhat']:.4f} <= 1.05", line["max_rhat"] <= 1.05)
-    expect(f"divergences {n_div} <= 1% of {CHAINS * KEPT}", n_div <= 0.01 * CHAINS * KEPT)
-    expect(f"w means within 5 MCSE of Dirichlet(1 + counts) (max {np.max(dev_w):.2f})",
-           bool(np.all(dev_w <= 5.0)))
-    expect("constrained draws finite",
+    expect(f"{kernel}: max R-hat {line['max_rhat']:.4f} <= 1.05", line["max_rhat"] <= 1.05)
+    expect(f"{kernel}: divergences {n_div} <= 1% of {CHAINS * KEPT}",
+           n_div <= 0.01 * CHAINS * KEPT)
+    expect(f"{kernel}: w means within 5 MCSE of Dirichlet(1 + counts) "
+           f"(max {np.max(dev_w):.2f})", bool(np.all(dev_w <= 5.0)))
+    expect(f"{kernel}: constrained draws finite",
            all(bool(torch.isfinite(t).all()) for t in samples.values()))
     return line, launches
 
@@ -602,8 +965,16 @@ def main():
     check_link_entry_points(dev, vT, loglik, counts)
 
     # --- the second main path: NUTS with the likelihood ----------------------
-    sampler_line, sampler_launches = run_sampler(dev, loglik, counts)
+    sampler_line, sampler_launches = run_sampler(dev, loglik, counts, "nuts_batched_t")
     launches.update({k: sampler_launches[k] for k in SOURCES})
+
+    # --- the third: the batch-major entry points -------------------------------
+    err.update(check_batch_major_kernels(dev, vT, vxT, face_points(rng, 4096)))
+    bm_launches, bm_e2e = run_batch_major_serving(dev, vT, scale, loglik)
+    launches.update({k: bm_launches[k] for k in BATCH_MAJOR_SOURCES})
+
+    # --- the fourth: batch-major NUTS with the likelihood ----------------------
+    bm_sampler_line, _ = run_sampler(dev, loglik, counts, "nuts_batched")
 
     # --- timing ----------------------------------------------------------------
     groups_per_row = [fb._groups_and_used(cf[r : r + 1])[0] for r in range(dim)]
@@ -651,6 +1022,7 @@ def main():
               flush=True)
 
     rows += time_link_kernels(vT, launches, err)
+    rows += time_batch_major_kernels(vT, launches, err)
 
     # the entry points as a caller sees them: host dispatch included, at the
     # full batch and at a sampler's batch of 64 chains
@@ -665,8 +1037,10 @@ def main():
             lambda: f.value_and_grad_fn(v64), device_only=False
         ),
     }
+    e2e.update(bm_e2e)
     print(json.dumps({"end_to_end": e2e}), flush=True)
     print(json.dumps({"sampler": sampler_line}), flush=True)
+    print(json.dumps({"sampler": bm_sampler_line}), flush=True)
 
     if failures:
         print("FAILED: " + "; ".join(failures), file=sys.stderr)

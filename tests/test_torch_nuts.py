@@ -3,12 +3,15 @@ package, float64 on the CPU.
 
 Adaptation (schedule, dual averaging, Welford), the tree counter's bit
 trick and the diagnostics on the same numpy inputs (1e-12); the leapfrog
-step against the same formula evaluated with the JAX package's
-value-and-gradient; the sampler's `inv_mass0` and `thin` against the JAX
-package's on a deterministic stand-in transition, and `resume_sampling`'s
-continuation; `Model(loglik=...)`'s transposed log-density and its
+step of both layouts (transposed, `nuts_batched_t`; batch-major,
+`nuts_batched`) against the same formula evaluated with the JAX package's
+value-and-gradient; the sampler's `inv_mass0` and `thin`, and the whole
+warmup-and-sample loop of `nuts_batched`, against the JAX package's on a
+deterministic stand-in transition, and `resume_sampling`'s continuation
+in both layouts; `Model(loglik=...)`'s transposed log-density and its
 value-and-gradient against the JAX package's on a scaled-down bench model
-with a likelihood (1e-10); and a whole seeded `Model.sample` run held to
+with a likelihood (1e-10); `kernel='auto'`'s choice against the JAX
+package's; and whole seeded `Model.sample` runs of both layouts held to
 the known Dirichlet(1 + counts) posterior of its `w` block. The random
 streams differ (torch generators, JAX keys), so whole runs are compared in
 distribution, not draw by draw.
@@ -28,13 +31,20 @@ from tpu_bijectors import dists as jd
 from tpu_bijectors.infer import Model as JModel
 from tpu_bijectors.infer import adapt as jadapt
 from tpu_bijectors.infer import sampler as jsampler
+from tpu_bijectors.infer import hmc_batched as jhmc_batched
+from tpu_bijectors.infer.hmc import NutsInfo as JNutsInfo
 from tpu_bijectors.infer.hmc import _trailing_zeros as j_trailing_zeros
 from tpu_bijectors.infer.hmc import apply_inv_mass as j_apply_inv_mass
 
 import tpu_bijectors_torch as tbt
 from tpu_bijectors_torch import diagnostics, kernels
 from tpu_bijectors_torch.infer import adapt, hmc_batched, sampler
-from tpu_bijectors_torch.infer.hmc import _trailing_zeros, apply_inv_mass, sample_momentum
+from tpu_bijectors_torch.infer.hmc import (
+    NutsInfo,
+    _trailing_zeros,
+    apply_inv_mass,
+    sample_momentum,
+)
 
 TOL = dict(rtol=1e-12, atol=1e-12)
 MODEL_TOL = dict(rtol=1e-10, atol=1e-10)
@@ -197,21 +207,31 @@ def test_model_with_loglik_matches_jax(rng):
     )
 
 
-def test_leapfrog_matches_formula_with_jax_gradient(rng):
+@pytest.mark.parametrize("transposed", [True, False])
+def test_leapfrog_matches_formula_with_jax_gradient(rng, transposed):
+    """One step of each layout: the transposed one on (dim, C) states with
+    Model.batched_logdensity_t_fn, the batch-major one on (C, dim) states
+    with Model.batched_logdensity_fn (the JAX package's value and gradient
+    through jax.vjp, as its batch-major leapfrog takes them)."""
     jm, tm = _models()
     dim, C = tm.dim(), 6
     q, p = _state(rng, dim, C), rng.standard_normal((dim, C))
     eps_dir = 0.2 * np.where(rng.uniform(size=C) < 0.5, 1.0, -1.0)[None, :]
-    inv_mass = rng.uniform(0.5, 1.5, dim)
-    jvg = jax.jit(jm.batched_logdensity_t_fn().value_and_grad_fn)
+    inv_mass = rng.uniform(0.5, 1.5, dim)[:, None]
+    if transposed:
+        jvg = jax.jit(jm.batched_logdensity_t_fn().value_and_grad_fn)
+        vg = tm.batched_logdensity_t_fn().value_and_grad_fn
+    else:
+        q, p, eps_dir, inv_mass = q.T, p.T, eps_dir.T, inv_mass.T
+        jvg = jax.jit(jhmc_batched._batched_logp_and_grad(jm.batched_logdensity_fn()))
+        vg = tm.batched_logdensity_fn().value_and_grad_fn
     _, g0 = jvg(jnp.asarray(q))
     p_half = p + 0.5 * eps_dir * np.asarray(g0)
-    q1 = q + eps_dir * inv_mass[:, None] * p_half
+    q1 = q + eps_dir * inv_mass * p_half
     lp1, g1 = jvg(jnp.asarray(q1))
     p1 = p_half + 0.5 * eps_dir * np.asarray(g1)
 
-    vg = tm.batched_logdensity_t_fn().value_and_grad_fn
-    tq = torch.as_tensor(q)
+    tq = torch.as_tensor(np.ascontiguousarray(q))
     got = hmc_batched._leapfrog(
         vg, tq, torch.as_tensor(p), vg(tq)[1], torch.as_tensor(eps_dir),
         torch.as_tensor(inv_mass),
@@ -286,24 +306,84 @@ def test_run_sampling_thin_and_inv_mass0_match_jax(thin):
         np.testing.assert_allclose(got.astype(np.float64), ref.astype(np.float64), **TOL)
 
 
-def test_resume_sampling_repeats_the_tail_of_an_uninterrupted_run():
+def _stand_in_kernel(info_cls):
+    """A deterministic stand-in for the batch-major NUTS transition, the
+    same in both packages: the state contracts towards the step size, and
+    the stats are functions of the chain's first coordinate and the step
+    size, so the step-size and mass adaptation feed back into the run."""
+
+    def step_kernel(key, q, lp, g, eps, im):
+        c = q[:, 0]
+        acc = 1.0 / (1.0 + eps * (1.0 + c * c))
+        info = info_cls(acc, c > 2.5, 0 * c + 3, -lp, 0 * c + 2)
+        return 0.7 * q + eps * im + 0.1 * (c / (1.0 + c * c))[:, None], lp - 1.0, g, info
+
+    return step_kernel
+
+
+@pytest.mark.parametrize("thin", [1, 3])
+def test_nuts_batched_warmup_and_sample_drive_match_jax(monkeypatch, thin):
+    """warmup_and_sample(kernel='nuts_batched') against the JAX package's,
+    both driving the same deterministic stand-in transition in place of
+    the batch-major NUTS kernel: the dual-averaged step size, the Welford
+    mass windows, the metric refresh and the restarted step-size
+    adaptation, `inv_mass0` and `thin` give the same draws, state and
+    stats (1e-12)."""
+    monkeypatch.setattr(
+        sampler, "nuts_kernel_batched",
+        lambda fn, max_depth=10: _stand_in_kernel(NutsInfo),
+    )
+    monkeypatch.setattr(
+        jhmc_batched, "nuts_kernel_batched",
+        lambda fn, max_depth=10: _stand_in_kernel(JNutsInfo),
+    )
+    q0 = np.linspace(-1.0, 2.0, 12).reshape(4, 3)
+    inv_mass0 = np.array([0.5, 2.0, 1.5])
+    kw = dict(n_warmup=160, n_samples=7, thin=thin, eps0=0.3, inv_mass0=inv_mass0,
+              kernel="nuts_batched")
+    got = sampler.warmup_and_sample(
+        lambda q: -0.5 * torch.sum(q * q, dim=-1), torch.Generator().manual_seed(0),
+        torch.as_tensor(q0), **kw,
+    )
+    ref = jsampler.warmup_and_sample(
+        lambda q: -0.5 * jnp.sum(q * q, axis=-1), jax.random.PRNGKey(0), jnp.asarray(q0), **kw,
+    )
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(ref[0]), **TOL)
+    for f in ("q", "logp", "eps", "inv_mass"):
+        np.testing.assert_allclose(
+            getattr(got[1], f).numpy(), np.asarray(getattr(ref[1], f)), **TOL
+        )
+    for a, b in zip(got[1].ss + got[1].welford, ref[1].ss + ref[1].welford):
+        np.testing.assert_allclose(np.asarray(a, np.float64), np.asarray(b, np.float64), **TOL)
+    for f in sampler.RunStats._fields:
+        np.testing.assert_allclose(
+            getattr(got[2], f).numpy().astype(np.float64),
+            np.asarray(getattr(ref[2], f)).astype(np.float64), **TOL,
+        )
+
+
+@pytest.mark.parametrize("kernel", ["nuts_batched_t", "nuts_batched"])
+def test_resume_sampling_repeats_the_tail_of_an_uninterrupted_run(kernel):
     """warmup_and_sample with n_samples=0 returns the post-warmup state (and
     empty draws and stats); resume_sampling from it gives the draws and
-    stats of one uninterrupted run, bit for bit, as in the JAX package."""
+    stats of one uninterrupted run, bit for bit, as in the JAX package, in
+    either layout."""
     scale = torch.tensor([0.5, 1.0, 3.0], dtype=torch.float64)
 
-    def ld(vT):
-        return -0.5 * torch.sum((vT / scale[:, None]) ** 2, dim=0)
+    def ld(v):
+        if kernel == "nuts_batched_t":
+            return -0.5 * torch.sum((v / scale[:, None]) ** 2, dim=0)
+        return -0.5 * torch.sum((v / scale) ** 2, dim=-1)
 
     q0 = torch.randn((4, 3), generator=torch.Generator().manual_seed(2), dtype=torch.float64)
-    kw = dict(n_warmup=30, kernel="nuts_batched_t", max_depth=4)
+    kw = dict(n_warmup=30, kernel=kernel, max_depth=4)
     full = sampler.warmup_and_sample(ld, torch.Generator().manual_seed(1), q0, n_samples=6, **kw)
     empty, state, stats = sampler.warmup_and_sample(
         ld, torch.Generator().manual_seed(1), q0, n_samples=0, **kw
     )
     assert empty.shape == (0, 4, 3) and all(f.shape == (0, 4) for f in stats)
     assert [f.dtype for f in stats] == [f.dtype for f in full[2]]
-    part = sampler.resume_sampling(ld, state, 6, kernel="nuts_batched_t", max_depth=4)
+    part = sampler.resume_sampling(ld, state, 6, kernel=kernel, max_depth=4)
     assert torch.equal(part[0], full[0]) and torch.equal(part[1].q, full[1].q)
     for a, b in zip(part[2], full[2]):
         assert torch.equal(a, b)
@@ -324,22 +404,28 @@ def test_inv_mass0_of_the_wrong_shape_raises_as_in_jax():
 # ---------------------------------------------------------------------------
 
 
-def test_model_sample_recovers_dirichlet_posterior():
-    """8 chains, 150 warmup + 150 draws, max_depth 6, seeded: rank-normalized
-    R-hat <= 1.1 on every linked coordinate, and each posterior mean of w
-    within 5 MCSE of the Dirichlet(1 + counts) mean (the likelihood's
-    counts term is the only other factor on w, up to its 1e-8)."""
+@pytest.mark.parametrize("kernels_on", [True, False])
+def test_model_sample_recovers_dirichlet_posterior(kernels_on):
+    """8 chains, 150 warmup + 150 draws, max_depth 6, seeded, through
+    kernel='auto': with the kernels on, the transposed `nuts_batched_t`;
+    with them off, the batch-major `nuts_batched` (where the JAX package
+    takes it too). Rank-normalized R-hat <= 1.1 on every linked coordinate,
+    and each posterior mean of w within 5 MCSE of the Dirichlet(1 + counts)
+    mean (the likelihood's counts term is the only other factor on w, up
+    to its 1e-8)."""
     _, tm = _models()
     before = dict(kernels.LAUNCHES)
     hmc_batched.reset_sync_count()
     g = torch.Generator().manual_seed(0)
     threads = torch.get_num_threads()
     torch.set_num_threads(1)  # thousands of tiny ops: threads only add overhead
+    kernels.enable(kernels_on)
     try:
         draws, state, stats = tm.sample(
             g, n_chains=8, n_warmup=150, n_samples=150, max_depth=6, constrained=False
         )
     finally:
+        kernels.enable(True)
         torch.set_num_threads(threads)
     assert draws.shape == (150, 8, tm.dim()) and torch.isfinite(draws).all()
     assert kernels.LAUNCHES == before  # a CPU state runs the plain versions
@@ -361,12 +447,42 @@ def test_sample_raises_where_the_jax_package_takes_unported_paths():
                dict(kernel="chees"), dict(metric="dense")):
         with pytest.raises(NotImplementedError):
             tm.sample(g, n_chains=2, n_warmup=0, n_samples=1, **kw)
+    with pytest.raises(NotImplementedError, match="batched=False"):
+        sampler.init_sampler(lambda q: -torch.sum(q * q, -1), g, torch.zeros(2, 3),
+                             batched=False)
+
+
+def _picked(monkeypatch, model, jmodel):
+    """The kernel names that Model.sample(kernel='auto') hands the sampler
+    in the port and in the JAX package (their samplers stubbed out)."""
+    seen = []
+
+    def stub(fn, key, q0, n_warmup, n_samples, kernel, **kw):
+        seen.append(kernel)
+        return q0[None], None, None
+
+    monkeypatch.setattr(sampler, "sample_with_kernel", stub)
+    monkeypatch.setattr(jsampler, "sample_with_kernel", stub)
+    model.sample(torch.Generator().manual_seed(0), n_chains=2, constrained=False)
+    jmodel.sample(jax.random.PRNGKey(0), n_chains=2, constrained=False)
+    return seen
+
+
+@pytest.mark.parametrize("case", ["kernels_off", "bare_leaf"])
+def test_auto_picks_nuts_batched_where_the_jax_package_does(monkeypatch, case):
+    """Where the model has no fused plan (a bare leaf) or the kernels are
+    off, kernel='auto' takes the batch-major `nuts_batched` in both
+    packages (on the CPU the JAX package always takes it; the port takes
+    `nuts_batched_t` wherever the fused plan serves, on either device)."""
+    if case == "bare_leaf":
+        jm = JModel(priors=jd.Normal(0.0, 1.0), loglik=lambda x: x)
+        tm = tbt.Model(tbt.dists.Normal(0.0, 1.0, **CPU64), loglik=lambda x: x, device="cpu")
+        assert _picked(monkeypatch, tm, jm) == ["nuts_batched", "nuts_batched"]
+        return
+    jm, tm = _models()
+    assert _picked(monkeypatch, tm, jm) == ["nuts_batched_t", "nuts_batched"]
     kernels.enable(False)
     try:
-        with pytest.raises(NotImplementedError, match="nuts_batched"):
-            tm.sample(g, n_chains=2, n_warmup=0, n_samples=1)
+        assert _picked(monkeypatch, tm, jm) == ["nuts_batched", "nuts_batched"]
     finally:
         kernels.enable(True)
-    leaf = tbt.Model(tbt.dists.Normal(0.0, 1.0, **CPU64), device="cpu")
-    with pytest.raises(NotImplementedError, match="nuts_batched"):
-        leaf.sample(g, n_chains=2, n_warmup=0, n_samples=1)

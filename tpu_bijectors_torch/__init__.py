@@ -9,16 +9,20 @@ CPU as their plain PyTorch versions.
 """
 
 from . import dists, kernels
+from .bijectors import Chain, Invert, inverse
 from .convert import dist_from_spec
 from .infer.model import Model
 from .registry import bijector, logpdf_with_trans
 from .vectorize.core import unconstrain
 
 __all__ = [
+    "Chain",
+    "Invert",
     "Model",
     "bijector",
     "dist_from_spec",
     "dists",
+    "inverse",
     "kernels",
     "logpdf_with_trans",
     "unconstrain",

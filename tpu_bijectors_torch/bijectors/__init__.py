@@ -1,6 +1,6 @@
 """Bijectors of the port (counterpart of `tpu_bijectors.bijectors`)."""
 
-from .base import Bijector, Block, Identity, elementwise
+from .base import Bijector, Block, Chain, Identity, Invert, elementwise, inverse
 from .corr import VecCorrBijector
 from .scalar import Truncated
 from .simplex import SimplexBijector
@@ -8,8 +8,11 @@ from .simplex import SimplexBijector
 __all__ = [
     "Bijector",
     "Block",
+    "Chain",
     "Identity",
+    "Invert",
     "elementwise",
+    "inverse",
     "VecCorrBijector",
     "Truncated",
     "SimplexBijector",

@@ -5,6 +5,9 @@
 derives. Inputs carry any leading batch dims; scalar bijectors
 (event_ndims 0) return elementwise log-dets and `Block` sums them over
 trailing event dims (reference `elementwise(f)`, src/interface.jl:33).
+`Invert` and `inverse(b)` swap the two directions; `Chain` composes
+bijectors right to left and sums each member's log-det down to the
+chain's batch shape.
 """
 
 from __future__ import annotations
@@ -36,6 +39,147 @@ class Bijector:
 
     def forward_event_shape(self, shape: tuple) -> tuple:
         return tuple(shape)
+
+    def inverse_event_shape(self, shape: tuple) -> tuple:
+        return tuple(shape)
+
+
+@dataclass(frozen=True)
+class Invert(Bijector):
+    """Lazy inverse wrapper (reference `Inverse`, src/interface.jl:246-281):
+    its forward is the wrapped bijector's inverse and the reverse."""
+
+    bijector: Bijector
+
+    @property
+    def event_ndims_in(self):  # type: ignore[override]
+        return self.bijector.event_ndims_out
+
+    @property
+    def event_ndims_out(self):  # type: ignore[override]
+        return self.bijector.event_ndims_in
+
+    def forward_and_log_det(self, y):
+        return self.bijector.inverse_and_log_det(y)
+
+    def inverse_and_log_det(self, x):
+        return self.bijector.forward_and_log_det(x)
+
+    def forward(self, y):
+        return self.bijector.inverse(y)
+
+    def inverse(self, x):
+        return self.bijector.forward(x)
+
+    def forward_event_shape(self, shape):
+        return self.bijector.inverse_event_shape(shape)
+
+    def inverse_event_shape(self, shape):
+        return self.bijector.forward_event_shape(shape)
+
+
+def inverse(b: Bijector) -> Bijector:
+    """Involutive inverse (reference `inverse`, src/interface.jl:265-269)."""
+    return b.bijector if isinstance(b, Invert) else Invert(b)
+
+
+@dataclass(frozen=True)
+class Chain(Bijector):
+    """Composition outer o ... o inner, applied right to left as Julia's
+    `∘` (reference src/bijectors/composed.jl:4-14):
+    `Chain((f, g)).forward(x) == f.forward(g.forward(x))`. Nested chains
+    flatten at construction."""
+
+    transforms: tuple
+
+    def __post_init__(self):
+        flat = []
+        for t in self.transforms:
+            flat.extend(t.transforms if isinstance(t, Chain) else (t,))
+        object.__setattr__(self, "transforms", tuple(flat))
+
+    def _propagate_event_ndims(self):
+        """(event_ndims_in, event_ndims_out), walking members inner to
+        outer: a member that needs more trailing event dims than the value
+        carries pulls them from the batch, one that needs fewer broadcasts
+        over the rest."""
+        ndims_in = cur_out = 0
+        for t in reversed(self.transforms):
+            need = int(t.event_ndims_in)
+            if need > cur_out:
+                ndims_in += need - cur_out
+                cur_out = int(t.event_ndims_out)
+            else:
+                cur_out = (cur_out - need) + int(t.event_ndims_out)
+        return ndims_in, cur_out
+
+    @property
+    def event_ndims_in(self):  # type: ignore[override]
+        return self._propagate_event_ndims()[0]
+
+    @property
+    def event_ndims_out(self):  # type: ignore[override]
+        return self._propagate_event_ndims()[1]
+
+    def forward_and_log_det(self, x):
+        batch_ndim = _batch_ndim_of(x, self.event_ndims_in)
+        logdet = None
+        for t in reversed(self.transforms):
+            x, ld = t.forward_and_log_det(x)
+            ld = _reduce_to_batch(ld, batch_ndim)
+            logdet = ld if logdet is None else logdet + ld
+        return x, logdet
+
+    def forward(self, x):
+        for t in reversed(self.transforms):
+            x = t.forward(x)
+        return x
+
+    def inverse_and_log_det(self, y):
+        batch_ndim = _batch_ndim_of(y, self.event_ndims_out)
+        logdet = None
+        for t in self.transforms:
+            y, ld = t.inverse_and_log_det(y)
+            ld = _reduce_to_batch(ld, batch_ndim)
+            logdet = ld if logdet is None else logdet + ld
+        return y, logdet
+
+    def inverse(self, y):
+        for t in self.transforms:
+            y = t.inverse(y)
+        return y
+
+    def forward_event_shape(self, shape):
+        for t in reversed(self.transforms):
+            shape = t.forward_event_shape(shape)
+        return shape
+
+    def inverse_event_shape(self, shape):
+        for t in self.transforms:
+            shape = t.inverse_event_shape(shape)
+        return shape
+
+
+def _batch_ndim_of(x, event_ndims: int) -> int:
+    """The number of leading batch dims of a chain's input tensor."""
+    if x.ndim < event_ndims:
+        raise ValueError(
+            f"Chain input has {x.ndim} dims but the composition needs {event_ndims} event dims"
+        )
+    return x.ndim - event_ndims
+
+
+def _reduce_to_batch(ld, batch_ndim: int):
+    """Sum a member's log-det down to the chain's batch shape: a scalar
+    member applied to a vector-valued intermediate returns an elementwise
+    log-det, summed here over the dims beyond the chain's batch rank."""
+    extra = ld.ndim - batch_ndim
+    if extra < 0:
+        raise ValueError(
+            f"Chain member produced a log-det with fewer dims ({ld.ndim}) than the "
+            f"chain batch rank ({batch_ndim}): a member mis-declares its event_ndims"
+        )
+    return sum_last(ld, extra)
 
 
 @dataclass(frozen=True)

@@ -14,10 +14,11 @@ masked cumulative sum along the row axis:
 
 Packing is column-major over the strict upper triangle (src/utils.jl:77-85).
 
-The inverse (X, logJ, log diag W) is a `torch.autograd.Function`: its
-forward is `kernels/lkj.py`'s wrapper (the CUDA kernel for a CUDA tensor,
-the plain cumulative sums there for a CPU tensor), its backward the closed
-form of `_vec_corr_vjp` on both.
+The inverse (X, logJ, log diag W) and the log-det alone (logJ, log diag
+W) are `torch.autograd.Function`s: their forwards are `kernels/lkj.py`'s
+wrappers `lkj_inverse` and `lkj_logdet` (the CUDA kernels for a CUDA
+tensor, the plain cumulative sums there for a CPU tensor), their backward
+the closed forms of `_vec_corr_vjp` and `_logdet_vjp` on both.
 Any leading batch axes are flattened into the kernel's batch.
 """
 
@@ -28,13 +29,7 @@ from functools import lru_cache
 
 import torch
 
-from ..kernels.lkj import (
-    _diag_coeff,
-    _inv_link_chol_lkj_with_logdiag,
-    _tri_masks,
-    _up_mask,
-    lkj_inverse,
-)
+from ..kernels.lkj import _tri_masks, _up_mask, lkj_inverse, lkj_logdet
 from ..utils import (
     _triu_index_arrays,
     _triu_index_tensors,
@@ -70,17 +65,27 @@ def _logabsdetjac_inv_corr_vec(y):
 
 
 @lru_cache(maxsize=None)
-def _row_coeff(K, dtype, device):
-    """K - i_s per packed slot s (its 0-based row i_s), made once."""
-    rows, _ = _triu_index_arrays(K, 1)
-    return torch.as_tensor(K - rows, dtype=dtype, device=device)
+def _row_coeff(K, dtype, device, chol=False):
+    """The multiplicity of logcosh(y_s) in logJ per packed slot s at 0-based
+    (row i, column j): K - i for the vec-corr link (the telescoping of
+    corr.jl:474-483), j - i + 1 for the Cholesky variant (corr.jl:485-501).
+    Made once."""
+    rows, cols = _triu_index_arrays(K, 1)
+    return torch.as_tensor(cols - rows + 1 if chol else K - rows, dtype=dtype, device=device)
 
 
-def _vec_corr_logdet(y):
-    """(logJ, log diag W) without forming X."""
-    K = triu1_dim_from_length(y.shape[-1])
-    _, logJ, log_diag = _inv_link_chol_lkj_with_logdiag(vec_to_triu(y, 1, K))
-    return logJ + torch.sum(_diag_coeff(K, y) * log_diag, dim=-1), log_diag
+def _logdet_vjp(y, K, chol, glogJ, glog_diag):
+    """Cotangent of y (N, P) from (logJ, log diag W) given theirs (each may
+    be None): d logcosh / dy = tanh, so gy = -coeff t glogJ - t glog_diag
+    of the slot's column, with t = tanh(y) (the transpose of the JAX
+    package's `_lkj_logdet_tangent`)."""
+    t = torch.tanh(y)
+    gy = torch.zeros_like(y)
+    if glogJ is not None:
+        gy = gy - _row_coeff(K, y.dtype, y.device, chol) * t * glogJ[..., None]
+    if glog_diag is not None:
+        gy = gy - t * glog_diag[..., _triu_index_tensors(K, 1, y.device)[1]]
+    return gy
 
 
 def _vec_corr_vjp(y, W, gX, glogJ, glog_diag):
@@ -95,13 +100,13 @@ def _vec_corr_vjp(y, W, gX, glogJ, glog_diag):
       gy   -= (K - k) t_kj glogJ + t_kj glog_diag_j
 
     (the logJ and log-diagonal slopes are the vec-corr coefficients of
-    corr.py:346-367). sech^2 exp(lr_excl) is taken as exp(lr_excl - 2 lc),
-    in the log domain, so it underflows to 0 rather than forming 0 * inf
-    at 1e10 states."""
+    corr.py:346-367, `_logdet_vjp`). sech^2 exp(lr_excl) is taken as
+    exp(lr_excl - 2 lc), in the log domain, so it underflows to 0 rather
+    than forming 0 * inf at 1e10 states."""
     K = W.shape[-1]
-    t = torch.tanh(y)
-    gy = torch.zeros_like(y)
+    gy = _logdet_vjp(y, K, False, glogJ, glog_diag)
     if gX is not None:
+        t = torch.tanh(y)
         lc = logcosh(y)
         LC = vec_to_triu(lc, 1, K)
         lr_excl = LC - torch.cumsum(LC, dim=-2)
@@ -110,11 +115,7 @@ def _vec_corr_vjp(y, W, gX, glogJ, glog_diag):
         # sum over i > k of P_ij within column j (P is upper triangular)
         below = torch.flip(torch.cumsum(torch.flip(P, (-2,)), dim=-2), (-2,)) - P
         gY = gW * torch.exp(lr_excl - 2.0 * LC) - vec_to_triu(t, 1, K) * below
-        gy = triu_to_vec(gY, 1)
-    if glogJ is not None:
-        gy = gy - _row_coeff(K, y.dtype, y.device) * t * glogJ[..., None]
-    if glog_diag is not None:
-        gy = gy - t * glog_diag[..., _triu_index_tensors(K, 1, y.device)[1]]
+        gy = gy + triu_to_vec(gY, 1)
     return gy
 
 
@@ -137,6 +138,37 @@ class _VecCorrInverse(torch.autograd.Function):
         return _vec_corr_vjp(y, W, gX, glogJ, glog_diag), None
 
 
+class _LkjLogdet(torch.autograd.Function):
+    """(logJ, log diag W) of y (N, K(K-1)/2), X never formed. Forward: the
+    log-det kernel on the card, the plain cumulative sums on the CPU;
+    backward: `_logdet_vjp` on both (it needs y alone)."""
+
+    @staticmethod
+    def forward(ctx, y, K, chol):
+        logJ, log_diag = lkj_logdet(y, K, chol)
+        ctx.save_for_backward(y)
+        ctx.K, ctx.chol = K, chol
+        ctx.set_materialize_grads(False)  # an unused output's cotangent is None
+        return logJ, log_diag
+
+    @staticmethod
+    def backward(ctx, glogJ, glog_diag):
+        (y,) = ctx.saved_tensors
+        return _logdet_vjp(y, ctx.K, ctx.chol, glogJ, glog_diag), None, None
+
+
+def _lkj_logdet_all(y, chol: bool):
+    """(logJ, log diag W) over any leading axes of y (..., K(K-1)/2), X
+    never formed: the vec-corr inverse link's, or with `chol` the
+    Cholesky variant's (the JAX package's `_chol_logdet_pallas`; the
+    LKJCholesky family that reaches it from an entry point is not ported
+    yet)."""
+    K = triu1_dim_from_length(y.shape[-1])
+    lead = y.shape[:-1]
+    logJ, log_diag = _LkjLogdet.apply(y.reshape(-1, y.shape[-1]), K, chol)
+    return logJ.reshape(lead), log_diag.reshape(lead + (K,))
+
+
 def _vec_corr_inverse_all(y):
     """(X, logJ, log diag W) over any leading axes of y (..., K(K-1)/2)."""
     K = triu1_dim_from_length(y.shape[-1])
@@ -157,6 +189,10 @@ class VecCorrBijector(Bijector):
         n = shape[-1]
         return tuple(shape[:-2]) + (n * (n - 1) // 2,)
 
+    def inverse_event_shape(self, shape):
+        n = triu1_dim_from_length(shape[-1])
+        return tuple(shape[:-1]) + (n, n)
+
     def forward(self, X):
         return triu_to_vec(_link_chol_lkj(cholesky_upper(X)), k=1)
 
@@ -167,7 +203,19 @@ class VecCorrBijector(Bijector):
     def inverse_and_log_det(self, y):
         return _vec_corr_inverse_all(y)[:2]
 
+    def inverse_and_log_det_with_factor(self, y):
+        """(X, logJ, log diag W): the log-diagonal of the factor W of X that
+        the inverse computes anyway, on which the LKJ density fuses
+        (matrix.py LKJ.logpdf_from_factor) instead of re-decomposing X."""
+        return _vec_corr_inverse_all(y)
+
     def inverse_log_det_and_factor_only(self, y):
         """(logJ, log diag W) without materialising X: the LKJ density
         needs only the factor's diagonal (matrix.py LKJ.logpdf_from_factor)."""
-        return _vec_corr_logdet(y)
+        return _lkj_logdet_all(y, False)
+
+    def inverse_log_det_and_factor_only_t(self, yT):
+        """The same on the transposed (P, B) block of a state, read in place
+        (the kernel takes the swapped view through its strides); log diag W
+        comes back (B, K)."""
+        return _lkj_logdet_all(yT.transpose(0, 1), False)

@@ -11,12 +11,18 @@ src/bijectors/simplex.jl:28-138):
   inverse:  the same recurrence in the running sum, clamped per step
             (simplex.jl:84-100).
 
-The inverse (with its log-det, and with the Dirichlet data term wlog) is a
-`torch.autograd.Function`: its forward is `kernels/simplex.py`'s
-wrapper (the CUDA kernel for a CUDA tensor, the plain recurrence there for
-a CPU tensor); its backward is the closed-form vector-Jacobian
-product of `_simplex_vjp`, in torch ops on either device. Any leading batch
-axes are flattened into the kernel's batch.
+Each direction is a `torch.autograd.Function` whose forward is a wrapper
+of `kernels/simplex.py` (the CUDA kernel for a CUDA tensor, the plain
+version there for a CPU tensor) and whose backward is a closed-form
+vector-Jacobian product in torch ops on either device:
+
+  inverse with its log-det (and the Dirichlet data term wlog):
+      `simplex_inverse_logdet`; backward `_simplex_vjp` + `_ld_vjp`
+  inverse, x alone:            `simplex_inverse`; backward `_simplex_vjp`
+  forward with its log-det:    `simplex_forward_logdet`; backward
+      `_simplex_forward_vjp` + `_ld_vjp`
+
+Any leading batch axes are flattened into the kernel's batch.
 """
 
 from __future__ import annotations
@@ -29,11 +35,12 @@ import torch
 from ..kernels.simplex import (
     _exclusive_prefix,
     _first,
-    _inverse_logdet_from_x,
     _log_km1_minus_k,
+    simplex_forward_logdet,
+    simplex_inverse,
     simplex_inverse_logdet,
 )
-from ..utils import _eps, clamp_slope, logistic, logit, max_slope
+from ..utils import _eps, clamp_slope, logistic, max_slope
 from .base import Bijector
 
 
@@ -47,24 +54,22 @@ class SimplexBijector(Bijector):
     def forward_event_shape(self, shape):
         return tuple(shape[:-1]) + (shape[-1] - 1,)
 
+    def inverse_event_shape(self, shape):
+        return tuple(shape[:-1]) + (shape[-1] + 1,)
+
     def forward_and_log_det(self, x):
-        return self.forward(x), self.forward_log_det_jacobian(x)
-
-    def forward(self, x):
-        K = x.shape[-1]
-        if K < 2:
+        """(y, forward log-det) in one pass; `forward` keeps y."""
+        if x.shape[-1] < 2:
             raise ValueError("simplex dimension must be >= 2")
-        eps = _eps(x.dtype)
-        s = _exclusive_prefix(x, K)
-        xk = x[..., : K - 1]
-        z_first = xk * (1 - 2 * eps) + eps
-        z_rest = (xk + eps) * (1 - 2 * eps) / ((1 + eps) - s)
-        k_is_zero = _first(K - 1, x.device)
-        z = torch.where(k_is_zero, z_first, z_rest)
-        return logit(z) + _log_km1_minus_k(K, x)
+        lead = x.shape[:-1]
+        y, ld = _SimplexForward.apply(x.reshape(-1, x.shape[-1]))
+        return y.reshape(lead + (y.shape[-1],)), ld.reshape(lead)
 
-    def forward_log_det_jacobian(self, x):
-        return -_inverse_logdet_from_x(x)
+    def inverse(self, y):
+        """x alone: the recurrence without the log-det."""
+        lead = y.shape[:-1]
+        x = _SimplexInverseX.apply(y.reshape(-1, y.shape[-1]))
+        return x.reshape(lead + (x.shape[-1],))
 
     def inverse_and_log_det(self, y):
         x, ld, _ = _simplex_inverse_logdet_wlog(y, None)
@@ -72,8 +77,9 @@ class SimplexBijector(Bijector):
 
 
 def _ld_vjp(x, s, gld):
-    """Cotangent of x (..., K) from ld(x) = -forward_log_det_jacobian(x)
-    given its cotangent gld (...,): the transpose of the JAX package's
+    """Cotangent of x (..., K) from the inverse log-det ld(x) (minus the
+    forward log-det) given its cotangent gld (...,): the transpose of the
+    JAX package's
     jvp of `_ld_from_x` (bijectors/simplex.py:182, :363), with
     `torch.maximum`'s slopes."""
     K = x.shape[-1]
@@ -106,7 +112,8 @@ def _tri(K: int, device):
 
 
 def _simplex_vjp(y, x, gx):
-    """d<gx, x(y)>/dy for x = kernels/simplex.py::_simplex_inverse(y) (rows of y (N, K-1)): the
+    """d<gx, x(y)>/dy for x = kernels/simplex.py::simplex_inverse_plain(y)
+    (rows of y (N, K-1)): the
     transpose of the affine running-sum tangent `_simplex_inverse_tangent`
     (tpu_bijectors/bijectors/simplex.py:132-179), with the clamp slopes of
     the forward's clamps.
@@ -138,6 +145,71 @@ def _simplex_vjp(y, x, gx):
     c = torch.cat([gx[:, : K - 1] * ds, g_last[:, None]], dim=-1)
     gs = (T @ c[:, :, None])[:, 1:, 0]  # adjoint of s_{k+1}, k = 0..K-2
     return (gx[:, : K - 1] + gs) * dz * z * (1.0 - z)
+
+
+def _simplex_forward_vjp(x, gy):
+    """d<gy, y(x)>/dx for the forward link y(x) of
+    kernels/simplex.py::simplex_forward_logdet_plain (rows of x (N, K)):
+    the transpose of its tangent, the jvp of the JAX
+    package's closed-form forward. With den_k = (1+eps) - s_k,
+
+      dy_k = (1/z_k + 1/(1 - z_k)) dz_k,
+      dz_0 = (1-2eps) dx_0,  dz_k = ((1-2eps) dx_k + z_k ds_k) / den_k,
+
+    and s_k = sum_{i<k} x_i hands each x_i the sum of the ds_k cotangents
+    over k > i. x_{K-1} does not enter y."""
+    K = x.shape[-1]
+    eps = _eps(x.dtype)
+    c12 = 1 - 2 * eps
+    s = _exclusive_prefix(x, K)
+    xk = x[..., : K - 1]
+    k0 = _first(K - 1, x.device)
+    den = (1 + eps) - s
+    z = torch.where(k0, xk * c12 + eps, (xk + eps) * c12 / den)
+    gz = gy * (1.0 / z + 1.0 / (1.0 - z))
+    gxk = gz * torch.where(k0, torch.full_like(den, c12), c12 / den)
+    gs = torch.where(k0, torch.zeros_like(z), gz * z / den)
+    rev = torch.flip(torch.cumsum(torch.flip(gs, (-1,)), dim=-1), (-1,))
+    gxk = gxk + (rev - gs)
+    return torch.cat([gxk, torch.zeros_like(x[..., :1])], dim=-1)
+
+
+class _SimplexForward(torch.autograd.Function):
+    """(y, forward log-det) of x (N, K). Forward: the kernel on the card,
+    the plain forward link on the CPU; backward: the closed forms above."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y, ld = simplex_forward_logdet(x)
+        ctx.save_for_backward(x)
+        ctx.set_materialize_grads(False)  # an unused output's cotangent is None
+        return y, ld
+
+    @staticmethod
+    def backward(ctx, gy, gld):
+        (x,) = ctx.saved_tensors
+        g = torch.zeros_like(x)
+        if gy is not None:
+            g = g + _simplex_forward_vjp(x, gy)
+        if gld is not None:
+            g = g + _ld_vjp(x, _exclusive_prefix(x, x.shape[-1]), -gld)
+        return g
+
+
+class _SimplexInverseX(torch.autograd.Function):
+    """x of y (N, K-1), no log-det. Forward: the x-only kernel on the
+    card, the plain recurrence on the CPU; backward: `_simplex_vjp`."""
+
+    @staticmethod
+    def forward(ctx, y):
+        x = simplex_inverse(y)
+        ctx.save_for_backward(y, x)
+        return x
+
+    @staticmethod
+    def backward(ctx, gx):
+        y, x = ctx.saved_tensors
+        return _simplex_vjp(y, x, gx)
 
 
 class _SimplexInverse(torch.autograd.Function):

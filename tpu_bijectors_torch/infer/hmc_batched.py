@@ -1,13 +1,18 @@
-"""Natively multi-chain NUTS on the transposed (dim, chains) state, PyTorch
-counterpart of `tpu_bijectors/infer/hmc_batched.py` (`transposed=True`).
+"""Natively multi-chain NUTS, PyTorch counterpart of
+`tpu_bijectors/infer/hmc_batched.py`, in both of its layouts:
+batch-major (`transposed=False`, state (chains, dim), `nuts_batched`) and
+transposed (`transposed=True`, state (dim, chains), `nuts_batched_t`).
 
 Chains are a real batch axis: per-chain termination is a (chains,) mask,
 updates are `where`-gated per chain, and the log-density and its gradient
-are evaluated on the whole (dim, chains) block per leapfrog, so the
-whole-model fused kernels run once each per step. The algorithm is the
-JAX package's: iterative tree doubling with checkpoint-buffer U-turn
-checks, multinomial sampling within a subtree, a biased merge (Betancourt
-2017), and chains that are dead in the outer loop born inert in a subtree.
+are evaluated on the whole block of chains per leapfrog, so each kernel of
+the density runs once per step (on the transposed layout, the
+whole-model fused kernels). The algorithm is the JAX package's:
+iterative tree doubling with checkpoint-buffer U-turn checks, multinomial
+sampling within a subtree, a biased merge (Betancourt 2017), and chains
+that are dead in the outer loop born inert in a subtree. The layouts draw
+the momentum in their own shapes, so their trajectories differ; they agree
+in distribution.
 
 The JAX package's two `lax.while_loop`s are host loops here. The tree
 counter and depth are host ints; each iteration's condition reads one
@@ -33,10 +38,57 @@ def _any(mask) -> bool:
     return bool(torch.any(mask))
 
 
+class _Layout:
+    """Axis conventions of the tree state (the JAX package's `_Layout`):
+
+    batch-major: state (C, dim); checkpoints (C, S, dim); dim is axis -1.
+    transposed:  state (dim, C); checkpoints (S, dim, C); dim is axis -2,
+    so a diagonal metric broadcasts as inv_mass[:, None] against the state
+    and the checkpoint stack alike."""
+
+    def __init__(self, transposed: bool):
+        self.transposed = transposed
+
+    def chains(self, q) -> int:
+        return q.shape[1] if self.transposed else q.shape[0]
+
+    def bexp(self, m):
+        """(C,) chain mask -> broadcastable against the 2-D state."""
+        return m[None, :] if self.transposed else m[:, None]
+
+    def vdot(self, a, b):
+        """Inner product over the dim axis of states or checkpoint stacks."""
+        return torch.sum(a * b, dim=-2 if self.transposed else -1)
+
+    def metric(self, inv_mass):
+        """The diagonal inverse mass, broadcastable against states and
+        checkpoint stacks."""
+        return inv_mass[:, None] if self.transposed else inv_mass
+
+    def ck_zeros(self, q, S):
+        C = self.chains(q)
+        dim = q.shape[0] if self.transposed else q.shape[1]
+        shape = (S, dim, C) if self.transposed else (C, S, dim)
+        return torch.zeros(shape, dtype=q.dtype, device=q.device)
+
+    def slots(self, ck, lo, hi):
+        """Checkpoint slots lo..hi-1, as a view."""
+        return ck[lo:hi] if self.transposed else ck[:, lo:hi]
+
+    def ck_bcast(self, x):
+        """2-D state -> broadcastable against a checkpoint stack."""
+        return x[None] if self.transposed else x[:, None]
+
+    def any_slot(self, per_slot):
+        """(S, C) or (C, S) -> any over the slots -> (C,)."""
+        return torch.any(per_slot, dim=0 if self.transposed else -1)
+
+
 def _batched_logp_and_grad(logp_batched):
     """(lp (C,), d sum(lp) / dq) of the state: the density's own
     `value_and_grad_fn` where it carries one (Model.batched_logdensity_t_fn:
-    the fused one-pass kernel), else autograd through the density."""
+    the fused one-pass kernel; Model.batched_logdensity_fn: autograd
+    through the link kernels), else autograd through the density."""
     vg = getattr(logp_batched, "value_and_grad_fn", None)
     if vg is not None:
         return vg
@@ -51,38 +103,35 @@ def _batched_logp_and_grad(logp_batched):
     return f
 
 
-def _aim(inv_mass, p):
-    """M^{-1} p for a diagonal metric on (dim, C) or a (S, dim, C) stack."""
-    return apply_inv_mass(inv_mass[:, None], p)
-
-
-def _vdot(a, b):
-    """Inner product over the dim axis (axis -2) of states or stacks."""
-    return torch.sum(a * b, dim=-2)
-
-
 def _leapfrog(lg, q, p, grad, eps_dir, inv_mass):
-    """One leapfrog step; eps_dir is the (1, C) signed step size."""
+    """One leapfrog step; eps_dir is the signed step size, broadcastable
+    against the state ((1, C) or (C, 1)); inv_mass is the diagonal metric
+    broadcastable against it (`_Layout.metric`)."""
     p_half = p + 0.5 * eps_dir * grad
-    q_new = q + eps_dir * _aim(inv_mass, p_half)
+    q_new = q + eps_dir * apply_inv_mass(inv_mass, p_half)
     lp_new, g_new = lg(q_new)
     p_new = p_half + 0.5 * eps_dir * g_new
     return q_new, p_new, lp_new, g_new
 
 
-def _pick(mask, a, b):
-    """where(mask, a, b) with a (C,) chain mask against (C,) or (dim, C)."""
-    return torch.where(mask if a.ndim == 1 else mask[None, :], a, b)
-
-
-def nuts_kernel_batched(logp_batched, max_depth: int = 10):
+def nuts_kernel_batched(logp_batched, max_depth: int = 10, transposed: bool = False):
     """(generator, q, logp (C,), grad, eps, inv_mass) -> (q', logp', grad',
-    NutsInfo with (C,) fields) on the transposed layout (the JAX package's
-    `transposed=True`; its batch-major layout is not ported): q and grad
-    (dim, C), `logp_batched` mapping (dim, C) -> (C,) (e.g.
+    NutsInfo with (C,) fields). transposed=False: q and grad are (C, dim)
+    and `logp_batched` maps (C, dim) -> (C,) (e.g.
+    Model.batched_logdensity_fn). transposed=True: q and grad are (dim, C)
+    and `logp_batched` maps (dim, C) -> (C,) (e.g.
     Model.batched_logdensity_t_fn). `eps` is a scalar (0-d tensor),
     `inv_mass` a diagonal (dim,)."""
     lg = _batched_logp_and_grad(logp_batched)
+    L = _Layout(transposed)
+
+    def _aim(inv_mass, p):
+        # M^{-1} p for a state or a checkpoint stack
+        return apply_inv_mass(L.metric(inv_mass), p)
+
+    def _pick(mask, a, b):
+        # where(mask, a, b) with a (C,) chain mask against (C,) or a state
+        return torch.where(mask if a.ndim == 1 else L.bexp(mask), a, b)
 
     def build_subtree(edge, direction, depth_j, outer_active, eps, inv_mass,
                       energy0, generator):
@@ -90,11 +139,11 @@ def nuts_kernel_batched(logp_batched, max_depth: int = 10):
         dead in the outer loop start diverging, so the loop ends as soon as
         the live chains finish (the caller gates every returned mask)."""
         sq, sp, slp, sg = edge
-        dim, C = sq.shape
+        C = L.chains(sq)
         dtype, dev = sq.dtype, sq.device
         n_leaves = 1 << depth_j
-        eps_dir = (direction * eps)[None, :]
-        ck_q = torch.zeros((max_depth + 1, dim, C), dtype=dtype, device=dev)
+        eps_dir = L.bexp(direction * eps)
+        ck_q = L.ck_zeros(sq, max_depth + 1)
         ck_v = torch.zeros_like(ck_q)  # velocity (M^{-1} p) checkpoints
         neg_inf = torch.full((C,), -torch.inf, dtype=dtype, device=dev)
         prop_q, prop_logp, prop_grad = torch.zeros_like(sq), neg_inf, torch.zeros_like(sq)
@@ -106,8 +155,8 @@ def nuts_kernel_batched(logp_batched, max_depth: int = 10):
         n = 0
         while n < n_leaves and _any(~(turning | diverging)):
             active = ~(turning | diverging)
-            am = active[None, :]
-            nq, np_, nlp, ng = _leapfrog(lg, sq, sp, sg, eps_dir, inv_mass)
+            am = L.bexp(active)
+            nq, np_, nlp, ng = _leapfrog(lg, sq, sp, sg, eps_dir, L.metric(inv_mass))
             # inactive chains keep their old state
             nq = torch.where(am, nq, sq)
             np_ = torch.where(am, np_, sp)
@@ -115,7 +164,7 @@ def nuts_kernel_batched(logp_batched, max_depth: int = 10):
             ng = torch.where(am, ng, sg)
 
             nv = _aim(inv_mass, np_)  # velocity, shared by kinetic and U-turn
-            energy = -nlp + 0.5 * _vdot(np_, nv)
+            energy = -nlp + 0.5 * L.vdot(np_, nv)
             delta = energy - energy0
             div = active & ((delta > MAX_ENERGY_DELTA) | ~torch.isfinite(energy))
             log_w_leaf = torch.where(active & ~div, -delta, neg_inf)
@@ -131,14 +180,18 @@ def nuts_kernel_batched(logp_batched, max_depth: int = 10):
 
             # checkpoints: slots 0..tz take the new state (all at n = 0)
             tz = max_depth if n == 0 else _trailing_zeros(n)
-            ck_q[: tz + 1] = torch.where(am[None], nq[None], ck_q[: tz + 1])
-            ck_v[: tz + 1] = torch.where(am[None], nv[None], ck_v[: tz + 1])
+            amc = L.ck_bcast(am)
+            for ck, new in ((ck_q, nq), (ck_v, nv)):
+                w = L.slots(ck, 0, tz + 1)
+                w.copy_(torch.where(amc, L.ck_bcast(new), w))
             # U-turn of the new state against checkpoint slots 1..tz(n+1)
             tz1 = _trailing_zeros(n + 1)
             if tz1 >= 1:
-                dq = nq[None] - ck_q[1 : tz1 + 1]
-                turn = (_vdot(dq, ck_v[1 : tz1 + 1]) < 0) | (_vdot(dq, nv[None]) < 0)
-                turning = turning | (active & torch.any(turn, dim=0))
+                dq = L.ck_bcast(nq) - L.slots(ck_q, 1, tz1 + 1)
+                turn = (L.vdot(dq, L.slots(ck_v, 1, tz1 + 1)) < 0) | (
+                    L.vdot(dq, L.ck_bcast(nv)) < 0
+                )
+                turning = turning | (active & L.any_slot(turn))
 
             sq, sp, slp, sg = nq, np_, nlp, ng
             log_w = log_w_new
@@ -150,10 +203,10 @@ def nuts_kernel_batched(logp_batched, max_depth: int = 10):
                 turning, diverging, sum_acc, n_steps)
 
     def kernel(generator, q, logp, grad, eps, inv_mass):
-        dim, C = q.shape
+        C = L.chains(q)
         dtype, dev = q.dtype, q.device
-        p0 = sample_momentum(generator, q, inv_mass[:, None])
-        energy0 = -logp + 0.5 * _vdot(p0, _aim(inv_mass, p0))
+        p0 = sample_momentum(generator, q, L.metric(inv_mass))
+        energy0 = -logp + 0.5 * L.vdot(p0, _aim(inv_mass, p0))
         neg_inf = torch.full((C,), -torch.inf, dtype=dtype, device=dev)
 
         left = right = (q, p0, logp, grad)
@@ -190,8 +243,8 @@ def nuts_kernel_batched(logp_batched, max_depth: int = 10):
             prop_grad = _pick(accept_new, s_prop_grad, prop_grad)
             log_w = torch.logaddexp(log_w, torch.where(ok, s_log_w, neg_inf))
             dq = new_right[0] - new_left[0]
-            full_turn = (_vdot(dq, _aim(inv_mass, new_left[1])) < 0) | (
-                _vdot(dq, _aim(inv_mass, new_right[1])) < 0
+            full_turn = (L.vdot(dq, _aim(inv_mass, new_left[1])) < 0) | (
+                L.vdot(dq, _aim(inv_mass, new_right[1])) < 0
             )
             turning = turning | (active & s_turning) | (ok & full_turn)
             diverging = diverging | (active & s_diverging)

@@ -7,10 +7,14 @@ dict to a scalar (batched with `torch.func.vmap`, as the JAX package uses
 
     logp(v) = priors.logpdf(x) + loglik(x) + logdetJ,   (x, logdetJ) = from_linked_vec(v)
 
-Its batched transposed form is what a sampler or a server evaluates on the
-(dim, B) state: the prior term as one fused kernel for the value and one
-for the value and gradient, the likelihood term through the inverse link
-(the simplex and LKJ kernels on the card) and autograd.
+It has two batched forms. The batch-major one (`batched_logdensity_fn`)
+runs on (B, dim) states through each leaf's own link (the simplex and LKJ
+kernels on the card) and autograd; the batch-major sampler
+(`nuts_batched`) evaluates it. The transposed one
+(`batched_logdensity_t_fn`) runs on the (dim, B) state: the prior term as
+one fused kernel for the value and one for the value and gradient, the
+likelihood term through the inverse link and autograd; `nuts_batched_t`
+evaluates it.
 """
 
 from __future__ import annotations
@@ -53,6 +57,37 @@ class Model:
         """Flat unconstrained vectors (..., dim) -> sample dict with the same
         leading axes."""
         return self._u.from_linked_vec(v)[0]
+
+    def batched_logdensity_fn(self):
+        """logp on batch-major (B, dim) states, (B,) out. Prior-only it is
+        `linked_logdensity` (the LKJ leaf through its log-det kernel, X
+        never formed); with a likelihood, `from_linked_vec_with_logpdf`
+        plus the likelihood vmapped over the batch. Its
+        `value_and_grad_fn(v)` returns (lp, d sum(lp) / dv) through
+        autograd (the kernels' closed-form backward passes)."""
+        u = self._u
+        loglik = self.loglik
+
+        if loglik is None:
+
+            def logdensity(v):
+                return u.linked_logdensity(v)
+
+        else:
+
+            def logdensity(v):
+                x, lp = u.from_linked_vec_with_logpdf(v)
+                return lp + (torch.func.vmap(loglik)(x) if v.ndim > 1 else loglik(x))
+
+        def value_and_grad_fn(v):
+            with torch.enable_grad():
+                vv = v.detach().requires_grad_(True)
+                lp = logdensity(vv)
+                (g,) = torch.autograd.grad(lp.sum(), vv)
+            return lp.detach(), g
+
+        logdensity.value_and_grad_fn = value_and_grad_fn
+        return logdensity
 
     def batched_logdensity_t_fn(self):
         """logp on the transposed (dim, B) state, (B,) out. Its
@@ -124,11 +159,13 @@ class Model:
         """One-call NUTS: windowed-adaptation warmup + sampling.
 
         kernel='auto' picks the transposed-layout multi-chain kernel
-        (`nuts_batched_t`) whenever the model has a fused plan, on either
-        device; the leapfrog then runs the one-pass fused value-and-grad
-        kernel (and, with a likelihood, the inverse-link kernels). Where
-        the JAX package would pick the batch-major kernel it raises
-        NotImplementedError: that kernel is not ported yet. Returns
+        (`nuts_batched_t`) whenever the kernels are enabled and the model
+        has a fused plan, on either device; the leapfrog then runs the
+        one-pass fused value-and-grad kernel (and, with a likelihood, the
+        inverse-link kernels). Otherwise it picks the batch-major
+        multi-chain kernel (`nuts_batched`, on `batched_logdensity_fn`), as
+        the JAX package does; on the card with the kernels disabled its
+        launches raise. Either name may be passed explicitly. Returns
         (samples, state, stats): samples is the constrained dict with
         leading (n_kept, n_chains) axes when `constrained=True`, else the
         raw (n_kept, n_chains, dim) linked tensor. Every random draw comes
@@ -144,22 +181,21 @@ class Model:
             from ..vectorize.fused_plan import _plan
 
             u = self._u
-            if not (
+            eligible = (
                 kernels.enabled()
                 and isinstance(u, TreeUnconstrainer)
                 and _plan(u) is not None
-            ):
-                raise NotImplementedError(
-                    "kernel='auto' picks the batch-major 'nuts_batched' for this "
-                    "model (no fused plan, or the kernels are disabled); it is "
-                    "not ported yet"
-                )
-            kernel = "nuts_batched_t"
+            )
+            kernel = "nuts_batched_t" if eligible else "nuts_batched"
         if init in ("laplace", "pathfinder"):
             raise NotImplementedError(f"init={init!r} is not ported yet")
         if init != "random":
             raise ValueError(f"unknown init {init!r}")
-        fn = self.batched_logdensity_t_fn()
+        fn = (
+            self.batched_logdensity_t_fn()
+            if kernel == "nuts_batched_t"
+            else self.batched_logdensity_fn()
+        )
         q0 = self.init_positions(generator, n_chains)
         samples, state, stats = sample_with_kernel(
             fn, generator, q0, n_warmup=n_warmup, n_samples=n_samples,

@@ -1,7 +1,7 @@
 """NUTS sampling driver, PyTorch counterpart of
 `tpu_bijectors/infer/sampler.py`: windowed-adaptation warmup, then
-sampling, with the transposed multi-chain kernel (`nuts_batched_t`) and a
-diagonal metric.
+sampling, with the multi-chain kernels (`nuts_batched` on batch-major
+densities, `nuts_batched_t` on transposed ones) and a diagonal metric.
 
 The JAX package runs the whole run as one `lax.scan`; here the transitions
 are a host loop, and every random draw comes from one `torch.Generator` on
@@ -53,16 +53,20 @@ class RunStats(NamedTuple):
 
 def init_sampler(
     logdensity_fn, generator, q0, eps0: float = 0.1, metric: str = "diag",
-    inv_mass0=None,
+    batched: bool = True, inv_mass0=None,
 ) -> SamplerState:
-    """q0: (chains, dim) initial positions; `logdensity_fn` maps (chains,
-    dim) -> (chains,) (the port's densities are batched; the JAX package's
-    per-chain form is not ported). Its `value_and_grad_fn`, where it has
-    one, gives the initial logp and gradient, so they come from the same
-    density definition as every leapfrog's. inv_mass0 seeds the initial
-    inverse mass (dim,) instead of the identity."""
+    """q0: (chains, dim) initial positions; with `batched`, `logdensity_fn`
+    maps (chains, dim) -> (chains,) (the JAX package's per-chain form,
+    batched=False, is not ported and raises). Its `value_and_grad_fn`,
+    where it has one, gives the initial logp and gradient, so they come
+    from the same density definition as every leapfrog's. inv_mass0 seeds
+    the initial inverse mass (dim,) instead of the identity."""
     if metric != "diag":
         raise NotImplementedError(f"the {metric!r} metric is not ported yet; use 'diag'")
+    if not batched:
+        raise NotImplementedError(
+            "per-chain densities (batched=False) are not ported; pass a batched one"
+        )
     vg = getattr(logdensity_fn, "value_and_grad_fn", None)
     if vg is not None:
         logp, grad = vg(q0)
@@ -97,15 +101,21 @@ def init_sampler(
 
 
 def _build_vkernel(logdensity_fn, kernel: str, max_depth: int):
-    """(vkernel, init_logdensity) for a kernel name. The port has the
-    transposed multi-chain NUTS kernel only: `logdensity_fn` maps (dim,
-    chains) -> (chains,) (Model.batched_logdensity_t_fn), and the state is
-    transposed at the transition boundary."""
+    """(vkernel, init_logdensity) for a kernel name, shared by
+    warmup_and_sample and resume_sampling (same settings give the same
+    transitions). 'nuts_batched': `logdensity_fn` maps (chains, dim) ->
+    (chains,) (Model.batched_logdensity_fn) and the state stays
+    batch-major. 'nuts_batched_t': `logdensity_fn` maps (dim, chains) ->
+    (chains,) (Model.batched_logdensity_t_fn), and the state is transposed
+    at the transition boundary."""
+    if kernel == "nuts_batched":
+        return nuts_kernel_batched(logdensity_fn, max_depth=max_depth), logdensity_fn
     if kernel != "nuts_batched_t":
         raise NotImplementedError(
-            f"kernel {kernel!r} is not ported yet; the port has 'nuts_batched_t'"
+            f"kernel {kernel!r} is not ported yet; the port has 'nuts_batched' "
+            "and 'nuts_batched_t'"
         )
-    step_kernel = nuts_kernel_batched(logdensity_fn, max_depth=max_depth)
+    step_kernel = nuts_kernel_batched(logdensity_fn, max_depth=max_depth, transposed=True)
 
     def vkernel(generator, q, lp, g, eps, im):
         q1t, lp1, g1t, info = step_kernel(
@@ -218,7 +228,8 @@ def warmup_and_sample(
     RunStats)."""
     vkernel, init_logdensity = _build_vkernel(logdensity_fn, kernel, max_depth)
     state = init_sampler(
-        init_logdensity, generator, q0, eps0, metric=metric, inv_mass0=inv_mass0
+        init_logdensity, generator, q0, eps0, metric=metric,
+        batched=kernel.startswith("nuts_batched"), inv_mass0=inv_mass0,
     )
     window_id, window_end = build_schedule(n_warmup)
     dim, dtype, dev = q0.shape[-1], q0.dtype, q0.device
@@ -250,12 +261,12 @@ def warmup_and_sample(
 
 
 def sample_with_kernel(
-    logdensity_fn, generator, q0, n_warmup, n_samples, kernel="nuts_batched_t",
+    logdensity_fn, generator, q0, n_warmup, n_samples, kernel="nuts_batched",
     **kwargs,
 ):
     """The one place engine names are routed (Model.sample dispatches
-    through here). The port has `warmup_and_sample`'s 'nuts_batched_t';
-    'chees' and the other engines are not ported yet."""
+    through here). The port has `warmup_and_sample`'s 'nuts_batched' and
+    'nuts_batched_t'; 'chees' and the other engines are not ported yet."""
     if kernel == "chees":
         raise NotImplementedError("ChEES ('chees') is not ported yet")
     return warmup_and_sample(

@@ -6,12 +6,14 @@ wrapper. A wrapper runs the plain version for a tensor on the CPU and the
 kernel for a tensor on the card; it never gives way to the plain version on
 the card. `LAUNCHES` counts, per wrapper, the kernel launches it made.
 `enable(False)` sends CPU tensors down the composed per-leaf path instead
-of the fused one; on the card, where the composed path's own kernels are
-not ported yet, a call with the kernels off raises.
+of the fused one, and makes `Model.sample(kernel='auto')` take the
+batch-major sampler, as the JAX package's switch does; on the card, where
+no plain path stands in for a kernel, every launch with the kernels off
+raises.
 
 Wrappers: `vectorize/fused_kernel.py` (slab_value, slab_value_and_grad,
-slab_vjp), `kernels/simplex.py` (simplex_inverse_logdet) and
-`kernels/lkj.py` (lkj_inverse).
+slab_vjp), `kernels/simplex.py` (simplex_inverse_logdet, simplex_inverse,
+simplex_forward_logdet) and `kernels/lkj.py` (lkj_inverse, lkj_logdet).
 """
 
 _ENABLED = True
@@ -22,6 +24,9 @@ LAUNCHES = {
     "slab_vjp": 0,
     "simplex_inverse_logdet": 0,
     "lkj_inverse": 0,
+    "lkj_logdet": 0,
+    "simplex_inverse": 0,
+    "simplex_forward_logdet": 0,
 }
 
 
@@ -42,11 +47,17 @@ def reset_launch_counts():
 def launch(fn: str, name: str, device, *args):
     """Call the C function `fn` of the kernel library on `device`'s current
     stream (the stream is appended to `args`); raise on a nonzero
-    cudaError_t, else count one launch of `name`."""
+    cudaError_t, else count one launch of `name`. Raises, launching
+    nothing, while the kernels are disabled."""
     import torch
 
     from . import build
 
+    if not _ENABLED:
+        raise RuntimeError(
+            f"kernels are disabled, and {name} has no plain path on the card; "
+            "call kernels.enable(True) or move the tensors to the CPU"
+        )
     lib = build.load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream

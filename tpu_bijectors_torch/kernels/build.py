@@ -20,7 +20,14 @@ import tempfile
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("fused_slab.cu", "slab_api.cpp", "simplex_inv.cu", "lkj_inv.cu")
+_SOURCES = (
+    "fused_slab.cu",
+    "slab_api.cpp",
+    "simplex_inv.cu",
+    "simplex_fwd.cu",
+    "lkj_inv.cu",
+    "lkj_logdet.cu",
+)
 _FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
 _COMPILE = ("-c", "-Xcompiler", "-fPIC")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
@@ -90,8 +97,15 @@ def load():
             # y, y strides (batch, coordinate), log(K-1-k) table, am1, x, ld,
             # wlog, K-1, B, stream
             "tbt_simplex_inverse_logdet": [p, ll, ll, p, p, p, p, p, i, ll, p],
+            # y, y strides, log(K-1-k) table, x, K-1, B, stream
+            "tbt_simplex_inverse": [p, ll, ll, p, p, i, ll, p],
+            # x, x strides (batch, coordinate), log(K-1-k) table, y, ld, K,
+            # B, stream
+            "tbt_simplex_forward_logdet": [p, ll, ll, p, p, p, i, ll, p],
             # y, y strides (batch, slot), X, logJ, log diag W, W, K, B, stream
             "tbt_lkj_inverse": [p, ll, ll, p, p, p, p, i, ll, p],
+            # y, y strides (batch, slot), logJ, log diag W, K, chol, B, stream
+            "tbt_lkj_logdet": [p, ll, ll, p, p, i, i, ll, p],
         }
         for name, args in sigs.items():
             fn = getattr(lib, name)

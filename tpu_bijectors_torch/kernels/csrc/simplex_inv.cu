@@ -3,10 +3,13 @@
 // point x, the inverse log-det, and optionally the Dirichlet data term
 // wlog = sum_k am1[k] log(x_k + eps).
 //
-// Replaces the TPU kernel tpu_bijectors/kernels/simplex.py::
+// Replaces two TPU kernels of tpu_bijectors/kernels/simplex.py:
 // _simplex_fused_pallas (entries simplex_inverse_logdet_pallas and
-// simplex_inverse_logdet_wlog_pallas). Numerics are those of the plain
-// version (tpu_bijectors_torch/kernels/simplex.py: _simplex_inverse and
+// simplex_inverse_logdet_wlog_pallas; C entry tbt_simplex_inverse_logdet)
+// and simplex_inverse_pallas, x alone (C entry tbt_simplex_inverse: the
+// same recurrence instantiated without the log-det and wlog arithmetic,
+// LOGDET = false). Numerics are those of the plain
+// version (tpu_bijectors_torch/kernels/simplex.py: simplex_inverse_plain and
 // _inverse_logdet_from_x): the same eps algebra, the
 // same per-step clamps, the log-det from the running sum of x.
 //
@@ -18,7 +21,8 @@
 //
 // Bound on the card: memory. Per element the kernel reads (K-1) floats
 // and writes K (+1 or 2) floats, against ~10 operations per coordinate, so
-// at K = 16 and B = 131072 it moves 16.8 MB (about 5 us at 3.35 TB/s).
+// at K = 16 and B = 131072 it moves 16.8 MB (about 5 us at 3.35 TB/s);
+// x alone, 16.3 MB (4.9 us).
 // One thread walks one batch element's recurrence in registers; the x
 // write is 64 contiguous bytes per thread, not coalesced across the warp
 // (the L2 merges the partial sectors): making it coalesced is later work.
@@ -41,7 +45,7 @@ __device__ __forceinline__ float maxp(float a, float b) {
   return (a != a || a > b) ? a : b;
 }
 
-template <bool WANT_X, bool WLOG>
+template <bool WANT_X, bool WLOG, bool LOGDET>
 __global__ void __launch_bounds__(kThreads)
 simplex_inv_kernel(const float* __restrict__ y, long long sb, long long sk,
                    const float* __restrict__ lc, const float* __restrict__ am1,
@@ -65,13 +69,15 @@ simplex_inv_kernel(const float* __restrict__ y, long long sb, long long sk,
     float xk;
     if (k == 0) {
       xk = clamp01((z - eps) / c12);
-      lp += logf(maxp(xk, eps)) + logf(maxp(1.0f - xk, eps));
+      if (LOGDET) lp += logf(maxp(xk, eps)) + logf(maxp(1.0f - xk, eps));
     } else {
       // __fmul_rn: no fused multiply-add, the plain version rounds twice
       xk = clamp01(__fmul_rn((c1p - s) / c12, z) - eps);
-      const float rem = maxp(1.0f - s, eps);
-      const float zl = xk / rem;
-      lp += logf(maxp(zl, eps)) + logf(maxp(1.0f - zl, eps)) + logf(rem);
+      if (LOGDET) {
+        const float rem = maxp(1.0f - s, eps);
+        const float zl = xk / rem;
+        lp += logf(maxp(zl, eps)) + logf(maxp(1.0f - zl, eps)) + logf(rem);
+      }
     }
     if (WANT_X) xb[k] = xk;
     if (WLOG) wl += am1[k] * logf(xk + eps);
@@ -80,15 +86,15 @@ simplex_inv_kernel(const float* __restrict__ y, long long sb, long long sk,
   const float xl = clamp01(1.0f - s);
   if (WANT_X) xb[Km1] = xl;
   if (WLOG) wlog[b] = wl + am1[Km1] * logf(xl + eps);
-  ld[b] = lp;
+  if (LOGDET) ld[b] = lp;
 }
 
-template <bool WANT_X, bool WLOG>
+template <bool WANT_X, bool WLOG, bool LOGDET = true>
 cudaError_t launch(const float* y, long long sb, long long sk, const float* lc,
                    const float* am1, float* x, float* ld, float* wlog, int Km1, long long B,
                    cudaStream_t stream) {
   const long long blocks = (B + kThreads - 1) / kThreads;
-  simplex_inv_kernel<WANT_X, WLOG><<<(unsigned)blocks, kThreads, 0, stream>>>(
+  simplex_inv_kernel<WANT_X, WLOG, LOGDET><<<(unsigned)blocks, kThreads, 0, stream>>>(
       y, sb, sk, lc, am1, x, ld, wlog, Km1, B);
   return cudaGetLastError();
 }
@@ -111,5 +117,15 @@ int tbt_simplex_inverse_logdet(const float* y, long long sb, long long sk, const
   if (x) return (int)tbt::launch<true, false>(y, sb, sk, lc, am1, x, ld, wlog, Km1, B, st);
   if (am1) return (int)tbt::launch<false, true>(y, sb, sk, lc, am1, x, ld, wlog, Km1, B, st);
   return (int)tbt::launch<false, false>(y, sb, sk, lc, am1, x, ld, wlog, Km1, B, st);
+}
+
+// y (B, K-1) with element strides (sb, sk) and the table lc (K-1,) -> x
+// (B, K) contiguous, with no log-det. Launches on `stream`, does not
+// synchronise, returns the cudaError_t.
+int tbt_simplex_inverse(const float* y, long long sb, long long sk, const float* lc, float* x,
+                        int Km1, long long B, void* stream) {
+  if (B == 0) return 0;
+  return (int)tbt::launch<true, false, false>(y, sb, sk, lc, nullptr, x, nullptr, nullptr,
+                                              Km1, B, (cudaStream_t)stream);
 }
 }

@@ -1,15 +1,20 @@
-"""LKJ / correlation-matrix inverse link: the CUDA kernel's wrapper and its
-plain version (counterpart of `tpu_bijectors/kernels/lkj.py::
-lkj_inverse_pallas`).
+"""LKJ / correlation-matrix inverse link: the CUDA kernels' wrappers and
+their plain versions (counterpart of `tpu_bijectors/kernels/lkj.py`).
 
-`lkj_inverse(y, K, want_w)` maps the packed y (B, K(K-1)/2) to
-X = W'W (B, K, K), logJ (B,) with the VecCorr diagonal-coefficient term,
-log diag W (B, K), and the upper factor W (B, K, K) when `want_w` (else
-None), which the backward of the inverse link uses. For a CUDA tensor it
-launches `csrc/lkj_inv.cu` or raises; for a CPU tensor it runs
-`lkj_inverse_plain`. y may be any 2-D strided view (read in place).
+`lkj_inverse(y, K, want_w)` (`lkj_inverse_pallas`) maps the packed y
+(B, K(K-1)/2) to X = W'W (B, K, K), logJ (B,) with the VecCorr
+diagonal-coefficient term, log diag W (B, K), and the upper factor W
+(B, K, K) when `want_w` (else None), which the backward of the inverse
+link uses. `lkj_logdet(y, K, chol)` (`lkj_logdet_pallas`) gives logJ and
+log diag W alone, without forming W or X: `chol=False` with the VecCorr
+term, `chol=True` the Cholesky variant's logJ (no diagonal coefficients).
+For a CUDA tensor each launches its kernel (`csrc/lkj_inv.cu`,
+`csrc/lkj_logdet.cu`) or raises; for a CPU tensor it runs its plain
+version. y may be any 2-D strided view (read in place), so the swapped
+view of a transposed (P, B) state needs no copy (the TPU kernels'
+`pre_t`).
 
-The plain version's masked cumulative sums live here, beside the kernel
+The plain versions' masked cumulative sums live here, beside the kernels
 they define; `bijectors/corr.py` builds the bijector on them.
 """
 
@@ -80,14 +85,45 @@ def lkj_inverse_plain(y, K: int, want_w: bool = False):
     return pd_from_upper(W), logJ, log_diag, (W if want_w else None)
 
 
+def lkj_logdet_plain(y, K: int, chol: bool = False):
+    """The plain PyTorch version of `lkj_logdet`: the masked cumulative
+    sums of `lkj_inverse_plain`, with the VecCorr diagonal term unless
+    `chol` (the Cholesky variant's logJ, corr.jl:485-501, is the sum of
+    the running sums alone)."""
+    _, logJ, log_diag = _inv_link_chol_lkj_with_logdiag(vec_to_triu(y, 1, K))
+    if not chol:
+        logJ = logJ + torch.sum(_diag_coeff(K, y) * log_diag, dim=-1)
+    return logJ, log_diag
+
+
+def _check_cuda(y, K):
+    if y.dtype != torch.float32:
+        raise TypeError(f"the LKJ kernels take float32; got {y.dtype}")
+    if y.ndim != 2 or y.shape[1] != K * (K - 1) // 2:
+        raise ValueError(f"y must be (B, {K * (K - 1) // 2}); got {tuple(y.shape)}")
+
+
+def lkj_logdet(y, K: int, chol: bool = False):
+    """(logJ (B,), log diag W (B, K)) from y (B, K(K-1)/2)."""
+    if y.device.type == "cpu":
+        return lkj_logdet_plain(y, K, chol)
+    _check_cuda(y, K)
+    B = y.shape[0]
+    logJ = torch.empty(B, dtype=y.dtype, device=y.device)
+    log_diag = torch.empty((B, K), dtype=y.dtype, device=y.device)
+    kernels.launch(
+        "tbt_lkj_logdet", "lkj_logdet", y.device,
+        y.data_ptr(), y.stride(0), y.stride(1), logJ.data_ptr(), log_diag.data_ptr(),
+        K, int(chol), B,
+    )
+    return logJ, log_diag
+
+
 def lkj_inverse(y, K: int, want_w: bool = False):
     """(X (B, K, K), logJ (B,), log diag W (B, K), W (B, K, K) or None)."""
     if y.device.type == "cpu":
         return lkj_inverse_plain(y, K, want_w)
-    if y.dtype != torch.float32:
-        raise TypeError(f"the LKJ kernel takes float32; got {y.dtype}")
-    if y.ndim != 2 or y.shape[1] != K * (K - 1) // 2:
-        raise ValueError(f"y must be (B, {K * (K - 1) // 2}); got {tuple(y.shape)}")
+    _check_cuda(y, K)
     B = y.shape[0]
     new = lambda *s: torch.empty(s, dtype=y.dtype, device=y.device)  # noqa: E731
     X, logJ, log_diag = new(B, K, K), new(B), new(B, K)

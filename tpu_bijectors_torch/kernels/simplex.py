@@ -1,16 +1,23 @@
-"""Stick-breaking simplex inverse: the CUDA kernel's wrapper and its plain
-version (counterpart of `tpu_bijectors/kernels/simplex.py`).
+"""Stick-breaking simplex link: the CUDA kernels' wrappers and their plain
+versions (counterpart of `tpu_bijectors/kernels/simplex.py`).
 
-`simplex_inverse_logdet(y, am1, want_x)` maps y (B, K-1) to the simplex
-point x (B, K) (or None), the inverse log-det (B,) and, given the weights
-am1 (K,), the Dirichlet data term wlog = sum_k am1[k] log(x_k + eps) (B,)
-(or None). For a CUDA tensor it launches `csrc/simplex_inv.cu` or raises;
-for a CPU tensor it runs `simplex_inverse_logdet_plain`. y may be any 2-D
-strided view: the kernel reads it through its strides, so the swapped view
-of a transposed (dim, B) state is read in place.
+- `simplex_inverse_logdet(y, am1, want_x)` (`_simplex_fused_pallas`) maps
+  y (B, K-1) to the simplex point x (B, K) (or None), the inverse log-det
+  (B,) and, given the weights am1 (K,), the Dirichlet data term
+  wlog = sum_k am1[k] log(x_k + eps) (B,) (or None);
+- `simplex_inverse(y)` (`simplex_inverse_pallas`) maps y to x alone;
+- `simplex_forward_logdet(x)` (`simplex_forward_logdet_pallas`) maps x
+  (B, K) to y (B, K-1) and the forward log-det (B,) in one pass.
 
-The plain version's recurrence and log-det live here, beside the kernel
-they define; `bijectors/simplex.py` builds the bijector on them.
+For a CUDA tensor each launches its kernel (`csrc/simplex_inv.cu`, the
+first two; `csrc/simplex_fwd.cu`) or raises; for a CPU tensor it runs its
+plain version. The input may be any 2-D strided view: the kernels read it
+through its strides, so the swapped view of a transposed (dim, B) state is
+read in place.
+
+The plain versions' recurrence, forward link and log-det live here, beside
+the kernels they define; `bijectors/simplex.py` builds the bijector on
+them.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..utils import _eps, clamp, logistic
+from ..utils import _eps, clamp, logistic, logit
 
 
 @lru_cache(maxsize=None)
@@ -47,9 +54,10 @@ def _exclusive_prefix(x, K):
     return torch.cat([torch.zeros_like(x[..., :1]), s], dim=-1)
 
 
-def _simplex_inverse(y):
+def simplex_inverse_plain(y):
     """Exact reference recurrence (simplex.jl:84-100) over K-1 steps; every
-    batch dim rides along in each step. The plain version of the kernel."""
+    batch dim rides along in each step. The plain version of
+    `simplex_inverse`, and the x of `simplex_inverse_logdet`."""
     K = y.shape[-1] + 1
     eps = _eps(y.dtype)
     z = logistic(y - _log_km1_minus_k(K, y))
@@ -86,15 +94,30 @@ def _inverse_logdet_from_x(x):
 def simplex_inverse_logdet_plain(y, am1=None, want_x: bool = True):
     """The plain PyTorch version: the recurrence, the log-det from x, and
     wlog with the reference's eps algebra and clamps."""
-    x = _simplex_inverse(y)
+    x = simplex_inverse_plain(y)
     ld = _inverse_logdet_from_x(x)
     wlog = None if am1 is None else torch.sum(am1 * torch.log(x + _eps(x.dtype)), dim=-1)
     return (x if want_x else None), ld, wlog
 
 
-def _check_cuda(y, am1):
+def simplex_forward_logdet_plain(x):
+    """The plain PyTorch version of `simplex_forward_logdet`: the forward
+    link y (..., K-1) (simplex.jl:28-64: logit(z) + log(K-1-k), z from the
+    exclusive prefix sum of x with the eps algebra of the module docstring
+    of `bijectors/simplex.py`) and minus the inverse log-det."""
+    K = x.shape[-1]
+    eps = _eps(x.dtype)
+    s = _exclusive_prefix(x, K)
+    xk = x[..., : K - 1]
+    z_first = xk * (1 - 2 * eps) + eps
+    z_rest = (xk + eps) * (1 - 2 * eps) / ((1 + eps) - s)
+    z = torch.where(_first(K - 1, x.device), z_first, z_rest)
+    return logit(z) + _log_km1_minus_k(K, x), -_inverse_logdet_from_x(x)
+
+
+def _check_cuda(y, am1=None):
     if y.dtype != torch.float32:
-        raise TypeError(f"the simplex kernel takes float32; got {y.dtype}")
+        raise TypeError(f"the simplex kernels take float32; got {y.dtype}")
     if y.ndim != 2 or y.shape[1] < 1:
         raise ValueError(f"y must be (B, K-1) with K >= 2; got {tuple(y.shape)}")
     if am1 is not None:
@@ -120,3 +143,37 @@ def simplex_inverse_logdet(y, am1=None, want_x: bool = True):
         ptr(am1), ptr(x), ld.data_ptr(), ptr(wlog), Km1, B,
     )
     return x, ld, wlog
+
+
+def simplex_inverse(y):
+    """x (B, K) from y (B, K-1), with no log-det."""
+    if y.device.type == "cpu":
+        return simplex_inverse_plain(y)
+    _check_cuda(y)
+    B, Km1 = y.shape
+    x = torch.empty((B, Km1 + 1), dtype=y.dtype, device=y.device)
+    kernels.launch(
+        "tbt_simplex_inverse", "simplex_inverse", y.device,
+        y.data_ptr(), y.stride(0), y.stride(1), _log_km1_minus_k(Km1 + 1, y).data_ptr(),
+        x.data_ptr(), Km1, B,
+    )
+    return x
+
+
+def simplex_forward_logdet(x):
+    """(y (B, K-1), forward log-det (B,)) from x (B, K) in one pass."""
+    if x.device.type == "cpu":
+        return simplex_forward_logdet_plain(x)
+    if x.dtype != torch.float32:
+        raise TypeError(f"the simplex kernels take float32; got {x.dtype}")
+    if x.ndim != 2 or x.shape[1] < 2:
+        raise ValueError(f"x must be (B, K) with K >= 2; got {tuple(x.shape)}")
+    B, K = x.shape
+    y = torch.empty((B, K - 1), dtype=x.dtype, device=x.device)
+    ld = torch.empty(B, dtype=x.dtype, device=x.device)
+    kernels.launch(
+        "tbt_simplex_forward_logdet", "simplex_forward_logdet", x.device,
+        x.data_ptr(), x.stride(0), x.stride(1), _log_km1_minus_k(K, x).data_ptr(),
+        y.data_ptr(), ld.data_ptr(), K, B,
+    )
+    return y, ld

@@ -5,15 +5,21 @@
   u.linked_vec_length                     static int
   u.to_linked_vec(x) -> (v, logdet)       unconstrain + ravel
   u.from_linked_vec(v) -> (x, logdet)     the sampler's inverse
+  u.from_linked_vec_with_logpdf(v)        (x, logpdf(d, x) + logdetJ): the
+                                          constrained sample and its linked
+                                          density in one pass
   u.linked_logdensity(v)                  logpdf(d, x) + logdetJ on (B, dim)
   u.linked_logdensity_t(vT)               the same on the transposed (dim, B)
                                           state; (B,) out
 
 Offsets are static, so a batch of states is one (B, dim) array. On the
-transposed layout the whole model runs as the fused slab evaluation
-(`fused_kernel.try_mega`): one CUDA kernel on the card, its plain PyTorch
-version for a CPU tensor. `_linked_logdensity_t_children` is the composed
-per-leaf path, the reference the fused evaluation is held against.
+batch-major layout each leaf runs its own link: on the card the simplex
+and LKJ leaves launch their kernels (kernels/simplex.py, kernels/lkj.py),
+the scalar leaves are elementwise torch ops. On the transposed layout the
+whole model runs as the fused slab evaluation (`fused_kernel.try_mega`):
+one CUDA kernel on the card, its plain PyTorch version for a CPU tensor.
+`_linked_logdensity_t_children` is the composed per-leaf path, the
+reference the fused evaluation is held against.
 """
 
 from __future__ import annotations
@@ -56,6 +62,9 @@ class Unconstrainer:
     def from_linked_vec(self, v):
         raise NotImplementedError
 
+    def from_linked_vec_with_logpdf(self, v):
+        raise NotImplementedError
+
     def linked_logdensity(self, v):
         raise NotImplementedError
 
@@ -92,19 +101,39 @@ class LeafUnconstrainer(Unconstrainer):
     def _extra_dims(self):
         return len(self.event_shape) - int(self.link.event_ndims_in)
 
+    def _sum_extra(self, ld):
+        """Sum a link's log-det over the event dims beyond the link's own."""
+        extra = self._extra_dims()
+        return torch.sum(ld, dim=tuple(range(-extra, 0))) if extra > 0 else ld
+
     def to_linked_vec(self, x):
         y, ld = self.link.forward_and_log_det(x)
-        extra = self._extra_dims()
-        if extra > 0:
-            ld = torch.sum(ld, dim=tuple(range(-extra, 0)))
-        return _ravel_event(y, self.linked_shape), ld
+        return _ravel_event(y, self.linked_shape), self._sum_extra(ld)
 
     def from_linked_vec(self, v):
         x, ld = self.link.inverse_and_log_det(_unravel_event(v, self.linked_shape))
-        extra = self._extra_dims()
-        if extra > 0:
-            ld = torch.sum(ld, dim=tuple(range(-extra, 0)))
-        return x, ld
+        return x, self._sum_extra(ld)
+
+    def from_linked_vec_with_logpdf(self, v):
+        """(x, logpdf(x) + logdetJ): a distribution's composed hook where it
+        has one (the Dirichlet's fuses the inverse, its log-det and the
+        data term in one kernel), else the factor the inverse link computes
+        anyway (LKJ: log diag W, no re-decomposition of X), else the
+        generic composition."""
+        b, d = self.link, self.dist
+        y = _unravel_event(v, self.linked_shape)
+        hook = getattr(d, "fused_linked_logdensity", None)
+        if hook is not None:
+            out = hook(b, y)
+            if out is not None:
+                return out
+        if hasattr(b, "inverse_and_log_det_with_factor") and hasattr(
+            d, "logpdf_from_factor"
+        ):
+            x, ld, factor = b.inverse_and_log_det_with_factor(y)
+            return x, d.logpdf_from_factor(factor) + self._sum_extra(ld)
+        x, ld = self.from_linked_vec(v)
+        return x, d.logpdf(x) + ld
 
     def linked_logdensity(self, v):
         b, d = self.link, self.dist
@@ -116,16 +145,20 @@ class LeafUnconstrainer(Unconstrainer):
         if hasattr(b, "inverse_log_det_and_factor_only") and hasattr(
             d, "logpdf_from_factor"
         ):
-            y = _unravel_event(v, self.linked_shape)
-            ld, factor = b.inverse_log_det_and_factor_only(y)
-            extra = self._extra_dims()
-            if extra > 0:
-                ld = torch.sum(ld, dim=tuple(range(-extra, 0)))
-            return d.logpdf_from_factor(factor) + ld
-        x, ld = self.from_linked_vec(v)
-        return d.logpdf(x) + ld
+            ld, factor = b.inverse_log_det_and_factor_only(
+                _unravel_event(v, self.linked_shape)
+            )
+            return d.logpdf_from_factor(factor) + self._sum_extra(ld)
+        return self.from_linked_vec_with_logpdf(v)[1]
 
     def _linked_logdensity_t_children(self, vT):
+        b, d = self.link, self.dist
+        if len(self.linked_shape) == 1 and hasattr(
+            b, "inverse_log_det_and_factor_only_t"
+        ) and hasattr(d, "logpdf_from_factor"):
+            # the (P, B) block read in place by the LKJ log-det kernel
+            ld, factor = b.inverse_log_det_and_factor_only_t(vT)
+            return d.logpdf_from_factor(factor) + ld
         if self.linked_shape == () and self.event_shape == ():
             # scalar leaf: link and density are elementwise, the (1, B) row
             # works in place (telescoped hooks like LogNormal's still fire)
@@ -154,6 +187,10 @@ class IIDUnconstrainer(Unconstrainer):
     def from_linked_vec(self, v):
         x, ld = self.inner.from_linked_vec(self._split(v))
         return x, ld.sum(-1)
+
+    def from_linked_vec_with_logpdf(self, v):
+        x, lp = self.inner.from_linked_vec_with_logpdf(self._split(v))
+        return x, lp.sum(-1)
 
     def linked_logdensity(self, v):
         return self.inner.linked_logdensity(self._split(v)).sum(-1)
@@ -207,6 +244,14 @@ class TreeUnconstrainer(Unconstrainer):
             parts[name] = xi
             ld = ldi if ld is None else ld + ldi
         return parts, ld
+
+    def from_linked_vec_with_logpdf(self, v):
+        parts, acc = {}, None
+        for c, name, (s, n) in zip(self.children, self.names, self.linked_offsets):
+            xi, a = c.from_linked_vec_with_logpdf(v[..., s : s + n])
+            parts[name] = xi
+            acc = a if acc is None else acc + a
+        return parts, acc
 
     def linked_logdensity(self, v):
         acc = None

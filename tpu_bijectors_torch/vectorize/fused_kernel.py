@@ -177,14 +177,10 @@ def mega_value_and_grad_t(u, vT):
 def _fused_applies(u, vT) -> bool:
     """Whether the fused evaluation serves vT. Always on the card, where
     the only alternative would be plain PyTorch standing in for kernels
-    (so a missing slab form or disabled kernels raise there); on the CPU,
-    when the kernels are enabled and the model has a plan."""
+    (so a missing slab form raises there, and disabled kernels raise at
+    the launch); on the CPU, when the kernels are enabled and the model
+    has a plan."""
     if vT.device.type == "cuda":
-        if not kernels.enabled():
-            raise RuntimeError(
-                "kernels are disabled; the composed path's kernels are not "
-                "ported to CUDA yet, so a CUDA state needs the fused kernels"
-            )
         return True
     return kernels.enabled() and vT.ndim == 2 and _plan(u) is not None
 
