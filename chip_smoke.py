@@ -33,23 +33,26 @@ a user calls, on four paths:
 The launch counters are set to 0 just before each path and read just after
 it; each kernel of the path must have launched. Each kernel is held against
 its plain PyTorch version on the same inputs: the slab kernels at
-B = 131072; the link kernels at B = 131072 in both input layouts (a
-contiguous (B, P) tensor and the swapped view of the (dim, B) state) and at
-the sampler's own shapes (64 chains, and the 200 x 64 draws); the LKJ
-log-det (both variants) and the simplex inverse and forward kernels at
-B = 131072, 64 and a partial block in both layouts, and at 1e10 states; all
-with their closed-form backward against autograd through the plain version.
-The log-densities are also held against the composed per-leaf path and the
-plain path in float64, the likelihood model (at 64 and 4096 states) against
-its float64 plain version on the CPU, and each sampler's draws against the
-known Dirichlet(1 + counts) posterior of `w` (within 5 MCSE), with
-R-hat <= 1.05 and divergences <= 1%. Every kernel and its plain version is
-timed with CUDA events.
+B = 131072; the link kernels in the three input layouts they read (the
+slice of a batch-major (B, 151) state, a contiguous (B, P) tensor and the
+swapped view of the (151, B) state; `layouts`) at B = 131072 and 64, the
+inverse links also on the 200 x 64 draws, the LKJ log-det (both variants)
+and the simplex inverse and forward kernels also at a partial block, and
+all at 1e10 states; each with its closed-form backward against autograd
+through the plain version. The log-densities are also held against the
+composed per-leaf path and the plain path in float64, the likelihood model
+(at 64 and 4096 states) against its float64 plain version on the CPU, and
+each sampler's draws against the known Dirichlet(1 + counts) posterior of
+`w` (within 5 MCSE), with R-hat <= 1.05 and divergences <= 1%. Every
+kernel is timed with CUDA events in each of its layouts, beside its plain
+version (`kernel_table`, `time_kernels`).
 
 Prints the card's name and power limit, one JSON line per kernel, a
-`sampler` line per layout, a `{"kernels": [...]}` line, and as the last
-line `{"ok": true, "device": {...}}`. Exits non-zero, with no result, when
-CUDA is absent or any check fails.
+`kernel_variants` line (every layout's time), an `end_to_end` line (the
+entry points with host dispatch), a `phases_s` line (each phase's wall
+time), a `sampler` line per layout, a `{"kernels": [...]}` line, and as
+the last line `{"ok": true, "device": {...}}`. Exits non-zero, with no
+result, when CUDA is absent or any check fails.
 """
 
 import json
@@ -93,16 +96,23 @@ REPLACES = {
     "simplex_inverse": "tpu_bijectors/kernels/simplex.py:59",
     "simplex_forward_logdet": "tpu_bijectors/kernels/simplex.py:252",
 }
+CSRC = "tpu_bijectors_torch/kernels/csrc/"
 SOURCES = {
-    "simplex_inverse_logdet": "tpu_bijectors_torch/kernels/csrc/simplex_inv.cu",
-    "lkj_inverse": "tpu_bijectors_torch/kernels/csrc/lkj_inv.cu",
+    "slab_value": CSRC + "fused_slab.cu",
+    "slab_value_and_grad": CSRC + "fused_slab.cu",
+    "slab_vjp": CSRC + "fused_slab.cu",
+    "simplex_inverse_logdet": CSRC + "simplex_inv.cu",
+    "lkj_inverse": CSRC + "lkj_inv.cu",
+    "lkj_logdet": CSRC + "lkj_logdet.cu",
+    "simplex_inverse": CSRC + "simplex_inv.cu",
+    "simplex_forward_logdet": CSRC + "simplex_fwd.cu",
 }
-# the kernels of the batch-major path (this script's path 3)
-BATCH_MAJOR_SOURCES = {
-    "lkj_logdet": "tpu_bijectors_torch/kernels/csrc/lkj_logdet.cu",
-    "simplex_inverse": "tpu_bijectors_torch/kernels/csrc/simplex_inv.cu",
-    "simplex_forward_logdet": "tpu_bijectors_torch/kernels/csrc/simplex_fwd.cu",
-}
+# the kernels each path must launch: transposed serving (path 1), the
+# inverse links of both samplers (paths 2 and 4), batch-major serving
+# (path 3, which runs the inverse links too)
+SLAB_KERNELS = ("slab_value", "slab_value_and_grad", "slab_vjp")
+LINK_KERNELS = ("simplex_inverse_logdet", "lkj_inverse")
+BATCH_MAJOR_KERNELS = ("lkj_logdet", "simplex_inverse", "simplex_forward_logdet")
 # the link kernels against their plain versions, float32: x and X are
 # bounded by 1 and held absolutely; the log-dets and wlog are sums of 15-120
 # logs held relative to their magnitude; the backward is the closed form
@@ -248,19 +258,49 @@ def time_ms(fn, reps=25, inner=10, warmup=5, device_only=True):
     return statistics.median(times)
 
 
+def time_slow_ms(fn, device_only=True):
+    """time_ms with fewer repetitions, for calls of a millisecond or more
+    (the plain versions, the host-bound entry points)."""
+    return time_ms(fn, reps=5, inner=5, warmup=2, device_only=device_only)
+
+
 W_ROWS = slice(16, 31)  # the Dirichlet(16) leaf's 15 linked rows
 C_ROWS = slice(31, 151)  # the LKJ(16) leaf's 120 linked rows
+X_ROWS = slice(0, 16)  # the simplex points' rows of `simplex_points_T`
+
+
+def layouts(xT, rows, n, first):
+    """The `rows` of a (D, N) transposed state at batch n in the three
+    layouts the link kernels read, keyed by name, the one the path reads
+    (`first`) first: the slice of the batch-major (n, D) state, a
+    contiguous (n, P) tensor, and the swapped view of the (D, n) state."""
+    make = {
+        "batch-major slice": lambda: xT[:, :n].T.contiguous()[:, rows],
+        "contiguous": lambda: xT[rows, :n].T.contiguous(),
+        "swapped": lambda: xT[rows, :n].T,
+    }
+    return {k: make[k]() for k in (first, *(k for k in make if k != first))}
+
+
+def simplex_points_T(vT):
+    """(151, B): rows X_ROWS hold the simplex points x (16, B) of vT's
+    simplex rows, by the plain inverse; the simplex forward link's input."""
+    from tpu_bijectors_torch.kernels import simplex as ks
+
+    xT = torch.zeros_like(vT)
+    xT[X_ROWS] = ks.simplex_inverse_plain(vT[W_ROWS].T.contiguous()).T
+    return xT
 
 
 def check_link_kernels(dev, vT, vxT, counts):
     """The simplex and LKJ kernels against their plain versions, and their
-    closed-form backward against autograd through the plain versions: at
-    B = 131072 in both input layouts (a contiguous (B, P) tensor and the
-    swapped view of the (dim, B) state), and at the sampler path's own
-    shapes (the leapfrog's swapped view of 64 chains, a partial block of
-    every kernel, and `constrain`'s strided slices of the (200, 64, dim)
-    draws); and finite outputs and gradients at 1e10 states. Returns the
-    max absolute error of each kernel."""
+    closed-form backward against autograd through the plain versions: in
+    the three `layouts` at B = 131072 and at the samplers' 64 chains (the
+    transposed leapfrog reads the swapped view, the batch-major one the
+    slice; 64 is a partial block of every kernel), and on `constrain`'s
+    strided slices of the (200, 64, dim) draws; and finite outputs and
+    gradients at 1e10 states. Returns the max absolute error of each
+    kernel."""
     from tpu_bijectors_torch.bijectors.corr import _vec_corr_inverse_all
     from tpu_bijectors_torch.bijectors.simplex import _simplex_inverse_logdet_wlog
     from tpu_bijectors_torch.kernels import lkj as kl
@@ -276,16 +316,15 @@ def check_link_kernels(dev, vT, vxT, counts):
     def one(t):
         return torch.ones_like(t)
 
-    B = vT.shape[1]
     draws = vT[:, : KEPT * CHAINS].T.contiguous().reshape(KEPT, CHAINS, -1)
-    cases = {  # tag: (simplex y, LKJ y)
-        f"contiguous, B = {B}": (vT[W_ROWS].T.contiguous(), vT[C_ROWS].T.contiguous()),
-        f"swapped, B = {B}": (vT[W_ROWS].T, vT[C_ROWS].T),
-        f"swapped, B = {CHAINS}": (vT[W_ROWS, :CHAINS].T, vT[C_ROWS, :CHAINS].T),
-        f"draws' slices, B = {KEPT * CHAINS}": (
-            draws[..., W_ROWS].reshape(-1, 15), draws[..., C_ROWS].reshape(-1, 120)
-        ),
-    }
+    cases = {}  # tag: (simplex y, LKJ y)
+    for n in (vT.shape[1], CHAINS):
+        lkj = layouts(vT, C_ROWS, n, "swapped")
+        for lay, y in layouts(vT, W_ROWS, n, "swapped").items():
+            cases[f"{lay}, B = {n}"] = (y, lkj[lay])
+    cases[f"draws' slices, B = {KEPT * CHAINS}"] = (
+        draws[..., W_ROWS].reshape(-1, 15), draws[..., C_ROWS].reshape(-1, 120)
+    )
     for lay, (y, yc) in cases.items():
         xk, ldk, wlk = ks.simplex_inverse_logdet(y, am1)
         xp, ldp, wlp = ks.simplex_inverse_logdet_plain(y, am1)
@@ -419,22 +458,23 @@ def face_points(rng, n):
     return x
 
 
-def check_batch_major_kernels(dev, vT, vxT, xfaces):
+def check_batch_major_kernels(dev, vT, xT, vxT, xfaces):
     """The LKJ log-det kernel (both variants), the x-only simplex inverse
     and the simplex forward kernel against their plain versions, and their
     closed-form backward against autograd through the plain versions: at
     B = 131072, 64 and 1000 (a partial block), each in the batch-major
-    slice of a (B, 151) state that the batch-major path reads, a
-    contiguous (B, P) tensor, and the swapped view of the (dim, B) state;
-    and at 1e10 states (the forward kernel at points on the simplex's
-    faces). Returns the max absolute error of each kernel."""
+    slice of a (B, 151) state, a contiguous (B, P) tensor, and the swapped
+    view of the (dim, B) state (`layouts`; the forward kernel on the
+    simplex points of `xT`); and at 1e10 states (the forward kernel at
+    points on the simplex's faces). Returns the max absolute error of each
+    kernel."""
     from tpu_bijectors_torch.bijectors import SimplexBijector
     from tpu_bijectors_torch.bijectors.corr import _lkj_logdet_all
     from tpu_bijectors_torch.kernels import lkj as kl
     from tpu_bijectors_torch.kernels import simplex as ks
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    err = {k: 0.0 for k in BATCH_MAJOR_SOURCES}
+    err = {k: 0.0 for k in BATCH_MAJOR_KERNELS}
 
     def rel(t):
         return t.abs() + 1e-3 * t.abs().max()
@@ -442,18 +482,12 @@ def check_batch_major_kernels(dev, vT, vxT, xfaces):
     def one(t):
         return torch.ones_like(t)
 
-    def layouts(rows, n):
-        """(tag, tensor) of the three layouts of vT's `rows` at batch n."""
-        v = vT[:, :n].T.contiguous()  # the batch-major state (n, 151)
-        return (
-            (f"batch-major slice, B = {n}", v[:, rows]),
-            (f"contiguous, B = {n}", vT[rows, :n].T.contiguous()),
-            (f"swapped, B = {n}", vT[rows, :n].T),
-        )
+    def tagged(xT, rows, n):
+        return ((f"{lay}, B = {n}", y)
+                for lay, y in layouts(xT, rows, n, "batch-major slice").items())
 
-    B = vT.shape[1]
-    for n in (B, CHAINS, 1000):
-        for lay, yc in layouts(C_ROWS, n):
+    for n in (vT.shape[1], CHAINS, 1000):
+        for lay, yc in tagged(vT, C_ROWS, n):
             for chol in (False, True):
                 tag = f"lkj_logdet chol={chol} ({lay})"
                 got = kl.lkj_logdet(yc, 16, chol)
@@ -471,7 +505,7 @@ def check_batch_major_kernels(dev, vT, vxT, xfaces):
                 check(f"{tag} backward vs autograd of plain",
                       vjp(lambda v, c=chol: _lkj_logdet_all(v, c), yc, cts),
                       vjp(lambda v, c=chol: kl.lkj_logdet_plain(v, 16, c), yc, cts), RTOL_VJP)
-        for lay, y in layouts(W_ROWS, n):
+        for lay, y in tagged(vT, W_ROWS, n):
             x = ks.simplex_inverse(y)
             xp = ks.simplex_inverse_plain(y)
             err["simplex_inverse"] = max(err["simplex_inverse"], check(
@@ -483,14 +517,7 @@ def check_batch_major_kernels(dev, vT, vxT, xfaces):
             check(f"simplex_inverse backward vs autograd of plain ({lay})",
                   vjp(lambda v: (SimplexBijector().inverse(v),), y, ct),
                   vjp(lambda v: (ks.simplex_inverse_plain(v),), y, ct), RTOL_VJP)
-        # the forward kernel reads simplex points: the plain inverse's x
-        # of the same rows, in the three layouts
-        xs = ks.simplex_inverse_plain(vT[W_ROWS, :n].T.contiguous())
-        xv = torch.zeros((n, 151), device=dev)
-        xv[:, :16] = xs
-        for lay, x in ((f"batch-major slice, B = {n}", xv[:, :16]),
-                       (f"contiguous, B = {n}", xs),
-                       (f"swapped, B = {n}", xs.T.contiguous().T)):
+        for lay, x in tagged(xT, X_ROWS, n):
             got = ks.simplex_forward_logdet(x)
             ref = ks.simplex_forward_logdet_plain(x)
             e = err["simplex_forward_logdet"]
@@ -504,7 +531,6 @@ def check_batch_major_kernels(dev, vT, vxT, xfaces):
             check(f"simplex_forward backward vs autograd of plain ({lay})",
                   vjp(SimplexBijector().forward_and_log_det, x, cts),
                   vjp(ks.simplex_forward_logdet_plain, x, cts), RTOL_VJP)
-        del xs, xv
 
     # 1e10 states (and points on the simplex's faces for the forward link):
     # finite outputs that agree with the plain versions, finite backward
@@ -567,7 +593,7 @@ def run_batch_major_serving(dev, vT, scale, loglik):
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     print(f"launches on the batch-major serving path: {launches}", flush=True)
-    for k in tuple(BATCH_MAJOR_SOURCES) + tuple(SOURCES):
+    for k in BATCH_MAJOR_KERNELS + LINK_KERNELS:
         expect(f"{k} launched on the batch-major serving path", launches[k] > 0)
 
     expect("batch-major lp (B,) and g (B, 151)",
@@ -631,82 +657,19 @@ def run_batch_major_serving(dev, vT, scale, loglik):
 
     # the entry points as a caller sees them, host dispatch included
     e2e = {
-        "batch_major_value_ms_B131072": time_ms(lambda: f(v), device_only=False),
-        "batch_major_value_and_grad_ms_B131072": time_ms(
+        "batch_major_value_ms_B131072": time_slow_ms(lambda: f(v), device_only=False),
+        "batch_major_value_and_grad_ms_B131072": time_slow_ms(
             lambda: f.value_and_grad_fn(v), device_only=False
         ),
-        "batch_major_value_ms_B64": time_ms(lambda: f(v64), device_only=False),
-        "batch_major_value_and_grad_ms_B64": time_ms(
+        "batch_major_value_ms_B64": time_slow_ms(lambda: f(v64), device_only=False),
+        "batch_major_value_and_grad_ms_B64": time_slow_ms(
             lambda: f.value_and_grad_fn(v64), device_only=False
         ),
-        "batch_major_likelihood_value_and_grad_ms_B64": time_ms(
+        "batch_major_likelihood_value_and_grad_ms_B64": time_slow_ms(
             lambda: fl.value_and_grad_fn(v64), device_only=False
         ),
     }
     return launches, e2e
-
-
-def time_batch_major_kernels(vT, launches, err):
-    """The batch-major kernels at B = 131072, in the three layouts, kernel
-    and plain version timed alike. A row's `ms` is the layout the
-    batch-major path reads (the slice of the (B, 151) state); the other
-    layouts go to a variants line."""
-    from tpu_bijectors_torch.kernels import lkj as kl
-    from tpu_bijectors_torch.kernels import simplex as ks
-
-    B = vT.shape[1]
-    v = vT.T.contiguous()
-    xs = ks.simplex_inverse_plain(vT[W_ROWS].T.contiguous())
-    xv = torch.zeros_like(v)
-    xv[:, :16] = xs
-    lay = {
-        "lkj_logdet": {"slice": v[:, C_ROWS], "contiguous": vT[C_ROWS].T.contiguous(),
-                       "swapped": vT[C_ROWS].T},
-        "simplex_inverse": {"slice": v[:, W_ROWS], "contiguous": vT[W_ROWS].T.contiguous(),
-                            "swapped": vT[W_ROWS].T},
-        "simplex_forward_logdet": {"slice": xv[:, :16], "contiguous": xs,
-                                   "swapped": xs.T.contiguous().T},
-    }
-    fns = {
-        "lkj_logdet": (lambda y: kl.lkj_logdet(y, 16), lambda y: kl.lkj_logdet_plain(y, 16)),
-        "simplex_inverse": (ks.simplex_inverse, ks.simplex_inverse_plain),
-        "simplex_forward_logdet": (ks.simplex_forward_logdet, ks.simplex_forward_logdet_plain),
-    }
-    work = {  # (bytes, operations): each input read once, each output written once
-        "lkj_logdet": (B * 4 * (120 + 1 + 16), B * 120 * OPS_LKJ_LOGDET_SLOT),
-        "simplex_inverse": (B * 4 * (15 + 16), B * 15 * OPS_SIMPLEX_X_COORD),
-        "simplex_forward_logdet": (B * 4 * (16 + 15 + 1), B * 15 * OPS_SIMPLEX_FWD_COORD),
-    }
-    rows, variants = [], {}
-    for k, (kern, plain) in fns.items():
-        nbytes, ops = work[k]
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
-        ms = {name: time_ms(lambda y=y: kern(y)) for name, y in lay[k].items()}
-        plain_ms = time_ms(lambda: plain(lay[k]["slice"]))
-        row = {
-            "name": k,
-            "route": "cuda",
-            "source": BATCH_MAJOR_SOURCES[k],
-            "replaces": REPLACES[k],
-            "launches": launches[k],
-            "max_abs_err": err[k],
-            "ms": ms["slice"],
-            "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
-        }
-        rows.append(row)
-        print(json.dumps(row), flush=True)
-        print(json.dumps({"bound_inputs": {"name": k, "bytes": nbytes, "ops": ops}}), flush=True)
-        variants.update({f"{k}_{name}_ms": t for name, t in ms.items()})
-        variants.update({f"{k}_{name}_byte_bound_share": t_bytes / t for name, t in ms.items()})
-    variants["lkj_logdet_chol_swapped_ms"] = time_ms(
-        lambda: kl.lkj_logdet(lay["lkj_logdet"]["swapped"], 16, True)
-    )
-    print(json.dumps({"batch_major_variants": variants}), flush=True)
-    return rows
 
 
 def run_sampler(dev, loglik, counts, kernel):
@@ -727,7 +690,7 @@ def run_sampler(dev, loglik, counts, kernel):
     # one launch per batched leapfrog: the fused value-and-gradient kernel
     # of the transposed density, the LKJ inverse link of the batch-major one
     per_leapfrog = "slab_value_and_grad" if transposed else "lkj_inverse"
-    path = (("slab_value_and_grad",) if transposed else ()) + tuple(SOURCES)
+    path = (("slab_value_and_grad",) if transposed else ()) + LINK_KERNELS
     model = tbt.Model(bench_model(dists, dev, torch.float32), loglik=loglik, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     torch.cuda.synchronize()
@@ -803,32 +766,84 @@ def run_sampler(dev, loglik, counts, kernel):
     return line, launches
 
 
-def time_link_kernels(vT, launches, err):
-    """The link kernels' rows at B = 131072 on the swapped view of the state
-    (the layout the leapfrog reads), kernel and plain version timed alike."""
+def kernel_table(vT, xT, cf, ones):
+    """Every ported kernel at B = 131072: name -> (wrapper, plain version,
+    bytes, operations, {layout: input}), the layout the path reads first.
+    The bytes count each input the function reads once and each output
+    once; the operations are floors (see OPS)."""
     from tpu_bijectors_torch.kernels import lkj as kl
     from tpu_bijectors_torch.kernels import simplex as ks
+    from tpu_bijectors_torch.vectorize import fused_base as fb
+    from tpu_bijectors_torch.vectorize import fused_kernel as fk
 
-    B = vT.shape[1]
-    y, yc = vT[W_ROWS].T, vT[C_ROWS].T
-    runs = {
-        "simplex_inverse_logdet": (
-            lambda: ks.simplex_inverse_logdet(y),
-            lambda: ks.simplex_inverse_logdet_plain(y),
-            B * 4 * (15 + 16 + 1),
-            B * 15 * OPS_SIMPLEX_COORD,
+    dim, B = vT.shape
+    groups_per_row = [fb._groups_and_used(cf[r : r + 1])[0] for r in range(dim)]
+
+    def slab_ops(mode):
+        return B * sum(2 + sum(OPS[mode][g] for g in gs) for gs in groups_per_row)
+
+    # reads vT and the coefficients, writes lp (B,) or reads the cotangent
+    # (B,); the gradient kernels also write g (dim, B)
+    slab_bytes = vT.numel() * 4 + B * 4 + cf.numel() * 4
+    transposed = {"transposed": vT}
+    return {
+        "slab_value": (lambda y: fk.slab_value(y, cf), lambda y: fb.slab_value_plain(y, cf),
+                       slab_bytes, slab_ops("value"), transposed),
+        "slab_value_and_grad": (
+            lambda y: fk.slab_value_and_grad(y, cf),
+            lambda y: fb.slab_value_and_grad_plain(y, cf),
+            slab_bytes + vT.numel() * 4, slab_ops("value_and_grad"), transposed,
         ),
+        "slab_vjp": (lambda y: fk.slab_vjp(y, cf, ones),
+                     lambda y: fb.slab_vjp_plain(y, cf, ones),
+                     slab_bytes + vT.numel() * 4, slab_ops("vjp"), transposed),
+        # reads y (15), writes x (16) and ld
+        "simplex_inverse_logdet": (
+            ks.simplex_inverse_logdet, ks.simplex_inverse_logdet_plain,
+            B * 4 * (15 + 16 + 1), B * 15 * OPS_SIMPLEX_COORD,
+            layouts(vT, W_ROWS, B, "swapped"),
+        ),
+        # reads y (120), writes X (256), logJ and log diag W (16)
         "lkj_inverse": (
-            lambda: kl.lkj_inverse(yc, 16),
-            lambda: kl.lkj_inverse_plain(yc, 16),
-            B * 4 * (120 + 256 + 1 + 16),
-            B * (120 * OPS_LKJ_SLOT + 2 * 816),
+            lambda y: kl.lkj_inverse(y, 16), lambda y: kl.lkj_inverse_plain(y, 16),
+            B * 4 * (120 + 256 + 1 + 16), B * (120 * OPS_LKJ_SLOT + 2 * 816),
+            layouts(vT, C_ROWS, B, "swapped"),
+        ),
+        # reads y (120), writes logJ and log diag W (16)
+        "lkj_logdet": (
+            lambda y: kl.lkj_logdet(y, 16), lambda y: kl.lkj_logdet_plain(y, 16),
+            B * 4 * (120 + 1 + 16), B * 120 * OPS_LKJ_LOGDET_SLOT,
+            layouts(vT, C_ROWS, B, "batch-major slice"),
+        ),
+        # reads y (15), writes x (16)
+        "simplex_inverse": (
+            ks.simplex_inverse, ks.simplex_inverse_plain,
+            B * 4 * (15 + 16), B * 15 * OPS_SIMPLEX_X_COORD,
+            layouts(vT, W_ROWS, B, "batch-major slice"),
+        ),
+        # reads x_0..x_14 (x_15 enters neither output), writes y (15) and
+        # ld; to_linked_vec hands it the inverse's contiguous x
+        "simplex_forward_logdet": (
+            ks.simplex_forward_logdet, ks.simplex_forward_logdet_plain,
+            B * 4 * (15 + 15 + 1), B * 15 * OPS_SIMPLEX_FWD_COORD,
+            layouts(xT, X_ROWS, B, "contiguous"),
         ),
     }
-    rows = []
-    for k, (kern, plain, nbytes, ops) in runs.items():
+
+
+def time_kernels(table, launches, err, variants):
+    """One `kernels` row per entry of `kernel_table`: the kernel timed on
+    each of its layouts (the row's `ms` on the first, the layout its path
+    reads) and its plain version on the first, with CUDA events; the bound
+    from the entry's bytes and operations. Prints each row, its
+    `bound_inputs`, and a `kernel_variants` line with every layout's time
+    and byte-bound share and the times of `variants` (name -> call)."""
+    rows, times = [], {}
+    for k, (kern, plain, nbytes, ops, inputs) in table.items():
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+        ms = {lay: time_ms(lambda y=y: kern(y)) for lay, y in inputs.items()}
+        first = next(iter(inputs))
         row = {
             "name": k,
             "route": "cuda",
@@ -836,24 +851,20 @@ def time_link_kernels(vT, launches, err):
             "replaces": REPLACES[k],
             "launches": launches[k],
             "max_abs_err": err[k],
-            "ms": time_ms(kern),
-            "plain_ms": time_ms(plain),
+            "ms": ms[first],
+            "plain_ms": time_slow_ms(lambda: plain(inputs[first])),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None,
         }
         rows.append(row)
         print(json.dumps(row), flush=True)
+        # the counts bound_ms is computed from (not measured)
         print(json.dumps({"bound_inputs": {"name": k, "bytes": nbytes, "ops": ops}}), flush=True)
-    # the variants the paths also run: contiguous input, and W written for
-    # the backward (the leapfrog's case)
-    y_c, yc_c = y.contiguous(), yc.contiguous()
-    extra = {
-        "simplex_contiguous_ms": time_ms(lambda: ks.simplex_inverse_logdet(y_c)),
-        "lkj_with_W_ms": time_ms(lambda: kl.lkj_inverse(yc, 16, want_w=True)),
-        "lkj_contiguous_ms": time_ms(lambda: kl.lkj_inverse(yc_c, 16)),
-    }
-    print(json.dumps({"link_variants": extra}), flush=True)
+        times.update({f"{k} ({lay})": {"ms": t, "byte_bound_share": t_bytes / t}
+                      for lay, t in ms.items()})
+    times.update({k: {"ms": time_ms(fn)} for k, fn in variants.items()})
+    print(json.dumps({"kernel_variants": times}), flush=True)
     return rows
 
 
@@ -876,10 +887,18 @@ def main():
     name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
-    t0 = time.perf_counter()
+    # wall-clock seconds of each phase, printed as one `phases_s` line
+    phases, clock = {}, [time.perf_counter()]
+
+    def lap(phase):
+        now = time.perf_counter()
+        phases[phase] = now - clock[0]
+        clock[0] = now
+
     so = build.build()
     build.load()
-    print(f"build: {so.name} in {time.perf_counter() - t0:.1f} s", flush=True)
+    lap("build")
+    print(f"build: {so.name} in {phases['build']:.1f} s", flush=True)
 
     model = tbt.Model(bench_model(dists, dev, torch.float32), device=dev)
     u = model.unconstrainer()
@@ -901,7 +920,7 @@ def main():
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     print(f"launches on the main path: {launches}", flush=True)
-    for k in ("slab_value", "slab_value_and_grad", "slab_vjp"):
+    for k in SLAB_KERNELS:
         expect(f"{k} launched on the main path", launches[k] > 0)
     expect("lp shape (B,)", lp.shape == (BATCH,) and lp_vg.shape == (BATCH,))
     expect("g shape (dim, B)", g_vg.shape == (dim, BATCH) and g_ag.shape == (dim, BATCH))
@@ -958,71 +977,43 @@ def main():
     check("1e10: lp vs plain", lpx, lpx_p + c0x, RTOL_LP, lpx_p.abs() + c0x.abs())
     check("1e10: Dirichlet and LKJ rows of g vs plain", gx[16:], gx_p[16:], RTOL_G)
     check("1e10: Normal and LogNormal rows of g vs plain", gx[:16], gx_p[:16], RTOL_G)
+    lap("transposed serving and its checks")
 
     # --- the inverse-link kernels, their entry points, the likelihood --------
     loglik, counts = hier_loglik_and_counts(dev)
     err.update(check_link_kernels(dev, vT, vxT, counts))
     check_link_entry_points(dev, vT, loglik, counts)
+    lap("link kernel checks")
 
     # --- the second main path: NUTS with the likelihood ----------------------
     sampler_line, sampler_launches = run_sampler(dev, loglik, counts, "nuts_batched_t")
-    launches.update({k: sampler_launches[k] for k in SOURCES})
+    launches.update({k: sampler_launches[k] for k in LINK_KERNELS})
+    lap("nuts_batched_t sampler")
 
     # --- the third: the batch-major entry points -------------------------------
-    err.update(check_batch_major_kernels(dev, vT, vxT, face_points(rng, 4096)))
+    xT = simplex_points_T(vT)
+    err.update(check_batch_major_kernels(dev, vT, xT, vxT, face_points(rng, 4096)))
+    lap("batch-major kernel checks")
     bm_launches, bm_e2e = run_batch_major_serving(dev, vT, scale, loglik)
-    launches.update({k: bm_launches[k] for k in BATCH_MAJOR_SOURCES})
+    launches.update({k: bm_launches[k] for k in BATCH_MAJOR_KERNELS})
+    lap("batch-major serving and its checks")
 
     # --- the fourth: batch-major NUTS with the likelihood ----------------------
     bm_sampler_line, _ = run_sampler(dev, loglik, counts, "nuts_batched")
+    lap("nuts_batched sampler")
 
     # --- timing ----------------------------------------------------------------
-    groups_per_row = [fb._groups_and_used(cf[r : r + 1])[0] for r in range(dim)]
-    nbytes = {
-        "slab_value": vT.numel() * 4 + BATCH * 4 + cf.numel() * 4,
-        "slab_value_and_grad": 2 * vT.numel() * 4 + BATCH * 4 + cf.numel() * 4,
-        "slab_vjp": 2 * vT.numel() * 4 + BATCH * 4 + cf.numel() * 4,
-    }
-    mode = {"slab_value": "value", "slab_value_and_grad": "value_and_grad", "slab_vjp": "vjp"}
-    runs = {
-        "slab_value": (lambda: fk.slab_value(vT, cf), lambda: fb.slab_value_plain(vT, cf)),
-        "slab_value_and_grad": (
-            lambda: fk.slab_value_and_grad(vT, cf),
-            lambda: fb.slab_value_and_grad_plain(vT, cf),
-        ),
-        "slab_vjp": (
-            lambda: fk.slab_vjp(vT, cf, ones),
-            lambda: fb.slab_vjp_plain(vT, cf, ones),
-        ),
-    }
-    rows = []
-    for k, (kern, plain) in runs.items():
-        ops = BATCH * sum(2 + sum(OPS[mode[k]][g] for g in gs) for gs in groups_per_row)
-        t_bytes = nbytes[k] / PEAK_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
-        ms = time_ms(kern)
-        plain_ms = time_ms(plain)
-        row = {
-            "name": k,
-            "route": "cuda",
-            "source": "tpu_bijectors_torch/kernels/csrc/fused_slab.cu",
-            "replaces": REPLACES[k],
-            "launches": launches[k],
-            "max_abs_err": err[k],
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
-        }
-        rows.append(row)
-        print(json.dumps(row), flush=True)
-        # the counts bound_ms is computed from (not measured)
-        print(json.dumps({"bound_inputs": {"name": k, "bytes": nbytes[k], "ops": ops}}),
-              flush=True)
+    # the variants the paths also run: the LKJ inverse writing W for the
+    # backward (the leapfrog's case) and the LKJ log-det's Cholesky form
+    from tpu_bijectors_torch.kernels import lkj as kl
 
-    rows += time_link_kernels(vT, launches, err)
-    rows += time_batch_major_kernels(vT, launches, err)
+    yc = vT[C_ROWS].T
+    variants = {
+        "lkj_inverse with W (swapped)": lambda: kl.lkj_inverse(yc, 16, want_w=True),
+        "lkj_logdet chol=True (swapped)": lambda: kl.lkj_logdet(yc, 16, True),
+    }
+    rows = time_kernels(kernel_table(vT, xT, cf, ones), launches, err, variants)
+    lap("kernel timing")
 
     # the entry points as a caller sees them: host dispatch included, at the
     # full batch and at a sampler's batch of 64 chains
@@ -1038,7 +1029,9 @@ def main():
         ),
     }
     e2e.update(bm_e2e)
+    lap("entry-point timing")
     print(json.dumps({"end_to_end": e2e}), flush=True)
+    print(json.dumps({"phases_s": phases}), flush=True)
     print(json.dumps({"sampler": sampler_line}), flush=True)
     print(json.dumps({"sampler": bm_sampler_line}), flush=True)
 

@@ -273,7 +273,7 @@ def _jvkernel(keys, q, lp, g, eps, im):
 def _init_both(q0, inv_mass0):
     state = sampler.init_sampler(
         lambda q: -0.5 * torch.sum(q * q, dim=-1), torch.Generator().manual_seed(0),
-        torch.as_tensor(q0), inv_mass0=inv_mass0,
+        torch.as_tensor(q0), batched=True, inv_mass0=inv_mass0,
     )
     jstate = jsampler.init_sampler(
         lambda q: -0.5 * jnp.sum(q * q, axis=-1), jax.random.PRNGKey(0), jnp.asarray(q0),
@@ -393,7 +393,7 @@ def test_inv_mass0_of_the_wrong_shape_raises_as_in_jax():
     q0 = np.zeros((2, 3))
     with pytest.raises(ValueError, match="inv_mass0 shape"):
         sampler.init_sampler(lambda q: -torch.sum(q * q, -1), torch.Generator(),
-                             torch.as_tensor(q0), inv_mass0=np.ones(4))
+                             torch.as_tensor(q0), batched=True, inv_mass0=np.ones(4))
     with pytest.raises(ValueError, match="inv_mass0 shape"):
         jsampler.init_sampler(lambda q: -jnp.sum(q * q, -1), jax.random.PRNGKey(0),
                               jnp.asarray(q0), batched=True, inv_mass0=np.ones(4))
@@ -447,9 +447,9 @@ def test_sample_raises_where_the_jax_package_takes_unported_paths():
                dict(kernel="chees"), dict(metric="dense")):
         with pytest.raises(NotImplementedError):
             tm.sample(g, n_chains=2, n_warmup=0, n_samples=1, **kw)
+    # the JAX package's default, a per-chain density
     with pytest.raises(NotImplementedError, match="batched=False"):
-        sampler.init_sampler(lambda q: -torch.sum(q * q, -1), g, torch.zeros(2, 3),
-                             batched=False)
+        sampler.init_sampler(lambda q: -torch.sum(q * q, -1), g, torch.zeros(2, 3))
 
 
 def _picked(monkeypatch, model, jmodel):

@@ -53,10 +53,11 @@ class RunStats(NamedTuple):
 
 def init_sampler(
     logdensity_fn, generator, q0, eps0: float = 0.1, metric: str = "diag",
-    batched: bool = True, inv_mass0=None,
+    batched: bool = False, inv_mass0=None,
 ) -> SamplerState:
-    """q0: (chains, dim) initial positions; with `batched`, `logdensity_fn`
-    maps (chains, dim) -> (chains,) (the JAX package's per-chain form,
+    """q0: (chains, dim) initial positions. batched: `logdensity_fn` maps
+    (chains, dim) -> (chains,) directly; the port has only such densities,
+    so it must be True (the JAX package's per-chain form, its default
     batched=False, is not ported and raises). Its `value_and_grad_fn`,
     where it has one, gives the initial logp and gradient, so they come
     from the same density definition as every leapfrog's. inv_mass0 seeds
@@ -229,7 +230,7 @@ def warmup_and_sample(
     vkernel, init_logdensity = _build_vkernel(logdensity_fn, kernel, max_depth)
     state = init_sampler(
         init_logdensity, generator, q0, eps0, metric=metric,
-        batched=kernel.startswith("nuts_batched"), inv_mass0=inv_mass0,
+        batched=True, inv_mass0=inv_mass0,
     )
     window_id, window_end = build_schedule(n_warmup)
     dim, dtype, dev = q0.shape[-1], q0.dtype, q0.device

@@ -20,9 +20,10 @@
 // batch-major slice and the swapped view of a transposed state are both
 // read in place; y (B, K-1) and ld (B,) are written batch-major.
 //
-// Bound on the card: memory. An element reads K floats and writes K,
-// against about 20 operations per coordinate; at K = 16 and B = 131072
-// that is 16.8 MB, about 5.0 us at 3.35 TB/s. One thread walks one
+// Bound on the card: memory. An element reads K-1 floats (x_{K-1} enters
+// neither y nor ld, and is never loaded) and writes K, against about 20
+// operations per coordinate; at K = 16 and B = 131072 that is 16.3 MB,
+// about 4.85 us at 3.35 TB/s. One thread walks one
 // element's prefix sum in registers. The y write is 60 contiguous bytes
 // per thread, not coalesced across the warp.
 
