@@ -3,9 +3,12 @@
     python3 chip_smoke.py
 
 Builds every kernel in `tpu_bijectors_torch/kernels/csrc/` (one nvcc per
-source, all at once), then drives the bench model (8 Normal, 8 LogNormal,
-Dirichlet(16), LKJ(16): linked dim 151) in float32 through the entry points
-a user calls, on four paths:
+source, all at once; the ptxas report of registers and spills is printed),
+then drives the bench model (8 Normal, 8 LogNormal, Dirichlet(16), LKJ(16):
+linked dim 151) in float32 through the entry points a user calls, on four
+paths, and the PD models (tools/mega_probe.py's `pdonly`: Wishart(18, I_16)
+and 15 iid N(0, 1), linked dim 136 + 15 = 151, and its twin with
+InverseWishart(18, I_16)) on three more:
 
 1. transposed serving at B = 131072: `Model.batched_logdensity_t_fn()`
    (the slab value kernel), its `value_and_grad_fn` (the one-pass
@@ -28,7 +31,18 @@ a user calls, on four paths:
    likelihood model's `batched_logdensity_fn` at 64 states;
 4. batch-major NUTS with the same likelihood and settings
    (`kernel='nuts_batched'`): every leapfrog runs the simplex and LKJ
-   inverse-link kernels on the (64, 151) state.
+   inverse-link kernels on the (64, 151) state;
+5. transposed serving of both PD models at B = 131072 on the same states:
+   the three whole-model kernels with the PD loop entry (dot mode for
+   Wishart, solve mode for InverseWishart);
+6. batch-major serving of both PD models on (B, 151) states:
+   `batched_logdensity_fn()` (the PD log-density kernel), its gradient
+   (the trace-gradient kernel) and `Model.constrain` (the PD inverse);
+7. the pd_conjugate cell: `Model(pdonly, loglik).sample(kernel='auto')`,
+   which takes `nuts_batched_t`, with 200 observations z ~ N(0, Sigma)
+   (loglik = 100 log det W - tr(W Z'Z) / 2) and the settings of path 2:
+   each leapfrog runs the value-and-gradient kernel with the PD entry and
+   the PD inverse kernel with its backward.
 
 The launch counters are set to 0 just before each path and read just after
 it; each kernel of the path must have launched. Each kernel is held against
@@ -43,9 +57,14 @@ through the plain version. The log-densities are also held against the
 composed per-leaf path and the plain path in float64, the likelihood model
 (at 64 and 4096 states) against its float64 plain version on the CPU, and
 each sampler's draws against the known Dirichlet(1 + counts) posterior of
-`w` (within 5 MCSE), with R-hat <= 1.05 and divergences <= 1%. Every
+`w` (within 5 MCSE), with R-hat <= 1.05 and divergences <= 1%. The PD
+kernels and the PD entry are held against their plain versions and float64
+in both modes, at error bounds from the sums and substitutions they do
+(`pd_reference`: the solve mode's scale with kappa(L)), and the
+pd_conjugate draws against the Wishart(218, (I + Z'Z)^-1) posterior. Every
 kernel is timed with CUDA events in each of its layouts, beside its plain
-version (`kernel_table`, `time_kernels`).
+version (`kernel_table`, `time_kernels`), and the PD variants with their
+bounds (`pd_variants`).
 
 Prints the card's name and power limit, one JSON line per kernel, a
 `kernel_variants` line (every layout's time), an `end_to_end` line (the
@@ -56,6 +75,7 @@ result, when CUDA is absent or any check fails.
 """
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -95,6 +115,9 @@ REPLACES = {
     "lkj_logdet": "tpu_bijectors/kernels/lkj.py:88",
     "simplex_inverse": "tpu_bijectors/kernels/simplex.py:59",
     "simplex_forward_logdet": "tpu_bijectors/kernels/simplex.py:252",
+    "pd_inverse": "tpu_bijectors/kernels/pd.py:73",
+    "pd_logdensity": "tpu_bijectors/kernels/pd.py:177",
+    "pd_trace_grad": "tpu_bijectors/kernels/pd.py:302",
 }
 CSRC = "tpu_bijectors_torch/kernels/csrc/"
 SOURCES = {
@@ -106,6 +129,9 @@ SOURCES = {
     "lkj_logdet": CSRC + "lkj_logdet.cu",
     "simplex_inverse": CSRC + "simplex_inv.cu",
     "simplex_forward_logdet": CSRC + "simplex_fwd.cu",
+    "pd_inverse": CSRC + "pd_inverse.cu",
+    "pd_logdensity": CSRC + "pd_logdensity.cu",
+    "pd_trace_grad": CSRC + "pd_trace_grad.cu",
 }
 # the kernels each path must launch: transposed serving (path 1), the
 # inverse links of both samplers (paths 2 and 4), batch-major serving
@@ -138,6 +164,22 @@ OPS_LKJ_SLOT = 12
 OPS_LKJ_LOGDET_SLOT = 8
 OPS_SIMPLEX_X_COORD = 11
 OPS_SIMPLEX_FWD_COORD = 22
+# operations per element of the PD kernels at K = 16, counted alike (a
+# multiply-add is 2): unpacking y (a copy per slot, two exps and three
+# operations per diagonal slot) 216; X = LL' 816 multiply-adds; the dot
+# trace 816 multiply-adds and 3 operations per packed slot; a forward
+# substitution column 120 multiply-adds and 16 multiplies (256), the solve
+# trace 16 columns and 16 squares each (288 a column); the dot gradient
+# 1496 multiply-adds and 2 operations per slot; the solve gradient 16
+# forward and 16 back substitution columns (256 each) and 16 rank-one
+# updates of G (136 multiply-adds), and 2 operations per slot
+PD_OPS = {
+    "inverse": 216 + 2 * 816,
+    "dot": 216 + 2 * 816 + 3 * 136,
+    "solve": 216 + 16 * 288,
+    "dot_grad": 216 + 2 * 1496 + 2 * 136,
+    "solve_grad": 216 + 16 * (256 + 256 + 272) + 2 * 136,
+}
 # the float32 round trip v -> x -> v of the bench model. The scalar and
 # simplex rows are held absolutely (1.1e-6 at most on the H100 at
 # B = 131072). The LKJ rows pass through torch.linalg.cholesky of a 16 x 16
@@ -766,12 +808,492 @@ def run_sampler(dev, loglik, counts, kernel):
     return line, launches
 
 
+# --- the Wishart families (the fourth slice) -----------------------------------
+
+PD_K = 16
+PD_ROWS = slice(0, 136)  # the Wishart leaf's packed rows of the PD models
+PD_MODES = {"wishart": "dot", "invwishart": "solve"}
+EPS32 = float(np.finfo(np.float32).eps)
+# the pd_conjugate chains start at bench.py's 0.3 N(0, 1): at N(0, 1) the
+# factor L of a start is so ill-conditioned that W = LL' is singular in
+# float32 (kappa(W) = kappa(L)^2), so the likelihood's log det W and its
+# gradient W^-1 are noise, and dual averaging shrinks the step towards 0
+# chasing the target acceptance; float64, or smaller starts, do not
+PD_INIT_SCALE = 0.3
+
+
+def pd_model(dists, device, dtype, family, scale=None):
+    """tools/mega_probe.py's `pdonly` (W = Wishart(18, I_16), m = 15 iid
+    N(0, 1): linked dim 136 + 15 = 151), or its solve-mode twin with
+    InverseWishart(18, I_16) for W; `scale` replaces I_16."""
+    kw = dict(device=device, dtype=dtype)
+    S = np.eye(PD_K) if scale is None else scale
+    cls = dists.Wishart if family == "wishart" else dists.InverseWishart
+    return dists.NamedProduct.of(
+        W=cls(18.0, S, **kw), m=dists.IIDProduct(dists.Normal(0.0, 1.0, **kw), 15)
+    )
+
+
+def random_spd(seed):
+    """A 16 x 16 SPD matrix from numpy seed `seed` (eigenvalues above 1/2)."""
+    A = np.random.default_rng(seed).standard_normal((PD_K, PD_K))
+    return A @ A.T / PD_K + 0.5 * np.eye(PD_K)
+
+
+def pd_c(S, mode):
+    """The PD kernels' C for a scale S: S^-1 (dot), chol(S) (solve)."""
+    return np.linalg.inv(S) if mode == "dot" else np.linalg.cholesky(S)
+
+
+def pd_reference(y, C, mode):
+    """Float64 references of the PD log-density pieces and the trace
+    gradient for y (n, 136) and C, with the error a float32 result may
+    carry, from the standard bounds of the sums and substitutions (eps =
+    eps32, kappa = ||L||_F ||L^-1||_F per element, |.| elementwise):
+
+      dot:   tr    within 2K eps sum_ab |C_ab| (|L| |L|')_ab
+             g     within 2K eps 2 (|C| |L|)_rc (times L_rr on the diagonal)
+      solve: tr    within 4K kappa eps tr   (a forward substitution)
+             g     within 6K kappa eps 2 ||At||_F ||A||_F (times L_rr), two
+                   substitutions and a product; the substitutions' bounds
+                   are normwise, so a slot is held to the norms, not to
+                   its own |At| |A'|
+
+    Returns (logJ, sumd, tr, g, tr_allow, g_allow, kappa)."""
+    from tpu_bijectors_torch.kernels import pd as kp
+    from tpu_bijectors_torch.utils import set_diag, tril_to_vec
+
+    y64, C64 = y.double(), C.double()
+    logJ, sumd, tr = kp.pd_logdensity_plain(y64, PD_K, C64, mode)
+    g = kp.pd_trace_grad_plain(y64, PD_K, C64, mode)
+    L, d = kp._unpack(y64, PD_K)
+    einv = torch.exp(-d)
+    eye = torch.eye(PD_K, dtype=torch.float64, device=y.device)
+    kappa = torch.linalg.matrix_norm(L) * torch.linalg.matrix_norm(kp._forward_sub(L, einv, eye))
+
+    def slots(M):
+        return tril_to_vec(set_diag(M, torch.diagonal(M, dim1=-2, dim2=-1) * torch.exp(d)))
+
+    if mode == "dot":
+        Cs = (0.5 * (C64 + C64.T)).abs()
+        tr_allow = 2 * PD_K * EPS32 * torch.sum(Cs * (L.abs() @ L.abs().transpose(-1, -2)),
+                                                 dim=(-2, -1))
+        g_allow = 2 * PD_K * EPS32 * slots(2.0 * (Cs @ L.abs()))
+    else:
+        A = kp._forward_sub(L, einv, C64)
+        At = kp._back_sub(L, einv, A)
+        tr_allow = 4 * PD_K * EPS32 * kappa * tr
+        norms = torch.linalg.matrix_norm(At) * torch.linalg.matrix_norm(A)
+        g_allow = 6 * PD_K * EPS32 * kappa[:, None] * slots(2.0 * norms[:, None, None] * torch.ones_like(L))
+    return logJ, sumd, tr, g, tr_allow, g_allow, kappa
+
+
+def check_pd_kernels(dev, vT, vxT):
+    """The three PD kernels against their plain versions and float64, in
+    the three `layouts` (the batch-major slice first) at B = 131072, 64 and
+    1000 (a partial block), in both modes with a C from a random SPD
+    matrix; their closed-form backward passes against autograd through the
+    float64 plain versions; and, with the off-diagonal slots at 1e10, the
+    inverse and the dot mode finite and equal to the plain versions. The
+    solve mode's trace and gradient are held at the kappa(L)-scaled bounds
+    of `pd_reference` (kappa printed). Returns the max absolute error of
+    each kernel against its plain version."""
+    from tpu_bijectors_torch.bijectors.pd import _pd_inverse_all, _pd_logdensity
+    from tpu_bijectors_torch.kernels import pd as kp
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    err = {"pd_inverse": 0.0, "pd_logdensity": 0.0, "pd_trace_grad": 0.0}
+    Cs = {m: torch.as_tensor(pd_c(random_spd(2), m), dtype=torch.float32, device=dev)
+          for m in ("dot", "solve")}
+
+    def rel(t):
+        return t.abs() + 1e-3 * t.abs().max()
+
+    for n in (vT.shape[1], CHAINS, 1000):
+        y_ref = vT[PD_ROWS, :n].T.contiguous()
+        refs = {m: pd_reference(y_ref, Cs[m], m) for m in Cs}
+        for m, r in refs.items():
+            print(f"pd {m} mode, B = {n}: kappa_F(L) max {float(r[6].max()):.3e} median "
+                  f"{float(r[6].median()):.3e}", flush=True)
+        X64, lj64, L64 = kp.pd_inverse_plain(y_ref.double(), PD_K)
+        # logJ and sum y_rr are sums of terms of either sign: held at
+        # RTOL_SUM of the sum of their magnitudes
+        coeff, diag = kp.affine_coeffs(PD_K, y_ref)
+        mag_lj = (coeff * y_ref.abs()).sum(-1) + PD_K * math.log(2.0)
+        mag_sd = (diag * y_ref.abs()).sum(-1)
+        dX = torch.sqrt(torch.diagonal(X64, dim1=-2, dim2=-1))
+        x_allow = 2 * PD_K * EPS32 * dX[:, :, None] * dX[:, None, :]
+        for lay, y in layouts(vT, PD_ROWS, n, "batch-major slice").items():
+            tag = f"{lay}, B = {n}"
+            X, lj, L = kp.pd_inverse(y, PD_K)
+            Xp, ljp, Lp = kp.pd_inverse_plain(y, PD_K)
+            e = err["pd_inverse"]
+            e = max(e, check(f"pd_inverse X vs plain ({tag})", X, Xp, 1.0, 2 * x_allow))
+            check(f"pd_inverse X vs float64 ({tag})", X, X64, 1.0, x_allow)
+            e = max(e, check(f"pd_inverse L vs plain ({tag})", L, Lp, ATOL_UNIT, rel(Lp)))
+            e = max(e, check(f"pd_inverse logJ vs plain ({tag})", lj, ljp, RTOL_SUM, mag_lj))
+            err["pd_inverse"] = e
+            cts = (torch.randn((n, PD_K, PD_K), generator=gen, device=dev),
+                   torch.randn(n, generator=gen, device=dev),
+                   torch.randn((n, PD_K, PD_K), generator=gen, device=dev))
+            g_k = vjp(_pd_inverse_all, y, cts)
+            g_64 = vjp(lambda v: kp.pd_inverse_plain(v, PD_K), y.double(),
+                       tuple(c.double() for c in cts))
+            check(f"pd_inverse backward vs autograd of float64 plain ({tag})", g_k, g_64,
+                  RTOL_VJP, g_64.abs() + 1e-2 * g_64.abs().max())
+            for m, C in Cs.items():
+                lj64, sd64, tr64, gt64, tr_allow, g_allow, _ = refs[m]
+                got = kp.pd_logdensity(y, PD_K, C, m)
+                ref = kp.pd_logdensity_plain(y, PD_K, C, m)
+                e = err["pd_logdensity"]
+                e = max(e, check(f"pd_logdensity {m} logJ vs plain ({tag})", got[0], ref[0],
+                                 RTOL_SUM, mag_lj))
+                e = max(e, check(f"pd_logdensity {m} sumd vs plain ({tag})", got[1], ref[1],
+                                 RTOL_SUM, mag_sd))
+                e = max(e, check(f"pd_logdensity {m} trace vs plain ({tag})", got[2], ref[2],
+                                 1.0, 2 * tr_allow))
+                check(f"pd_logdensity {m} trace vs float64 ({tag})", got[2], tr64, 1.0, tr_allow)
+                err["pd_logdensity"] = e
+                g = kp.pd_trace_grad(y, PD_K, C, m)
+                gp = kp.pd_trace_grad_plain(y, PD_K, C, m)
+                expect(f"pd_trace_grad {m} in the input's layout ({tag})",
+                       (g.stride(0) == 1) == (lay == "swapped"))
+                err["pd_trace_grad"] = max(err["pd_trace_grad"], check(
+                    f"pd_trace_grad {m} vs plain ({tag})", g, gp, 1.0, 2 * g_allow))
+                check(f"pd_trace_grad {m} vs float64 ({tag})", g, gt64, 1.0, g_allow)
+                # the backward of the log-density pieces (the affine slopes
+                # plus ct_tr * pd_trace_grad) against autograd through the
+                # float64 plain version
+                cts = tuple(torch.randn(n, generator=gen, device=dev) for _ in range(3))
+                g_k = vjp(lambda v, C=C, m=m: _pd_logdensity(v, PD_K, C, m), y, cts)
+                g_64 = vjp(lambda v, C=C, m=m: kp.pd_logdensity_plain(v, PD_K, C.double(), m),
+                           y.double(), tuple(c.double() for c in cts))
+                coeff, diag = kp.affine_coeffs(PD_K, g_64)
+                allow = (RTOL_VJP * (coeff * cts[0][:, None].abs() + diag * cts[1][:, None].abs())
+                         + cts[2][:, None].abs() * g_allow + 1e-6)
+                check(f"pd_logdensity {m} backward vs autograd of float64 plain ({tag})",
+                      g_k, g_64, 1.0, allow)
+        del refs, X64, L64, x_allow
+
+    # the off-diagonal slots at 1e10: X ~ 1e20 is finite in float32, and so
+    # are the dot trace and its gradient (the solve mode's L^-1 overflows)
+    yx = vxT[PD_ROWS].T.contiguous()
+    yx[:, [r * (r + 1) // 2 + r for r in range(PD_K)]] = 0.5
+    outs = kp.pd_inverse(yx, PD_K)
+    expect("1e10 off the diagonal: pd_inverse finite", all(bool(torch.isfinite(t).all()) for t in outs))
+    X64, lj64, L64 = kp.pd_inverse_plain(yx.double(), PD_K)
+    dX = torch.sqrt(torch.diagonal(X64, dim1=-2, dim2=-1))
+    check("1e10 off the diagonal: pd_inverse X vs float64", outs[0], X64, 1.0,
+          2 * PD_K * EPS32 * dX[:, :, None] * dX[:, None, :])
+    check("1e10 off the diagonal: pd_inverse logJ vs float64", outs[1], lj64, RTOL_SUM,
+          lj64.abs() + PD_K * math.log(2.0))
+    check("1e10 off the diagonal: pd_inverse L vs float64", outs[2], L64, ATOL_UNIT, rel(L64))
+    C = Cs["dot"]
+    _, _, tr64, g64, tr_allow, g_allow, _ = pd_reference(yx, C, "dot")
+    tr = kp.pd_logdensity(yx, PD_K, C, "dot")[2]
+    expect("1e10 off the diagonal: dot trace finite", bool(torch.isfinite(tr).all()))
+    check("1e10 off the diagonal: dot trace vs float64", tr, tr64, 1.0, tr_allow)
+    g = kp.pd_trace_grad(yx, PD_K, C, "dot")
+    expect("1e10 off the diagonal: dot trace gradient finite", bool(torch.isfinite(g).all()))
+    check("1e10 off the diagonal: dot trace gradient vs float64", g, g64, 1.0, g_allow)
+    return err
+
+
+def pd_entry_allowances(vT, cf64, loops64):
+    """Float64 (lp, g) of a PD model's fused plain version on vT and the
+    error float32 may carry: the sum of the terms at RTOL_LP / RTOL_G of
+    their magnitudes, plus the trace and its gradient at `pd_reference`'s
+    bounds (halved, as lp takes -tr / 2). Returns (lp64, g64, lp_allow,
+    g_allow)."""
+    from tpu_bijectors_torch.kernels import pd as kp
+    from tpu_bijectors_torch.vectorize import fused_base as fb
+
+    vT64 = vT.double()
+    lp64, g64 = fb.slab_value_and_grad_plain(vT64, cf64, loops64)
+    (code, row0, K, off), = loops64.entries
+    blk = loops64.prm[off: off + K * K + 2]
+    C, w, const = blk[: K * K].reshape(K, K), blk[K * K], blk[K * K + 1]
+    mode = fb.PD_MODES[code]
+    y = vT[PD_ROWS].T
+    logJ, sumd, tr, gt, tr_allow, gt_allow, _ = pd_reference(y, C, mode)
+    slab = fb.slab_value_plain(vT64, cf64) + cf64[:, fb._CI["c0"]].sum()
+    mag = slab.abs() + logJ.abs() + (w * sumd).abs() + const.abs() + 0.5 * tr.abs()
+    lp_allow = RTOL_LP * mag + 0.5 * tr_allow
+    coeff, diag = kp.affine_coeffs(K, gt)
+    g_allow = RTOL_G * g64.abs() + 1e-6
+    g_allow[PD_ROWS] += (0.5 * gt_allow + RTOL_G * ((coeff + w * diag).abs() + 0.5 * gt.abs())).T
+    return lp64, g64, lp_allow, g_allow
+
+
+def check_pd_entry(dev, vT, family, scale=None):
+    """The PD loop entry of the three whole-model kernels on a PD model
+    (`pd_model`) against the plain whole-model functions in float32 and in
+    float64, at B = 131072. Returns the max absolute error of each kernel
+    against its plain version."""
+    import tpu_bijectors_torch as tbt
+    from tpu_bijectors_torch import dists
+    from tpu_bijectors_torch.vectorize import fused_base as fb
+    from tpu_bijectors_torch.vectorize import fused_kernel as fk
+
+    tag = f"{family}, {'I' if scale is None else 'random S'}"
+    model = tbt.Model(pd_model(dists, dev, torch.float32, family, scale), device=dev)
+    m64 = tbt.Model(pd_model(dists, dev, torch.float64, family, scale), device=dev)
+    cf, loops, _ = fk._prep(model.unconstrainer(), vT)
+    cf64, loops64, _ = fk._prep(m64.unconstrainer(), vT.double())
+    lp64, g64, lp_allow, g_allow = pd_entry_allowances(vT, cf64, loops64)
+    ones = torch.ones(vT.shape[1], device=dev)
+    err = {}
+    val = fk.slab_value(vT, cf, loops)
+    err["slab_value"] = check(f"PD entry ({tag}) value kernel vs plain", val,
+                              fb.slab_value_plain(vT, cf, loops), 1.0, 2 * lp_allow)
+    check(f"PD entry ({tag}) value kernel vs float64", val, lp64, 1.0, lp_allow)
+    lp, g = fk.slab_value_and_grad(vT, cf, loops)
+    lpp, gp = fb.slab_value_and_grad_plain(vT, cf, loops)
+    err["slab_value_and_grad"] = max(
+        check(f"PD entry ({tag}) value-and-grad kernel lp vs plain", lp, lpp, 1.0, 2 * lp_allow),
+        check(f"PD entry ({tag}) value-and-grad kernel g vs plain", g, gp, 1.0, 2 * g_allow),
+    )
+    check(f"PD entry ({tag}) value-and-grad kernel g vs float64", g, g64, 1.0, g_allow)
+    expect(f"PD entry ({tag}) value kernel equals value-and-grad kernel's lp",
+           float((val - lp).abs().max()) <= float(lp_allow.min()))
+    gv = fk.slab_vjp(vT, cf, ones, loops)
+    err["slab_vjp"] = check(f"PD entry ({tag}) vjp kernel vs plain", gv,
+                            fb.slab_vjp_plain(vT, cf, ones, loops), 1.0, 2 * g_allow)
+    check(f"PD entry ({tag}) vjp kernel vs value-and-grad kernel's g", gv, g, 1.0, g_allow)
+    return err
+
+
+def run_pd_transposed_serving(dev, vT, family):
+    """Path 5: transposed serving of a PD model at B = 131072 through
+    `Model.batched_logdensity_t_fn()`, its `value_and_grad_fn` and autograd,
+    with the launch counters zeroed just before and read just after.
+    Checks lp and g against float64 and the composed per-leaf path (the PD
+    log-density kernel on the swapped view, its backward). Returns
+    (launches, lp, g, the entry points' times)."""
+    import tpu_bijectors_torch as tbt
+    from tpu_bijectors_torch import dists, kernels
+    from tpu_bijectors_torch.vectorize import fused_kernel as fk
+
+    model = tbt.Model(pd_model(dists, dev, torch.float32, family), device=dev)
+    m64 = tbt.Model(pd_model(dists, dev, torch.float64, family), device=dev)
+    u = model.unconstrainer()
+    f = model.batched_logdensity_t_fn()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    lp = f(vT)
+    lp_vg, g = f.value_and_grad_fn(vT)
+    vr = vT.detach().requires_grad_(True)
+    (g_ag,) = torch.autograd.grad(u.linked_logdensity_t(vr).sum(), vr)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    print(f"launches on the {family} transposed serving path: {launches}", flush=True)
+    for k in SLAB_KERNELS:
+        expect(f"{k} launched on the {family} transposed serving path", launches[k] > 0)
+    expect(f"{family}: lp (B,) and g (151, B)",
+           lp.shape == (BATCH,) and g.shape == (151, BATCH))
+    cf64, loops64, c0sum64 = fk._prep(m64.unconstrainer(), vT.double())
+    lp64, g64, lp_allow, g_allow = pd_entry_allowances(vT, cf64, loops64)
+    lp64 = lp64 + c0sum64
+    check(f"{family}: linked_logdensity_t vs float64", lp, lp64, 1.0, lp_allow)
+    check(f"{family}: value_and_grad_fn lp vs float64", lp_vg, lp64, 1.0, lp_allow)
+    check(f"{family}: value_and_grad_fn g vs float64", g, g64, 1.0, g_allow)
+    check(f"{family}: autograd g vs value_and_grad_fn g", g_ag, g, 1.0, 2 * g_allow)
+    # the composed per-leaf path: the PD log-density kernel on the swapped
+    # view of the W rows, and its backward (the trace-gradient kernel)
+    vr = vT.detach().requires_grad_(True)
+    comp = u._linked_logdensity_t_children(vr)
+    (g_comp,) = torch.autograd.grad(comp.sum(), vr)
+    check(f"{family}: linked_logdensity_t vs composed", lp, comp.detach(), 1.0, 2 * lp_allow)
+    check(f"{family}: g vs composed autograd", g, g_comp, 1.0, 2 * g_allow)
+    expect(f"{family}: lp finite", bool(torch.isfinite(lp).all()))
+    v64 = vT[:, :CHAINS].contiguous()
+    e2e = {
+        f"{family}_value_ms_B131072": time_ms(lambda: f(vT), device_only=False),
+        f"{family}_value_and_grad_ms_B131072": time_ms(lambda: f.value_and_grad_fn(vT),
+                                                       device_only=False),
+        f"{family}_value_and_grad_ms_B64": time_ms(lambda: f.value_and_grad_fn(v64),
+                                                   device_only=False),
+    }
+    return launches, lp, g, e2e
+
+
+def run_pd_batch_major_serving(dev, vT, family, lp_t, g_t):
+    """Path 6: batch-major serving of a PD model on the same states as
+    (B, 151): `Model.batched_logdensity_fn()` and its `value_and_grad_fn`
+    (the PD log-density kernel, its backward the trace-gradient kernel) and
+    `Model.constrain` (the PD inverse kernel), launch counters zeroed just
+    before and read just after. Checks lp and g against the transposed
+    fused ones and float64 on the CPU (4096 rows), and X against float64.
+    Returns (launches, the entry points' times)."""
+    import tpu_bijectors_torch as tbt
+    from tpu_bijectors_torch import dists, kernels
+    from tpu_bijectors_torch.kernels import pd as kp
+    from tpu_bijectors_torch.vectorize import fused_kernel as fk
+
+    model = tbt.Model(pd_model(dists, dev, torch.float32, family), device=dev)
+    v = vT.T.contiguous()
+    f = model.batched_logdensity_fn()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    lp = f(v)
+    lp_vg, g = f.value_and_grad_fn(v)
+    x = model.constrain(v)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    print(f"launches on the {family} batch-major serving path: {launches}", flush=True)
+    for k in ("pd_logdensity", "pd_trace_grad", "pd_inverse"):
+        expect(f"{k} launched on the {family} batch-major serving path", launches[k] > 0)
+    m64 = tbt.Model(pd_model(dists, dev, torch.float64, family), device=dev)
+    cf64, loops64, _ = fk._prep(m64.unconstrainer(), vT.double())
+    _, _, lp_allow, g_allow = pd_entry_allowances(vT, cf64, loops64)
+    check(f"{family} batch-major: lp vs value_and_grad_fn lp", lp_vg, lp, 1.0, lp_allow)
+    check(f"{family} batch-major: lp vs fused transposed lp", lp, lp_t, 1.0, 2 * lp_allow)
+    check(f"{family} batch-major: g vs fused transposed g", g, g_t.T, 1.0, 2 * g_allow.T)
+    rows = slice(0, 4096)
+    cpu = tbt.Model(pd_model(dists, "cpu", torch.float64, family), device="cpu")
+    lp64, g64 = cpu.batched_logdensity_fn().value_and_grad_fn(v[rows].double().cpu())
+    check(f"{family} batch-major: lp vs float64 CPU, 4096 rows", lp[rows].cpu(), lp64, 1.0,
+          lp_allow[rows].cpu())
+    check(f"{family} batch-major: g vs float64 CPU, 4096 rows", g[rows].cpu(), g64, 1.0,
+          g_allow[:, rows].T.cpu())
+    X64 = kp.pd_inverse_plain(v[:, PD_ROWS].double(), PD_K)[0]
+    dX = torch.sqrt(torch.diagonal(X64, dim1=-2, dim2=-1))
+    check(f"{family} batch-major: Model.constrain's W vs float64", x["W"], X64, 1.0,
+          2 * PD_K * EPS32 * dX[:, :, None] * dX[:, None, :])
+    v64 = v[:CHAINS].contiguous()
+    e2e = {
+        f"{family}_batch_major_value_ms_B131072": time_slow_ms(lambda: f(v), device_only=False),
+        f"{family}_batch_major_value_and_grad_ms_B131072": time_slow_ms(
+            lambda: f.value_and_grad_fn(v), device_only=False),
+        f"{family}_batch_major_value_and_grad_ms_B64": time_slow_ms(
+            lambda: f.value_and_grad_fn(v64), device_only=False),
+    }
+    return launches, e2e
+
+
+def pd_conjugate_data(dev):
+    """The pd_conjugate cell's likelihood (user code): 200 observations
+    z_i ~ N(0, Sigma) in R^16, Sigma SPD from numpy seed 1, and
+    loglik(x) = 100 log det W - tr(W Z'Z) / 2 with W the precision. The
+    posterior of W under pdonly's Wishart(18, I) prior is
+    Wishart(218, (I + Z'Z)^-1). Returns (loglik, the posterior means of
+    W's diagonal)."""
+    rng = np.random.default_rng(1)
+    A = rng.standard_normal((PD_K, PD_K))
+    Sigma = A @ A.T / PD_K + 0.5 * np.eye(PD_K)
+    Z = rng.multivariate_normal(np.zeros(PD_K), Sigma, size=200)
+    ZtZ = torch.as_tensor(Z.T @ Z, dtype=torch.float32, device=dev)
+
+    def loglik(x):
+        W = x["W"]
+        return 100.0 * torch.linalg.slogdet(W)[1] - 0.5 * torch.sum(W * ZtZ)
+
+    post = 218.0 * np.diag(np.linalg.inv(np.eye(PD_K) + Z.T @ Z))
+    return loglik, post
+
+
+def run_pd_sampler(dev):
+    """Path 7, the pd_conjugate cell: `Model(pdonly, loglik).sample(
+    kernel='auto')`, which takes `nuts_batched_t` (each leapfrog runs the
+    value-and-gradient kernel with the PD entry, and the PD inverse kernel
+    and its backward for the likelihood's x), 64 chains, max_depth 8, 300
+    warmup and 200 kept transitions, target acceptance 0.95, torch seed 0,
+    starts at PD_INIT_SCALE * N(0, 1), timed as `run_sampler` times it. Gates: R-hat <= 1.05, divergences
+    <= 1%, W's diagonal means within 5 MCSE of the Wishart posterior's,
+    m's within 5 MCSE of 0."""
+    import tpu_bijectors_torch as tbt
+    from tpu_bijectors_torch import diagnostics, dists, kernels
+    from tpu_bijectors_torch.infer import hmc_batched, resume_sampling
+
+    loglik, post = pd_conjugate_data(dev)
+    model = tbt.Model(pd_model(dists, dev, torch.float32, "wishart"), loglik=loglik, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    hmc_batched.reset_sync_count()
+    t0 = time.perf_counter()
+    _, state, _ = model.sample(
+        gen, n_chains=CHAINS, n_warmup=WARMUP, n_samples=0, max_depth=MAX_DEPTH,
+        target_accept=TARGET_ACCEPT, constrained=False, kernel="auto",
+        init_scale=PD_INIT_SCALE,
+    )
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    l1, s1 = dict(kernels.LAUNCHES), hmc_batched.SYNCS["any_active"]
+    # only the transposed density runs the whole-model kernel: the
+    # batch-major one would run the PD inverse and torch ops alone
+    expect("pd_conjugate: kernel='auto' took nuts_batched_t (its warmup launched "
+           f"slab_value_and_grad {l1['slab_value_and_grad']} times)",
+           l1["slab_value_and_grad"] > 0)
+    raw, state, stats = resume_sampling(
+        model.batched_logdensity_t_fn(), state, KEPT, kernel="nuts_batched_t",
+        max_depth=MAX_DEPTH,
+    )
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    l2, s2 = dict(kernels.LAUNCHES), hmc_batched.SYNCS["any_active"]
+    samples = model.constrain(raw)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = dict(kernels.LAUNCHES)
+    print(f"launches on the pd_conjugate sampler path: {launches}", flush=True)
+    for k in ("slab_value_and_grad", "pd_inverse"):
+        expect(f"{k} launched on the pd_conjugate sampler path", launches[k] > 0)
+    during = {k: l2[k] - l1[k] for k in l2}
+    leapfrogs = during["slab_value_and_grad"]
+    sampling_s = t2 - t1
+    expect("pd_conjugate: raw draws (200, 64, 151) and finite",
+           tuple(raw.shape) == (KEPT, CHAINS, 151) and bool(torch.isfinite(raw).all()))
+    r_hat = diagnostics.rhat(raw)
+    ess = diagnostics.ess_bulk(raw)
+    Wd = torch.diagonal(samples["W"], dim1=-2, dim2=-1)
+    dev_w = np.abs(Wd.double().mean(dim=(0, 1)).cpu().numpy() - post) / diagnostics.mcse_mean(Wd)
+    m = samples["m"]
+    dev_m = np.abs(m.double().mean(dim=(0, 1)).cpu().numpy()) / diagnostics.mcse_mean(m)
+    n_div = int(stats.diverging.sum())
+    line = {
+        "kernel": "nuts_batched_t", "cell": "pd_conjugate",
+        "chains": CHAINS, "warmup": WARMUP, "kept": KEPT, "max_depth": MAX_DEPTH,
+        "target_accept": TARGET_ACCEPT, "init_scale": PD_INIT_SCALE,
+        "warmup_s": t1 - t0,
+        "sampling_s": sampling_s,
+        "constrain_s": t3 - t2,
+        "draws_per_s": CHAINS * KEPT / sampling_s,
+        "leapfrogs_per_transition": float(stats.n_steps.float().mean()),
+        "batched_leapfrogs": leapfrogs,
+        "ms_per_leapfrog": 1e3 * sampling_s / max(leapfrogs, 1),
+        "host_syncs_per_leapfrog": (s2 - s1) / max(leapfrogs, 1),
+        "step_size": float(state.eps),
+        "mean_accept": float(stats.accept_prob.mean()),
+        "divergences": n_div,
+        "transitions": CHAINS * KEPT,
+        "launches_during_sampling": during,
+        "max_rhat": float(np.max(r_hat)),
+        "min_ess_bulk": float(np.min(ess)),
+        "max_W_diag_dev_in_mcse": float(np.max(dev_w)),
+        "max_m_dev_in_mcse": float(np.max(dev_m)),
+    }
+    expect(f"pd_conjugate: max R-hat {line['max_rhat']:.4f} <= 1.05", line["max_rhat"] <= 1.05)
+    expect(f"pd_conjugate: divergences {n_div} <= 1% of {CHAINS * KEPT}",
+           n_div <= 0.01 * CHAINS * KEPT)
+    expect(f"pd_conjugate: W diagonal means within 5 MCSE of Wishart(218, (I + Z'Z)^-1) "
+           f"(max {np.max(dev_w):.2f})", bool(np.all(dev_w <= 5.0)))
+    expect(f"pd_conjugate: m means within 5 MCSE of 0 (max {np.max(dev_m):.2f})",
+           bool(np.all(dev_m <= 5.0)))
+    expect("pd_conjugate: constrained draws finite",
+           all(bool(torch.isfinite(t).all()) for t in samples.values()))
+    return line, launches
+
+
 def kernel_table(vT, xT, cf, ones):
     """Every ported kernel at B = 131072: name -> (wrapper, plain version,
     bytes, operations, {layout: input}), the layout the path reads first.
     The bytes count each input the function reads once and each output
-    once; the operations are floors (see OPS)."""
+    once; the operations are floors (see OPS, PD_OPS). The PD log-density
+    and trace-gradient rows are the dot mode with the PD models' C = I
+    (the solve mode is in `pd_variants`)."""
     from tpu_bijectors_torch.kernels import lkj as kl
+    from tpu_bijectors_torch.kernels import pd as kp
     from tpu_bijectors_torch.kernels import simplex as ks
     from tpu_bijectors_torch.vectorize import fused_base as fb
     from tpu_bijectors_torch.vectorize import fused_kernel as fk
@@ -786,6 +1308,7 @@ def kernel_table(vT, xT, cf, ones):
     # (B,); the gradient kernels also write g (dim, B)
     slab_bytes = vT.numel() * 4 + B * 4 + cf.numel() * 4
     transposed = {"transposed": vT}
+    eye = torch.eye(PD_K, device=vT.device)
     return {
         "slab_value": (lambda y: fk.slab_value(y, cf), lambda y: fb.slab_value_plain(y, cf),
                        slab_bytes, slab_ops("value"), transposed),
@@ -828,7 +1351,68 @@ def kernel_table(vT, xT, cf, ones):
             B * 4 * (15 + 15 + 1), B * 15 * OPS_SIMPLEX_FWD_COORD,
             layouts(xT, X_ROWS, B, "contiguous"),
         ),
+        # reads y (136), writes X (256), logJ and L (256); the likelihood of
+        # the transposed sampler hands it the swapped view
+        "pd_inverse": (
+            lambda y: kp.pd_inverse(y, PD_K), lambda y: kp.pd_inverse_plain(y, PD_K),
+            B * 4 * (136 + 256 + 1 + 256), B * PD_OPS["inverse"],
+            layouts(vT, PD_ROWS, B, "swapped"),
+        ),
+        # reads y (136) and C, writes logJ, sum y_rr and the trace
+        "pd_logdensity": (
+            lambda y: kp.pd_logdensity(y, PD_K, eye, "dot"),
+            lambda y: kp.pd_logdensity_plain(y, PD_K, eye, "dot"),
+            B * 4 * (136 + 3) + eye.numel() * 4, B * PD_OPS["dot"],
+            layouts(vT, PD_ROWS, B, "batch-major slice"),
+        ),
+        # reads y (136) and C, writes the gradient (136)
+        "pd_trace_grad": (
+            lambda y: kp.pd_trace_grad(y, PD_K, eye, "dot"),
+            lambda y: kp.pd_trace_grad_plain(y, PD_K, eye, "dot"),
+            B * 4 * (136 + 136) + eye.numel() * 4, B * PD_OPS["dot_grad"],
+            layouts(vT, PD_ROWS, B, "batch-major slice"),
+        ),
     }
+
+
+def pd_variants(vT, pd_preps):
+    """The PD variants the paths also run, name -> (call, bytes, operations):
+    the solve mode of the log-density and trace-gradient kernels in each
+    layout, and the three whole-model kernels with the PD entry on each PD
+    model (`pd_preps`: family -> (cf, loops) of its `_prep`)."""
+    from tpu_bijectors_torch.kernels import pd as kp
+    from tpu_bijectors_torch.vectorize import fused_base as fb
+    from tpu_bijectors_torch.vectorize import fused_kernel as fk
+
+    dim, B = vT.shape
+    eye = torch.eye(PD_K, device=vT.device)
+    out = {}
+    for lay, y in layouts(vT, PD_ROWS, B, "batch-major slice").items():
+        out[f"pd_logdensity solve ({lay})"] = (
+            lambda y=y: kp.pd_logdensity(y, PD_K, eye, "solve"),
+            B * 4 * (136 + 3) + eye.numel() * 4, B * PD_OPS["solve"])
+        out[f"pd_trace_grad solve ({lay})"] = (
+            lambda y=y: kp.pd_trace_grad(y, PD_K, eye, "solve"),
+            B * 4 * (136 + 136) + eye.numel() * 4, B * PD_OPS["solve_grad"])
+    ones = torch.ones(B, device=vT.device)
+    for fam, (cf, loops) in pd_preps.items():
+        mode = PD_MODES[fam]
+        # the m rows' slab ops, counted as in kernel_table
+        slab = {k: B * sum(2 + sum(OPS[k][g] for g in fb._groups_and_used(cf[r:r + 1])[0])
+                           for r in range(dim) if cf[r, fb._MASK_COL] > 0)
+                for k in OPS}
+        nbytes = vT.numel() * 4 + B * 4 + cf.numel() * 4 + loops.prm.numel() * 4
+        out[f"slab_value with the PD entry ({fam})"] = (
+            lambda cf=cf, loops=loops: fk.slab_value(vT, cf, loops), nbytes,
+            slab["value"] + B * PD_OPS[mode])
+        out[f"slab_value_and_grad with the PD entry ({fam})"] = (
+            lambda cf=cf, loops=loops: fk.slab_value_and_grad(vT, cf, loops),
+            nbytes + vT.numel() * 4,
+            slab["value_and_grad"] + B * (PD_OPS[mode] + PD_OPS[mode + "_grad"] - 216))
+        out[f"slab_vjp with the PD entry ({fam})"] = (
+            lambda cf=cf, loops=loops: fk.slab_vjp(vT, cf, ones, loops),
+            nbytes + vT.numel() * 4, slab["vjp"] + B * PD_OPS[mode + "_grad"])
+    return out
 
 
 def time_kernels(table, launches, err, variants):
@@ -837,7 +1421,8 @@ def time_kernels(table, launches, err, variants):
     reads) and its plain version on the first, with CUDA events; the bound
     from the entry's bytes and operations. Prints each row, its
     `bound_inputs`, and a `kernel_variants` line with every layout's time
-    and byte-bound share and the times of `variants` (name -> call)."""
+    and byte-bound share and the times of `variants` (name -> call, or
+    (call, bytes, operations) to give its bound too)."""
     rows, times = [], {}
     for k, (kern, plain, nbytes, ops, inputs) in table.items():
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -863,7 +1448,17 @@ def time_kernels(table, launches, err, variants):
         print(json.dumps({"bound_inputs": {"name": k, "bytes": nbytes, "ops": ops}}), flush=True)
         times.update({f"{k} ({lay})": {"ms": t, "byte_bound_share": t_bytes / t}
                       for lay, t in ms.items()})
-    times.update({k: {"ms": time_ms(fn)} for k, fn in variants.items()})
+    for k, v in variants.items():
+        if callable(v):
+            times[k] = {"ms": time_ms(v)}
+            continue
+        fn, nbytes, ops = v
+        t = time_ms(fn)
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+        times[k] = {"ms": t, "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "bytes": nbytes, "ops": ops, "bound_share": max(t_bytes, t_ops) / t}
     print(json.dumps({"kernel_variants": times}), flush=True)
     return rows
 
@@ -895,10 +1490,13 @@ def main():
         phases[phase] = now - clock[0]
         clock[0] = now
 
-    so = build.build()
+    ptxas = {}
+    so = build.build(ptxas)
     build.load()
     lap("build")
     print(f"build: {so.name} in {phases['build']:.1f} s", flush=True)
+    # registers, shared memory and spills of each kernel (-Xptxas=-v)
+    print(json.dumps({"ptxas": ptxas}), flush=True)
 
     model = tbt.Model(bench_model(dists, dev, torch.float32), device=dev)
     u = model.unconstrainer()
@@ -926,7 +1524,7 @@ def main():
     expect("g shape (dim, B)", g_vg.shape == (dim, BATCH) and g_ag.shape == (dim, BATCH))
 
     # --- value ---------------------------------------------------------------
-    cf, c0sum = fk._prep(u, vT)
+    cf, _, c0sum = fk._prep(u, vT)
     val_plain = fb.slab_value_plain(vT, cf)
     scale = val_plain.abs() + c0sum.abs()
     err = {}
@@ -938,7 +1536,7 @@ def main():
     check("linked_logdensity_t vs composed", lp, composed, RTOL_COMPOSED, scale)
     model64 = tbt.Model(bench_model(dists, dev, torch.float64), device=dev)
     vT64 = vT.double()
-    cf64, c0sum64 = fk._prep(model64.unconstrainer(), vT64)
+    cf64, _, c0sum64 = fk._prep(model64.unconstrainer(), vT64)
     lp64 = fb.slab_value_plain(vT64, cf64) + c0sum64
     check("linked_logdensity_t vs plain float64", lp, lp64, RTOL_LP, scale)
     del composed, vT64, lp64
@@ -972,7 +1570,7 @@ def main():
     expect("lp finite at 1e10 states", bool(torch.isfinite(lpx).all()))
     expect("value_and_grad lp finite at 1e10", bool(torch.isfinite(lpx_vg).all()))
     expect("g finite at 1e10 states", bool(torch.isfinite(gx).all()))
-    cfx, c0x = fk._prep(u, vxT)
+    cfx, _, c0x = fk._prep(u, vxT)
     lpx_p, gx_p = fb.slab_value_and_grad_plain(vxT, cfx)
     check("1e10: lp vs plain", lpx, lpx_p + c0x, RTOL_LP, lpx_p.abs() + c0x.abs())
     check("1e10: Dirichlet and LKJ rows of g vs plain", gx[16:], gx_p[16:], RTOL_G)
@@ -1002,6 +1600,34 @@ def main():
     bm_sampler_line, _ = run_sampler(dev, loglik, counts, "nuts_batched")
     lap("nuts_batched sampler")
 
+    # --- the Wishart families: the PD kernels and the PD entry ---------------
+    err.update(check_pd_kernels(dev, vT, vxT))
+    for fam in PD_MODES:
+        for S in (None, random_spd(3)):
+            check_pd_entry(dev, vT, fam, S)
+    lap("PD kernel checks")
+    # --- the fifth: transposed serving of pdonly and its solve-mode twin -----
+    pd_t, pd_e2e = {}, {}
+    for fam in PD_MODES:
+        _, lp_f, g_f, e = run_pd_transposed_serving(dev, vT, fam)
+        pd_t[fam] = (lp_f, g_f)
+        pd_e2e.update(e)
+    lap("PD transposed serving")
+    # --- the sixth: batch-major serving of the same models ---------------------
+    for k in ("pd_logdensity", "pd_trace_grad"):
+        launches[k] = 0
+    for fam in PD_MODES:
+        pd_launches, e = run_pd_batch_major_serving(dev, vT, fam, *pd_t[fam])
+        for k in ("pd_logdensity", "pd_trace_grad"):
+            launches[k] += pd_launches[k]
+        pd_e2e.update(e)
+    del pd_t
+    lap("PD batch-major serving")
+    # --- the seventh: NUTS on the conjugate Wishart model (pd_conjugate) -----
+    pd_sampler_line, pd_sampler_launches = run_pd_sampler(dev)
+    launches["pd_inverse"] = pd_sampler_launches["pd_inverse"]
+    lap("pd_conjugate sampler")
+
     # --- timing ----------------------------------------------------------------
     # the variants the paths also run: the LKJ inverse writing W for the
     # backward (the leapfrog's case) and the LKJ log-det's Cholesky form
@@ -1012,6 +1638,11 @@ def main():
         "lkj_inverse with W (swapped)": lambda: kl.lkj_inverse(yc, 16, want_w=True),
         "lkj_logdet chol=True (swapped)": lambda: kl.lkj_logdet(yc, 16, True),
     }
+    pd_preps = {}
+    for fam in PD_MODES:
+        pd_u = tbt.Model(pd_model(dists, dev, torch.float32, fam), device=dev).unconstrainer()
+        pd_preps[fam] = fk._prep(pd_u, vT)[:2]
+    variants.update(pd_variants(vT, pd_preps))
     rows = time_kernels(kernel_table(vT, xT, cf, ones), launches, err, variants)
     lap("kernel timing")
 
@@ -1029,11 +1660,13 @@ def main():
         ),
     }
     e2e.update(bm_e2e)
+    e2e.update(pd_e2e)
     lap("entry-point timing")
     print(json.dumps({"end_to_end": e2e}), flush=True)
     print(json.dumps({"phases_s": phases}), flush=True)
     print(json.dumps({"sampler": sampler_line}), flush=True)
     print(json.dumps({"sampler": bm_sampler_line}), flush=True)
+    print(json.dumps({"sampler": pd_sampler_line}), flush=True)
 
     if failures:
         print("FAILED: " + "; ".join(failures), file=sys.stderr)

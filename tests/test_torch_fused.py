@@ -128,7 +128,7 @@ def test_prep_matches_jax(rng, name):
     u_j, u_t = _pair(name)
     vT = _state(rng, u_t.linked_vec_length)
     ref = jfk._prep(u_j, jnp.asarray(vT))
-    cf, c0sum = tfk._prep(u_t, torch.as_tensor(vT))
+    cf, _, c0sum = tfk._prep(u_t, torch.as_tensor(vT))
     np.testing.assert_allclose(cf.numpy(), np.asarray(ref[8]), rtol=1e-12, atol=1e-14)
     np.testing.assert_allclose(float(c0sum), float(ref[12]), rtol=1e-12)
 
@@ -173,7 +173,7 @@ def test_cpu_wrappers_run_plain_versions_without_launching(rng):
     """A CPU tensor takes the plain version and counts no kernel launch."""
     _, u_t = _pair("variant")
     vT = torch.as_tensor(_state(rng, u_t.linked_vec_length))
-    cf, _ = tfk._prep(u_t, vT)
+    cf, _, _ = tfk._prep(u_t, vT)
     before = dict(kernels.LAUNCHES)
     ct = torch.ones(vT.shape[1], dtype=vT.dtype)
     assert torch.equal(tfk.slab_value(vT, cf), tfb.slab_value_plain(vT, cf))

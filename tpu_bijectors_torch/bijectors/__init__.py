@@ -2,6 +2,7 @@
 
 from .base import Bijector, Block, Chain, Identity, Invert, elementwise, inverse
 from .corr import VecCorrBijector
+from .pd import CholeskyVecBijector, PDBijector, PDVecBijector
 from .scalar import Truncated
 from .simplex import SimplexBijector
 
@@ -14,6 +15,9 @@ __all__ = [
     "elementwise",
     "inverse",
     "VecCorrBijector",
+    "CholeskyVecBijector",
+    "PDBijector",
+    "PDVecBijector",
     "Truncated",
     "SimplexBijector",
 ]

@@ -7,6 +7,8 @@ parameters can be handed to the JAX package and to the port:
   {"type": "IIDProduct", "inner": spec, "n": 8}
   {"type": "Dirichlet", "params": {"alpha": np.ndarray}}
   {"type": "LKJ", "dim": 16, "params": {"eta": np.ndarray}}
+  {"type": "Wishart", "params": {"df": np.ndarray, "scale": np.ndarray}}
+  {"type": "InverseWishart", "params": {"df": np.ndarray, "psi": np.ndarray}}
 
 Any key other than "type", "params", "children" and "inner" is a static
 argument of the constructor (an int such as `n` or `dim`).
@@ -21,6 +23,8 @@ _LEAVES = {
     "LogNormal": dists.LogNormal,
     "Dirichlet": dists.Dirichlet,
     "LKJ": dists.LKJ,
+    "Wishart": dists.Wishart,
+    "InverseWishart": dists.InverseWishart,
 }
 
 

@@ -24,7 +24,7 @@ from ..utils import resolve_device
 @dataclass(frozen=True)
 class Support:
     """Static support descriptor: kind 'interval' (with bounds and their
-    finiteness), 'simplex', 'corr' or 'product'."""
+    finiteness), 'simplex', 'corr', 'pd' or 'product'."""
 
     kind: str = "interval"
     lower: float = -math.inf
@@ -43,6 +43,7 @@ def positive() -> Support:
 
 SIMPLEX = Support("simplex")
 CORRELATION = Support("corr")
+POSITIVE_DEFINITE = Support("pd")
 
 
 class Distribution:

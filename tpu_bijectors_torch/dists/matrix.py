@@ -1,17 +1,29 @@
 """Matrix-variate families, PyTorch counterpart of
-`tpu_bijectors/dists/matrix.py`: LKJ."""
+`tpu_bijectors/dists/matrix.py`: LKJ, Wishart and InverseWishart.
+
+The Wishart families fuse their linked density on the PD links' kernels
+(bijectors/pd.py): `fused_linked_logdensity` and its transposed form run
+the PD log-density kernel (logJ, sum y_rr and the trace, X and L never
+formed), `logpdf_from_factor` takes the factor L that the inverse link
+computes anyway. Sampling uses the Bartlett decomposition, every draw from
+an explicit `torch.Generator`.
+"""
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import ClassVar
 
 import numpy as np
 import torch
 
-from .base import CORRELATION, LeafDistribution
+from ..kernels.pd import MAX_K
+from ..utils import cholesky_lower
+from .base import CORRELATION, POSITIVE_DEFINITE, LeafDistribution
 
 LOG2 = math.log(2.0)
+LOGPI = math.log(math.pi)
 
 
 def _lkj_log_normalizer(K: int, eta):
@@ -45,13 +57,229 @@ class LKJ(LeafDistribution):
         logdet = 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), -1)
         return (self.eta - 1.0) * logdet - _lkj_log_normalizer(self.dim, self.eta)
 
-    def logpdf_from_factor(self, log_diag_w):
+    def logpdf_from_factor(self, log_diag_w, x=None):
         """Density from the log-diagonal of the upper factor W of X = W'W,
         which the VecCorrBijector inverse computes anyway: logdet X =
-        2 sum log W_jj. No re-decomposition of X."""
+        2 sum log W_jj. No re-decomposition of X (x is not needed)."""
         logdet = 2.0 * torch.sum(log_diag_w, -1)
         return (self.eta - 1.0) * logdet - _lkj_log_normalizer(self.dim, self.eta)
 
     @property
     def support(self):
         return CORRELATION
+
+
+def _mv_lgamma(a, p: int):
+    """Multivariate log-gamma log Gamma_p(a)."""
+    i = torch.arange(1, p + 1, dtype=a.dtype, device=a.device)
+    return 0.25 * p * (p - 1) * LOGPI + torch.sum(torch.lgamma(a[..., None] + 0.5 * (1.0 - i)), -1)
+
+
+def _standard_gamma(generator, conc):
+    """Gamma(conc, 1) draws, one per element of `conc` (> 0), by Marsaglia
+    and Tsang's squeeze (shape conc + 1 below 1, then times U^(1/conc)),
+    every normal and uniform from `generator`."""
+    boost = conc < 1.0
+    a = torch.where(boost, conc + 1.0, conc)
+    d = a - 1.0 / 3.0
+    c = 1.0 / torch.sqrt(9.0 * d)
+    out = torch.empty_like(a)
+    todo = torch.ones_like(a, dtype=torch.bool)
+    while bool(todo.any()):
+        x = torch.randn(a.shape, generator=generator, dtype=a.dtype, device=a.device)
+        u = torch.rand(a.shape, generator=generator, dtype=a.dtype, device=a.device)
+        v = (1.0 + c * x) ** 3
+        ok = (v > 0) & (torch.log(u) < 0.5 * x * x + d - d * v + d * torch.log(v))
+        take = todo & ok
+        out = torch.where(take, d * v, out)
+        todo = todo & ~ok
+    u = torch.rand(a.shape, generator=generator, dtype=a.dtype, device=a.device)
+    return torch.where(boost, out * u ** (1.0 / conc), out)
+
+
+def _bartlett_chol(generator, df, S_chol, K: int, shape):
+    """Cholesky factor of a Wishart(df, S) draw by the Bartlett
+    decomposition: S_chol A with A lower, A_ii^2 ~ chi2(df - i) (0-based i)
+    and N(0, 1) below the diagonal."""
+    dtype, device = S_chol.dtype, S_chol.device
+    i = torch.arange(K, dtype=dtype, device=device)
+    chi_df = df[..., None] - i
+    conc = (0.5 * chi_df).expand(tuple(shape) + (K,))
+    c = torch.sqrt(2.0 * _standard_gamma(generator, conc))
+    n = torch.randn(tuple(shape) + (K, K), generator=generator, dtype=dtype, device=device)
+    A = torch.tril(n, -1) + torch.diag_embed(c)
+    return S_chol @ A
+
+
+class _PDFamily(LeafDistribution):
+    """What Wishart and InverseWishart share: the event and batch shapes of
+    their matrix parameter, and the linked density fused on the PD
+    log-density kernel. `pd_terms` gives the kernel's C and mode and the
+    density's weight on sum y_rr and its constant; the fused whole-model
+    plan (vectorize/fused_plan.py) takes the same terms for its PD loop
+    entry."""
+
+    event_ndims = 2
+    mode: ClassVar[str]
+
+    def _matrix(self):
+        return getattr(self, self._params[1])
+
+    @property
+    def event_shape(self):
+        return tuple(self._matrix().shape[-2:])
+
+    @property
+    def batch_shape(self):
+        return tuple(self._matrix().shape[:-2])
+
+    def pd_terms(self, dtype):
+        """(C, w, const) in `dtype`: logpdf(X) + logJ = logJ + w sum_r y_rr
+        - tr / 2 + const, with tr the PD kernels' trace of C in `mode`."""
+        raise NotImplementedError
+
+    def _fusable(self, bijector):
+        """Whether the PD log-density kernel serves this leaf: the PD vector
+        link, one matrix parameter and a scalar df, K within the kernels'
+        limit."""
+        from ..bijectors.pd import PDVecBijector
+
+        M = self._matrix()
+        return (type(bijector) is PDVecBijector and M.ndim == 2 and self.df.ndim == 0
+                and M.shape[-1] <= MAX_K)
+
+    def _fused(self, y):
+        from ..bijectors.pd import _pd_logdensity
+
+        C, w, const = self.pd_terms(y.dtype)
+        logJ, sumd, tr = _pd_logdensity(y, C.shape[-1], C, self.mode)
+        return w * sumd - 0.5 * tr + const + logJ
+
+    def fused_linked_logdensity(self, bijector, y, want_x: bool = True):
+        """The linked density without x (vectorize.core hook): the PD
+        log-density kernel, X and L never formed. Declines (None) when x is
+        wanted or the kernel does not serve the leaf."""
+        if want_x or not self._fusable(bijector):
+            return None
+        return None, self._fused(y)
+
+    def fused_linked_logdensity_t(self, bijector, yT):
+        """The same on the transposed (P, B) block, read in place."""
+        if not self._fusable(bijector):
+            return None
+        return self._fused(yT.transpose(0, 1))
+
+    @property
+    def support(self):
+        return POSITIVE_DEFINITE
+
+
+@dataclass(frozen=True)
+class Wishart(_PDFamily):
+    """Wishart(df, S) over SPD matrices (S the scale matrix); fused in dot
+    mode, tr(S^-1 X)."""
+
+    df: object
+    scale: object
+
+    _params = ("df", "scale")
+    mode = "dot"
+
+    def _const(self, Sc, v, K):
+        """The terms without X: -v K log 2 / 2 - v log det S / 2 - log Gamma_K(v/2)."""
+        logdetS = 2.0 * torch.sum(torch.log(torch.diagonal(Sc, dim1=-2, dim2=-1)), -1)
+        return -0.5 * v * K * LOG2 - 0.5 * v * logdetS - _mv_lgamma(0.5 * v, K)
+
+    def _sinv(self, Sc, K):
+        eye = torch.eye(K, dtype=Sc.dtype, device=Sc.device)
+        return torch.cholesky_solve(eye, Sc)
+
+    def pd_terms(self, dtype):
+        K = self.scale.shape[-1]
+        v = self.df.to(dtype)
+        Sc = cholesky_lower(self.scale.to(dtype))
+        Sinv = self._sinv(Sc, K)
+        return 0.5 * (Sinv + Sinv.T), v - K - 1.0, self._const(Sc, v, K)
+
+    def logpdf(self, X):
+        K = self.scale.shape[-1]
+        v, S = self.df, self.scale
+        logdetX = torch.linalg.slogdet(X)[1]
+        logdetS = torch.linalg.slogdet(S)[1]
+        tr = torch.diagonal(torch.linalg.solve(S, X), dim1=-2, dim2=-1).sum(-1)
+        return (0.5 * (v - K - 1.0) * logdetX - 0.5 * tr - 0.5 * v * K * LOG2
+                - 0.5 * v * logdetS - _mv_lgamma(0.5 * v, K))
+
+    def logpdf_from_factor(self, L, x=None):
+        """Density from the lower Cholesky factor L of X = LL' (the factor the
+        PDVecBijector inverse computes anyway): log det X = 2 sum log L_ii.
+        The trace is sum(S^-1 * x) where the caller has x (one K x K solve
+        for S^-1), else ||Sc^-1 L||_F^2."""
+        K = self.scale.shape[-1]
+        v = self.df
+        Sc = cholesky_lower(self.scale)
+        logdetX = 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), -1)
+        if x is not None:
+            tr = torch.sum(self._sinv(Sc, K) * x, dim=(-2, -1))
+        else:
+            A = torch.linalg.solve_triangular(Sc.expand(L.shape), L, upper=False)
+            tr = torch.sum(A * A, dim=(-2, -1))
+        return 0.5 * (v - K - 1.0) * logdetX - 0.5 * tr + self._const(Sc, v, K)
+
+    def sample(self, generator, sample_shape=()):
+        """X draws of shape sample_shape + batch_shape + (K, K) from `generator`."""
+        K = self.scale.shape[-1]
+        shape = tuple(sample_shape) + self.batch_shape
+        L = _bartlett_chol(generator, self.df, cholesky_lower(self.scale), K, shape)
+        return L @ L.transpose(-1, -2)
+
+
+@dataclass(frozen=True)
+class InverseWishart(_PDFamily):
+    """InverseWishart(df, Psi) over SPD matrices; fused in solve mode,
+    tr(Psi X^-1) = ||L^-1 chol(Psi)||_F^2 by forward substitution."""
+
+    df: object
+    psi: object
+
+    _params = ("df", "psi")
+    mode = "solve"
+
+    def _const(self, Pc, v, K):
+        """The terms without X: v log det Psi / 2 - v K log 2 / 2 - log Gamma_K(v/2)."""
+        logdetP = 2.0 * torch.sum(torch.log(torch.diagonal(Pc, dim1=-2, dim2=-1)), -1)
+        return 0.5 * v * logdetP - 0.5 * v * K * LOG2 - _mv_lgamma(0.5 * v, K)
+
+    def pd_terms(self, dtype):
+        K = self.psi.shape[-1]
+        v = self.df.to(dtype)
+        Pc = cholesky_lower(self.psi.to(dtype))
+        return Pc, -(v + K + 1.0), self._const(Pc, v, K)
+
+    def logpdf(self, X):
+        K = self.psi.shape[-1]
+        v, P = self.df, self.psi
+        logdetX = torch.linalg.slogdet(X)[1]
+        logdetP = torch.linalg.slogdet(P)[1]
+        tr = torch.diagonal(torch.linalg.solve(X, P), dim1=-2, dim2=-1).sum(-1)
+        return (0.5 * v * logdetP - 0.5 * (v + K + 1.0) * logdetX - 0.5 * tr
+                - 0.5 * v * K * LOG2 - _mv_lgamma(0.5 * v, K))
+
+    def logpdf_from_factor(self, L, x=None):
+        """Density from the lower Cholesky factor L of X = LL':
+        tr(Psi X^-1) = ||L^-1 chol(Psi)||_F^2 (x is not needed)."""
+        K = self.psi.shape[-1]
+        v = self.df
+        Pc = cholesky_lower(self.psi)
+        logdetX = 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), -1)
+        A = torch.linalg.solve_triangular(L, Pc.expand(L.shape), upper=False)
+        tr = torch.sum(A * A, dim=(-2, -1))
+        return -0.5 * (v + K + 1.0) * logdetX - 0.5 * tr + self._const(Pc, v, K)
+
+    def sample(self, generator, sample_shape=()):
+        """X draws: the inverse of Wishart(df, Psi^-1) draws."""
+        K = self.psi.shape[-1]
+        shape = tuple(sample_shape) + self.batch_shape
+        Pinv_chol = cholesky_lower(torch.linalg.inv(self.psi))
+        L = _bartlett_chol(generator, self.df, Pinv_chol, K, shape)
+        return torch.linalg.inv(L @ L.transpose(-1, -2))

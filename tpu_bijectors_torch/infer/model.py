@@ -154,6 +154,7 @@ class Model:
         kernel: str = "auto",
         constrained: bool = True,
         init: str = "random",
+        init_scale: float = 1.0,
         **kwargs,
     ):
         """One-call NUTS: windowed-adaptation warmup + sampling.
@@ -171,7 +172,8 @@ class Model:
         raw (n_kept, n_chains, dim) linked tensor. Every random draw comes
         from `generator` (on the model's device).
 
-        init='random' draws N(0, 1) starting positions; 'laplace' and
+        init='random' draws init_scale * N(0, 1) starting positions (the
+        JAX package draws N(0, 1), init_scale's default); 'laplace' and
         'pathfinder' are not ported yet and raise."""
         from .sampler import sample_with_kernel
 
@@ -196,7 +198,7 @@ class Model:
             if kernel == "nuts_batched_t"
             else self.batched_logdensity_fn()
         )
-        q0 = self.init_positions(generator, n_chains)
+        q0 = self.init_positions(generator, n_chains, init_scale)
         samples, state, stats = sample_with_kernel(
             fn, generator, q0, n_warmup=n_warmup, n_samples=n_samples,
             kernel=kernel, **kwargs,

@@ -13,7 +13,8 @@ raises.
 
 Wrappers: `vectorize/fused_kernel.py` (slab_value, slab_value_and_grad,
 slab_vjp), `kernels/simplex.py` (simplex_inverse_logdet, simplex_inverse,
-simplex_forward_logdet) and `kernels/lkj.py` (lkj_inverse, lkj_logdet).
+simplex_forward_logdet), `kernels/lkj.py` (lkj_inverse, lkj_logdet) and
+`kernels/pd.py` (pd_inverse, pd_logdensity, pd_trace_grad).
 """
 
 _ENABLED = True
@@ -27,6 +28,9 @@ LAUNCHES = {
     "lkj_logdet": 0,
     "simplex_inverse": 0,
     "simplex_forward_logdet": 0,
+    "pd_inverse": 0,
+    "pd_logdensity": 0,
+    "pd_trace_grad": 0,
 }
 
 

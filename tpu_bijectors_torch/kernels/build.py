@@ -4,7 +4,8 @@ The sources in `csrc/` are compiled by `nvcc` for `sm_90a` into a shared
 library with a plain C interface, loaded with ctypes (no PyTorch headers,
 so a build takes seconds). Every source is compiled by its own `nvcc`
 process, all started together, and the objects are linked into one
-library. The library goes under `build/torch_ext/` at the root of the
+library (the headers `csrc/*.cuh` are hashed with the sources). The
+library goes under `build/torch_ext/` at the root of the
 checkout, named by a hash of the sources and flags, and is built at first
 use. A failed build raises.
 """
@@ -27,7 +28,11 @@ _SOURCES = (
     "simplex_fwd.cu",
     "lkj_inv.cu",
     "lkj_logdet.cu",
+    "pd_inverse.cu",
+    "pd_logdensity.cu",
+    "pd_trace_grad.cu",
 )
+_HEADERS = ("pd_common.cuh",)
 _FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
 _COMPILE = ("-c", "-Xcompiler", "-fPIC")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
@@ -47,13 +52,14 @@ def _nvcc() -> str:
 
 def _library_path() -> Path:
     h = hashlib.sha256(" ".join(_FLAGS + _COMPILE).encode())
-    for name in _SOURCES:
+    for name in _SOURCES + _HEADERS:
         h.update((_CSRC / name).read_bytes())
     return BUILD_DIR / f"libtbt_{h.hexdigest()[:16]}.so"
 
 
 def _run_all(cmds):
-    """Run the commands in parallel; raise naming the first that failed."""
+    """Run the commands in parallel; raise naming the first that failed.
+    Returns each command's standard error."""
     cmds = list(cmds)
     procs = [
         subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -63,10 +69,13 @@ def _run_all(cmds):
     for c, p, (_, err) in zip(cmds, procs, outs):
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(c)}\n{err}")
+    return [err for _, err in outs]
 
 
-def build() -> Path:
-    """Compile the library if it is not built yet; returns its path."""
+def build(report: dict | None = None) -> Path:
+    """Compile the library if it is not built yet; returns its path. With
+    `report` (a dict), each source is compiled with `-Xptxas=-v` and its
+    register, shared-memory and spill lines land in report[source]."""
     so = _library_path()
     if so.exists():
         return so
@@ -74,10 +83,14 @@ def build() -> Path:
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, s + ".o") for s in _SOURCES]
-        _run_all(
-            [nvcc, *_FLAGS, *_COMPILE, "-o", o, str(_CSRC / s)]
+        verbose = ("-Xptxas=-v",) if report is not None else ()
+        errs = _run_all(
+            [nvcc, *_FLAGS, *_COMPILE, *verbose, "-o", o, str(_CSRC / s)]
             for s, o in zip(_SOURCES, objs)
         )
+        if report is not None:
+            report.update({s: [ln.strip() for ln in e.splitlines() if "ptxas" in ln]
+                           for s, e in zip(_SOURCES, errs)})
         out = os.path.join(tmp, "lib.so")
         _run_all([[nvcc, *_FLAGS, "-shared", "-o", out, *objs]])
         os.replace(out, so)  # atomic: a concurrent process sees all or nothing
@@ -91,9 +104,11 @@ def load():
         lib = ctypes.CDLL(str(build()))
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         sigs = {
-            "tbt_slab_value": [p, p, p, i, ll, p],
-            "tbt_slab_value_and_grad": [p, p, p, p, i, ll, p],
-            "tbt_slab_vjp": [p, p, p, p, i, ll, p],
+            # vT, cf, entry table, entries, loop parameters, their count,
+            # largest K, then the outputs (and ct), dim, B, stream
+            "tbt_slab_value": [p, p, p, i, p, i, i, p, i, ll, p],
+            "tbt_slab_value_and_grad": [p, p, p, i, p, i, i, p, p, i, ll, p],
+            "tbt_slab_vjp": [p, p, p, i, p, i, i, p, p, i, ll, p],
             # y, y strides (batch, coordinate), log(K-1-k) table, am1, x, ld,
             # wlog, K-1, B, stream
             "tbt_simplex_inverse_logdet": [p, ll, ll, p, p, p, p, p, i, ll, p],
@@ -106,6 +121,12 @@ def load():
             "tbt_lkj_inverse": [p, ll, ll, p, p, p, p, i, ll, p],
             # y, y strides (batch, slot), logJ, log diag W, K, chol, B, stream
             "tbt_lkj_logdet": [p, ll, ll, p, p, i, i, ll, p],
+            # y, y strides (batch, slot), X, logJ, L, K, B, stream
+            "tbt_pd_inverse": [p, ll, ll, p, p, p, i, ll, p],
+            # y, y strides, C, logJ, sum y_rr, trace, K, solve, B, stream
+            "tbt_pd_logdensity": [p, ll, ll, p, p, p, p, i, i, ll, p],
+            # y, y strides, C, g, g strides (batch, slot), K, solve, B, stream
+            "tbt_pd_trace_grad": [p, ll, ll, p, p, ll, ll, i, i, ll, p],
         }
         for name, args in sigs.items():
             fn = getattr(lib, name)

@@ -1,11 +1,11 @@
-// Whole-model slab kernels for Hopper (sm_90a): the linked log-density of
-// every slab row of the (dim, B) state, its one-pass value-and-gradient, and
-// its vector-Jacobian product.
+// Whole-model kernels for Hopper (sm_90a): the linked log-density of the
+// (dim, B) state, its one-pass value-and-gradient, and its vector-Jacobian
+// product, over slab rows and loop entries.
 //
 // Replaces the TPU kernels tpu_bijectors/vectorize/fused_kernel.py::
-// mega_logdensity_t, ::mega_value_and_grad_t and ::mega_vjp_t on models whose
-// every row is a slab row. Each computes, per state row r and batch column b,
-// with V = vT[r, b] (masked to 0 on rows the slab does not own), D = V - m:
+// mega_logdensity_t, ::mega_value_and_grad_t and ::mega_vjp_t. A SLAB row
+// computes, per state row r and batch column b, with V = vT[r, b] (masked to
+// 0 on rows the slab does not own), D = V - m:
 //
 //   lp_row = c1*V + cq*D^2 + where(D>=0, c3p, c3n)*|D|
 //          + c4*log1p(exp(sa*|D| + sb)) + c5*exp(ea*V + eb)
@@ -13,6 +13,19 @@
 //
 // (c0 has no V dependence and is added by the caller). A term whose weight
 // coefficient is 0 on a row is an exact 0 even at V = +/-inf; sign(0) = 0.
+// Rows no slab owns are neither read nor written by the slab pass.
+//
+// A LOOP entry owns a block of rows that no slab form covers. The entry
+// table holds, per entry, {kind, first row, K, offset of its parameters}.
+// The PD entry (kinds 1 dot, Wishart, and 2 solve, InverseWishart: the TPU
+// package's fused_emit.py::_emit_pd and _partials_pd) reads its
+// K(K+1)/2 rows as the packed y of pd_common.cuh, with parameters
+// {C (K*K, row-major), w, const}, and adds
+//
+//   logJ + w * sum_r y_rr - tr / 2 + const
+//
+// with tr the dot or solve trace; its partials are -d tr/dy / 2, plus
+// (K+1-r) + w on the diagonal slots.
 //
 // Bound on the card: memory. At the bench shape (dim 151, B 131072, float32)
 // the value kernel must read dim*B*4 = 79.2 MB; value-and-gradient and the
@@ -20,15 +33,21 @@
 // arithmetic is a few dozen operations per element, far below the card's
 // float32 rate at those byte counts. The design moves each byte once: one
 // thread per batch column walks the rows, so a warp's loads and stores of
-// one row are 32 neighbouring floats; the coefficient table and the per-row
-// term flags sit in shared memory (dim*64 bytes, 9.7 KB at dim 151) and are
-// read as broadcasts; lp is accumulated in a register; the gradient is
-// written once per row. Eight rows are loaded before they are used, so each
-// thread keeps several loads in flight.
+// one row are 32 neighbouring floats; the coefficient table, the per-row
+// term flags, the entry table and the loop parameters sit in shared memory
+// and are read as broadcasts; lp is accumulated in a register; the gradient
+// is written once per row. Eight rows are loaded before they are used, so
+// each thread keeps several loads in flight. A model with loop entries also
+// gives each thread the PD scratch of pd_common.cuh in shared memory (at
+// K = 16, 672 bytes for the value, 1280 with the gradient), and launches as
+// many threads a block as fit in 100 KB; a model without runs the
+// instantiation without loop code (LOOPS false), 256 threads a block.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "pd_common.cuh"
 
 namespace tbt {
 
@@ -45,6 +64,10 @@ enum Flag : unsigned {
 };
 
 enum Mode { kValue = 0, kValueAndGrad = 1, kVjp = 2 };
+
+// loop-entry kinds and the entry table's columns
+enum LoopKind { kPdDot = 1, kPdSolve = 2 };
+constexpr int kEntCols = 4;
 
 __device__ __forceinline__ float zguard(float c, float t) { return c == 0.0f ? 0.0f : t; }
 
@@ -120,17 +143,25 @@ __device__ __forceinline__ void slab_row(const float* c, unsigned f, float v,
   }
 }
 
-template <int MODE>
+// LOOPS: the model has loop entries. Without them the kernel is the slab
+// pass alone, every row slab-owned, and carries none of the loop code.
+template <int MODE, bool LOOPS>
 __global__ void __launch_bounds__(kThreads)
 slab_kernel(const float* __restrict__ vT, const float* __restrict__ cf,
-            const float* __restrict__ ct, float* __restrict__ lp,
+            const int* __restrict__ ent, int n_ent, const float* __restrict__ prm,
+            int n_prm, const float* __restrict__ ct, float* __restrict__ lp,
             float* __restrict__ g, int dim, long long B) {
   constexpr bool VAL = MODE != kVjp;
   constexpr bool PAR = MODE != kValue;
   extern __shared__ float smem[];
   float* scf = smem;
   unsigned* sflags = reinterpret_cast<unsigned*>(smem + (size_t)dim * kNcf);
+  int* sent = reinterpret_cast<int*>(sflags + dim);
+  float* sprm = reinterpret_cast<float*>(sent + n_ent * kEntCols);
+  float* scratch = sprm + n_prm;
   for (int i = threadIdx.x; i < dim * kNcf; i += blockDim.x) scf[i] = cf[i];
+  for (int i = threadIdx.x; i < n_ent * kEntCols; i += blockDim.x) sent[i] = ent[i];
+  for (int i = threadIdx.x; i < n_prm; i += blockDim.x) sprm[i] = prm[i];
   __syncthreads();
   for (int r = threadIdx.x; r < dim; r += blockDim.x) sflags[r] = row_flags(scf + r * kNcf);
   __syncthreads();
@@ -141,47 +172,98 @@ slab_kernel(const float* __restrict__ vT, const float* __restrict__ cf,
   float acc = 0.0f;
 
   auto row = [&](int r, float v) {
+    if (LOOPS && !(sflags[r] & kOwned)) return;  // a loop entry's row
     float val, par;
     slab_row<VAL, PAR>(scf + r * kNcf, sflags[r], v, val, par);
     if (VAL) acc += val;
     if (MODE == kValueAndGrad) g[(size_t)r * B + b] = par;
     if (MODE == kVjp) g[(size_t)r * B + b] = par * scale;
   };
+  auto load = [&](int r) {
+    return (!LOOPS || (sflags[r] & kOwned)) ? vT[(size_t)r * B + b] : 0.0f;
+  };
 
   int r = 0;
   for (; r + kRowBlock <= dim; r += kRowBlock) {
     float vv[kRowBlock];
 #pragma unroll
-    for (int k = 0; k < kRowBlock; ++k) vv[k] = vT[(size_t)(r + k) * B + b];
+    for (int k = 0; k < kRowBlock; ++k) vv[k] = load(r + k);
 #pragma unroll
     for (int k = 0; k < kRowBlock; ++k) row(r + k, vv[k]);
   }
-  for (; r < dim; ++r) row(r, vT[(size_t)r * B + b]);
+  for (; r < dim; ++r) row(r, load(r));
+
+  for (int e = 0; LOOPS && e < n_ent; ++e) {
+    const int* en = sent + e * kEntCols;
+    const int row0 = en[1], K = en[2];
+    const float* C = sprm + en[3];
+    const float w = C[K * K];
+    const int mode = en[0] == kPdSolve ? pd::kSolve : pd::kDot;
+    const pd::Scratch s{scratch + threadIdx.x, (int)blockDim.x, K};
+    float lj, sumd;
+    pd::unpack([&](int q) { return vT[(size_t)(row0 + q) * B + b]; }, s, lj, sumd);
+    if (VAL) {
+      const float tr = mode == pd::kDot ? pd::dot_trace(s, C) : pd::solve_trace(s, C);
+      acc += lj + w * sumd - 0.5f * tr + C[K * K + 1];
+    }
+    if (PAR) {
+      pd::trace_grad(s, C, mode, [&](int q, int rr, int cc, float gt) {
+        float p = -0.5f * gt;
+        if (rr == cc) p += (K + 1.0f - rr) + w;
+        g[(size_t)(row0 + q) * B + b] = MODE == kVjp ? p * scale : p;
+      });
+    }
+  }
   if (VAL) lp[b] = acc;
 }
 
-size_t smem_bytes(int dim) { return (size_t)dim * kNcf * sizeof(float) + (size_t)dim * sizeof(unsigned); }
+size_t fixed_smem_bytes(int dim, int n_ent, int n_prm) {
+  return (size_t)dim * kNcf * sizeof(float) + (size_t)dim * sizeof(unsigned) +
+         (size_t)n_ent * kEntCols * sizeof(int) + (size_t)n_prm * sizeof(float);
+}
 
-template <int MODE>
-cudaError_t launch(const float* vT, const float* cf, const float* ct, float* lp,
-                   float* g, int dim, long long B, cudaStream_t stream) {
-  const size_t smem = smem_bytes(dim);
+template <int MODE, bool LOOPS>
+cudaError_t launch_with(const float* vT, const float* cf, const int* ent, int n_ent,
+                        const float* prm, int n_prm, const float* ct, float* lp, float* g,
+                        int dim, long long B, int nt, size_t smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        slab_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        slab_kernel<MODE, LOOPS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  const long long blocks = (B + kThreads - 1) / kThreads;
-  slab_kernel<MODE><<<(unsigned)blocks, kThreads, smem, stream>>>(vT, cf, ct, lp, g, dim, B);
+  const long long blocks = (B + nt - 1) / nt;
+  slab_kernel<MODE, LOOPS><<<(unsigned)blocks, nt, smem, stream>>>(
+      vT, cf, ent, n_ent, prm, n_prm, ct, lp, g, dim, B);
   return cudaGetLastError();
 }
 
-cudaError_t launch_slab(int mode, const float* vT, const float* cf, const float* ct,
+template <int MODE>
+cudaError_t launch(const float* vT, const float* cf, const int* ent, int n_ent,
+                   const float* prm, int n_prm, int kmax, const float* ct, float* lp,
+                   float* g, int dim, long long B, cudaStream_t stream) {
+  const size_t fixed = fixed_smem_bytes(dim, n_ent, n_prm);
+  if (n_ent == 0)
+    return launch_with<MODE, false>(vT, cf, ent, n_ent, prm, n_prm, ct, lp, g, dim, B,
+                                    kThreads, fixed, stream);
+  if (kmax < 1 || kmax > pd::kMaxK) return cudaErrorInvalidValue;
+  const int slots = pd::scratch_slots(kmax, MODE != kValue);
+  const int nt = pd::threads_for(slots, fixed, kThreads, 100 * 1024);
+  if (nt == 0) return cudaErrorInvalidValue;
+  return launch_with<MODE, true>(vT, cf, ent, n_ent, prm, n_prm, ct, lp, g, dim, B, nt,
+                                 fixed + (size_t)slots * sizeof(float) * nt, stream);
+}
+
+cudaError_t launch_slab(int mode, const float* vT, const float* cf, const int* ent,
+                        int n_ent, const float* prm, int n_prm, int kmax, const float* ct,
                         float* lp, float* g, int dim, long long B, cudaStream_t stream) {
   switch (mode) {
-    case kValue: return launch<kValue>(vT, cf, ct, lp, g, dim, B, stream);
-    case kValueAndGrad: return launch<kValueAndGrad>(vT, cf, ct, lp, g, dim, B, stream);
-    case kVjp: return launch<kVjp>(vT, cf, ct, lp, g, dim, B, stream);
+    case kValue:
+      return launch<kValue>(vT, cf, ent, n_ent, prm, n_prm, kmax, ct, lp, g, dim, B, stream);
+    case kValueAndGrad:
+      return launch<kValueAndGrad>(vT, cf, ent, n_ent, prm, n_prm, kmax, ct, lp, g, dim, B,
+                                   stream);
+    case kVjp:
+      return launch<kVjp>(vT, cf, ent, n_ent, prm, n_prm, kmax, ct, lp, g, dim, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,35 +1,44 @@
-// Plain C interface of the slab kernels (fused_slab.cu), loaded with ctypes
-// by tpu_bijectors_torch/kernels/build.py. Every function launches on the
-// given stream, does not synchronise, and returns the launch's cudaError_t
-// (0 on success). The caller has checked devices, dtypes, shapes and
-// contiguity, and allocated every output.
+// Plain C interface of the whole-model kernels (fused_slab.cu), loaded with
+// ctypes by tpu_bijectors_torch/kernels/build.py. Every function launches on
+// the given stream, does not synchronise, and returns the launch's
+// cudaError_t (0 on success). The caller has checked devices, dtypes, shapes
+// and contiguity, and allocated every output. The loop entries: `ent`
+// (n_ent, 4) int32 rows {kind, first row, K, parameter offset} into `prm`
+// (n_prm floats), `kmax` the largest K; n_ent = 0 (null pointers) for a
+// model of slab rows only.
 
 #include <cuda_runtime.h>
 
 namespace tbt {
-cudaError_t launch_slab(int mode, const float* vT, const float* cf, const float* ct,
+cudaError_t launch_slab(int mode, const float* vT, const float* cf, const int* ent,
+                        int n_ent, const float* prm, int n_prm, int kmax, const float* ct,
                         float* lp, float* g, int dim, long long B, cudaStream_t stream);
 }  // namespace tbt
 
 extern "C" {
 
-// lp (B,) = sum over rows of the slab form; vT (dim, B), cf (dim, 15)
-int tbt_slab_value(const float* vT, const float* cf, float* lp, int dim, long long B,
+// lp (B,) = sum over rows and loop entries; vT (dim, B), cf (dim, 15)
+int tbt_slab_value(const float* vT, const float* cf, const int* ent, int n_ent,
+                   const float* prm, int n_prm, int kmax, float* lp, int dim, long long B,
                    void* stream) {
-  return (int)tbt::launch_slab(0, vT, cf, nullptr, lp, nullptr, dim, B,
-                               (cudaStream_t)stream);
+  return (int)tbt::launch_slab(0, vT, cf, ent, n_ent, prm, n_prm, kmax, nullptr, lp,
+                               nullptr, dim, B, (cudaStream_t)stream);
 }
 
 // lp (B,) and g = d lp / d vT (dim, B) in one pass
-int tbt_slab_value_and_grad(const float* vT, const float* cf, float* lp, float* g, int dim,
-                            long long B, void* stream) {
-  return (int)tbt::launch_slab(1, vT, cf, nullptr, lp, g, dim, B, (cudaStream_t)stream);
+int tbt_slab_value_and_grad(const float* vT, const float* cf, const int* ent, int n_ent,
+                            const float* prm, int n_prm, int kmax, float* lp, float* g,
+                            int dim, long long B, void* stream) {
+  return (int)tbt::launch_slab(1, vT, cf, ent, n_ent, prm, n_prm, kmax, nullptr, lp, g,
+                               dim, B, (cudaStream_t)stream);
 }
 
 // g = (d lp / d vT) * ct, ct (B,)
-int tbt_slab_vjp(const float* vT, const float* cf, const float* ct, float* g, int dim,
+int tbt_slab_vjp(const float* vT, const float* cf, const int* ent, int n_ent,
+                 const float* prm, int n_prm, int kmax, const float* ct, float* g, int dim,
                  long long B, void* stream) {
-  return (int)tbt::launch_slab(2, vT, cf, ct, nullptr, g, dim, B, (cudaStream_t)stream);
+  return (int)tbt::launch_slab(2, vT, cf, ent, n_ent, prm, n_prm, kmax, ct, nullptr, g, dim,
+                               B, (cudaStream_t)stream);
 }
 
 const char* tbt_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -3,7 +3,8 @@
 and src/Bijectors.jl:249-262).
 
 `bijector(d)` resolves from the distribution's static `support`:
-simplex -> SimplexBijector, corr -> VecCorrBijector, interval -> the
+simplex -> SimplexBijector, corr -> VecCorrBijector, pd -> PDVecBijector
+(`tpu_bijectors/registry.py:61`), interval -> the
 Truncated(lb, ub) branch its finite bounds select, or Identity on the
 real line. Other support kinds are not ported yet and raise.
 """
@@ -16,6 +17,7 @@ import torch
 
 from .bijectors.base import Bijector, Identity, elementwise
 from .bijectors.corr import VecCorrBijector
+from .bijectors.pd import PDVecBijector
 from .bijectors.scalar import Truncated
 from .bijectors.simplex import SimplexBijector
 from .dists.base import Distribution
@@ -28,6 +30,8 @@ def bijector(d: Distribution) -> Bijector:
     n = d.event_ndims
     if s.kind == "simplex":
         return SimplexBijector()
+    if s.kind == "pd":
+        return PDVecBijector()
     if s.kind == "corr":
         return VecCorrBijector()
     if s.kind == "interval":

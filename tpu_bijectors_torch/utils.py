@@ -2,7 +2,8 @@
 
 Keeps the reference's epsilon semantics (`_eps`, clamps), the numerically
 stable special functions, and the column-major strict-upper-triangle index
-sets (built with numpy, so packing is a static gather). Also holds the
+sets and the row-major lower pack of the PD links (built with numpy, so
+packing is a static gather). Also holds the
 device rule every entry point of the port follows (`resolve_device`).
 """
 
@@ -88,6 +89,15 @@ def _triu_index_arrays(n: int, k: int):
     return np.asarray(rows, dtype=np.int64), np.asarray(cols, dtype=np.int64)
 
 
+def triu_dim_from_length(d: int) -> int:
+    """n such that n(n+1)/2 == d (reference `_triu_dim_from_length`,
+    src/utils.jl:135)."""
+    n = (-1 + math.isqrt(1 + 8 * d)) // 2
+    if n * (n + 1) // 2 != d:
+        raise ValueError(f"{d} is not a triangular number")
+    return n
+
+
 def triu1_dim_from_length(d: int) -> int:
     """n such that n(n-1)/2 == d (reference `_triu1_dim_from_length`,
     src/utils.jl:99)."""
@@ -119,6 +129,39 @@ def vec_to_triu(v, k: int, n: int):
     return X
 
 
+def tril_to_vec(X, k: int = 0):
+    """Pack the lower triangle (offset -k) of the trailing (n, n) dims as the
+    upper triangle of the transpose: row-major, slot r(r+1)/2 + c for
+    c <= r at k = 0 (the reference's `pd_vec_link` order,
+    src/bijectors/pd.jl:36-43)."""
+    return triu_to_vec(X.transpose(-1, -2), k)
+
+
+def vec_to_tril(v, k: int = 0, n: int | None = None):
+    """Inverse of `tril_to_vec`; zeros elsewhere."""
+    if n is None:
+        n = triu_dim_from_length(v.shape[-1]) if k == 0 else triu1_dim_from_length(v.shape[-1])
+    return vec_to_triu(v, k, n).transpose(-1, -2)
+
+
+def set_diag(X, d):
+    """X with its diagonal replaced by d (batched)."""
+    eye = torch.eye(X.shape[-1], dtype=torch.bool, device=X.device)
+    return torch.where(eye, d[..., :, None], X)
+
+
+def pd_from_lower(L):
+    """L L^T with L forced lower-triangular (src/utils.jl:14-17)."""
+    L = torch.tril(L)
+    return L @ L.transpose(-1, -2)
+
+
+def cholesky_lower(X):
+    """Lower Cholesky factor of a symmetrised SPD matrix (reference
+    `cholesky_lower`, src/utils.jl:37)."""
+    return torch.linalg.cholesky(0.5 * (X + X.transpose(-1, -2)))
+
+
 def pd_from_upper(U):
     """U^T U with U forced upper-triangular (src/utils.jl:18-21)."""
     U = torch.triu(U)
@@ -127,8 +170,7 @@ def pd_from_upper(U):
 
 def cholesky_upper(X):
     """Upper Cholesky factor of a symmetrised SPD matrix (src/utils.jl:50)."""
-    Xs = 0.5 * (X + X.transpose(-1, -2))
-    return torch.linalg.cholesky(Xs).transpose(-1, -2)
+    return cholesky_lower(X).transpose(-1, -2)
 
 
 def sum_last(x, ndims: int):

@@ -13,11 +13,13 @@
                                           state; (B,) out
 
 Offsets are static, so a batch of states is one (B, dim) array. On the
-batch-major layout each leaf runs its own link: on the card the simplex
-and LKJ leaves launch their kernels (kernels/simplex.py, kernels/lkj.py),
-the scalar leaves are elementwise torch ops. On the transposed layout the
+batch-major layout each leaf runs its own link: on the card the simplex,
+LKJ and Wishart-family leaves launch their kernels (kernels/simplex.py,
+kernels/lkj.py, kernels/pd.py), the scalar leaves are elementwise torch
+ops. On the transposed layout the
 whole model runs as the fused slab evaluation (`fused_kernel.try_mega`):
-one CUDA kernel on the card, its plain PyTorch version for a CPU tensor.
+one CUDA kernel on the card (slab rows and the Wishart families' loop
+entries), its plain PyTorch version for a CPU tensor.
 `_linked_logdensity_t_children` is the composed per-leaf path, the
 reference the fused evaluation is held against.
 """
@@ -85,14 +87,21 @@ class Unconstrainer:
         return self._linked_logdensity_t_children(vT)
 
 
+# support kinds whose link couples elements (linked slot k depends on more
+# than x[k]): no per-element linked optic exists for them
+_ENTANGLED_KINDS = frozenset({"simplex", "corr", "pd"})
+
+
 @dataclass(frozen=True, eq=False)
 class LeafUnconstrainer(Unconstrainer):
-    """Any single distribution with a registry bijector."""
+    """Any single distribution with a registry bijector. `entangled`: the
+    link couples elements (see `_ENTANGLED_KINDS`)."""
 
     dist: Distribution
     link: Bijector
     event_shape: tuple
     linked_shape: tuple
+    entangled: bool = False
 
     @property
     def linked_vec_length(self):  # type: ignore[override]
@@ -118,8 +127,8 @@ class LeafUnconstrainer(Unconstrainer):
         """(x, logpdf(x) + logdetJ): a distribution's composed hook where it
         has one (the Dirichlet's fuses the inverse, its log-det and the
         data term in one kernel), else the factor the inverse link computes
-        anyway (LKJ: log diag W, no re-decomposition of X), else the
-        generic composition."""
+        anyway (LKJ: log diag W; Wishart families: the lower factor L; no
+        re-decomposition of X), else the generic composition."""
         b, d = self.link, self.dist
         y = _unravel_event(v, self.linked_shape)
         hook = getattr(d, "fused_linked_logdensity", None)
@@ -131,7 +140,7 @@ class LeafUnconstrainer(Unconstrainer):
             d, "logpdf_from_factor"
         ):
             x, ld, factor = b.inverse_and_log_det_with_factor(y)
-            return x, d.logpdf_from_factor(factor) + self._sum_extra(ld)
+            return x, d.logpdf_from_factor(factor, x) + self._sum_extra(ld)
         x, ld = self.from_linked_vec(v)
         return x, d.logpdf(x) + ld
 
@@ -153,12 +162,19 @@ class LeafUnconstrainer(Unconstrainer):
 
     def _linked_logdensity_t_children(self, vT):
         b, d = self.link, self.dist
-        if len(self.linked_shape) == 1 and hasattr(
-            b, "inverse_log_det_and_factor_only_t"
-        ) and hasattr(d, "logpdf_from_factor"):
-            # the (P, B) block read in place by the LKJ log-det kernel
-            ld, factor = b.inverse_log_det_and_factor_only_t(vT)
-            return d.logpdf_from_factor(factor) + ld
+        if len(self.linked_shape) == 1:
+            # the (P, B) block read in place: the Wishart families' PD
+            # log-density kernel, or the LKJ log-det kernel
+            hook = getattr(d, "fused_linked_logdensity_t", None)
+            if hook is not None:
+                out = hook(b, vT)
+                if out is not None:
+                    return out
+            if hasattr(b, "inverse_log_det_and_factor_only_t") and hasattr(
+                d, "logpdf_from_factor"
+            ):
+                ld, factor = b.inverse_log_det_and_factor_only_t(vT)
+                return d.logpdf_from_factor(factor) + ld
         if self.linked_shape == () and self.event_shape == ():
             # scalar leaf: link and density are elementwise, the (1, B) row
             # works in place (telescoped hooks like LogNormal's still fire)
@@ -301,4 +317,4 @@ def _leaf_unconstrain(d: Distribution) -> LeafUnconstrainer:
         linked = ev[: len(ev) - ne_in] + tuple(
             b.forward_event_shape(ev[len(ev) - ne_in :])
         )
-    return LeafUnconstrainer(d, b, ev, linked)
+    return LeafUnconstrainer(d, b, ev, linked, d.support.kind in _ENTANGLED_KINDS)

@@ -13,13 +13,24 @@ one row per state row: the 14 coefficient columns and a trailing
 OWNERSHIP column. A row whose ownership is 0 has V masked to 0 before any
 term is formed, and every term of a zero coefficient is an exact 0
 (`_zguard`), even where V = +/-inf.
+
+A LOOP entry owns rows no slab covers (ownership 0, every coefficient 0,
+so the slab form gives them 0 and no partial). `LoopTable` packs a
+model's loop entries once; the plain versions add each entry's value and
+write its partials from `kernels/pd.py`'s plain versions, as the JAX
+package's `fused_emit.py::_emit_pd` and `_partials_pd` assemble them:
+the PD entry adds logJ + w sum_r y_rr - tr / 2 + const, and its partials
+are -d tr/dy / 2 plus (K+1-r) + w on the diagonal slots.
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import torch
+
+from ..kernels.pd import affine_coeffs, pd_logdensity_plain, pd_trace_grad_plain
 
 LOG2 = math.log(2.0)
 LOG2PI = math.log(2.0 * math.pi)
@@ -157,31 +168,79 @@ def _groups_and_used(cf):
     return groups, used
 
 
-def _plain(vT, cf, value, partial):
+# the loop kinds' codes in the kernel's entry table (csrc/fused_slab.cu)
+LOOP_CODES = {"pd_dot": 1, "pd_solve": 2}
+PD_MODES = {1: "dot", 2: "solve"}
+
+
+@dataclass(frozen=True)
+class LoopTable:
+    """A model's loop entries, packed once: `entries` holds one (code,
+    first row, K, offset into prm) per entry (`LOOP_CODES`); `ent` is the
+    same as an (n, 4) int32 tensor and `prm` the entries' parameter blocks,
+    both on the state's device; `kmax` is the largest K."""
+
+    entries: tuple
+    ent: torch.Tensor
+    prm: torch.Tensor
+    kmax: int
+
+
+def _loop_val_par(vT, loops, value, partial):
+    """Each loop entry of `loops` over vT: (the sum of their values (B,) or
+    None, [(rows slice, partials (rows, B))] or None)."""
+    val, pars = None, []
+    for code, row0, K, off in loops.entries:
+        P = K * (K + 1) // 2
+        rows = slice(row0, row0 + P)
+        y = vT[rows].T
+        blk = loops.prm[off : off + K * K + 2]
+        C, w, const = blk[: K * K].reshape(K, K), blk[K * K], blk[K * K + 1]
+        mode = PD_MODES[code]
+        if value:
+            logJ, sumd, tr = pd_logdensity_plain(y, K, C, mode)
+            v = logJ + w * sumd - 0.5 * tr + const
+            val = v if val is None else val + v
+        if partial:
+            coeff, diag = affine_coeffs(K, y)
+            p = -0.5 * pd_trace_grad_plain(y, K, C, mode) + (coeff + w * diag)
+            pars.append((rows, p.T))
+    return val, (pars if partial else None)
+
+
+def _plain(vT, cf, value, partial, loops=None):
     groups, used = _groups_and_used(cf)
     val, par = _slab_segment_val_par(
         groups, vT, cf, used, value=value, partial=partial
     )
-    if val is None:
-        val = torch.zeros_like(vT)
+    val = torch.zeros_like(vT).sum(0) if val is None else val.sum(0)
     if par is None:
         par = torch.zeros_like(vT)
-    return val.sum(0), par
+    if loops is not None:
+        lval, lpars = _loop_val_par(vT, loops, value, partial)
+        if lval is not None:
+            val = val + lval
+        if lpars:
+            par = par.clone()
+            for rows, p in lpars:
+                par[rows] = p
+    return val, par
 
 
-def slab_value_plain(vT, cf):
+def slab_value_plain(vT, cf, loops=None):
     """Plain version of the value kernel: lp (B,) = sum over rows of the
-    slab form without c0, for vT (dim, B) and cf (dim, NCF)."""
-    return _plain(vT, cf, True, False)[0]
+    slab form without c0, plus each loop entry of `loops` (a LoopTable or
+    None), for vT (dim, B) and cf (dim, NCF)."""
+    return _plain(vT, cf, True, False, loops)[0]
 
 
-def slab_value_and_grad_plain(vT, cf):
+def slab_value_and_grad_plain(vT, cf, loops=None):
     """Plain version of the value-and-gradient kernel: (lp (B,), g (dim, B))
     with g = d lp / d vT."""
-    return _plain(vT, cf, True, True)
+    return _plain(vT, cf, True, True, loops)
 
 
-def slab_vjp_plain(vT, cf, ct):
+def slab_vjp_plain(vT, cf, ct, loops=None):
     """Plain version of the vector-Jacobian kernel: g = (d lp / d vT) * ct,
     ct (B,)."""
-    return _plain(vT, cf, False, True)[1] * ct
+    return _plain(vT, cf, False, True, loops)[1] * ct

@@ -1,16 +1,21 @@
 """The plan of the fused whole-model evaluation, PyTorch counterpart of
 `tpu_bijectors/vectorize/fused_plan.py`: `_plan(u)` maps every leaf of an
 unconstrainer tree onto a SLAB entry (per-row coefficients of the closed
-form in fused_base.py), or returns None when a leaf has none.
+form in fused_base.py) or a LOOP entry (a block of rows with its own
+parameters, evaluated by a loop body in the kernel), or returns None when
+a leaf has neither.
 
 Slab forms ported: Normal (identity link) and LogNormal (log link, the
 telescoped density), alone or as IID blocks with scalar parameters; the
-telescoped Dirichlet; the LKJ weighted logcosh. Every other leaf raises
-`_Unsupported` naming it.
+telescoped Dirichlet; the LKJ weighted logcosh. Loop forms ported: the PD
+entry of Wishart (`pd_dot`) and InverseWishart (`pd_solve`), K <= 16
+(`fused_emit.py::_emit_pd`). Every other leaf raises `_Unsupported`
+naming it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable
 
@@ -18,10 +23,12 @@ import torch
 
 from ..bijectors.base import Identity
 from ..bijectors.corr import VecCorrBijector
+from ..bijectors.pd import PDVecBijector
 from ..bijectors.simplex import SimplexBijector
 from ..dists import matrix as mx
 from ..dists import univariate as uv
 from ..dists.multivariate import Dirichlet
+from ..kernels.pd import MAX_K
 from ..utils import _triu_index_arrays
 from .fused_base import LOG2, LOG2PI, _Unsupported
 
@@ -30,7 +37,11 @@ from .fused_base import LOG2, LOG2PI, _Unsupported
 class _Entry:
     row0: int  # first state row
     rows: int  # rows consumed
-    slab: Callable  # (dtype) -> {coefficient key: (rows,) tensor}
+    slab: Callable | None = None  # (dtype) -> {coefficient key: (rows,) tensor}
+    loop: str | None = None  # a loop entry's kind (fused_base.LOOP_CODES)
+    # loop entry: (dtype) -> its parameter block as a flat tensor, for PD
+    # [C (K*K, row-major), w, const]
+    params: Callable | None = None
 
 
 def _scalar_entry(dist, link, n, row0):
@@ -130,12 +141,33 @@ def _leaf_entry(leaf, row0):
                     "c0": w * LOG2 + const * e0}
 
         return _Entry(row0, P, slab)
+    if t in (mx.Wishart, mx.InverseWishart) and type(b) is PDVecBijector:
+        return _pd_entry(d, row0)
     raise _Unsupported(f"{t.__name__} with link {type(b).__name__}")
+
+
+def _pd_entry(d, row0):
+    """The PD loop entry (`fused_plan.py:520-568` of the JAX package): the
+    density is logJ + w sum_r y_rr - tr / 2 + const with the family's
+    `pd_terms`: C = S^-1 (dot mode, symmetrised) and w = v - K - 1 for
+    Wishart; C = chol(Psi) (solve mode) and w = -(v + K + 1) for
+    InverseWishart."""
+    K = int(d.event_shape[-1])
+    if d._matrix().ndim != 2 or d.df.ndim != 0 or K > MAX_K:
+        raise _Unsupported(
+            f"{type(d).__name__} with a batched parameter or K = {K} > {MAX_K}"
+        )
+
+    def params(dtype):
+        C, w, const = d.pd_terms(dtype)
+        return torch.cat([C.reshape(-1), w.reshape(1), const.reshape(1)])
+
+    return _Entry(row0, K * (K + 1) // 2, loop=f"pd_{d.mode}", params=params)
 
 
 def _plan_with_reason(u):
     """(entries covering every linked row, None), or (None, the leaf that
-    has no slab form)."""
+    has neither a slab nor a loop form)."""
     from .core import IIDUnconstrainer, LeafUnconstrainer, TreeUnconstrainer
 
     entries = []
@@ -152,7 +184,7 @@ def _plan_with_reason(u):
                 e0 = _leaf_entry(inner, row0)
                 per = inner.linked_vec_length
                 entries.extend(
-                    _Entry(row0 + i * per, e0.rows, e0.slab) for i in range(node.n)
+                    dataclasses.replace(e0, row0=row0 + i * per) for i in range(node.n)
                 )
         elif isinstance(node, LeafUnconstrainer):
             entries.append(_leaf_entry(node, row0))
@@ -168,5 +200,5 @@ def _plan_with_reason(u):
 
 def _plan(u):
     """List of `_Entry` covering every linked row, or None if any leaf has
-    no slab form."""
+    neither a slab nor a loop form."""
     return _plan_with_reason(u)[0]
