@@ -1376,10 +1376,11 @@ def kernel_table(vT, xT, cf, ones):
 
 
 def pd_variants(vT, pd_preps):
-    """The PD variants the paths also run, name -> (call, bytes, operations):
-    the solve mode of the log-density and trace-gradient kernels in each
-    layout, and the three whole-model kernels with the PD entry on each PD
-    model (`pd_preps`: family -> (cf, loops) of its `_prep`)."""
+    """The PD variants the paths also run, name -> (call, bytes, operations,
+    the plain version's call): the solve mode of the log-density and
+    trace-gradient kernels in each layout, and the three whole-model
+    kernels with the PD entry on each PD model (`pd_preps`: family ->
+    (cf, loops) of its `_prep`)."""
     from tpu_bijectors_torch.kernels import pd as kp
     from tpu_bijectors_torch.vectorize import fused_base as fb
     from tpu_bijectors_torch.vectorize import fused_kernel as fk
@@ -1390,10 +1391,12 @@ def pd_variants(vT, pd_preps):
     for lay, y in layouts(vT, PD_ROWS, B, "batch-major slice").items():
         out[f"pd_logdensity solve ({lay})"] = (
             lambda y=y: kp.pd_logdensity(y, PD_K, eye, "solve"),
-            B * 4 * (136 + 3) + eye.numel() * 4, B * PD_OPS["solve"])
+            B * 4 * (136 + 3) + eye.numel() * 4, B * PD_OPS["solve"],
+            lambda y=y: kp.pd_logdensity_plain(y, PD_K, eye, "solve"))
         out[f"pd_trace_grad solve ({lay})"] = (
             lambda y=y: kp.pd_trace_grad(y, PD_K, eye, "solve"),
-            B * 4 * (136 + 136) + eye.numel() * 4, B * PD_OPS["solve_grad"])
+            B * 4 * (136 + 136) + eye.numel() * 4, B * PD_OPS["solve_grad"],
+            lambda y=y: kp.pd_trace_grad_plain(y, PD_K, eye, "solve"))
     ones = torch.ones(B, device=vT.device)
     for fam, (cf, loops) in pd_preps.items():
         mode = PD_MODES[fam]
@@ -1404,14 +1407,17 @@ def pd_variants(vT, pd_preps):
         nbytes = vT.numel() * 4 + B * 4 + cf.numel() * 4 + loops.prm.numel() * 4
         out[f"slab_value with the PD entry ({fam})"] = (
             lambda cf=cf, loops=loops: fk.slab_value(vT, cf, loops), nbytes,
-            slab["value"] + B * PD_OPS[mode])
+            slab["value"] + B * PD_OPS[mode],
+            lambda cf=cf, loops=loops: fb.slab_value_plain(vT, cf, loops))
         out[f"slab_value_and_grad with the PD entry ({fam})"] = (
             lambda cf=cf, loops=loops: fk.slab_value_and_grad(vT, cf, loops),
             nbytes + vT.numel() * 4,
-            slab["value_and_grad"] + B * (PD_OPS[mode] + PD_OPS[mode + "_grad"] - 216))
+            slab["value_and_grad"] + B * (PD_OPS[mode] + PD_OPS[mode + "_grad"] - 216),
+            lambda cf=cf, loops=loops: fb.slab_value_and_grad_plain(vT, cf, loops))
         out[f"slab_vjp with the PD entry ({fam})"] = (
             lambda cf=cf, loops=loops: fk.slab_vjp(vT, cf, ones, loops),
-            nbytes + vT.numel() * 4, slab["vjp"] + B * PD_OPS[mode + "_grad"])
+            nbytes + vT.numel() * 4, slab["vjp"] + B * PD_OPS[mode + "_grad"],
+            lambda cf=cf, loops=loops: fb.slab_vjp_plain(vT, cf, ones, loops))
     return out
 
 
@@ -1422,7 +1428,8 @@ def time_kernels(table, launches, err, variants):
     from the entry's bytes and operations. Prints each row, its
     `bound_inputs`, and a `kernel_variants` line with every layout's time
     and byte-bound share and the times of `variants` (name -> call, or
-    (call, bytes, operations) to give its bound too)."""
+    (call, bytes, operations, plain version's call) to give its bound and
+    its plain version's time too)."""
     rows, times = [], {}
     for k, (kern, plain, nbytes, ops, inputs) in table.items():
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -1452,11 +1459,11 @@ def time_kernels(table, launches, err, variants):
         if callable(v):
             times[k] = {"ms": time_ms(v)}
             continue
-        fn, nbytes, ops = v
+        fn, nbytes, ops, plain = v
         t = time_ms(fn)
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
-        times[k] = {"ms": t, "bound_ms": max(t_bytes, t_ops),
+        times[k] = {"ms": t, "plain_ms": time_slow_ms(plain), "bound_ms": max(t_bytes, t_ops),
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                     "bytes": nbytes, "ops": ops, "bound_share": max(t_bytes, t_ops) / t}
     print(json.dumps({"kernel_variants": times}), flush=True)
