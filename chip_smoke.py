@@ -38,9 +38,10 @@ InverseWishart(18, I_16)) on three more:
 6. batch-major serving of both PD models on (B, 151) states:
    `batched_logdensity_fn()` (the PD log-density kernel), its gradient
    (the trace-gradient kernel) and `Model.constrain` (the PD inverse);
-7. the pd_conjugate cell: `Model(pdonly, loglik).sample(kernel='auto')`,
-   which takes `nuts_batched_t`, with 200 observations z ~ N(0, Sigma)
-   (loglik = 100 log det W - tr(W Z'Z) / 2) and the settings of path 2:
+7. the pd_conjugate cell: `Model(pdonly, loglik).sample(kernel='auto')`'s
+   steps (its kernel, `nuts_batched_t`, from starts at 0.3 N(0, 1)), with
+   200 observations z ~ N(0, Sigma) (loglik = 100 log det W -
+   tr(W Z'Z) / 2) and the settings of path 2:
    each leapfrog runs the value-and-gradient kernel with the PD entry and
    the PD inverse kernel with its backward.
 
@@ -814,11 +815,11 @@ PD_K = 16
 PD_ROWS = slice(0, 136)  # the Wishart leaf's packed rows of the PD models
 PD_MODES = {"wishart": "dot", "invwishart": "solve"}
 EPS32 = float(np.finfo(np.float32).eps)
-# the pd_conjugate chains start at bench.py's 0.3 N(0, 1): at N(0, 1) the
-# factor L of a start is so ill-conditioned that W = LL' is singular in
-# float32 (kappa(W) = kappa(L)^2), so the likelihood's log det W and its
-# gradient W^-1 are noise, and dual averaging shrinks the step towards 0
-# chasing the target acceptance; float64, or smaller starts, do not
+# the pd_conjugate chains start at bench.py's 0.3 N(0, 1). From N(0, 1)
+# starts (Model.sample's) the float32 sampler's warmup shrinks the step
+# towards 0 and the chains do not mix; tests/test_torch_pd_witness.py, run
+# as a script, samples this model from either start in either package and
+# dtype (PERF.md section 7)
 PD_INIT_SCALE = 0.3
 
 
@@ -1171,39 +1172,47 @@ def run_pd_batch_major_serving(dev, vT, family, lp_t, g_t):
     return launches, e2e
 
 
-def pd_conjugate_data(dev):
-    """The pd_conjugate cell's likelihood (user code): 200 observations
-    z_i ~ N(0, Sigma) in R^16, Sigma SPD from numpy seed 1, and
-    loglik(x) = 100 log det W - tr(W Z'Z) / 2 with W the precision. The
-    posterior of W under pdonly's Wishart(18, I) prior is
-    Wishart(218, (I + Z'Z)^-1). Returns (loglik, the posterior means of
-    W's diagonal)."""
+def pd_conjugate_ztz():
+    """The pd_conjugate cell's data: Z'Z (float64) of 200 observations
+    z_i ~ N(0, Sigma) in R^16, Sigma SPD from numpy seed 1."""
     rng = np.random.default_rng(1)
     A = rng.standard_normal((PD_K, PD_K))
     Sigma = A @ A.T / PD_K + 0.5 * np.eye(PD_K)
     Z = rng.multivariate_normal(np.zeros(PD_K), Sigma, size=200)
-    ZtZ = torch.as_tensor(Z.T @ Z, dtype=torch.float32, device=dev)
+    return Z.T @ Z
+
+
+def pd_conjugate_data(dev):
+    """The pd_conjugate cell's likelihood (user code) on
+    `pd_conjugate_ztz`'s data, rounded to float32: loglik(x) =
+    100 log det W - tr(W Z'Z) / 2 with W the precision. The posterior of W
+    under pdonly's Wishart(18, I) prior is Wishart(218, (I + Z'Z)^-1).
+    Returns (loglik, the posterior means of W's diagonal)."""
+    ztz = pd_conjugate_ztz()
+    ZtZ = torch.as_tensor(ztz, dtype=torch.float32, device=dev)
 
     def loglik(x):
         W = x["W"]
         return 100.0 * torch.linalg.slogdet(W)[1] - 0.5 * torch.sum(W * ZtZ)
 
-    post = 218.0 * np.diag(np.linalg.inv(np.eye(PD_K) + Z.T @ Z))
+    post = 218.0 * np.diag(np.linalg.inv(np.eye(PD_K) + ztz))
     return loglik, post
 
 
 def run_pd_sampler(dev):
-    """Path 7, the pd_conjugate cell: `Model(pdonly, loglik).sample(
-    kernel='auto')`, which takes `nuts_batched_t` (each leapfrog runs the
-    value-and-gradient kernel with the PD entry, and the PD inverse kernel
-    and its backward for the likelihood's x), 64 chains, max_depth 8, 300
-    warmup and 200 kept transitions, target acceptance 0.95, torch seed 0,
-    starts at PD_INIT_SCALE * N(0, 1), timed as `run_sampler` times it. Gates: R-hat <= 1.05, divergences
-    <= 1%, W's diagonal means within 5 MCSE of the Wishart posterior's,
-    m's within 5 MCSE of 0."""
+    """Path 7, the pd_conjugate cell: the steps of `Model(pdonly,
+    loglik).sample(kernel='auto')` with the starts at PD_INIT_SCALE *
+    N(0, 1): the kernel 'auto' takes (`nuts_batched_t`: each leapfrog runs
+    the value-and-gradient kernel with the PD entry, and the PD inverse
+    kernel and its backward for the likelihood's x), `warmup_and_sample`
+    from `Model.init_positions` for the warmup and `resume_sampling` for
+    the draws, as `run_sampler` times them; 64 chains, max_depth 8, 300
+    warmup and 200 kept transitions, target acceptance 0.95, torch seed 0.
+    Gates: R-hat <= 1.05, divergences <= 1%, W's diagonal means within 5
+    MCSE of the Wishart posterior's, m's within 5 MCSE of 0."""
     import tpu_bijectors_torch as tbt
     from tpu_bijectors_torch import diagnostics, dists, kernels
-    from tpu_bijectors_torch.infer import hmc_batched, resume_sampling
+    from tpu_bijectors_torch.infer import hmc_batched, resume_sampling, warmup_and_sample
 
     loglik, post = pd_conjugate_data(dev)
     model = tbt.Model(pd_model(dists, dev, torch.float32, "wishart"), loglik=loglik, device=dev)
@@ -1212,23 +1221,18 @@ def run_pd_sampler(dev):
     kernels.reset_launch_counts()
     hmc_batched.reset_sync_count()
     t0 = time.perf_counter()
-    _, state, _ = model.sample(
-        gen, n_chains=CHAINS, n_warmup=WARMUP, n_samples=0, max_depth=MAX_DEPTH,
-        target_accept=TARGET_ACCEPT, constrained=False, kernel="auto",
-        init_scale=PD_INIT_SCALE,
+    kernel = model._auto_kernel()
+    expect(f"pd_conjugate: kernel='auto' takes nuts_batched_t (took {kernel})",
+           kernel == "nuts_batched_t")
+    density = model.batched_logdensity_t_fn()
+    _, state, _ = warmup_and_sample(
+        density, gen, model.init_positions(gen, CHAINS, PD_INIT_SCALE), n_warmup=WARMUP,
+        n_samples=0, kernel=kernel, max_depth=MAX_DEPTH, target_accept=TARGET_ACCEPT,
     )
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     l1, s1 = dict(kernels.LAUNCHES), hmc_batched.SYNCS["any_active"]
-    # only the transposed density runs the whole-model kernel: the
-    # batch-major one would run the PD inverse and torch ops alone
-    expect("pd_conjugate: kernel='auto' took nuts_batched_t (its warmup launched "
-           f"slab_value_and_grad {l1['slab_value_and_grad']} times)",
-           l1["slab_value_and_grad"] > 0)
-    raw, state, stats = resume_sampling(
-        model.batched_logdensity_t_fn(), state, KEPT, kernel="nuts_batched_t",
-        max_depth=MAX_DEPTH,
-    )
+    raw, state, stats = resume_sampling(density, state, KEPT, kernel=kernel, max_depth=MAX_DEPTH)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     l2, s2 = dict(kernels.LAUNCHES), hmc_batched.SYNCS["any_active"]
@@ -1502,8 +1506,9 @@ def main():
     build.load()
     lap("build")
     print(f"build: {so.name} in {phases['build']:.1f} s", flush=True)
-    # registers, shared memory and spills of each kernel (-Xptxas=-v)
-    print(json.dumps({"ptxas": ptxas}), flush=True)
+    # registers, shared memory and spills of each kernel (-Xptxas=-v); a
+    # library already built under build/ is loaded as it is, with no report
+    print(json.dumps({"ptxas": ptxas or "not compiled in this run: no report"}), flush=True)
 
     model = tbt.Model(bench_model(dists, dev, torch.float32), device=dev)
     u = model.unconstrainer()

@@ -286,7 +286,6 @@ def test_family_densities_match_jax(rng, name, K):
     _close(tdist.fused_linked_logdensity_t(b, torch.as_tensor(np.ascontiguousarray(y.T))),
            ref, VAL_TOL)
     ut = tbt.unconstrain(tdist, device="cpu")
-    assert ut.entangled
     x, lp = ut.from_linked_vec_with_logpdf(torch.as_tensor(y))
     xr, lpr = uj.from_linked_vec_with_logpdf(jnp.asarray(y))
     _close(x, xr, VAL_TOL)
@@ -403,7 +402,8 @@ def test_prep_packs_loop_entries_once_per_parameter_block():
 def test_leaf_beyond_the_kernels_k_has_no_plan(rng):
     """K = 17 > MAX_K: no loop entry (the JAX package's plan declines too),
     a CPU state takes the composed path, whose hook declines and whose
-    inverse is the plain version under autograd."""
+    inverse is the plain version (the card raises there:
+    `test_pd_inverse_beyond_the_kernels_k_raises_off_the_cpu`)."""
     K = 17
     d = tbt.dists.Wishart(K + 2.0, np.eye(K), **CPU64)
     u = tbt.unconstrain(tbt.dists.NamedProduct.of(W=d), device="cpu")
@@ -428,23 +428,16 @@ def test_auto_picks_nuts_batched_t_for_pd_models(monkeypatch, name):
     assert _picked(monkeypatch, tm, jm) == ["nuts_batched_t", "nuts_batched"]
 
 
-def test_sample_init_scale_scales_the_random_starts(monkeypatch):
-    """`init_scale` multiplies the N(0, 1) starts (1.0, the JAX package's
-    starts, by default)."""
-    from tpu_bijectors_torch.infer import sampler
-
-    seen = []
-
-    def stub(fn, gen, q0, n_warmup, n_samples, kernel, **kw):
-        seen.append(q0)
-        return q0[None], None, None
-
-    monkeypatch.setattr(sampler, "sample_with_kernel", stub)
-    tm = tbt.Model(tbt.dist_from_spec(spec_of(MODELS["pdonly"]()), **CPU64), device="cpu")
-    for scale in (1.0, 0.3):
-        tm.sample(torch.Generator().manual_seed(0), n_chains=3, constrained=False,
-                  init_scale=scale)
-    assert torch.equal(seen[1], 0.3 * seen[0])
+def test_pd_inverse_beyond_the_kernels_k_raises_off_the_cpu():
+    """K = 17 > MAX_K off the CPU: the inverse link raises, naming the
+    limit, through the bijector and the leaf's composed density alike
+    (nothing runs the plain version on a device)."""
+    K = 17
+    y = torch.zeros((2, K * (K + 1) // 2), device="meta")
+    b = PDVecBijector()
+    for call in (b.inverse_and_log_det, b.inverse_and_log_det_with_factor, b.inverse):
+        with pytest.raises(NotImplementedError, match=f"K <= {kpd.MAX_K}; got K = 17"):
+            call(y)
 
 
 # ---------------------------------------------------------------------------

@@ -12,29 +12,14 @@ one call: A, B, B, A.
 """
 
 import json
-import statistics
 import sys
+from pathlib import Path
 
 import numpy as np
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-def time_ms(torch, fn, reps=25, inner=10):
-    """Median over `reps` CUDA-event timings of `inner` back-to-back calls,
-    the card kept busy while the host enqueues them."""
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    ts = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(5_000_000)
-        a.record()
-        for _ in range(inner):
-            fn()
-        b.record()
-        b.synchronize()
-        ts.append(a.elapsed_time(b) / inner)
-    return statistics.median(ts)
+from chip_smoke import bench_model, time_ms  # noqa: E402  (one model, one timer for A and B)
 
 
 def main(checkout):
@@ -46,23 +31,16 @@ def main(checkout):
     from tpu_bijectors_torch.vectorize import fused_kernel as fk
 
     dev = torch.device("cuda")
-    kw = dict(device=dev, dtype=torch.float32)
-    d = dists.NamedProduct.of(  # bench.py's model
-        mu=dists.IIDProduct(dists.Normal(0.0, 2.0, **kw), 8),
-        sigma=dists.IIDProduct(dists.LogNormal(0.0, 0.5, **kw), 8),
-        w=dists.Dirichlet(np.ones(16), **kw),
-        corr=dists.LKJ(16, 2.0, **kw),
-    )
-    u = tbt.Model(d, device=dev).unconstrainer()
+    u = tbt.Model(bench_model(dists, dev, torch.float32), device=dev).unconstrainer()
     v = 0.5 * np.random.default_rng(0).standard_normal((131072, 151))
     vT = torch.as_tensor(np.ascontiguousarray(v.T), dtype=torch.float32, device=dev)
     cf = fk._prep(u, vT)[0]
     ones = torch.ones(131072, device=dev)
     out = {
         "checkout": checkout,
-        "slab_value": time_ms(torch, lambda: fk.slab_value(vT, cf)),
-        "slab_value_and_grad": time_ms(torch, lambda: fk.slab_value_and_grad(vT, cf)),
-        "slab_vjp": time_ms(torch, lambda: fk.slab_vjp(vT, cf, ones)),
+        "slab_value": time_ms(lambda: fk.slab_value(vT, cf)),
+        "slab_value_and_grad": time_ms(lambda: fk.slab_value_and_grad(vT, cf)),
+        "slab_vjp": time_ms(lambda: fk.slab_vjp(vT, cf, ones)),
     }
     lp, g = fk.slab_value_and_grad(vT, cf)
     out["lp_sum"] = float(lp.double().sum())

@@ -20,9 +20,9 @@ times exp(y). `_pd_logdensity` is a Function over `pd_logdensity` (logJ,
 sum y_rr and the Wishart-family trace, X and L never formed), its backward
 the affine slopes of logJ and sum y_rr plus the trace's cotangent times
 `pd_trace_grad`, in both modes. Leading batch axes are flattened into the
-kernel's batch. Beyond the kernels' K (kernels/pd.py MAX_K) the inverse is
-the plain version under autograd, as the JAX package takes its jnp path
-there.
+kernel's batch. Beyond the kernels' K (kernels/pd.py MAX_K) a CPU tensor
+takes the plain version, as the JAX package takes its jnp path there, and
+any other raises.
 """
 
 from __future__ import annotations
@@ -36,7 +36,6 @@ from ..kernels.pd import (
     MAX_K,
     affine_coeffs,
     pd_inverse,
-    pd_inverse_plain,
     pd_logdensity,
     pd_trace_grad,
 )
@@ -141,10 +140,11 @@ def _pd_inverse_all(y):
     K = triu_dim_from_length(y.shape[-1])
     lead = y.shape[:-1]
     flat = y.reshape(-1, y.shape[-1])
-    if K > MAX_K:
-        X, logJ, L = pd_inverse_plain(flat, K)
-    else:
-        X, logJ, L = _PDInverse.apply(flat, K)
+    if K > MAX_K and flat.device.type != "cpu":
+        raise NotImplementedError(
+            f"the PD inverse kernel takes K <= {MAX_K}; got K = {K} on {flat.device}"
+        )
+    X, logJ, L = _PDInverse.apply(flat, K)
     return X.reshape(lead + (K, K)), logJ.reshape(lead), L.reshape(lead + (K, K))
 
 

@@ -141,7 +141,8 @@ class _PDFamily(LeafDistribution):
     def _fusable(self, bijector):
         """Whether the PD log-density kernel serves this leaf: the PD vector
         link, one matrix parameter and a scalar df, K within the kernels'
-        limit."""
+        limit. Where it does not, the density composes on the PD inverse
+        link, which raises beyond that limit off the CPU."""
         from ..bijectors.pd import PDVecBijector
 
         M = self._matrix()

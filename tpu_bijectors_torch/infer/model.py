@@ -145,6 +145,22 @@ class Model:
             device=self.device,
         )
 
+    def _auto_kernel(self):
+        """The kernel `sample(kernel='auto')` runs: `nuts_batched_t` where
+        the kernels are enabled and the model has a fused plan, else
+        `nuts_batched`."""
+        from .. import kernels
+        from ..vectorize.core import TreeUnconstrainer
+        from ..vectorize.fused_plan import _plan
+
+        u = self._u
+        eligible = (
+            kernels.enabled()
+            and isinstance(u, TreeUnconstrainer)
+            and _plan(u) is not None
+        )
+        return "nuts_batched_t" if eligible else "nuts_batched"
+
     def sample(
         self,
         generator,
@@ -154,7 +170,6 @@ class Model:
         kernel: str = "auto",
         constrained: bool = True,
         init: str = "random",
-        init_scale: float = 1.0,
         **kwargs,
     ):
         """One-call NUTS: windowed-adaptation warmup + sampling.
@@ -172,23 +187,12 @@ class Model:
         raw (n_kept, n_chains, dim) linked tensor. Every random draw comes
         from `generator` (on the model's device).
 
-        init='random' draws init_scale * N(0, 1) starting positions (the
-        JAX package draws N(0, 1), init_scale's default); 'laplace' and
+        init='random' draws N(0, 1) starting positions; 'laplace' and
         'pathfinder' are not ported yet and raise."""
         from .sampler import sample_with_kernel
 
         if kernel == "auto":
-            from .. import kernels
-            from ..vectorize.core import TreeUnconstrainer
-            from ..vectorize.fused_plan import _plan
-
-            u = self._u
-            eligible = (
-                kernels.enabled()
-                and isinstance(u, TreeUnconstrainer)
-                and _plan(u) is not None
-            )
-            kernel = "nuts_batched_t" if eligible else "nuts_batched"
+            kernel = self._auto_kernel()
         if init in ("laplace", "pathfinder"):
             raise NotImplementedError(f"init={init!r} is not ported yet")
         if init != "random":
@@ -198,7 +202,7 @@ class Model:
             if kernel == "nuts_batched_t"
             else self.batched_logdensity_fn()
         )
-        q0 = self.init_positions(generator, n_chains, init_scale)
+        q0 = self.init_positions(generator, n_chains)
         samples, state, stats = sample_with_kernel(
             fn, generator, q0, n_warmup=n_warmup, n_samples=n_samples,
             kernel=kernel, **kwargs,

@@ -74,8 +74,9 @@ def _run_all(cmds):
 
 def build(report: dict | None = None) -> Path:
     """Compile the library if it is not built yet; returns its path. With
-    `report` (a dict), each source is compiled with `-Xptxas=-v` and its
-    register, shared-memory and spill lines land in report[source]."""
+    `report` (a dict), each source compiled here is compiled with
+    `-Xptxas=-v` and its register, shared-memory and spill lines land in
+    report[source]; a library already built leaves `report` empty."""
     so = _library_path()
     if so.exists():
         return so

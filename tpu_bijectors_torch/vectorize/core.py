@@ -87,21 +87,14 @@ class Unconstrainer:
         return self._linked_logdensity_t_children(vT)
 
 
-# support kinds whose link couples elements (linked slot k depends on more
-# than x[k]): no per-element linked optic exists for them
-_ENTANGLED_KINDS = frozenset({"simplex", "corr", "pd"})
-
-
 @dataclass(frozen=True, eq=False)
 class LeafUnconstrainer(Unconstrainer):
-    """Any single distribution with a registry bijector. `entangled`: the
-    link couples elements (see `_ENTANGLED_KINDS`)."""
+    """Any single distribution with a registry bijector."""
 
     dist: Distribution
     link: Bijector
     event_shape: tuple
     linked_shape: tuple
-    entangled: bool = False
 
     @property
     def linked_vec_length(self):  # type: ignore[override]
@@ -317,4 +310,4 @@ def _leaf_unconstrain(d: Distribution) -> LeafUnconstrainer:
         linked = ev[: len(ev) - ne_in] + tuple(
             b.forward_event_shape(ev[len(ev) - ne_in :])
         )
-    return LeafUnconstrainer(d, b, ev, linked, d.support.kind in _ENTANGLED_KINDS)
+    return LeafUnconstrainer(d, b, ev, linked)
