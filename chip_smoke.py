@@ -6,9 +6,11 @@ Builds every kernel in `tpu_bijectors_torch/kernels/csrc/` (one nvcc per
 source, all at once; the ptxas report of registers and spills is printed),
 then drives the bench model (8 Normal, 8 LogNormal, Dirichlet(16), LKJ(16):
 linked dim 151) in float32 through the entry points a user calls, on four
-paths, and the PD models (tools/mega_probe.py's `pdonly`: Wishart(18, I_16)
+paths, the PD models (tools/mega_probe.py's `pdonly`: Wishart(18, I_16)
 and 15 iid N(0, 1), linked dim 136 + 15 = 151, and its twin with
-InverseWishart(18, I_16)) on three more:
+InverseWishart(18, I_16)) on three more, and `mvdense` (4 x
+MvNormalTril(16), MvNormalCanon(16), 4 x MvStudentT(5, 16), MvLogNormal(4),
+MvNormalDiag(3): linked dim 151) on three more:
 
 1. transposed serving at B = 131072: `Model.batched_logdensity_t_fn()`
    (the slab value kernel), its `value_and_grad_fn` (the one-pass
@@ -43,7 +45,23 @@ InverseWishart(18, I_16)) on three more:
    200 observations z ~ N(0, Sigma) (loglik = 100 log det W -
    tr(W Z'Z) / 2) and the settings of path 2:
    each leapfrog runs the value-and-gradient kernel with the PD entry and
-   the PD inverse kernel with its backward.
+   the PD inverse kernel with its backward;
+8. transposed serving of mvdense at B = 131072 on the same states, all
+   four modes of the whole-model kernel with the Gaussian and t loop
+   entries: `batched_logdensity_t_fn()`, its `value_and_grad_fn`,
+   autograd's backward and `torch.func.jvp` of `linked_logdensity_t` (the
+   forward-mode kernel, #4);
+9. batch-major serving of mvdense (torch's triangular solves: no kernel),
+   held to path 8, and `Model.constrain`;
+10. the mv_conjugate cell: `Model(mvdense, loglik).sample(kernel='auto')`'s
+   steps with 200 Gaussian observations on one MvNormalTril copy, from
+   0.3 N(0, 1) starts, 300 warmup and MV_KEPT kept transitions; each
+   leapfrog runs the value-and-gradient kernel with the Gaussian and t
+   entries;
+11. the launch-size repairs: `wide` (4000 slab rows, the table in global
+   memory) in all four modes, `pdwide` (dim 1051 with a PD entry) and the
+   LKJ inverse at K = 64 (the factors in global scratch), against their
+   plain versions; and #4 on the bench and PD models.
 
 The launch counters are set to 0 just before each path and read just after
 it; each kernel of the path must have launched. Each kernel is held against
@@ -62,7 +80,10 @@ each sampler's draws against the known Dirichlet(1 + counts) posterior of
 kernels and the PD entry are held against their plain versions and float64
 in both modes, at error bounds from the sums and substitutions they do
 (`pd_reference`: the solve mode's scale with kappa(L)), and the
-pd_conjugate draws against the Wishart(218, (I + Z'Z)^-1) posterior. Every
+pd_conjugate draws against the Wishart(218, (I + Z'Z)^-1) posterior. The
+mvdense kernels are held to their plain versions and float64 at bounds
+from the sums they do (`quad_bounds`), and the mv_conjugate draws against
+the posterior means of all 151 coordinates. Every
 kernel is timed with CUDA events in each of its layouts, beside its plain
 version (`kernel_table`, `time_kernels`), and the PD variants with their
 bounds (`pd_variants`).
@@ -106,11 +127,14 @@ OPS = {
     "value": {"lin": 3, "quad": 4, "absv": 6, "sp": 8, "exp": 7, "l1p": 7},
     "value_and_grad": {"lin": 4, "quad": 7, "absv": 7, "sp": 15, "exp": 10, "l1p": 14},
     "vjp": {"lin": 2, "quad": 4, "absv": 5, "sp": 12, "exp": 6, "l1p": 9},
+    # the partial, then one multiply-add with the tangent
+    "jvp": {"lin": 3, "quad": 5, "absv": 6, "sp": 13, "exp": 7, "l1p": 10},
 }
 REPLACES = {
     "slab_value": "tpu_bijectors/vectorize/fused_kernel.py:226",
     "slab_value_and_grad": "tpu_bijectors/vectorize/fused_kernel.py:383",
     "slab_vjp": "tpu_bijectors/vectorize/fused_kernel.py:321",
+    "slab_jvp": "tpu_bijectors/vectorize/fused_kernel.py:274",
     "simplex_inverse_logdet": "tpu_bijectors/kernels/simplex.py:181",
     "lkj_inverse": "tpu_bijectors/kernels/lkj.py:167",
     "lkj_logdet": "tpu_bijectors/kernels/lkj.py:88",
@@ -125,6 +149,7 @@ SOURCES = {
     "slab_value": CSRC + "fused_slab.cu",
     "slab_value_and_grad": CSRC + "fused_slab.cu",
     "slab_vjp": CSRC + "fused_slab.cu",
+    "slab_jvp": CSRC + "fused_slab.cu",
     "simplex_inverse_logdet": CSRC + "simplex_inv.cu",
     "lkj_inverse": CSRC + "lkj_inv.cu",
     "lkj_logdet": CSRC + "lkj_logdet.cu",
@@ -1289,11 +1314,613 @@ def run_pd_sampler(dev):
     return line, launches
 
 
-def kernel_table(vT, xT, cf, ones):
+# --- the dense multivariate families (the fifth slice) -----------------------
+
+MV_K = 16
+# mvdense's linked rows: 4 x MvNormalTril(16), MvNormalCanon(16),
+# 4 x MvStudentT(16), MvLogNormal(4), MvNormalDiag(3)
+MV_ROWS = {"tril": slice(0, 64), "canon": slice(64, 80), "t": slice(80, 144),
+           "ln": slice(144, 148), "diag": slice(148, 151)}
+MV_N_OBS = 200
+# the mv_conjugate cell keeps 1000 draws a chain, not the other cells' 200:
+# the 16-dimensional t(5) blocks mix slowly in their tails, and at 200 draws
+# the max R-hat over their 64 coordinates is 1.07-1.11 in both packages
+# (the JAX package's sampler in float32, seeds 0-2, and the port's on the
+# card: tests/test_torch_mv_witness.py, run as a script); at 1000 both are
+# within 1.05
+MV_KEPT = 1000
+# operations per element of a Gaussian or t loop entry at K = 16, counted as
+# OPS (a multiply-add is 2): the form every mode computes, r = v - mu 16,
+# w = C r over the triangle 136 multiply-adds and q 16; the value 6 (the
+# t's log1p and division; the Gaussian's 3); the partials C'w 136
+# multiply-adds, 16 scalings and the t's factor 3; the tangent's 16
+# multiply-adds in the jvp mode (counted apart)
+QUAD_OPS = {"form": 16 + 2 * 136 + 2 * 16, "value": 3, "grad": 2 * 136 + 16}
+
+
+def mvdense_params():
+    """mvdense's parameters from numpy seed 2 (numpy float64): L_A, L_B and
+    A_J are tril(0.3 N(0, 1)) + 2I as in the JAX package's
+    tests/test_transposed_layout.py::_mega_model_mv, mu_A, mu_B and h are
+    0.5 N(0, 1); the log-normal's and the diagonal normal's locations
+    0.5 N(0, 1) and scales exp(0.3 N(0, 1))."""
+    rng = np.random.default_rng(2)
+
+    def tri():
+        return np.tril(0.3 * rng.standard_normal((MV_K, MV_K))) + 2.0 * np.eye(MV_K)
+
+    LA, LB, AJ = tri(), tri(), tri()
+    muA, muB, h = (0.5 * rng.standard_normal(MV_K) for _ in range(3))
+    ln_loc, diag_loc = 0.5 * rng.standard_normal(4), 0.5 * rng.standard_normal(3)
+    ln_scale, diag_scale = np.exp(0.3 * rng.standard_normal(4)), np.exp(0.3 * rng.standard_normal(3))
+    return dict(LA=LA, LB=LB, J=AJ @ AJ.T, muA=muA, muB=muB, h=h, df=5.0, ln_loc=ln_loc,
+                ln_scale=ln_scale, diag_loc=diag_loc, diag_scale=diag_scale)
+
+
+def mvdense_model(dists, device, dtype):
+    """mvdense (dim 151) on `mvdense_params` in `dists` (the port's, or the
+    JAX package's with device and dtype None). Returns (the model, the
+    parameters, the prior means of its 151 linked coordinates)."""
+    p = mvdense_params()
+    kw = {} if device is None else dict(device=device, dtype=dtype)
+    d = dists.NamedProduct.of(
+        tril=dists.IIDProduct(dists.MvNormalTril(p["muA"], p["LA"], **kw), 4),
+        canon=dists.MvNormalCanon(p["h"], p["J"], **kw),
+        t=dists.IIDProduct(dists.MvStudentT(p["df"], p["muB"], p["LB"], **kw), 4),
+        ln=dists.MvLogNormal(p["ln_loc"], p["ln_scale"], **kw),
+        diag=dists.MvNormalDiag(p["diag_loc"], p["diag_scale"], **kw),
+    )
+    prior_means = np.concatenate([np.tile(p["muA"], 4), np.linalg.solve(p["J"], p["h"]),
+                                  np.tile(p["muB"], 4), p["ln_loc"], p["diag_loc"]])
+    return d, p, prior_means
+
+
+def quad_bounds(vT, loops, loops64=None):
+    """The error a float32 evaluation of the Gaussian and t loop entries of
+    `loops` may carry on vT, in float64 from the standard bounds of the
+    sums done (eps = eps32, |.| elementwise, per batch column): w = C r with
+    r = v - mu within (K + 2) eps |C| |r|; q = ||w||^2 within 2 |w|'dw +
+    (K + 1) eps q; the value through its derivative in q (the t's
+    (df + K) / (2 (df + q))) and a few roundings of its terms; the
+    partials s C'w within |s| ((K + 1) eps |C|'|w| + |C|'dw) + ds |C'w|.
+    With `loops64` (the same entries' parameters formed in float64) the
+    float32 parameters' own error, |C32 - C64| |r| + |C| |mu32 - mu64| and
+    |const32 - const64|, is added. Returns (lp allowance (B,), the loop
+    rows' partials allowance (dim, B), the sum of the entries' |value|)."""
+    from tpu_bijectors_torch.vectorize import fused_base as fb
+
+    dim, B = vT.shape
+    v = vT.double()
+    f64 = dict(dtype=torch.float64, device=vT.device)
+    lp_allow, mag = torch.zeros(B, **f64), torch.zeros(B, **f64)
+    g_allow = torch.zeros((dim, B), **f64)
+    prm = loops.prm.double()
+    dprm = None if loops64 is None else (prm - loops64.prm).abs()
+    for code, row0, K, off in loops.entries:
+        if code in fb.PD_MODES:
+            continue
+        n = fb.PARAM_FLOATS[code](K)
+        tri = torch.triu if code == fb.LOOP_CODES["gauss_upper"] else torch.tril
+        blk = prm[off: off + n]
+        C, mu = tri(blk[: K * K].reshape(K, K)), blk[K * K: K * K + K]
+        aC = C.abs()
+        r = v[row0: row0 + K] - mu[:, None]
+        w = C @ r
+        q = (w * w).sum(0)
+        wa = (K + 2) * EPS32 * (aC @ r.abs())
+        if dprm is not None:
+            d = dprm[off: off + n]
+            wa = wa + tri(d[: K * K].reshape(K, K)) @ r.abs() + aC @ d[K * K: K * K + K, None]
+        qa = 2 * (w.abs() * wa).sum(0) + (K + 1) * EPS32 * q
+        const = blk[n - 1]
+        if code == fb.LOOP_CODES["mvt"]:
+            df = blk[K * K + K]
+            val = 0.5 * (df + K) * torch.log1p(q / df)
+            lpa = 0.5 * (df + K) / (df + q) * qa + 4 * EPS32 * (val + const.abs())
+            s = -(df + K) / (df + q)
+            sa = s.abs() / (df + q) * qa + 3 * EPS32 * s.abs()
+        else:
+            val = 0.5 * q
+            lpa = 0.5 * qa + 2 * EPS32 * (val + const.abs())
+            s, sa = -torch.ones_like(q), torch.zeros_like(q)
+        ga = s.abs() * ((K + 1) * EPS32 * (aC.T @ w.abs()) + aC.T @ wa) + sa * (C.T @ w).abs()
+        if dprm is not None:
+            lpa = lpa + d[n - 1]
+            ga = ga + s.abs() * (tri(d[: K * K].reshape(K, K)).T @ w.abs())
+        lp_allow += lpa
+        mag += val + const.abs()
+        g_allow[row0: row0 + K] = ga
+    return lp_allow, g_allow, mag
+
+
+def mv_allowances(vT, cf, loops, cf64, loops64):
+    """Float64 (lp with c0, g) of mvdense's plain whole-model function with
+    its parameters formed in float64, and the error a float32 evaluation
+    with the float32 parameters may carry: the slab rows' and the entries'
+    accumulation at RTOL_LP of the sum of their magnitudes (each row's
+    |value| and |c0|), the gradient of the slab rows at RTOL_G, plus
+    `quad_bounds` with the parameters' own error. Returns (lp64, g64,
+    lp_allow, g_allow)."""
+    from tpu_bijectors_torch.vectorize import fused_base as fb
+
+    vT64 = vT.double()
+    lp64, g64 = fb.slab_value_and_grad_plain(vT64, cf64, loops64)
+    lp64 = lp64 + cf64[:, fb._CI["c0"]].sum()
+    groups, used = fb._groups_and_used(cf64)
+    rows, _ = fb._slab_segment_val_par(groups, vT64, cf64, used)
+    qa_lp, qa_g, mag = quad_bounds(vT, loops, loops64)
+    slab_mag = rows.abs().sum(0) + cf64[:, fb._CI["c0"]].abs().sum()
+    lp_allow = RTOL_LP * (slab_mag + mag) + qa_lp
+    g_allow = RTOL_G * g64.abs() + 1e-6 + qa_g
+    return lp64, g64, lp_allow, g_allow
+
+
+def jvp_allowance(g64, g_allow, dvT):
+    """The error of a float32 sum_rows g dv: each row's partials' allowance
+    times |dv|, and the accumulation at RTOL_LP of sum |g dv|."""
+    dv = dvT.double().abs()
+    return (g_allow * dv).sum(0) + RTOL_LP * (g64.abs() * dv).sum(0)
+
+
+def run_mv_transposed_serving(dev, vT, dvT):
+    """Path 8: transposed serving of mvdense at B = 131072 through
+    `Model.batched_logdensity_t_fn()` (the value kernel), its
+    `value_and_grad_fn` (value and gradient), autograd's backward (the VJP)
+    and `torch.func.jvp` of `linked_logdensity_t` (the forward-mode
+    kernel, #4), each with the Gaussian and t loop entries, the counters
+    zeroed just before and read just after. Each against float64 and the
+    composed per-leaf path, and each kernel against its plain version, at
+    `mv_allowances`. Returns (launches, lp, g, the entry points' times,
+    the kernels' max errors against their plain versions)."""
+    import tpu_bijectors_torch as tbt
+    from tpu_bijectors_torch import dists, kernels
+    from tpu_bijectors_torch.vectorize import fused_base as fb
+    from tpu_bijectors_torch.vectorize import fused_kernel as fk
+
+    model = tbt.Model(mvdense_model(dists, dev, torch.float32)[0], device=dev)
+    m64 = tbt.Model(mvdense_model(dists, dev, torch.float64)[0], device=dev)
+    u = model.unconstrainer()
+    f = model.batched_logdensity_t_fn()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    lp = f(vT)
+    lp_vg, g = f.value_and_grad_fn(vT)
+    vr = vT.detach().requires_grad_(True)
+    (g_ag,) = torch.autograd.grad(u.linked_logdensity_t(vr).sum(), vr)
+    lp_j, dlp = torch.func.jvp(u.linked_logdensity_t, (vT,), (dvT,))
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    print(f"launches on the mvdense transposed serving path: {launches}", flush=True)
+    for k in SLAB_KERNELS + ("slab_jvp",):
+        expect(f"{k} launched on the mvdense transposed serving path", launches[k] > 0)
+    B = vT.shape[1]
+    expect("mvdense: lp (B,), g (151, B), dlp (B,)",
+           lp.shape == (B,) and g.shape == (151, B) and dlp.shape == (B,))
+    cf, loops, c0sum = fk._prep(u, vT)
+    cf64, loops64, _ = fk._prep(m64.unconstrainer(), vT.double())
+    print(f"mvdense loop entries (kind, first row, K, offset): {loops.entries}", flush=True)
+    lp64, g64, lp_allow, g_allow = mv_allowances(vT, cf, loops, cf64, loops64)
+    dlp64 = (g64 * dvT.double()).sum(0)
+    j_allow = jvp_allowance(g64, g_allow, dvT)
+    check("mvdense: linked_logdensity_t vs float64", lp, lp64, 1.0, lp_allow)
+    check("mvdense: value_and_grad_fn lp vs float64", lp_vg, lp64, 1.0, lp_allow)
+    check("mvdense: value_and_grad_fn g vs float64", g, g64, 1.0, g_allow)
+    check("mvdense: autograd g vs float64", g_ag, g64, 1.0, g_allow)
+    check("mvdense: torch.func.jvp lp vs float64", lp_j, lp64, 1.0, lp_allow)
+    check("mvdense: torch.func.jvp dlp vs float64", dlp, dlp64, 1.0, j_allow)
+    # the composed per-leaf path (triangular solves, not the host-formed
+    # inverse): held at the float64 allowance twice over
+    comp = u._linked_logdensity_t_children(vT)
+    check("mvdense: linked_logdensity_t vs composed", lp, comp, 1.0, 2 * lp_allow)
+    # each kernel against its plain version on the same float32 inputs
+    ct = torch.ones(B, device=dev)
+    err = {}
+    err["slab_value"] = check("mvdense value kernel vs plain", fk.slab_value(vT, cf, loops),
+                              fb.slab_value_plain(vT, cf, loops), 1.0, 2 * lp_allow)
+    lp_k, g_k = fk.slab_value_and_grad(vT, cf, loops)
+    lp_p, g_p = fb.slab_value_and_grad_plain(vT, cf, loops)
+    err["slab_value_and_grad"] = max(
+        check("mvdense value-and-grad kernel lp vs plain", lp_k, lp_p, 1.0, 2 * lp_allow),
+        check("mvdense value-and-grad kernel g vs plain", g_k, g_p, 1.0, 2 * g_allow))
+    err["slab_vjp"] = check("mvdense vjp kernel vs plain", fk.slab_vjp(vT, cf, ct, loops),
+                            fb.slab_vjp_plain(vT, cf, ct, loops), 1.0, 2 * g_allow)
+    err["slab_jvp"] = check("mvdense jvp kernel vs plain", fk.slab_jvp(vT, cf, dvT, loops),
+                            fb.slab_jvp_plain(vT, cf, dvT, loops), 1.0, 2 * j_allow)
+    del lp_k, g_k, lp_p, g_p, g64, g_allow, comp
+    v64 = vT[:, :CHAINS].contiguous()
+    d64 = dvT[:, :CHAINS].contiguous()
+    e2e = {
+        "mvdense_value_ms_B131072": time_ms(lambda: f(vT), device_only=False),
+        "mvdense_value_and_grad_ms_B131072": time_ms(lambda: f.value_and_grad_fn(vT),
+                                                     device_only=False),
+        "mvdense_func_jvp_ms_B131072": time_ms(
+            lambda: torch.func.jvp(u.linked_logdensity_t, (vT,), (dvT,)), device_only=False),
+        "mvdense_value_and_grad_ms_B64": time_ms(lambda: f.value_and_grad_fn(v64),
+                                                 device_only=False),
+        "mvdense_func_jvp_ms_B64": time_ms(
+            lambda: torch.func.jvp(u.linked_logdensity_t, (v64,), (d64,)), device_only=False),
+    }
+    return launches, lp, g, e2e, err
+
+
+def run_mv_batch_major_serving(dev, vT, lp_t, g_t):
+    """Path 9: batch-major serving of mvdense on the same states as
+    (B, 151): `Model.batched_logdensity_fn()` and its `value_and_grad_fn`
+    (torch's triangular solves, which the JAX package also runs outside any
+    kernel: no launch), against the transposed lp and g within 1e-4, and
+    `Model.constrain` mapping the MvLogNormal rows through exp. Returns the
+    entry points' times."""
+    import tpu_bijectors_torch as tbt
+    from tpu_bijectors_torch import dists, kernels
+
+    model = tbt.Model(mvdense_model(dists, dev, torch.float32)[0], device=dev)
+    v = vT.T.contiguous()
+    f = model.batched_logdensity_fn()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    lp = f(v)
+    lp_vg, g = f.value_and_grad_fn(v)
+    x = model.constrain(v[:CHAINS])
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    print(f"launches on the mvdense batch-major serving path: {launches} (no kernel: "
+          "the dense families' batch-major densities are triangular solves in torch)",
+          flush=True)
+    expect("mvdense batch-major serving launches no kernel", not any(launches.values()))
+    check("mvdense batch-major: lp vs fused transposed lp", lp, lp_t, RTOL_COMPOSED)
+    check("mvdense batch-major: value_and_grad_fn lp vs fused transposed lp", lp_vg, lp_t,
+          RTOL_COMPOSED)
+    check("mvdense batch-major: g vs fused transposed g", g, g_t.T, RTOL_COMPOSED)
+    expect("mvdense: Model.constrain maps the MvLogNormal rows through exp",
+           torch.equal(x["ln"], torch.exp(v[:CHAINS, MV_ROWS["ln"]]))
+           and torch.equal(x["diag"], v[:CHAINS, MV_ROWS["diag"]]))
+    v64 = v[:CHAINS].contiguous()
+    return {
+        "mvdense_batch_major_value_ms_B131072": time_slow_ms(lambda: f(v), device_only=False),
+        "mvdense_batch_major_value_and_grad_ms_B131072": time_slow_ms(
+            lambda: f.value_and_grad_fn(v), device_only=False),
+        "mvdense_batch_major_value_and_grad_ms_B64": time_slow_ms(
+            lambda: f.value_and_grad_fn(v64), device_only=False),
+    }
+
+
+def mv_conjugate_data(dev, LA, muA, dtype=torch.float32):
+    """The mv_conjugate cell's likelihood (user code): 200 observations
+    z_i ~ N(theta*, L_A L_A'), theta* = mu_A + N(0, 1), from numpy seed 1,
+    on the first MvNormalTril copy theta: loglik = theta' P sum z -
+    n theta' P theta / 2 (P = (L_A L_A')^-1, in `dtype`). Prior and
+    observations share the covariance, so theta's posterior mean is
+    (mu_A + sum z) / 201. Returns (loglik, that mean)."""
+    rng = np.random.default_rng(1)
+    cov = LA @ LA.T
+    theta = muA + rng.standard_normal(MV_K)
+    Z = rng.multivariate_normal(theta, cov, size=MV_N_OBS)
+    P = np.linalg.inv(cov)
+    Pz = torch.as_tensor(P @ Z.sum(0), dtype=dtype, device=dev)
+    Pt = torch.as_tensor(P, dtype=dtype, device=dev)
+
+    def loglik(x):
+        th = x["tril"][0]
+        return th @ Pz - 0.5 * MV_N_OBS * (th @ (Pt @ th))
+
+    return loglik, (muA + Z.sum(0)) / (MV_N_OBS + 1)
+
+
+def run_mv_sampler(dev):
+    """Path 10, the mv_conjugate cell: the steps of `Model(mvdense,
+    loglik).sample(kernel='auto')` (`nuts_batched_t`: each leapfrog runs the
+    value-and-gradient kernel with the Gaussian and t entries), from
+    `Model.init_positions(gen, 64, 0.3)` passed to `warmup_and_sample`,
+    then `resume_sampling`, with cell 7's settings (64 chains, max_depth 8,
+    300 warmup transitions, target 0.95, torch seed 0) but MV_KEPT kept
+    draws. Gates: R-hat <= 1.05
+    over the 151 coordinates, divergences <= 1%, every linked coordinate's
+    posterior mean within 5 MCSE of the known one (the likelihood's copy:
+    `mv_conjugate_data`; every other coordinate its prior mean: mu_A, J^-1 h,
+    mu_B (df 5 > 1), the log-normal's and the diagonal normal's locations)."""
+    import tpu_bijectors_torch as tbt
+    from tpu_bijectors_torch import diagnostics, dists, kernels
+    from tpu_bijectors_torch.infer import hmc_batched, resume_sampling, warmup_and_sample
+
+    d, p, post = mvdense_model(dists, dev, torch.float32)
+    loglik, post0 = mv_conjugate_data(dev, p["LA"], p["muA"])
+    post[:MV_K] = post0
+    model = tbt.Model(d, loglik=loglik, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    hmc_batched.reset_sync_count()
+    t0 = time.perf_counter()
+    kernel = model._auto_kernel()
+    expect(f"mv_conjugate: kernel='auto' takes nuts_batched_t (took {kernel})",
+           kernel == "nuts_batched_t")
+    density = model.batched_logdensity_t_fn()
+    _, state, _ = warmup_and_sample(
+        density, gen, model.init_positions(gen, CHAINS, PD_INIT_SCALE), n_warmup=WARMUP,
+        n_samples=0, kernel=kernel, max_depth=MAX_DEPTH, target_accept=TARGET_ACCEPT,
+    )
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    l1, s1 = dict(kernels.LAUNCHES), hmc_batched.SYNCS["any_active"]
+    raw, state, stats = resume_sampling(density, state, MV_KEPT, kernel=kernel,
+                                        max_depth=MAX_DEPTH)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    l2, s2 = dict(kernels.LAUNCHES), hmc_batched.SYNCS["any_active"]
+    samples = model.constrain(raw)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = dict(kernels.LAUNCHES)
+    print(f"launches on the mv_conjugate sampler path: {launches}", flush=True)
+    expect("slab_value_and_grad launched on the mv_conjugate sampler path",
+           launches["slab_value_and_grad"] > 0)
+    during = {k: l2[k] - l1[k] for k in l2}
+    leapfrogs = during["slab_value_and_grad"]
+    sampling_s = t2 - t1
+    expect(f"mv_conjugate: raw draws ({MV_KEPT}, 64, 151) and finite",
+           tuple(raw.shape) == (MV_KEPT, CHAINS, 151) and bool(torch.isfinite(raw).all()))
+    r_hat = diagnostics.rhat(raw)
+    ess = diagnostics.ess_bulk(raw)
+    dev_all = np.abs(raw.double().mean(dim=(0, 1)).cpu().numpy() - post) / diagnostics.mcse_mean(raw)
+    n_div = int(stats.diverging.sum())
+    line = {
+        "kernel": "nuts_batched_t", "cell": "mv_conjugate",
+        "chains": CHAINS, "warmup": WARMUP, "kept": MV_KEPT, "max_depth": MAX_DEPTH,
+        "target_accept": TARGET_ACCEPT, "init_scale": PD_INIT_SCALE,
+        "warmup_s": t1 - t0,
+        "sampling_s": sampling_s,
+        "constrain_s": t3 - t2,
+        "draws_per_s": CHAINS * MV_KEPT / sampling_s,
+        "leapfrogs_per_transition": float(stats.n_steps.float().mean()),
+        "batched_leapfrogs": leapfrogs,
+        "ms_per_leapfrog": 1e3 * sampling_s / max(leapfrogs, 1),
+        "host_syncs_per_leapfrog": (s2 - s1) / max(leapfrogs, 1),
+        "step_size": float(state.eps),
+        "mean_accept": float(stats.accept_prob.mean()),
+        "divergences": n_div,
+        "transitions": CHAINS * MV_KEPT,
+        "launches_during_sampling": during,
+        "max_rhat": float(np.max(r_hat)),
+        "min_ess_bulk": float(np.min(ess)),
+        "max_mean_dev_in_mcse": float(np.max(dev_all)),
+        "max_theta_dev_in_mcse": float(np.max(dev_all[:MV_K])),
+    }
+    expect(f"mv_conjugate: max R-hat {line['max_rhat']:.4f} <= 1.05", line["max_rhat"] <= 1.05)
+    expect(f"mv_conjugate: divergences {n_div} <= 1% of {CHAINS * MV_KEPT}",
+           n_div <= 0.01 * CHAINS * MV_KEPT)
+    expect(f"mv_conjugate: every linked mean within 5 MCSE of the posterior's "
+           f"(max {np.max(dev_all):.2f})", bool(np.all(dev_all <= 5.0)))
+    expect("mv_conjugate: constrained draws finite",
+           all(bool(torch.isfinite(t).all()) for t in samples.values()))
+    return line, launches
+
+
+def slab_allowances(vT, cf):
+    """Float64 (lp, g) of a slab-only model's plain function on vT and the
+    float32 allowances of the existing checks: RTOL_LP of the rows'
+    magnitudes, RTOL_G of each partial."""
+    from tpu_bijectors_torch.vectorize import fused_base as fb
+
+    vT64, cf64 = vT.double(), cf.double()
+    lp64, g64 = fb.slab_value_and_grad_plain(vT64, cf64)
+    groups, used = fb._groups_and_used(cf64)
+    rows, _ = fb._slab_segment_val_par(groups, vT64, cf64, used)
+    return lp64, g64, RTOL_LP * rows.abs().sum(0) + 1e-6, RTOL_G * g64.abs() + 1e-6
+
+
+def check_jvp_earlier(dev, vT):
+    """#4's kernel on the models of the earlier slices against its plain
+    version: the bench model (slab rows only) and both PD models (the PD
+    entry, dot and solve), at B = 131072, 64 and 1000 (a partial block),
+    with a tangent 0.5 N(0, 1) from torch seed 3. Returns the max absolute
+    error."""
+    import tpu_bijectors_torch as tbt
+    from tpu_bijectors_torch import dists
+    from tpu_bijectors_torch.vectorize import fused_base as fb
+    from tpu_bijectors_torch.vectorize import fused_kernel as fk
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    dvT = 0.5 * torch.randn(vT.shape, generator=gen, device=dev)
+    err = 0.0
+    models = {"bench": bench_model(dists, dev, torch.float32)}
+    models.update({fam: pd_model(dists, dev, torch.float32, fam) for fam in PD_MODES})
+    for name, d in models.items():
+        u = tbt.Model(d, device=dev).unconstrainer()
+        m64 = None if name == "bench" else tbt.Model(
+            pd_model(dists, dev, torch.float64, name), device=dev)
+        for n in (vT.shape[1], CHAINS, 1000):
+            x, dx = vT[:, :n].contiguous(), dvT[:, :n].contiguous()
+            cf, loops, _ = fk._prep(u, x)
+            if loops is None:
+                _, g64, _, g_allow = slab_allowances(x, cf)
+            else:
+                cf64, loops64, _ = fk._prep(m64.unconstrainer(), x.double())
+                _, g64, _, g_allow = pd_entry_allowances(x, cf64, loops64)
+            allow = jvp_allowance(g64, g_allow, dx)
+            got = fk.slab_jvp(x, cf, dx, loops)
+            err = max(err, check(f"jvp kernel vs plain ({name}, B = {n})", got,
+                                 fb.slab_jvp_plain(x, cf, dx, loops), 1.0, 2 * allow))
+            check(f"jvp kernel vs float64 ({name}, B = {n})", got,
+                  (g64 * dx.double()).sum(0), 1.0, allow)
+    return err
+
+
+def check_wide(dev, B=16384):
+    """The repair of the whole-model kernels' table: `wide`,
+    IIDProduct(Normal(0.5, 2.0), 4000), dim 4000 (a 256 KB table, beyond
+    the block's 227 KB of shared memory) at B = 16384, states 0.5 N(0, 1)
+    from numpy seed 4: the four modes (the value through
+    `Model.batched_logdensity_t_fn()` too) against their plain versions and
+    float64. Returns the four modes as `time_kernels` variants."""
+    import tpu_bijectors_torch as tbt
+    from tpu_bijectors_torch import dists
+    from tpu_bijectors_torch.vectorize import fused_base as fb
+    from tpu_bijectors_torch.vectorize import fused_kernel as fk
+
+    n = 4000
+    model = tbt.Model(dists.IIDProduct(dists.Normal(0.5, 2.0, device=dev), n), device=dev)
+    rng = np.random.default_rng(4)
+    vT = torch.as_tensor(0.5 * rng.standard_normal((n, B)), dtype=torch.float32, device=dev)
+    dvT = torch.as_tensor(rng.standard_normal((n, B)), dtype=torch.float32, device=dev)
+    ct = torch.as_tensor(rng.standard_normal(B), dtype=torch.float32, device=dev)
+    u = model.unconstrainer()
+    cf, loops, c0sum = fk._prep(u, vT)
+    expect("wide: a slab-only model of 4000 rows", loops is None and cf.shape == (n, fb.NCF))
+    lp64, g64, lp_allow, g_allow = slab_allowances(vT, cf)
+    lp_allow = lp_allow + RTOL_LP * float(cf[:, fb._CI["c0"]].abs().sum())
+    c0 = float(c0sum)
+    lp = model.batched_logdensity_t_fn()(vT)
+    check("wide: batched_logdensity_t_fn vs float64", lp, lp64 + c0, 1.0, lp_allow)
+    check("wide: value kernel vs plain", fk.slab_value(vT, cf), fb.slab_value_plain(vT, cf), 1.0,
+          2 * lp_allow)
+    lp_k, g_k = fk.slab_value_and_grad(vT, cf)
+    lp_p, g_p = fb.slab_value_and_grad_plain(vT, cf)
+    check("wide: value-and-grad kernel lp vs plain", lp_k, lp_p, 1.0, 2 * lp_allow)
+    check("wide: value-and-grad kernel g vs plain", g_k, g_p, 1.0, 2 * g_allow)
+    check("wide: value-and-grad kernel g vs float64", g_k, g64, 1.0, g_allow)
+    del lp_k, g_k, lp_p, g_p
+    check("wide: vjp kernel vs plain", fk.slab_vjp(vT, cf, ct), fb.slab_vjp_plain(vT, cf, ct), 1.0,
+          2 * g_allow * ct.double().abs()[None])
+    j_allow = jvp_allowance(g64, g_allow, dvT)
+    got = fk.slab_jvp(vT, cf, dvT)
+    check("wide: jvp kernel vs plain", got, fb.slab_jvp_plain(vT, cf, dvT), 1.0, 2 * j_allow)
+    check("wide: jvp kernel vs float64", got, (g64 * dvT.double()).sum(0), 1.0, j_allow)
+    # the four modes' times (the table in global memory), with their bounds:
+    # reads vT (and dvT), cf and ct, writes lp or g; the quad group's ops
+    nbytes = vT.numel() * 4 + B * 4 + cf.numel() * 4
+    ops = {k: B * n * (2 + OPS[k]["quad"]) for k in OPS}
+    return {
+        "slab_value, table in global memory (wide)": (
+            lambda: fk.slab_value(vT, cf), nbytes, ops["value"],
+            lambda: fb.slab_value_plain(vT, cf)),
+        "slab_value_and_grad, table in global memory (wide)": (
+            lambda: fk.slab_value_and_grad(vT, cf), nbytes + vT.numel() * 4,
+            ops["value_and_grad"], lambda: fb.slab_value_and_grad_plain(vT, cf)),
+        "slab_vjp, table in global memory (wide)": (
+            lambda: fk.slab_vjp(vT, cf, ct), nbytes + vT.numel() * 4, ops["vjp"],
+            lambda: fb.slab_vjp_plain(vT, cf, ct)),
+        "slab_jvp, table in global memory (wide)": (
+            lambda: fk.slab_jvp(vT, cf, dvT), nbytes + vT.numel() * 4, ops["jvp"],
+            lambda: fb.slab_jvp_plain(vT, cf, dvT)),
+    }
+
+
+def pdwide_model(dists, device, dtype):
+    """`pdwide`: pdonly (Wishart(18, I_16), 15 N(0, 1)) and 900 more N(0, 1),
+    dim 1051 (a 67 KB table: with the gradient modes' PD scratch beyond the
+    loop budget)."""
+    kw = dict(device=device, dtype=dtype)
+    return dists.NamedProduct.of(
+        W=dists.Wishart(18.0, np.eye(PD_K), **kw),
+        m=dists.IIDProduct(dists.Normal(0.0, 1.0, **kw), 15),
+        extra=dists.IIDProduct(dists.Normal(0.0, 1.0, **kw), 900),
+    )
+
+
+def check_pdwide(dev, B=16384):
+    """The repair with a PD entry: `pdwide` at B = 16384, states 0.5 N(0, 1)
+    from numpy seed 5: value and gradient and the VJP kernels against their
+    plain versions and float64 (`pd_entry_allowances`), and one
+    `value_and_grad_fn` of `Model.batched_logdensity_t_fn()` at B = 64.
+    Returns the value-and-gradient kernel as a `time_kernels` variant."""
+    import tpu_bijectors_torch as tbt
+    from tpu_bijectors_torch import dists
+    from tpu_bijectors_torch.vectorize import fused_base as fb
+    from tpu_bijectors_torch.vectorize import fused_kernel as fk
+
+    model = tbt.Model(pdwide_model(dists, dev, torch.float32), device=dev)
+    m64 = tbt.Model(pdwide_model(dists, dev, torch.float64), device=dev)
+    dim = model.dim()
+    expect(f"pdwide: dim {dim} == 1051", dim == 1051)
+    rng = np.random.default_rng(5)
+    vT = torch.as_tensor(0.5 * rng.standard_normal((dim, B)), dtype=torch.float32, device=dev)
+    u = model.unconstrainer()
+    cf, loops, c0sum = fk._prep(u, vT)
+    cf64, loops64, c0sum64 = fk._prep(m64.unconstrainer(), vT.double())
+    lp64, g64, lp_allow, g_allow = pd_entry_allowances(vT, cf64, loops64)
+    lp, g = fk.slab_value_and_grad(vT, cf, loops)
+    lpp, gp = fb.slab_value_and_grad_plain(vT, cf, loops)
+    check("pdwide: value-and-grad kernel lp vs plain", lp, lpp, 1.0, 2 * lp_allow)
+    check("pdwide: value-and-grad kernel g vs plain", g, gp, 1.0, 2 * g_allow)
+    check("pdwide: value-and-grad kernel lp vs float64", lp, lp64, 1.0, lp_allow)
+    check("pdwide: value-and-grad kernel g vs float64", g, g64, 1.0, g_allow)
+    ones = torch.ones(B, device=dev)
+    check("pdwide: vjp kernel vs plain", fk.slab_vjp(vT, cf, ones, loops),
+          fb.slab_vjp_plain(vT, cf, ones, loops), 1.0, 2 * g_allow)
+    lp_e, g_e = model.batched_logdensity_t_fn().value_and_grad_fn(vT[:, :CHAINS].contiguous())
+    check("pdwide: value_and_grad_fn lp at B = 64 vs float64", lp_e,
+          lp64[:CHAINS] + c0sum64, 1.0, lp_allow[:CHAINS] + RTOL_LP * abs(float(c0sum64)))
+    check("pdwide: value_and_grad_fn g at B = 64 vs float64", g_e, g64[:, :CHAINS], 1.0,
+          g_allow[:, :CHAINS])
+    slab = B * sum(2 + OPS["value_and_grad"]["quad"] for r in range(dim) if cf[r, fb._MASK_COL] > 0)
+    nbytes = 2 * vT.numel() * 4 + B * 4 + cf.numel() * 4 + loops.prm.numel() * 4
+    return {"slab_value_and_grad with the PD entry, table in global memory (pdwide)": (
+        lambda: fk.slab_value_and_grad(vT, cf, loops), nbytes,
+        slab + B * (PD_OPS["dot"] + PD_OPS["dot_grad"] - 216),
+        lambda: fb.slab_value_and_grad_plain(vT, cf, loops))}
+
+
+LKJ_BIG_K = 64
+
+
+def check_lkj64(dev, B=4096):
+    """The repair of the LKJ inverse #6: K = 64 at B = 4096 (states 0.5
+    N(0, 1), numpy seed 6), the factors in global scratch, against the plain
+    version and float64; and `Model.constrain` of 64 draws of a model with
+    an LKJ(64, 2.0) leaf. Bounds from the sums done: a column's running sum
+    of up to K - 1 logcosh terms within (K - 1) eps of their sum, which
+    exp carries into W relatively; X = W'W within K eps (|W's columns| = 1)
+    plus twice W's relative error; logJ, a sum of K(K-1)/2 + K same-signed
+    running sums, within (K + K(K-1)/2) eps of its magnitude."""
+    import tpu_bijectors_torch as tbt
+    from tpu_bijectors_torch import dists, kernels
+    from tpu_bijectors_torch.kernels import lkj as kl
+    from tpu_bijectors_torch.utils import logcosh, vec_to_triu
+
+    K = LKJ_BIG_K
+    P = K * (K - 1) // 2
+    rng = np.random.default_rng(6)
+    y = torch.as_tensor(0.5 * rng.standard_normal((B, P)), dtype=torch.float32, device=dev)
+    kernels.reset_launch_counts()
+    X, lj, ld, W = kl.lkj_inverse(y, K, want_w=True)
+    torch.cuda.synchronize()
+    expect("lkj_inverse at K = 64 launched its kernel", kernels.LAUNCHES["lkj_inverse"] == 1)
+    Xp, ljp, ldp, Wp = kl.lkj_inverse_plain(y, K, want_w=True)
+    X64, lj64, ld64, W64 = kl.lkj_inverse_plain(y.double(), K, want_w=True)
+    col = logcosh(vec_to_triu(y.double(), 1, K)).sum(-2).max(-1).values  # (B,)
+    w_rel = EPS32 * ((K - 1) * col + 4)
+    x_allow = (K * EPS32 + 2 * w_rel)[:, None, None].expand(B, K, K)
+    lj_allow = (K + P) * EPS32 * lj64.abs() + 1e-6
+    check("lkj_inverse K = 64: X vs plain", X, Xp, 1.0, 2 * x_allow)
+    check("lkj_inverse K = 64: X vs float64", X, X64, 1.0, x_allow)
+    check("lkj_inverse K = 64: W vs float64", W, W64, 1.0, x_allow)
+    check("lkj_inverse K = 64: log diag W vs float64", ld, ld64, 1.0,
+          (w_rel[:, None] + EPS32 * ld64.abs()).expand(B, K))
+    check("lkj_inverse K = 64: logJ vs plain", lj, ljp, 1.0, 2 * lj_allow)
+    check("lkj_inverse K = 64: logJ vs float64", lj, lj64, 1.0, lj_allow)
+    model = tbt.Model(dists.NamedProduct.of(
+        c=dists.LKJ(K, 2.0, device=dev), m=dists.Normal(0.0, 1.0, device=dev)), device=dev)
+    v = torch.cat([y[:CHAINS], torch.zeros((CHAINS, 1), device=dev)], 1)
+    kernels.reset_launch_counts()
+    x = model.constrain(v)
+    torch.cuda.synchronize()
+    expect("Model.constrain with an LKJ(64) leaf launched lkj_inverse",
+           kernels.LAUNCHES["lkj_inverse"] > 0)
+    check("Model.constrain's LKJ(64) X vs float64", x["c"], X64[:CHAINS], 1.0, x_allow[:CHAINS])
+    # reads y, writes X, logJ and log diag W; ops as OPS_LKJ_SLOT per slot and
+    # X = W'W's K(K+1)(K+2)/6 multiply-adds
+    tri3 = K * (K + 1) * (K + 2) // 6
+    return {"lkj_inverse K = 64, factors in global scratch (contiguous)": (
+        lambda: kl.lkj_inverse(y, K), B * 4 * (P + K * K + 1 + K),
+        B * (P * OPS_LKJ_SLOT + 2 * tri3), lambda: kl.lkj_inverse_plain(y, K))}
+
+
+def kernel_table(vT, xT, cf, ones, dvT):
     """Every ported kernel at B = 131072: name -> (wrapper, plain version,
     bytes, operations, {layout: input}), the layout the path reads first.
     The bytes count each input the function reads once and each output
-    once; the operations are floors (see OPS, PD_OPS). The PD log-density
+    once; the operations are floors (see OPS, PD_OPS). #4 (`slab_jvp`) is
+    timed on the bench model with the tangent dvT. The PD log-density
     and trace-gradient rows are the dot mode with the PD models' C = I
     (the solve mode is in `pd_variants`)."""
     from tpu_bijectors_torch.kernels import lkj as kl
@@ -1324,6 +1951,10 @@ def kernel_table(vT, xT, cf, ones):
         "slab_vjp": (lambda y: fk.slab_vjp(y, cf, ones),
                      lambda y: fb.slab_vjp_plain(y, cf, ones),
                      slab_bytes + vT.numel() * 4, slab_ops("vjp"), transposed),
+        # reads vT, dvT and the coefficients, writes dlp (B,)
+        "slab_jvp": (lambda y: fk.slab_jvp(y, cf, dvT),
+                     lambda y: fb.slab_jvp_plain(y, cf, dvT),
+                     slab_bytes + vT.numel() * 4, slab_ops("jvp"), transposed),
         # reads y (15), writes x (16) and ld
         "simplex_inverse_logdet": (
             ks.simplex_inverse_logdet, ks.simplex_inverse_logdet_plain,
@@ -1379,12 +2010,13 @@ def kernel_table(vT, xT, cf, ones):
     }
 
 
-def pd_variants(vT, pd_preps):
+def pd_variants(vT, dvT, pd_preps):
     """The PD variants the paths also run, name -> (call, bytes, operations,
     the plain version's call): the solve mode of the log-density and
-    trace-gradient kernels in each layout, and the three whole-model
+    trace-gradient kernels in each layout, and the four whole-model
     kernels with the PD entry on each PD model (`pd_preps`: family ->
-    (cf, loops) of its `_prep`)."""
+    (cf, loops) of its `_prep`; the forward-mode kernel with the tangent
+    dvT)."""
     from tpu_bijectors_torch.kernels import pd as kp
     from tpu_bijectors_torch.vectorize import fused_base as fb
     from tpu_bijectors_torch.vectorize import fused_kernel as fk
@@ -1422,7 +2054,44 @@ def pd_variants(vT, pd_preps):
             lambda cf=cf, loops=loops: fk.slab_vjp(vT, cf, ones, loops),
             nbytes + vT.numel() * 4, slab["vjp"] + B * PD_OPS[mode + "_grad"],
             lambda cf=cf, loops=loops: fb.slab_vjp_plain(vT, cf, ones, loops))
+        out[f"slab_jvp with the PD entry ({fam})"] = (
+            lambda cf=cf, loops=loops: fk.slab_jvp(vT, cf, dvT, loops),
+            nbytes + vT.numel() * 4, slab["jvp"] + B * (PD_OPS[mode + "_grad"] + 2 * 136),
+            lambda cf=cf, loops=loops: fb.slab_jvp_plain(vT, cf, dvT, loops))
     return out
+
+
+def mv_variants(vT, dvT, cf, loops):
+    """The four whole-model kernels with the Gaussian and t entries on
+    mvdense at B = 131072, name -> (call, bytes, operations, the plain
+    version's call): the slab rows' operations as in `kernel_table`, each
+    loop entry's from QUAD_OPS."""
+    from tpu_bijectors_torch.vectorize import fused_base as fb
+    from tpu_bijectors_torch.vectorize import fused_kernel as fk
+
+    dim, B = vT.shape
+    ones = torch.ones(B, device=vT.device)
+    slab = {k: B * sum(2 + sum(OPS[k][g] for g in fb._groups_and_used(cf[r:r + 1])[0])
+                       for r in range(dim) if cf[r, fb._MASK_COL] > 0)
+            for k in OPS}
+    n_ent = len(loops.entries)
+    form, val, grad = (B * n_ent * QUAD_OPS[k] for k in ("form", "value", "grad"))
+    quad = {"value": form + val, "value_and_grad": form + val + grad, "vjp": form + grad,
+            "jvp": form + grad + B * n_ent * 2 * MV_K}
+    nbytes = vT.numel() * 4 + B * 4 + cf.numel() * 4 + loops.prm.numel() * 4
+    calls = {
+        "value": (lambda: fk.slab_value(vT, cf, loops), nbytes,
+                  lambda: fb.slab_value_plain(vT, cf, loops)),
+        "value_and_grad": (lambda: fk.slab_value_and_grad(vT, cf, loops),
+                           nbytes + vT.numel() * 4,
+                           lambda: fb.slab_value_and_grad_plain(vT, cf, loops)),
+        "vjp": (lambda: fk.slab_vjp(vT, cf, ones, loops), nbytes + vT.numel() * 4,
+                lambda: fb.slab_vjp_plain(vT, cf, ones, loops)),
+        "jvp": (lambda: fk.slab_jvp(vT, cf, dvT, loops), nbytes + vT.numel() * 4,
+                lambda: fb.slab_jvp_plain(vT, cf, dvT, loops)),
+    }
+    return {f"slab_{k} with the Gaussian and t entries (mvdense)":
+            (call, nb, slab[k] + quad[k], plain) for k, (call, nb, plain) in calls.items()}
 
 
 def time_kernels(table, launches, err, variants):
@@ -1640,6 +2309,27 @@ def main():
     launches["pd_inverse"] = pd_sampler_launches["pd_inverse"]
     lap("pd_conjugate sampler")
 
+    # --- the eighth: transposed serving of mvdense, all four modes ------------
+    # the tangent of the forward-mode checks: N(0, 1), numpy seed 3
+    dvT = torch.as_tensor(np.random.default_rng(3).standard_normal((dim, BATCH)),
+                          dtype=torch.float32, device=dev)
+    mv_launches, lp_mv, g_mv, mv_e2e, mv_err = run_mv_transposed_serving(dev, vT, dvT)
+    launches["slab_jvp"] = mv_launches["slab_jvp"]
+    err["slab_jvp"] = mv_err["slab_jvp"]
+    lap("mvdense transposed serving")
+    # --- the ninth: batch-major serving of mvdense (no kernel) -----------------
+    mv_e2e.update(run_mv_batch_major_serving(dev, vT, lp_mv, g_mv))
+    del lp_mv, g_mv
+    lap("mvdense batch-major serving")
+    # --- the tenth: NUTS on mvdense with a conjugate likelihood (mv_conjugate) -
+    mv_sampler_line, _ = run_mv_sampler(dev)
+    lap("mv_conjugate sampler")
+    # --- the eleventh: the repairs (wide, pdwide, LKJ(64)); #4 on the models --
+    # of the earlier slices
+    repair_variants = {**check_wide(dev), **check_pdwide(dev), **check_lkj64(dev)}
+    err["slab_jvp"] = max(err["slab_jvp"], check_jvp_earlier(dev, vT))
+    lap("repair checks and #4 on the earlier models")
+
     # --- timing ----------------------------------------------------------------
     # the variants the paths also run: the LKJ inverse writing W for the
     # backward (the leapfrog's case) and the LKJ log-det's Cholesky form
@@ -1654,8 +2344,11 @@ def main():
     for fam in PD_MODES:
         pd_u = tbt.Model(pd_model(dists, dev, torch.float32, fam), device=dev).unconstrainer()
         pd_preps[fam] = fk._prep(pd_u, vT)[:2]
-    variants.update(pd_variants(vT, pd_preps))
-    rows = time_kernels(kernel_table(vT, xT, cf, ones), launches, err, variants)
+    variants.update(pd_variants(vT, dvT, pd_preps))
+    mv_u = tbt.Model(mvdense_model(dists, dev, torch.float32)[0], device=dev).unconstrainer()
+    variants.update(mv_variants(vT, dvT, *fk._prep(mv_u, vT)[:2]))
+    variants.update(repair_variants)
+    rows = time_kernels(kernel_table(vT, xT, cf, ones, dvT), launches, err, variants)
     lap("kernel timing")
 
     # the entry points as a caller sees them: host dispatch included, at the
@@ -1673,12 +2366,14 @@ def main():
     }
     e2e.update(bm_e2e)
     e2e.update(pd_e2e)
+    e2e.update(mv_e2e)
     lap("entry-point timing")
     print(json.dumps({"end_to_end": e2e}), flush=True)
     print(json.dumps({"phases_s": phases}), flush=True)
     print(json.dumps({"sampler": sampler_line}), flush=True)
     print(json.dumps({"sampler": bm_sampler_line}), flush=True)
     print(json.dumps({"sampler": pd_sampler_line}), flush=True)
+    print(json.dumps({"sampler": mv_sampler_line}), flush=True)
 
     if failures:
         print("FAILED: " + "; ".join(failures), file=sys.stderr)

@@ -9,6 +9,10 @@ parameters can be handed to the JAX package and to the port:
   {"type": "LKJ", "dim": 16, "params": {"eta": np.ndarray}}
   {"type": "Wishart", "params": {"df": np.ndarray, "scale": np.ndarray}}
   {"type": "InverseWishart", "params": {"df": np.ndarray, "psi": np.ndarray}}
+  {"type": "MvNormalTril", "params": {"loc": np.ndarray, "scale_tril": np.ndarray}}
+
+(and alike MvNormalDiag and MvLogNormal {loc, scale_diag}, MvStudentT
+{df, loc, scale_tril}, MvNormalCanon {h, prec}, the JAX families' fields).
 
 Any key other than "type", "params", "children" and "inner" is a static
 argument of the constructor (an int such as `n` or `dim`).
@@ -25,6 +29,11 @@ _LEAVES = {
     "LKJ": dists.LKJ,
     "Wishart": dists.Wishart,
     "InverseWishart": dists.InverseWishart,
+    "MvNormalDiag": dists.MvNormalDiag,
+    "MvNormalTril": dists.MvNormalTril,
+    "MvLogNormal": dists.MvLogNormal,
+    "MvStudentT": dists.MvStudentT,
+    "MvNormalCanon": dists.MvNormalCanon,
 }
 
 

@@ -24,7 +24,7 @@ from ..utils import resolve_device
 @dataclass(frozen=True)
 class Support:
     """Static support descriptor: kind 'interval' (with bounds and their
-    finiteness), 'simplex', 'corr', 'pd' or 'product'."""
+    finiteness), 'real_vector', 'simplex', 'corr', 'pd' or 'product'."""
 
     kind: str = "interval"
     lower: float = -math.inf
@@ -41,6 +41,7 @@ def positive() -> Support:
     return Support("interval", 0.0, math.inf, True, False)
 
 
+REAL_VECTOR = Support("real_vector")
 SIMPLEX = Support("simplex")
 CORRELATION = Support("corr")
 POSITIVE_DEFINITE = Support("pd")

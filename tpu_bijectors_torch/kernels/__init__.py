@@ -12,7 +12,7 @@ no plain path stands in for a kernel, every launch with the kernels off
 raises.
 
 Wrappers: `vectorize/fused_kernel.py` (slab_value, slab_value_and_grad,
-slab_vjp), `kernels/simplex.py` (simplex_inverse_logdet, simplex_inverse,
+slab_vjp, slab_jvp), `kernels/simplex.py` (simplex_inverse_logdet, simplex_inverse,
 simplex_forward_logdet), `kernels/lkj.py` (lkj_inverse, lkj_logdet) and
 `kernels/pd.py` (pd_inverse, pd_logdensity, pd_trace_grad).
 """
@@ -23,6 +23,7 @@ LAUNCHES = {
     "slab_value": 0,
     "slab_value_and_grad": 0,
     "slab_vjp": 0,
+    "slab_jvp": 0,
     "simplex_inverse_logdet": 0,
     "lkj_inverse": 0,
     "lkj_logdet": 0,
@@ -46,6 +47,20 @@ def enabled() -> bool:
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def scratch_floats(fn: str, device, *args) -> int:
+    """The floats of global scratch a kernel asks for, from its library
+    query `fn` on `device` (0 while the kernels are disabled: the launch
+    then raises)."""
+    import torch
+
+    from . import build
+
+    if not _ENABLED:
+        return 0
+    with torch.cuda.device(device):
+        return int(getattr(build.load(), fn)(*args))
 
 
 def launch(fn: str, name: str, device, *args):

@@ -106,10 +106,11 @@ def load():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         sigs = {
             # vT, cf, entry table, entries, loop parameters, their count,
-            # largest K, then the outputs (and ct), dim, B, stream
+            # largest PD K, then ct or dvT and the outputs, dim, B, stream
             "tbt_slab_value": [p, p, p, i, p, i, i, p, i, ll, p],
             "tbt_slab_value_and_grad": [p, p, p, i, p, i, i, p, p, i, ll, p],
             "tbt_slab_vjp": [p, p, p, i, p, i, i, p, p, i, ll, p],
+            "tbt_slab_jvp": [p, p, p, i, p, i, i, p, p, i, ll, p],
             # y, y strides (batch, coordinate), log(K-1-k) table, am1, x, ld,
             # wlog, K-1, B, stream
             "tbt_simplex_inverse_logdet": [p, ll, ll, p, p, p, p, p, i, ll, p],
@@ -118,8 +119,9 @@ def load():
             # x, x strides (batch, coordinate), log(K-1-k) table, y, ld, K,
             # B, stream
             "tbt_simplex_forward_logdet": [p, ll, ll, p, p, p, i, ll, p],
-            # y, y strides (batch, slot), X, logJ, log diag W, W, K, B, stream
-            "tbt_lkj_inverse": [p, ll, ll, p, p, p, p, i, ll, p],
+            # y, y strides (batch, slot), X, logJ, log diag W, W, global
+            # scratch, K, B, stream
+            "tbt_lkj_inverse": [p, ll, ll, p, p, p, p, p, i, ll, p],
             # y, y strides (batch, slot), logJ, log diag W, K, chol, B, stream
             "tbt_lkj_logdet": [p, ll, ll, p, p, i, i, ll, p],
             # y, y strides (batch, slot), X, logJ, L, K, B, stream
@@ -133,6 +135,8 @@ def load():
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = i
+        lib.tbt_lkj_inverse_scratch.argtypes = [i, ll]
+        lib.tbt_lkj_inverse_scratch.restype = ll
         lib.tbt_error_string.argtypes = [i]
         lib.tbt_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,9 +1,11 @@
 // Whole-model kernels for Hopper (sm_90a): the linked log-density of the
-// (dim, B) state, its one-pass value-and-gradient, and its vector-Jacobian
-// product, over slab rows and loop entries.
+// (dim, B) state, its one-pass value-and-gradient, its vector-Jacobian
+// product and its forward-mode (Jacobian-vector) product, over slab rows
+// and loop entries.
 //
 // Replaces the TPU kernels tpu_bijectors/vectorize/fused_kernel.py::
-// mega_logdensity_t, ::mega_value_and_grad_t and ::mega_vjp_t. A SLAB row
+// mega_logdensity_t, ::mega_value_and_grad_t, ::mega_vjp_t and
+// ::mega_jvp_t. A SLAB row
 // computes, per state row r and batch column b, with V = vT[r, b] (masked to
 // 0 on rows the slab does not own), D = V - m:
 //
@@ -17,31 +19,57 @@
 //
 // A LOOP entry owns a block of rows that no slab form covers. The entry
 // table holds, per entry, {kind, first row, K, offset of its parameters}.
-// The PD entry (kinds 1 dot, Wishart, and 2 solve, InverseWishart: the TPU
-// package's fused_emit.py::_emit_pd and _partials_pd) reads its
-// K(K+1)/2 rows as the packed y of pd_common.cuh, with parameters
-// {C (K*K, row-major), w, const}, and adds
+// Five kinds, from the TPU package's fused_emit.py:
 //
-//   logJ + w * sum_r y_rr - tr / 2 + const
+//   1, 2  PD, dot (Wishart) and solve (InverseWishart) (_emit_pd,
+//         _partials_pd): K(K+1)/2 rows read as the packed y of
+//         pd_common.cuh, parameters {C (K*K, row-major), w, const}:
+//         lp += logJ + w * sum_r y_rr - tr / 2 + const, with tr the dot or
+//         solve trace; partials -d tr/dy / 2, plus (K+1-r) + w on the
+//         diagonal slots;
+//   3, 4  the Gaussian quadratic form, lower (MvNormalTril, C = L^-1) and
+//         upper (MvNormalCanon, C = chol(J)') (_emit_gauss_quad,
+//         _partials_gauss_quad): K rows, parameters {C, mu (K), const};
+//         w = C (v - mu) over C's static triangle only, lp += -||w||^2 / 2
+//         + const, partials -C'w;
+//   5     the multivariate t (MvStudentT, C = L^-1 lower) (_emit_mvt,
+//         _partials_mvt): parameters {C, mu, df, const}; q = ||w||^2,
+//         lp += const - (df + K) / 2 * log1p(q / df), partials
+//         -(df + K) / (df + q) * C'w.
 //
-// with tr the dot or solve trace; its partials are -d tr/dy / 2, plus
-// (K+1-r) + w on the diagonal slots.
+// Four modes: the value (lp), the value and gradient (lp and g = d lp/dvT,
+// TPU mega_value_and_grad_t), the vector-Jacobian product (g times a
+// cotangent ct (B,), mega_vjp_t) and the forward-mode product (dlp =
+// sum over rows of d lp/dvT times a tangent dvT (dim, B), mega_jvp_t).
 //
 // Bound on the card: memory. At the bench shape (dim 151, B 131072, float32)
 // the value kernel must read dim*B*4 = 79.2 MB; value-and-gradient and the
-// vector-Jacobian product read that and also write it, 158.3 MB. The
+// vector-Jacobian product read that and also write it, 158.3 MB; the
+// forward-mode product reads the state and the tangent, 158.3 MB. The
 // arithmetic is a few dozen operations per element, far below the card's
 // float32 rate at those byte counts. The design moves each byte once: one
 // thread per batch column walks the rows, so a warp's loads and stores of
-// one row are 32 neighbouring floats; the coefficient table, the per-row
-// term flags, the entry table and the loop parameters sit in shared memory
-// and are read as broadcasts; lp is accumulated in a register; the gradient
-// is written once per row. Eight rows are loaded before they are used, so
-// each thread keeps several loads in flight. A model with loop entries also
-// gives each thread the PD scratch of pd_common.cuh in shared memory (at
-// K = 16, 672 bytes for the value, 1280 with the gradient), and launches as
-// many threads a block as fit in 100 KB; a model without runs the
-// instantiation without loop code (LOOPS false), 256 threads a block.
+// one row are 32 neighbouring floats; lp is accumulated in a register; the
+// gradient is written once per row. Eight rows are loaded before they are
+// used, so each thread keeps several loads in flight.
+//
+// Where the table lives. The coefficient table (64 bytes a row), the
+// per-row term flags, the entry table and the loop parameters sit in
+// shared memory and are read as broadcasts, where they fit: a model of
+// slab rows only (LOOPS false, no loop code, 256 threads a block) up to
+// the block's opt-in limit (227 KB, some 3600 rows); a model with loop
+// entries within 100 KB together with the PD scratch of its threads. A
+// larger model runs the GTAB instantiation: every thread reads the table,
+// the entry table and the parameters from global memory through the
+// read-only path (__ldg; the same address across a warp, so one
+// transaction a warp and an L1 hit after the first), and computes a row's
+// flags from its coefficients; its blocks are small enough to cover every
+// SM (spread_threads). Only a model with PD entries keeps
+// per-thread scratch (pd_common.cuh, in shared memory: at K = 16, 672
+// bytes a thread for the value, 1280 with the gradient), and launches as
+// many threads a block as fit in 100 KB; the Gaussian and t entries keep
+// their two K-vectors (r = v - mu, w) in registers, fixed arrays of 16
+// unrolled with K guards.
 
 #include <cuda_runtime.h>
 
@@ -63,11 +91,23 @@ enum Flag : unsigned {
   kLin = 1u, kQuad = 2u, kAbsv = 4u, kSp = 8u, kExp = 16u, kL1p = 32u, kOwned = 64u
 };
 
-enum Mode { kValue = 0, kValueAndGrad = 1, kVjp = 2 };
+enum Mode { kValue = 0, kValueAndGrad = 1, kVjp = 2, kJvp = 3 };
 
 // loop-entry kinds and the entry table's columns
-enum LoopKind { kPdDot = 1, kPdSolve = 2 };
+enum LoopKind { kPdDot = 1, kPdSolve = 2, kGaussLower = 3, kGaussUpper = 4, kMvt = 5 };
 constexpr int kEntCols = 4;
+constexpr int kMaxQuadK = 16;  // the Gaussian and t entries' K (MAX_K)
+// shared-memory budget of a block with loop entries: the table and the
+// PD scratch of its threads
+constexpr size_t kLoopBudget = 100 * 1024;
+
+// a read of the table or the loop parameters: from global memory through
+// the read-only path (G), or from shared memory
+template <bool G, class T>
+__device__ __forceinline__ T rd(const T* p) {
+  if constexpr (G) return __ldg(p);
+  return *p;
+}
 
 __device__ __forceinline__ float zguard(float c, float t) { return c == 0.0f ? 0.0f : t; }
 
@@ -143,78 +183,180 @@ __device__ __forceinline__ void slab_row(const float* c, unsigned f, float v,
   }
 }
 
+// One Gaussian or t loop entry (KIND kGaussLower, kGaussUpper or kMvt) of
+// batch column b: its value goes into acc (VAL), its partials into g (the
+// gradient modes, times `scale` in the VJP) or, times the tangent, into acc
+// (kJvp). r = v - mu and w = C r live in registers; C, mu, df and const
+// are reads of the parameter block P that every lane makes at the same
+// address. Sums run in the plain version's order.
+template <int MODE, int KIND, bool G>
+__device__ __forceinline__ void quad_entry(const float* __restrict__ vT,
+                                           const float* __restrict__ dv,
+                                           float* __restrict__ g, const float* P, int row0,
+                                           int K, long long b, long long B, float scale,
+                                           float& acc) {
+  constexpr bool VAL = MODE == kValue || MODE == kValueAndGrad;
+  constexpr bool UPPER = KIND == kGaussUpper;
+  const float* C = P;
+  const float* mu = P + K * K;
+  float r[kMaxQuadK], w[kMaxQuadK];
+#pragma unroll
+  for (int j = 0; j < kMaxQuadK; ++j)
+    r[j] = j < K ? vT[(size_t)(row0 + j) * B + b] - rd<G>(mu + j) : 0.0f;
+  float q = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kMaxQuadK; ++i) {
+    float a = 0.0f;
+#pragma unroll
+    for (int j = UPPER ? i : 0; j < (UPPER ? kMaxQuadK : i + 1); ++j)
+      if (i < K && j < K) a += rd<G>(C + i * K + j) * r[j];
+    w[i] = a;
+    q += w[i] * w[i];
+  }
+  const float df = KIND == kMvt ? rd<G>(P + K * K + K) : 0.0f;
+  if (VAL) {
+    if (KIND == kMvt)
+      acc += rd<G>(P + K * K + K + 1) - 0.5f * (df + K) * log1pf(q / df);
+    else
+      acc += -0.5f * q + rd<G>(P + K * K + K);
+  }
+  if (MODE == kValue) return;
+  const float s = KIND == kMvt ? -(df + K) / (df + q) : -1.0f;
+#pragma unroll
+  for (int j = 0; j < kMaxQuadK; ++j) {
+    if (j < K) {
+      float a = 0.0f;
+#pragma unroll
+      for (int i = UPPER ? 0 : j; i < (UPPER ? j + 1 : kMaxQuadK); ++i)
+        if (i < K) a += rd<G>(C + i * K + j) * w[i];
+      const float p = s * a;
+      const size_t at = (size_t)(row0 + j) * B + b;
+      if (MODE == kValueAndGrad) g[at] = p;
+      if (MODE == kVjp) g[at] = p * scale;
+      if (MODE == kJvp) acc += p * dv[at];
+    }
+  }
+}
+
 // LOOPS: the model has loop entries. Without them the kernel is the slab
 // pass alone, every row slab-owned, and carries none of the loop code.
-template <int MODE, bool LOOPS>
+// GTAB: the table, the entry table and the parameters are read from global
+// memory, not staged in shared memory (a model too large for it).
+template <int MODE, bool LOOPS, bool GTAB>
 __global__ void __launch_bounds__(kThreads)
 slab_kernel(const float* __restrict__ vT, const float* __restrict__ cf,
             const int* __restrict__ ent, int n_ent, const float* __restrict__ prm,
-            int n_prm, const float* __restrict__ ct, float* __restrict__ lp,
-            float* __restrict__ g, int dim, long long B) {
-  constexpr bool VAL = MODE != kVjp;
+            int n_prm, const float* __restrict__ ct, const float* __restrict__ dv,
+            float* __restrict__ lp, float* __restrict__ g, int dim, long long B) {
+  constexpr bool VAL = MODE == kValue || MODE == kValueAndGrad;
   constexpr bool PAR = MODE != kValue;
   extern __shared__ float smem[];
-  float* scf = smem;
-  unsigned* sflags = reinterpret_cast<unsigned*>(smem + (size_t)dim * kNcf);
-  int* sent = reinterpret_cast<int*>(sflags + dim);
-  float* sprm = reinterpret_cast<float*>(sent + n_ent * kEntCols);
-  float* scratch = sprm + n_prm;
-  for (int i = threadIdx.x; i < dim * kNcf; i += blockDim.x) scf[i] = cf[i];
-  for (int i = threadIdx.x; i < n_ent * kEntCols; i += blockDim.x) sent[i] = ent[i];
-  for (int i = threadIdx.x; i < n_prm; i += blockDim.x) sprm[i] = prm[i];
-  __syncthreads();
-  for (int r = threadIdx.x; r < dim; r += blockDim.x) sflags[r] = row_flags(scf + r * kNcf);
-  __syncthreads();
+  const float* tcf = cf;
+  const unsigned* tflags = nullptr;
+  const int* tent = ent;
+  const float* tprm = prm;
+  float* scratch = smem;
+  if (!GTAB) {
+    float* scf = smem;
+    unsigned* sflags = reinterpret_cast<unsigned*>(smem + (size_t)dim * kNcf);
+    int* sent = reinterpret_cast<int*>(sflags + dim);
+    float* sprm = reinterpret_cast<float*>(sent + n_ent * kEntCols);
+    scratch = sprm + n_prm;
+    for (int i = threadIdx.x; i < dim * kNcf; i += blockDim.x) scf[i] = cf[i];
+    for (int i = threadIdx.x; i < n_ent * kEntCols; i += blockDim.x) sent[i] = ent[i];
+    for (int i = threadIdx.x; i < n_prm; i += blockDim.x) sprm[i] = prm[i];
+    __syncthreads();
+    for (int r = threadIdx.x; r < dim; r += blockDim.x) sflags[r] = row_flags(scf + r * kNcf);
+    __syncthreads();
+    tcf = scf;
+    tflags = sflags;
+    tent = sent;
+    tprm = sprm;
+  }
 
   const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const float scale = MODE == kVjp ? ct[b] : 1.0f;
   float acc = 0.0f;
 
-  auto row = [&](int r, float v) {
-    if (LOOPS && !(sflags[r] & kOwned)) return;  // a loop entry's row
+  auto owned = [&](int r) -> bool {
+    if (!LOOPS) return true;
+    if (GTAB) return rd<true>(tcf + (size_t)r * kNcf + OWN) > 0.0f;
+    return tflags[r] & kOwned;
+  };
+  auto row = [&](int r, float v, float d) {
+    if (LOOPS && !owned(r)) return;  // a loop entry's row
     float val, par;
-    slab_row<VAL, PAR>(scf + r * kNcf, sflags[r], v, val, par);
+    if (GTAB) {
+      float c[kNcf];
+#pragma unroll
+      for (int k = 0; k < kNcf; ++k) c[k] = rd<true>(tcf + (size_t)r * kNcf + k);
+      slab_row<VAL, PAR>(c, row_flags(c), v, val, par);
+    } else {
+      slab_row<VAL, PAR>(tcf + r * kNcf, tflags[r], v, val, par);
+    }
     if (VAL) acc += val;
+    if (MODE == kJvp) acc += par * d;
     if (MODE == kValueAndGrad) g[(size_t)r * B + b] = par;
     if (MODE == kVjp) g[(size_t)r * B + b] = par * scale;
-  };
-  auto load = [&](int r) {
-    return (!LOOPS || (sflags[r] & kOwned)) ? vT[(size_t)r * B + b] : 0.0f;
   };
 
   int r = 0;
   for (; r + kRowBlock <= dim; r += kRowBlock) {
-    float vv[kRowBlock];
+    float vv[kRowBlock], dd[kRowBlock];
 #pragma unroll
-    for (int k = 0; k < kRowBlock; ++k) vv[k] = load(r + k);
+    for (int k = 0; k < kRowBlock; ++k) {
+      const bool own = owned(r + k);
+      vv[k] = own ? vT[(size_t)(r + k) * B + b] : 0.0f;
+      if (MODE == kJvp) dd[k] = own ? dv[(size_t)(r + k) * B + b] : 0.0f;
+    }
 #pragma unroll
-    for (int k = 0; k < kRowBlock; ++k) row(r + k, vv[k]);
+    for (int k = 0; k < kRowBlock; ++k) row(r + k, vv[k], MODE == kJvp ? dd[k] : 0.0f);
   }
-  for (; r < dim; ++r) row(r, load(r));
+  for (; r < dim; ++r) {
+    const bool own = owned(r);
+    row(r, own ? vT[(size_t)r * B + b] : 0.0f,
+        MODE == kJvp && own ? dv[(size_t)r * B + b] : 0.0f);
+  }
 
   for (int e = 0; LOOPS && e < n_ent; ++e) {
-    const int* en = sent + e * kEntCols;
-    const int row0 = en[1], K = en[2];
-    const float* C = sprm + en[3];
-    const float w = C[K * K];
-    const int mode = en[0] == kPdSolve ? pd::kSolve : pd::kDot;
+    const int* en = tent + e * kEntCols;
+    const int kind = rd<GTAB>(en), row0 = rd<GTAB>(en + 1), K = rd<GTAB>(en + 2);
+    const float* P = tprm + rd<GTAB>(en + 3);
+    if (kind == kGaussLower) {
+      quad_entry<MODE, kGaussLower, GTAB>(vT, dv, g, P, row0, K, b, B, scale, acc);
+      continue;
+    }
+    if (kind == kGaussUpper) {
+      quad_entry<MODE, kGaussUpper, GTAB>(vT, dv, g, P, row0, K, b, B, scale, acc);
+      continue;
+    }
+    if (kind == kMvt) {
+      quad_entry<MODE, kMvt, GTAB>(vT, dv, g, P, row0, K, b, B, scale, acc);
+      continue;
+    }
+    // the PD entry: C is P's first K*K floats, then w and const
+    const float w = rd<GTAB>(P + K * K);
+    const int mode = kind == kPdSolve ? pd::kSolve : pd::kDot;
     const pd::Scratch s{scratch + threadIdx.x, (int)blockDim.x, K};
     float lj, sumd;
     pd::unpack([&](int q) { return vT[(size_t)(row0 + q) * B + b]; }, s, lj, sumd);
     if (VAL) {
-      const float tr = mode == pd::kDot ? pd::dot_trace(s, C) : pd::solve_trace(s, C);
-      acc += lj + w * sumd - 0.5f * tr + C[K * K + 1];
+      const float tr = mode == pd::kDot ? pd::dot_trace(s, P) : pd::solve_trace(s, P);
+      acc += lj + w * sumd - 0.5f * tr + rd<GTAB>(P + K * K + 1);
     }
     if (PAR) {
-      pd::trace_grad(s, C, mode, [&](int q, int rr, int cc, float gt) {
+      pd::trace_grad(s, P, mode, [&](int q, int rr, int cc, float gt) {
         float p = -0.5f * gt;
         if (rr == cc) p += (K + 1.0f - rr) + w;
-        g[(size_t)(row0 + q) * B + b] = MODE == kVjp ? p * scale : p;
+        const size_t at = (size_t)(row0 + q) * B + b;
+        if (MODE == kValueAndGrad) g[at] = p;
+        if (MODE == kVjp) g[at] = p * scale;
+        if (MODE == kJvp) acc += p * dv[at];
       });
     }
   }
-  if (VAL) lp[b] = acc;
+  if (MODE != kVjp) lp[b] = acc;
 }
 
 size_t fixed_smem_bytes(int dim, int n_ent, int n_prm) {
@@ -222,48 +364,95 @@ size_t fixed_smem_bytes(int dim, int n_ent, int n_prm) {
          (size_t)n_ent * kEntCols * sizeof(int) + (size_t)n_prm * sizeof(float);
 }
 
-template <int MODE, bool LOOPS>
+// this device's shared memory a block may opt in to (227 KB on the H100)
+// and its SM count, read once
+struct Limits {
+  size_t smem_optin;
+  int sms;
+};
+const Limits& limits() {
+  static const Limits l = [] {
+    int dev = 0, smem = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    return Limits{(size_t)smem, sms};
+  }();
+  return l;
+}
+
+// threads a block of the GTAB instantiation: at most max_nt, and few enough
+// (a multiple of 32) that the grid covers every SM. It serves models too
+// large for shared memory, whose batches are often small: at B = 16384,
+// 128 threads give 128 blocks where 256 would leave half the SMs idle.
+int spread_threads(long long B, int max_nt) {
+  const long long per_sm = (B + limits().sms - 1) / limits().sms;
+  const long long nt = (per_sm + 31) / 32 * 32;
+  return nt < 32 ? 32 : (nt > max_nt ? max_nt : (int)nt);
+}
+
+template <int MODE, bool LOOPS, bool GTAB>
 cudaError_t launch_with(const float* vT, const float* cf, const int* ent, int n_ent,
-                        const float* prm, int n_prm, const float* ct, float* lp, float* g,
-                        int dim, long long B, int nt, size_t smem, cudaStream_t stream) {
+                        const float* prm, int n_prm, const float* ct, const float* dv,
+                        float* lp, float* g, int dim, long long B, int nt, size_t smem,
+                        cudaStream_t stream) {
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        slab_kernel<MODE, LOOPS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t err = cudaFuncSetAttribute(slab_kernel<MODE, LOOPS, GTAB>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
     if (err != cudaSuccess) return err;
   }
   const long long blocks = (B + nt - 1) / nt;
-  slab_kernel<MODE, LOOPS><<<(unsigned)blocks, nt, smem, stream>>>(
-      vT, cf, ent, n_ent, prm, n_prm, ct, lp, g, dim, B);
+  slab_kernel<MODE, LOOPS, GTAB><<<(unsigned)blocks, nt, smem, stream>>>(
+      vT, cf, ent, n_ent, prm, n_prm, ct, dv, lp, g, dim, B);
   return cudaGetLastError();
 }
 
 template <int MODE>
 cudaError_t launch(const float* vT, const float* cf, const int* ent, int n_ent,
-                   const float* prm, int n_prm, int kmax, const float* ct, float* lp,
-                   float* g, int dim, long long B, cudaStream_t stream) {
-  const size_t fixed = fixed_smem_bytes(dim, n_ent, n_prm);
-  if (n_ent == 0)
-    return launch_with<MODE, false>(vT, cf, ent, n_ent, prm, n_prm, ct, lp, g, dim, B,
-                                    kThreads, fixed, stream);
-  if (kmax < 1 || kmax > pd::kMaxK) return cudaErrorInvalidValue;
-  const int slots = pd::scratch_slots(kmax, MODE != kValue);
-  const int nt = pd::threads_for(slots, fixed, kThreads, 100 * 1024);
+                   const float* prm, int n_prm, int pd_kmax, const float* ct,
+                   const float* dv, float* lp, float* g, int dim, long long B,
+                   cudaStream_t stream) {
+  if (B == 0) return cudaSuccess;
+  const size_t table = fixed_smem_bytes(dim, n_ent, n_prm);
+  if (n_ent == 0) {
+    if (table <= limits().smem_optin)
+      return launch_with<MODE, false, false>(vT, cf, ent, n_ent, prm, n_prm, ct, dv, lp, g,
+                                             dim, B, kThreads, table, stream);
+    return launch_with<MODE, false, true>(vT, cf, ent, n_ent, prm, n_prm, ct, dv, lp, g,
+                                          dim, B, spread_threads(B, kThreads), 0, stream);
+  }
+  if (pd_kmax < 0 || pd_kmax > pd::kMaxK) return cudaErrorInvalidValue;
+  // per-thread scratch only where a PD entry exists
+  const int slots = pd_kmax > 0 ? pd::scratch_slots(pd_kmax, MODE != kValue) : 0;
+  int nt = pd::threads_for(slots, table, kThreads, kLoopBudget);
+  if (nt > 0)
+    return launch_with<MODE, true, false>(vT, cf, ent, n_ent, prm, n_prm, ct, dv, lp, g, dim,
+                                          B, nt, table + (size_t)slots * sizeof(float) * nt,
+                                          stream);
+  nt = pd::threads_for(slots, 0, spread_threads(B, kThreads), kLoopBudget);
   if (nt == 0) return cudaErrorInvalidValue;
-  return launch_with<MODE, true>(vT, cf, ent, n_ent, prm, n_prm, ct, lp, g, dim, B, nt,
-                                 fixed + (size_t)slots * sizeof(float) * nt, stream);
+  return launch_with<MODE, true, true>(vT, cf, ent, n_ent, prm, n_prm, ct, dv, lp, g, dim, B,
+                                       nt, (size_t)slots * sizeof(float) * nt, stream);
 }
 
 cudaError_t launch_slab(int mode, const float* vT, const float* cf, const int* ent,
-                        int n_ent, const float* prm, int n_prm, int kmax, const float* ct,
-                        float* lp, float* g, int dim, long long B, cudaStream_t stream) {
+                        int n_ent, const float* prm, int n_prm, int pd_kmax, const float* ct,
+                        const float* dv, float* lp, float* g, int dim, long long B,
+                        cudaStream_t stream) {
   switch (mode) {
     case kValue:
-      return launch<kValue>(vT, cf, ent, n_ent, prm, n_prm, kmax, ct, lp, g, dim, B, stream);
+      return launch<kValue>(vT, cf, ent, n_ent, prm, n_prm, pd_kmax, ct, dv, lp, g, dim, B,
+                            stream);
     case kValueAndGrad:
-      return launch<kValueAndGrad>(vT, cf, ent, n_ent, prm, n_prm, kmax, ct, lp, g, dim, B,
-                                   stream);
+      return launch<kValueAndGrad>(vT, cf, ent, n_ent, prm, n_prm, pd_kmax, ct, dv, lp, g,
+                                   dim, B, stream);
     case kVjp:
-      return launch<kVjp>(vT, cf, ent, n_ent, prm, n_prm, kmax, ct, lp, g, dim, B, stream);
+      return launch<kVjp>(vT, cf, ent, n_ent, prm, n_prm, pd_kmax, ct, dv, lp, g, dim, B,
+                          stream);
+    case kJvp:
+      return launch<kJvp>(vT, cf, ent, n_ent, prm, n_prm, pd_kmax, ct, dv, lp, g, dim, B,
+                          stream);
     default: return cudaErrorInvalidValue;
   }
 }

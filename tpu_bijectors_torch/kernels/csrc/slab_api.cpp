@@ -4,15 +4,17 @@
 // cudaError_t (0 on success). The caller has checked devices, dtypes, shapes
 // and contiguity, and allocated every output. The loop entries: `ent`
 // (n_ent, 4) int32 rows {kind, first row, K, parameter offset} into `prm`
-// (n_prm floats), `kmax` the largest K; n_ent = 0 (null pointers) for a
+// (n_prm floats), `kmax` the largest K of the PD entries (0 where there is
+// none: it sizes the per-thread scratch); n_ent = 0 (null pointers) for a
 // model of slab rows only.
 
 #include <cuda_runtime.h>
 
 namespace tbt {
 cudaError_t launch_slab(int mode, const float* vT, const float* cf, const int* ent,
-                        int n_ent, const float* prm, int n_prm, int kmax, const float* ct,
-                        float* lp, float* g, int dim, long long B, cudaStream_t stream);
+                        int n_ent, const float* prm, int n_prm, int pd_kmax, const float* ct,
+                        const float* dv, float* lp, float* g, int dim, long long B,
+                        cudaStream_t stream);
 }  // namespace tbt
 
 extern "C" {
@@ -21,7 +23,7 @@ extern "C" {
 int tbt_slab_value(const float* vT, const float* cf, const int* ent, int n_ent,
                    const float* prm, int n_prm, int kmax, float* lp, int dim, long long B,
                    void* stream) {
-  return (int)tbt::launch_slab(0, vT, cf, ent, n_ent, prm, n_prm, kmax, nullptr, lp,
+  return (int)tbt::launch_slab(0, vT, cf, ent, n_ent, prm, n_prm, kmax, nullptr, nullptr, lp,
                                nullptr, dim, B, (cudaStream_t)stream);
 }
 
@@ -29,16 +31,24 @@ int tbt_slab_value(const float* vT, const float* cf, const int* ent, int n_ent,
 int tbt_slab_value_and_grad(const float* vT, const float* cf, const int* ent, int n_ent,
                             const float* prm, int n_prm, int kmax, float* lp, float* g,
                             int dim, long long B, void* stream) {
-  return (int)tbt::launch_slab(1, vT, cf, ent, n_ent, prm, n_prm, kmax, nullptr, lp, g,
-                               dim, B, (cudaStream_t)stream);
+  return (int)tbt::launch_slab(1, vT, cf, ent, n_ent, prm, n_prm, kmax, nullptr, nullptr, lp,
+                               g, dim, B, (cudaStream_t)stream);
 }
 
 // g = (d lp / d vT) * ct, ct (B,)
 int tbt_slab_vjp(const float* vT, const float* cf, const int* ent, int n_ent,
                  const float* prm, int n_prm, int kmax, const float* ct, float* g, int dim,
                  long long B, void* stream) {
-  return (int)tbt::launch_slab(2, vT, cf, ent, n_ent, prm, n_prm, kmax, ct, nullptr, g, dim,
-                               B, (cudaStream_t)stream);
+  return (int)tbt::launch_slab(2, vT, cf, ent, n_ent, prm, n_prm, kmax, ct, nullptr, nullptr,
+                               g, dim, B, (cudaStream_t)stream);
+}
+
+// dlp (B,) = sum over rows of (d lp / d vT) * dvT, dvT (dim, B)
+int tbt_slab_jvp(const float* vT, const float* cf, const int* ent, int n_ent,
+                 const float* prm, int n_prm, int kmax, const float* dvT, float* dlp, int dim,
+                 long long B, void* stream) {
+  return (int)tbt::launch_slab(3, vT, cf, ent, n_ent, prm, n_prm, kmax, nullptr, dvT, dlp,
+                               nullptr, dim, B, (cudaStream_t)stream);
 }
 
 const char* tbt_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

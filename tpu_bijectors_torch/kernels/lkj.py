@@ -128,9 +128,13 @@ def lkj_inverse(y, K: int, want_w: bool = False):
     new = lambda *s: torch.empty(s, dtype=y.dtype, device=y.device)  # noqa: E731
     X, logJ, log_diag = new(B, K, K), new(B), new(B, K)
     W = new(B, K, K) if want_w else None
+    # from K = 60 the factors live in a global scratch buffer (csrc/lkj_inv.cu)
+    n_scratch = kernels.scratch_floats("tbt_lkj_inverse_scratch", y.device, K, B)
+    scratch = new(n_scratch) if n_scratch else None
     kernels.launch(
         "tbt_lkj_inverse", "lkj_inverse", y.device,
         y.data_ptr(), y.stride(0), y.stride(1), X.data_ptr(), logJ.data_ptr(),
-        log_diag.data_ptr(), None if W is None else W.data_ptr(), K, B,
+        log_diag.data_ptr(), None if W is None else W.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), K, B,
     )
     return X, logJ, log_diag, W

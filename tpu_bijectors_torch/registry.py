@@ -6,7 +6,8 @@ and src/Bijectors.jl:249-262).
 simplex -> SimplexBijector, corr -> VecCorrBijector, pd -> PDVecBijector
 (`tpu_bijectors/registry.py:61`), interval -> the
 Truncated(lb, ub) branch its finite bounds select, or Identity on the
-real line. Other support kinds are not ported yet and raise.
+real line, real_vector -> elementwise Identity (`:79`). Other support
+kinds are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -44,6 +45,8 @@ def bijector(d: Distribution) -> Bijector:
             upper_finite=s.upper_finite,
         )
         return elementwise(b, n)
+    if s.kind == "real_vector":
+        return elementwise(Identity(), n)
     raise NotImplementedError(
         f"no bijector ported for {type(d).__name__} ({s.kind})"
     )

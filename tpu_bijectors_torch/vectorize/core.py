@@ -18,8 +18,9 @@ LKJ and Wishart-family leaves launch their kernels (kernels/simplex.py,
 kernels/lkj.py, kernels/pd.py), the scalar leaves are elementwise torch
 ops. On the transposed layout the
 whole model runs as the fused slab evaluation (`fused_kernel.try_mega`):
-one CUDA kernel on the card (slab rows and the Wishart families' loop
-entries), its plain PyTorch version for a CPU tensor.
+one CUDA kernel on the card (slab rows and the loop entries of the Wishart
+families and the dense Gaussian and t families), its plain PyTorch
+version for a CPU tensor.
 `_linked_logdensity_t_children` is the composed per-leaf path, the
 reference the fused evaluation is held against.
 """

@@ -1,6 +1,6 @@
 """The slab closed form of the whole-model fused evaluation, PyTorch
 counterpart of `tpu_bijectors/vectorize/fused_base.py`, and the PLAIN
-versions of the three slab kernels (`fused_kernel.py`, `kernels/csrc/`).
+versions of the four slab kernels (`fused_kernel.py`, `kernels/csrc/`).
 
 With D = V - m and U = |D|, every slab row's linked log-density is exactly
 
@@ -17,10 +17,21 @@ term is formed, and every term of a zero coefficient is an exact 0
 A LOOP entry owns rows no slab covers (ownership 0, every coefficient 0,
 so the slab form gives them 0 and no partial). `LoopTable` packs a
 model's loop entries once; the plain versions add each entry's value and
-write its partials from `kernels/pd.py`'s plain versions, as the JAX
-package's `fused_emit.py::_emit_pd` and `_partials_pd` assemble them:
-the PD entry adds logJ + w sum_r y_rr - tr / 2 + const, and its partials
-are -d tr/dy / 2 plus (K+1-r) + w on the diagonal slots.
+write its partials, as the JAX package's `fused_emit.py` assembles them:
+
+- PD (`_emit_pd`, `_partials_pd`; Wishart dot, InverseWishart solve),
+  from `kernels/pd.py`'s plain versions: logJ + w sum_r y_rr - tr / 2 +
+  const; partials -d tr/dy / 2 plus (K+1-r) + w on the diagonal slots;
+- Gaussian quadratic form (`_emit_gauss_quad`, `_partials_gauss_quad`;
+  lower for MvNormalTril with C = L^-1, upper for MvNormalCanon with
+  C = chol(J)'), only C's static triangle read: w = C (v - mu),
+  lp = -||w||^2 / 2 + const, d lp / dv = -C'w;
+- multivariate t (`_emit_mvt`, `_partials_mvt`; MvStudentT, C = L^-1
+  lower): q = ||w||^2, lp = const - (df + K)/2 log1p(q / df),
+  d lp / dv = -(df + K) / (df + q) C'w.
+
+The fourth plain version, `slab_jvp_plain`, is the forward-mode product
+sum_rows (d lp / d vT) dvT of every row, slab and loop alike.
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ from ..kernels.pd import affine_coeffs, pd_logdensity_plain, pd_trace_grad_plain
 
 LOG2 = math.log(2.0)
 LOG2PI = math.log(2.0 * math.pi)
+LOGPI = math.log(math.pi)
 
 
 class _Unsupported(Exception):
@@ -169,8 +181,16 @@ def _groups_and_used(cf):
 
 
 # the loop kinds' codes in the kernel's entry table (csrc/fused_slab.cu)
-LOOP_CODES = {"pd_dot": 1, "pd_solve": 2}
+LOOP_CODES = {"pd_dot": 1, "pd_solve": 2, "gauss_lower": 3, "gauss_upper": 4, "mvt": 5}
 PD_MODES = {1: "dot", 2: "solve"}
+# floats of a loop entry's parameter block at K, by code
+PARAM_FLOATS = {
+    1: lambda K: K * K + 2,  # C, w, const
+    2: lambda K: K * K + 2,
+    3: lambda K: K * K + K + 1,  # C, mu, const
+    4: lambda K: K * K + K + 1,
+    5: lambda K: K * K + K + 2,  # C, mu, df, const
+}
 
 
 @dataclass(frozen=True)
@@ -178,7 +198,8 @@ class LoopTable:
     """A model's loop entries, packed once: `entries` holds one (code,
     first row, K, offset into prm) per entry (`LOOP_CODES`); `ent` is the
     same as an (n, 4) int32 tensor and `prm` the entries' parameter blocks,
-    both on the state's device; `kmax` is the largest K."""
+    both on the state's device; `kmax` is the largest K of the PD entries
+    (0 where there is none), which sizes the kernel's per-thread scratch."""
 
     entries: tuple
     ent: torch.Tensor
@@ -186,25 +207,52 @@ class LoopTable:
     kmax: int
 
 
+def _pd_val_par(y, blk, K, code, value, partial):
+    C, w, const = blk[: K * K].reshape(K, K), blk[K * K], blk[K * K + 1]
+    mode = PD_MODES[code]
+    val = par = None
+    if value:
+        logJ, sumd, tr = pd_logdensity_plain(y, K, C, mode)
+        val = logJ + w * sumd - 0.5 * tr + const
+    if partial:
+        coeff, diag = affine_coeffs(K, y)
+        par = (-0.5 * pd_trace_grad_plain(y, K, C, mode) + (coeff + w * diag)).T
+    return val, par
+
+
+def _quad_val_par(vT, blk, K, code, value, partial):
+    """The Gaussian and t loop entries on their (K, B) rows."""
+    C = blk[: K * K].reshape(K, K)
+    C = torch.triu(C) if code == LOOP_CODES["gauss_upper"] else torch.tril(C)
+    mu = blk[K * K : K * K + K]
+    w = C @ (vT - mu[:, None])
+    q = torch.sum(w * w, 0)
+    if code == LOOP_CODES["mvt"]:
+        df, const = blk[K * K + K], blk[K * K + K + 1]
+        val = const - 0.5 * (df + K) * torch.log1p(q / df) if value else None
+        par = (-(df + K) / (df + q)) * (C.T @ w) if partial else None
+    else:
+        val = -0.5 * q + blk[K * K + K] if value else None
+        par = -(C.T @ w) if partial else None
+    return val, par
+
+
 def _loop_val_par(vT, loops, value, partial):
     """Each loop entry of `loops` over vT: (the sum of their values (B,) or
     None, [(rows slice, partials (rows, B))] or None)."""
     val, pars = None, []
     for code, row0, K, off in loops.entries:
-        P = K * (K + 1) // 2
-        rows = slice(row0, row0 + P)
-        y = vT[rows].T
-        blk = loops.prm[off : off + K * K + 2]
-        C, w, const = blk[: K * K].reshape(K, K), blk[K * K], blk[K * K + 1]
-        mode = PD_MODES[code]
+        blk = loops.prm[off : off + PARAM_FLOATS[code](K)]
+        if code in PD_MODES:
+            rows = slice(row0, row0 + K * (K + 1) // 2)
+            v, p = _pd_val_par(vT[rows].T, blk, K, code, value, partial)
+        else:
+            rows = slice(row0, row0 + K)
+            v, p = _quad_val_par(vT[rows], blk, K, code, value, partial)
         if value:
-            logJ, sumd, tr = pd_logdensity_plain(y, K, C, mode)
-            v = logJ + w * sumd - 0.5 * tr + const
             val = v if val is None else val + v
         if partial:
-            coeff, diag = affine_coeffs(K, y)
-            p = -0.5 * pd_trace_grad_plain(y, K, C, mode) + (coeff + w * diag)
-            pars.append((rows, p.T))
+            pars.append((rows, p))
     return val, (pars if partial else None)
 
 
@@ -244,3 +292,9 @@ def slab_vjp_plain(vT, cf, ct, loops=None):
     """Plain version of the vector-Jacobian kernel: g = (d lp / d vT) * ct,
     ct (B,)."""
     return _plain(vT, cf, False, True, loops)[1] * ct
+
+
+def slab_jvp_plain(vT, cf, dvT, loops=None):
+    """Plain version of the forward-mode kernel: dlp (B,) = sum over rows
+    of (d lp / d vT) * dvT, slab rows and loop entries alike."""
+    return (_plain(vT, cf, False, True, loops)[1] * dvT).sum(0)

@@ -3,13 +3,24 @@ counterpart of `tpu_bijectors/vectorize/fused_kernel.py`.
 
 `_prep(u, vT)` turns the plan (fused_plan.py) into the (dim, NCF)
 coefficient table, the loop entries' `LoopTable` (None for a model of
-slab rows only) and the row sum of c0. Three wrappers evaluate the model
-over the state, slab rows and loop entries in one launch: `slab_value`,
-`slab_value_and_grad` and `slab_vjp`. For a CUDA tensor each launches its
-kernel (kernels/csrc/fused_slab.cu) or raises; for a CPU tensor it runs the
-plain version (fused_base.py).
+slab rows only) and the row sum of c0. Four wrappers evaluate the model
+over the state, slab rows and loop entries in one launch each, the four
+modes of one CUDA kernel (kernels/csrc/fused_slab.cu): `slab_value` (lp),
+`slab_value_and_grad` (lp and d lp / d vT), `slab_vjp` (d lp / d vT times
+a cotangent) and `slab_jvp` (sum_rows d lp / d vT times a tangent). The
+loop entries come in five kinds (fused_base.LOOP_CODES): PD dot and solve,
+the Gaussian quadratic form lower and upper, and the multivariate t.
+For a CUDA tensor each wrapper launches its kernel or raises; for a CPU
+tensor it runs the plain version (fused_base.py). The kernel keeps the
+coefficient table and row flags (64 bytes a row), the entry table and the
+loop parameters in shared memory where they fit: a model of slab rows
+only up to the block's 227 KB (some 3600 rows), a model with loop entries
+within 100 KB together with its PD entries' per-thread scratch. Beyond
+that it reads them from global memory through the read-only path, so a
+model of any size launches.
 `mega_logdensity_t` is differentiable in the state: its backward is the
-vector-Jacobian kernel.
+vector-Jacobian mode, its forward-mode derivative (`torch.func.jvp`,
+`torch.autograd.forward_ad`) the jvp mode.
 """
 
 from __future__ import annotations
@@ -19,13 +30,14 @@ import weakref
 import torch
 
 from .. import kernels
-from ..utils import triu_dim_from_length
 from .fused_base import (
     _CI,
     _MASK_COL,
     LOOP_CODES,
     NCF,
+    PD_MODES,
     LoopTable,
+    slab_jvp_plain,
     slab_value_and_grad_plain,
     slab_value_plain,
     slab_vjp_plain,
@@ -50,10 +62,10 @@ def _loop_table(plan, dtype, device):
         if id(e.params) not in offsets:
             offsets[id(e.params)] = sum(b.numel() for b in blocks)
             blocks.append(e.params(dtype).to(device))
-        rows.append((LOOP_CODES[e.loop], e.row0, triu_dim_from_length(e.rows),
-                     offsets[id(e.params)]))
+        rows.append((LOOP_CODES[e.loop], e.row0, e.k, offsets[id(e.params)]))
     ent = torch.tensor(rows, dtype=torch.int32, device=device)
-    return LoopTable(tuple(rows), ent, torch.cat(blocks), max(r[2] for r in rows))
+    pd_k = [r[2] for r in rows if r[0] in PD_MODES]
+    return LoopTable(tuple(rows), ent, torch.cat(blocks), max(pd_k, default=0))
 
 
 def _prep(u, vT):
@@ -104,12 +116,13 @@ def _prep(u, vT):
 # ---------------------------------------------------------------------------
 
 
-def _check_cuda(vT, cf, loops, ct=None):
-    """Raise unless vT (dim, B), cf (dim, NCF) [, the loop parameters and
-    ct (B,)] are contiguous float32 tensors on one CUDA device."""
+def _check_cuda(vT, cf, loops, ct=None, dvT=None):
+    """Raise unless vT (dim, B), cf (dim, NCF) [, the loop parameters, ct
+    (B,) and dvT (dim, B)] are contiguous float32 tensors on one CUDA
+    device."""
     if vT.device.type != "cuda":
         raise ValueError(f"the slab kernels run on CUDA tensors; got {vT.device}")
-    ts = (vT, cf) if ct is None else (vT, cf, ct)
+    ts = tuple(t for t in (vT, cf, ct, dvT) if t is not None)
     if loops is not None:
         ts = ts + (loops.prm,)
         if loops.ent.device != vT.device or loops.ent.dtype != torch.int32:
@@ -128,6 +141,8 @@ def _check_cuda(vT, cf, loops, ct=None):
         )
     if ct is not None and ct.shape != (vT.shape[1],):
         raise ValueError(f"ct must be ({vT.shape[1]},); got {tuple(ct.shape)}")
+    if dvT is not None and dvT.shape != vT.shape:
+        raise ValueError(f"dvT must be {tuple(vT.shape)}; got {tuple(dvT.shape)}")
 
 
 def _launch(fn, name, vT, cf, loops, *ptrs):
@@ -177,20 +192,60 @@ def slab_vjp(vT, cf, ct, loops=None):
     return g
 
 
-class _SlabLogDensity(torch.autograd.Function):
-    """slab_value with slab_vjp as its backward (the state's gradient only:
-    cf and the loop parameters are constants of the model)."""
+def slab_jvp(vT, cf, dvT, loops=None):
+    """dlp (B,) = sum over rows of (d lp / d vT) * dvT for a tangent dvT
+    (dim, B)."""
+    if vT.device.type == "cpu":
+        return slab_jvp_plain(vT, cf, dvT, loops)
+    _check_cuda(vT, cf, loops, dvT=dvT)
+    dlp = torch.empty(vT.shape[1], dtype=vT.dtype, device=vT.device)
+    _launch("tbt_slab_jvp", "slab_jvp", vT, cf, loops, dvT.data_ptr(), dlp.data_ptr())
+    return dlp
+
+
+class _OnStorage(torch.autograd.Function):
+    """`fn(*args)` on tensors with storage. Inside the derivative rules of
+    `_SlabLogDensity`, `torch.func`'s transforms hand over tensors wrapped
+    at their level, which have no data pointer for a kernel; an
+    autograd.Function runs its `forward` on the unwrapped tensors. It has
+    no derivative of its own: a second derivative of the fused log-density
+    raises."""
 
     @staticmethod
-    def forward(ctx, vT, cf, loops):
-        ctx.save_for_backward(vT, cf)
-        ctx.loops = loops
+    def forward(fn, *args):
+        return fn(*args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+
+class _SlabLogDensity(torch.autograd.Function):
+    """slab_value with slab_vjp as its backward and slab_jvp as its
+    forward-mode derivative (the state's only: cf and the loop parameters
+    are constants of the model). `forward` takes no ctx, so that
+    `torch.func.jvp` accepts the Function."""
+
+    @staticmethod
+    def forward(vT, cf, loops):
         return slab_value(vT, cf, loops)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        vT, cf, loops = inputs
+        ctx.save_for_backward(vT, cf)
+        ctx.save_for_forward(vT, cf)
+        ctx.loops = loops
 
     @staticmethod
     def backward(ctx, ct):
         vT, cf = ctx.saved_tensors
-        return slab_vjp(vT, cf, ct.contiguous(), ctx.loops), None, None
+        return _OnStorage.apply(slab_vjp, vT, cf, ct.contiguous(), ctx.loops), None, None
+
+    @staticmethod
+    def jvp(ctx, dvT, dcf, dloops):
+        vT, cf = ctx.saved_tensors
+        return _OnStorage.apply(slab_jvp, vT, cf, dvT.contiguous(), ctx.loops)
 
 
 # ---------------------------------------------------------------------------

@@ -6,10 +6,14 @@ parameters, evaluated by a loop body in the kernel), or returns None when
 a leaf has neither.
 
 Slab forms ported: Normal (identity link) and LogNormal (log link, the
-telescoped density), alone or as IID blocks with scalar parameters; the
-telescoped Dirichlet; the LKJ weighted logcosh. Loop forms ported: the PD
-entry of Wishart (`pd_dot`) and InverseWishart (`pd_solve`), K <= 16
-(`fused_emit.py::_emit_pd`). Every other leaf raises `_Unsupported`
+telescoped density), alone or as IID blocks with scalar parameters;
+MvNormalDiag and MvLogNormal (its telescoped density), a row each; the
+telescoped Dirichlet; the LKJ weighted logcosh. Loop forms ported, K <= 16
+(MAX_K): the PD entry of Wishart (`pd_dot`) and InverseWishart
+(`pd_solve`, `fused_emit.py::_emit_pd`); the Gaussian quadratic form of
+MvNormalTril (`gauss_lower`) and MvNormalCanon (`gauss_upper`,
+`_emit_gauss_quad`); the t form of MvStudentT (`mvt`, `_emit_mvt`). Every
+other leaf, and a loop family beyond K = 16, raises `_Unsupported`
 naming it.
 """
 
@@ -26,11 +30,12 @@ from ..bijectors.corr import VecCorrBijector
 from ..bijectors.pd import PDVecBijector
 from ..bijectors.simplex import SimplexBijector
 from ..dists import matrix as mx
+from ..dists import multivariate as mv
 from ..dists import univariate as uv
 from ..dists.multivariate import Dirichlet
 from ..kernels.pd import MAX_K
 from ..utils import _triu_index_arrays
-from .fused_base import LOG2, LOG2PI, _Unsupported
+from .fused_base import LOG2, LOG2PI, LOGPI, _Unsupported
 
 
 @dataclass(frozen=True)
@@ -39,9 +44,11 @@ class _Entry:
     rows: int  # rows consumed
     slab: Callable | None = None  # (dtype) -> {coefficient key: (rows,) tensor}
     loop: str | None = None  # a loop entry's kind (fused_base.LOOP_CODES)
-    # loop entry: (dtype) -> its parameter block as a flat tensor, for PD
-    # [C (K*K, row-major), w, const]
+    # loop entry: (dtype) -> its parameter block as a flat tensor
+    # (fused_base.PARAM_FLOATS): PD [C (K*K, row-major), w, const];
+    # Gaussian [C, mu, const]; t [C, mu, df, const]
     params: Callable | None = None
+    k: int = 0  # a loop entry's K
 
 
 def _scalar_entry(dist, link, n, row0):
@@ -143,7 +150,68 @@ def _leaf_entry(leaf, row0):
         return _Entry(row0, P, slab)
     if t in (mx.Wishart, mx.InverseWishart) and type(b) is PDVecBijector:
         return _pd_entry(d, row0)
+    if t in (mv.MvNormalDiag, mv.MvLogNormal):
+        return _mvdiag_entry(d, b, row0)
+    if t in (mv.MvNormalTril, mv.MvNormalCanon, mv.MvStudentT) and mv._is_vector_link(
+        b, mv._is_identity
+    ):
+        return _quad_entry(d, row0)
     raise _Unsupported(f"{t.__name__} with link {type(b).__name__}")
+
+
+def _mvdiag_entry(d, b, row0):
+    """MvNormalDiag (identity link) and MvLogNormal (log link, telescoped
+    to the base normal's density of v) as one slab row a coordinate
+    (`fused_plan.py:328-348` of the JAX package)."""
+    ok = mv._is_identity if type(d) is mv.MvNormalDiag else uv._is_log_link
+    if not mv._is_vector_link(b, ok) or d.loc.ndim != 1 or d.scale_diag.ndim > 1:
+        raise _Unsupported(f"{type(d).__name__} with a batched parameter or link "
+                           f"{type(b).__name__}")
+    K = int(d.loc.shape[-1])
+
+    def slab(dtype, d=d, K=K):
+        sig = torch.broadcast_to(d.scale_diag.to(dtype), (K,))
+        inv_s = 1.0 / sig
+        return {"m": d.loc.to(dtype), "cq": -0.5 * inv_s * inv_s,
+                "c0": -0.5 * LOG2PI - torch.log(sig)}
+
+    return _Entry(row0, K, slab)
+
+
+def _quad_entry(d, row0):
+    """The dense Gaussian and t loop entries (`fused_plan.py:349-427` of the
+    JAX package), with C formed on the host: MvNormalTril C = L^-1 (lower),
+    lp = -||C (v - mu)||^2 / 2 - sum log diag L - K/2 log 2pi;
+    MvNormalCanon C = L' with L = chol(J) (upper), mu = J^-1 h, + sum log
+    diag L; MvStudentT C = L^-1 with its df and normaliser."""
+    t = type(d)
+    canon = t is mv.MvNormalCanon
+    loc = d.h if canon else d.loc
+    mat = d.prec if canon else d.scale_tril
+    K = int(loc.shape[-1])
+    if loc.ndim != 1 or mat.ndim != 2 or (t is mv.MvStudentT and d.df.ndim != 0):
+        raise _Unsupported(f"{t.__name__} with a batched parameter")
+    if K > MAX_K:
+        raise _Unsupported(f"{t.__name__} with K = {K} > {MAX_K}")
+
+    def params(dtype, d=d, K=K):
+        if canon:
+            L, mu = d.chol_and_mean(dtype)
+            const = -0.5 * K * LOG2PI + mv._half_logdet(L)
+            return torch.cat([L.T.reshape(-1), mu, const.reshape(1)])
+        L = torch.tril(d.scale_tril.to(dtype))
+        eye = torch.eye(K, dtype=dtype, device=L.device)
+        C = torch.linalg.solve_triangular(L, eye, upper=False)
+        if t is mv.MvNormalTril:
+            const = -0.5 * K * LOG2PI - mv._half_logdet(L)
+            return torch.cat([C.reshape(-1), d.loc.to(dtype), const.reshape(1)])
+        v = d.df.to(dtype)
+        const = (torch.lgamma(0.5 * (v + K)) - torch.lgamma(0.5 * v)
+                 - 0.5 * K * (torch.log(v) + LOGPI) - mv._half_logdet(L))
+        return torch.cat([C.reshape(-1), d.loc.to(dtype), v.reshape(1), const.reshape(1)])
+
+    kind = "gauss_upper" if canon else ("mvt" if t is mv.MvStudentT else "gauss_lower")
+    return _Entry(row0, K, loop=kind, params=params, k=K)
 
 
 def _pd_entry(d, row0):
@@ -162,7 +230,7 @@ def _pd_entry(d, row0):
         C, w, const = d.pd_terms(dtype)
         return torch.cat([C.reshape(-1), w.reshape(1), const.reshape(1)])
 
-    return _Entry(row0, K * (K + 1) // 2, loop=f"pd_{d.mode}", params=params)
+    return _Entry(row0, K * (K + 1) // 2, loop=f"pd_{d.mode}", params=params, k=K)
 
 
 def _plan_with_reason(u):
