@@ -8,9 +8,12 @@ then drives the bench model (8 Normal, 8 LogNormal, Dirichlet(16), LKJ(16):
 linked dim 151) in float32 through the entry points a user calls, on four
 paths, the PD models (tools/mega_probe.py's `pdonly`: Wishart(18, I_16)
 and 15 iid N(0, 1), linked dim 136 + 15 = 151, and its twin with
-InverseWishart(18, I_16)) on three more, and `mvdense` (4 x
+InverseWishart(18, I_16)) on three more, `mvdense` (4 x
 MvNormalTril(16), MvNormalCanon(16), 4 x MvStudentT(5, 16), MvLogNormal(4),
-MvNormalDiag(3): linked dim 151) on three more:
+MvNormalDiag(3): linked dim 151) on three more, `families` (the JAX
+package's whole-family test model: every slab-served scalar family,
+arraydist, IID blocks of structured leaves, LKJCholesky, a transformed
+Beta; linked dim 125) on two, eight schools on one, and the #13 probe:
 
 1. transposed serving at B = 131072: `Model.batched_logdensity_t_fn()`
    (the slab value kernel), its `value_and_grad_fn` (the one-pass
@@ -61,7 +64,23 @@ MvNormalDiag(3): linked dim 151) on three more:
 11. the launch-size repairs: `wide` (4000 slab rows, the table in global
    memory) in all four modes, `pdwide` (dim 1051 with a PD entry) and the
    LKJ inverse at K = 64 (the factors in global scratch), against their
-   plain versions; and #4 on the bench and PD models.
+   plain versions; and #4 on the bench and PD models;
+12. transposed serving of `families` at B = 131072 in all four modes of
+   the whole-model kernel (slab rows of every term group, the exp and
+   log1p groups and per-element coefficients among them, and four PD
+   entries, two of them IID copies sharing a parameter block), and an
+   extremes block of 64 columns at +-1e10 (the plain version's
+   finite/inf pattern, no NaN);
+13. batch-major serving of `families` at B = 131072: the LKJ log-det
+   kernel in both variants (`chol=True` for LKJCholesky), the simplex
+   kernels, the PD log-density and its backward, the round trip v -> x ->
+   v;
+14. eight schools, non-centered (examples/eight_schools_nuts.py):
+   `Model(priors, loglik).sample(kernel='auto')`'s steps from 0.5 N(0, 1)
+   starts at target 0.8, gated against the JAX package's float64 means of
+   mu and tau (ES_JAX);
+15. the #13 probe of the slab's per-element math: every variant against
+   its plain version, then its driver, which times them.
 
 The launch counters are set to 0 just before each path and read just after
 it; each kernel of the path must have launched. Each kernel is held against
@@ -85,13 +104,14 @@ mvdense kernels are held to their plain versions and float64 at bounds
 from the sums they do (`quad_bounds`), and the mv_conjugate draws against
 the posterior means of all 151 coordinates. Every
 kernel is timed with CUDA events in each of its layouts, beside its plain
-version (`kernel_table`, `time_kernels`), and the PD variants with their
-bounds (`pd_variants`).
+version (`kernel_table`, `time_kernels`), and the PD, mvdense, repair and
+families variants with their bounds (`pd_variants`, `model_variants`).
 
 Prints the card's name and power limit, one JSON line per kernel, a
-`kernel_variants` line (every layout's time), an `end_to_end` line (the
+`kernel_variants` line (every layout's time), a `transcend_probe` line
+(every probe variant's time), an `end_to_end` line (the
 entry points with host dispatch), a `phases_s` line (each phase's wall
-time), a `sampler` line per layout, a `{"kernels": [...]}` line, and as
+time), a `sampler` line per cell, a `{"kernels": [...]}` line, and as
 the last line `{"ok": true, "device": {...}}`. Exits non-zero, with no
 result, when CUDA is absent or any check fails.
 """
@@ -143,6 +163,8 @@ REPLACES = {
     "pd_inverse": "tpu_bijectors/kernels/pd.py:73",
     "pd_logdensity": "tpu_bijectors/kernels/pd.py:177",
     "pd_trace_grad": "tpu_bijectors/kernels/pd.py:302",
+    "lkj_logdet_chol": "tpu_bijectors/kernels/lkj.py:88",
+    "transcend_probe": "tools/transcend_probe.py:157",
 }
 CSRC = "tpu_bijectors_torch/kernels/csrc/"
 SOURCES = {
@@ -158,6 +180,8 @@ SOURCES = {
     "pd_inverse": CSRC + "pd_inverse.cu",
     "pd_logdensity": CSRC + "pd_logdensity.cu",
     "pd_trace_grad": CSRC + "pd_trace_grad.cu",
+    "lkj_logdet_chol": CSRC + "lkj_logdet.cu",
+    "transcend_probe": CSRC + "transcend_probe.cu",
 }
 # the kernels each path must launch: transposed serving (path 1), the
 # inverse links of both samplers (paths 2 and 4), batch-major serving
@@ -199,13 +223,23 @@ OPS_SIMPLEX_FWD_COORD = 22
 # 1496 multiply-adds and 2 operations per slot; the solve gradient 16
 # forward and 16 back substitution columns (256 each) and 16 rank-one
 # updates of G (136 multiply-adds), and 2 operations per slot
-PD_OPS = {
-    "inverse": 216 + 2 * 816,
-    "dot": 216 + 2 * 816 + 3 * 136,
-    "solve": 216 + 16 * 288,
-    "dot_grad": 216 + 2 * 1496 + 2 * 136,
-    "solve_grad": 216 + 16 * (256 + 256 + 272) + 2 * 136,
-}
+def pd_ops(K):
+    """The PD kernels' operation floors at K, counted as above: unpack
+    P + 5K (P = K(K+1)/2 slots), X = LL' K(K+1)(K+2)/6 multiply-adds, a
+    substitution column K^2 (the solve trace K^2 + 2K a column), the dot
+    gradient K(K+1)(K+2)/6 + K(K+1)(K-1)/6 multiply-adds."""
+    P = K * (K + 1) // 2
+    unpack, xll = P + 5 * K, K * (K + 1) * (K + 2) // 6
+    return {
+        "inverse": unpack + 2 * xll,
+        "dot": unpack + 2 * xll + 3 * P,
+        "solve": unpack + K * (K * K + 2 * K),
+        "dot_grad": unpack + 2 * (xll + K * (K + 1) * (K - 1) // 6) + 2 * P,
+        "solve_grad": unpack + K * (2 * K * K + 2 * P) + 2 * P,
+    }
+
+
+PD_OPS = pd_ops(16)
 # the float32 round trip v -> x -> v of the bench model. The scalar and
 # simplex rows are held absolutely (1.1e-6 at most on the H100 at
 # B = 131072). The LKJ rows pass through torch.linalg.cholesky of a 16 x 16
@@ -885,16 +919,17 @@ def pd_reference(y, C, mode):
                    are normwise, so a slot is held to the norms, not to
                    its own |At| |A'|
 
-    Returns (logJ, sumd, tr, g, tr_allow, g_allow, kappa)."""
+    K is C's. Returns (logJ, sumd, tr, g, tr_allow, g_allow, kappa)."""
     from tpu_bijectors_torch.kernels import pd as kp
     from tpu_bijectors_torch.utils import set_diag, tril_to_vec
 
+    K = C.shape[-1]
     y64, C64 = y.double(), C.double()
-    logJ, sumd, tr = kp.pd_logdensity_plain(y64, PD_K, C64, mode)
-    g = kp.pd_trace_grad_plain(y64, PD_K, C64, mode)
-    L, d = kp._unpack(y64, PD_K)
+    logJ, sumd, tr = kp.pd_logdensity_plain(y64, K, C64, mode)
+    g = kp.pd_trace_grad_plain(y64, K, C64, mode)
+    L, d = kp._unpack(y64, K)
     einv = torch.exp(-d)
-    eye = torch.eye(PD_K, dtype=torch.float64, device=y.device)
+    eye = torch.eye(K, dtype=torch.float64, device=y.device)
     kappa = torch.linalg.matrix_norm(L) * torch.linalg.matrix_norm(kp._forward_sub(L, einv, eye))
 
     def slots(M):
@@ -902,15 +937,15 @@ def pd_reference(y, C, mode):
 
     if mode == "dot":
         Cs = (0.5 * (C64 + C64.T)).abs()
-        tr_allow = 2 * PD_K * EPS32 * torch.sum(Cs * (L.abs() @ L.abs().transpose(-1, -2)),
+        tr_allow = 2 * K * EPS32 * torch.sum(Cs * (L.abs() @ L.abs().transpose(-1, -2)),
                                                  dim=(-2, -1))
-        g_allow = 2 * PD_K * EPS32 * slots(2.0 * (Cs @ L.abs()))
+        g_allow = 2 * K * EPS32 * slots(2.0 * (Cs @ L.abs()))
     else:
         A = kp._forward_sub(L, einv, C64)
         At = kp._back_sub(L, einv, A)
-        tr_allow = 4 * PD_K * EPS32 * kappa * tr
+        tr_allow = 4 * K * EPS32 * kappa * tr
         norms = torch.linalg.matrix_norm(At) * torch.linalg.matrix_norm(A)
-        g_allow = 6 * PD_K * EPS32 * kappa[:, None] * slots(2.0 * norms[:, None, None] * torch.ones_like(L))
+        g_allow = 6 * K * EPS32 * kappa[:, None] * slots(2.0 * norms[:, None, None] * torch.ones_like(L))
     return logJ, sumd, tr, g, tr_allow, g_allow, kappa
 
 
@@ -1915,21 +1950,567 @@ def check_lkj64(dev, B=4096):
         B * (P * OPS_LKJ_SLOT + 2 * tri3), lambda: kl.lkj_inverse_plain(y, K))}
 
 
-def kernel_table(vT, xT, cf, ones, dvT):
+# --- the slab-served families (the sixth slice) -------------------------------
+
+# families: the JAX package's whole-family model (tests/test_transposed_layout.py:
+# 139-182, `_mega_model`), linked dim 125 in 37 plan entries; its states
+# 0.5 N(0, 1) from numpy seed 5, the tangent N(0, 1) from numpy seed 6
+FAM_DIM = 125
+FAM_SEED = 5
+FAM_LC_ROW0 = 36  # the first of LKJCholesky(5)'s 10 rows (checked in path 12)
+# the extremes block: 64 columns with every slab row at +-1e10
+FAM_EXTREME_COLS = 64
+# the kernels families batch-major serving must launch (cell 13): the LKJ
+# log-det in both variants, the simplex kernels, the PD log-density and its
+# backward, and the inverse links of the round trip
+FAM_BATCH_MAJOR_KERNELS = (
+    "lkj_logdet", "lkj_logdet_chol", "simplex_inverse_logdet", "simplex_inverse",
+    "simplex_forward_logdet", "pd_logdensity", "pd_trace_grad", "lkj_inverse", "pd_inverse",
+)
+
+
+def families_model(dists, tbt, device, dtype):
+    """The `families` model: every slab-served scalar family (IID blocks and
+    per-element arraydist leaves among them), MvNormalDiag, MvLogNormal,
+    Dirichlet, LKJ, LKJCholesky, the Wishart families, IID copies of
+    structured leaves and a transformed Beta, exactly as the JAX test
+    writes them."""
+    kw = dict(device=device, dtype=dtype)
+    d = dists
+    return d.NamedProduct.of(
+        mu=d.IIDProduct(d.Normal(0.5, 2.0, **kw), 8),
+        sigma=d.IIDProduct(d.LogNormal(0.1, 0.5, **kw), 4),
+        g=d.Gamma(2.0, 1.5, **kw),
+        e=d.Exponential(0.8, **kw),
+        ig=d.InverseGamma(3.0, 2.0, **kw),
+        w=d.Dirichlet(np.ones(7) * 1.3, **kw),
+        corr=d.LKJ(6, 2.0, **kw),
+        lc=d.LKJCholesky(5, 1.5, **kw),
+        wish=d.Wishart(8.0, np.eye(5), **kw),
+        iwish=d.InverseWishart(8.0, np.eye(4), **kw),
+        t=d.StudentT(4.5, 0.3, 1.7, **kw),
+        c=d.Cauchy(-0.4, 0.9, **kw),
+        lap=d.IIDProduct(d.Laplace(0.2, 1.3, **kw), 3),
+        lo=d.Logistic(0.1, 0.8, **kw),
+        gu=d.Gumbel(-0.3, 1.1, **kw),
+        hn=d.HalfNormal(1.4, **kw),
+        hc=d.HalfCauchy(0.7, **kw),
+        wb=d.Weibull(1.8, 2.1, **kw),
+        chi=d.Chi(3.0, **kw),
+        ray=d.Rayleigh(1.2, **kw),
+        fr=d.Frechet(2.3, 1.4, **kw),
+        b=d.IIDProduct(d.Beta(2.5, 1.6, **kw), 2),
+        un=d.Uniform(-2.0, 5.0, **kw),
+        ln=d.LogitNormal(0.2, 0.9, **kw),
+        par=d.Pareto(2.2, 1.5, **kw),
+        lv=d.Levy(0.4, 1.3, **kw),
+        mvd=d.MvNormalDiag([0.3, -0.2, 1.1], [0.8, 1.4, 0.5], **kw),
+        mvln=d.MvLogNormal([0.1, -0.4], [0.6, 1.2], **kw),
+        ad=d.arraydist(d.Normal([-1.0, 0.0, 2.0], [0.5, 1.0, 2.0], **kw)),
+        adg=d.arraydist(d.Gamma([2.0, 3.5], [1.0, 0.7], **kw)),
+        iidc=d.IIDProduct(d.LKJ(3, 1.5, **kw), 2),
+        iidd=d.IIDProduct(d.Dirichlet([1.3, 2.0, 0.8, 1.1], **kw), 2),
+        iidw=d.IIDProduct(d.Wishart(6.0, np.eye(3), **kw), 2),
+        td=tbt.transformed(d.Beta(2.0, 3.0, **kw)),
+    )
+
+
+def families_rows(u):
+    """name -> the slice of the families model's linked rows."""
+    return {n: slice(s, s + k) for n, (s, k) in zip(u.names, u.linked_offsets)}
+
+
+def families_states(dev, B=BATCH):
+    """(vT, dvT): the states 0.5 N(0, 1) and the tangent N(0, 1), (125, B)
+    float32 on `dev`."""
+    vT = 0.5 * np.random.default_rng(FAM_SEED).standard_normal((FAM_DIM, B))
+    dvT = np.random.default_rng(FAM_SEED + 1).standard_normal((FAM_DIM, B))
+    return (torch.as_tensor(vT, dtype=torch.float32, device=dev),
+            torch.as_tensor(dvT, dtype=torch.float32, device=dev))
+
+
+def families_allowances(vT, cf64, loops64):
+    """Float64 (lp, g) of a model's fused plain version on vT, with slab
+    rows and PD loop entries, and the error float32 may carry: the slab
+    rows' terms and c0 at RTOL_LP of their magnitudes (as
+    `slab_allowances`), each partial at RTOL_G of its terms' magnitudes,
+    and each PD entry's pieces as `pd_entry_allowances` holds them. Returns (lp64, g64, lp_allow,
+    g_allow, the terms' magnitude)."""
+    from tpu_bijectors_torch.kernels import pd as kp
+    from tpu_bijectors_torch.vectorize import fused_base as fb
+
+    vT64 = vT.double()
+    lp64, g64 = fb.slab_value_and_grad_plain(vT64, cf64, loops64)
+    groups, used = fb._groups_and_used(cf64)
+    # each term group's value and partial on its own: a row's partial is a
+    # sum of up to five terms that may cancel (LKJ's -w tanh(y) is
+    # -w sign(y) (1 - 2 sigmoid(-2|y|)))
+    terms = [fb._group_val_par(gr, vT64, cf64, used, True, True, False) for gr in groups]
+    mag = sum(v.abs() for v, _ in terms).sum(0) + cf64[:, fb._CI["c0"]].abs().sum()
+    lp_allow = RTOL_LP * mag + 1e-6
+    g_allow = RTOL_G * (g64.abs() + sum(p.abs() for _, p in terms)) + 1e-6
+    for code, row0, K, off in loops64.entries:
+        if code not in fb.PD_MODES:
+            raise ValueError(f"loop kind {code} has no allowance here")
+        blk = loops64.prm[off: off + K * K + 2]
+        C, w, const = blk[: K * K].reshape(K, K), blk[K * K], blk[K * K + 1]
+        r = slice(row0, row0 + K * (K + 1) // 2)
+        logJ, sumd, tr, gt, tr_allow, gt_allow, _ = pd_reference(vT[r].T, C, fb.PD_MODES[code])
+        emag = logJ.abs() + (w * sumd).abs() + const.abs() + 0.5 * tr.abs()
+        mag = mag + emag
+        lp_allow = lp_allow + RTOL_LP * emag + 0.5 * tr_allow
+        coeff, diag = kp.affine_coeffs(K, gt)
+        g_allow[r] += (0.5 * gt_allow + RTOL_G * ((coeff + w * diag).abs() + 0.5 * gt.abs())).T
+    return lp64, g64, lp_allow, g_allow, mag
+
+
+def families_extremes(vT, cf):
+    """The extremes block: the first FAM_EXTREME_COLS columns of vT with
+    every slab row at +-1e10 (signs from numpy seed 7), except that in the
+    second half of the columns the rows of the exp group sit on the side
+    where exp(ea V) underflows, so that their lp stays finite; the PD rows
+    keep their states."""
+    from tpu_bijectors_torch.vectorize import fused_base as fb
+
+    n = FAM_EXTREME_COLS
+    vx = vT[:, :n].clone()
+    sign = torch.as_tensor(np.sign(np.random.default_rng(7).standard_normal((vT.shape[0], n))),
+                           dtype=vT.dtype, device=vT.device)
+    exp_rows = cf[:, fb._CI["c5"]] != 0
+    sign[exp_rows, n // 2:] = -torch.sign(cf[exp_rows, fb._CI["ea"]])[:, None]
+    slab = cf[:, fb._MASK_COL] > 0
+    vx[slab] = 1e10 * sign[slab]
+    return vx
+
+
+def check_extremes(tag, got, ref, allow):
+    """got and ref carry the same finite / +inf / -inf pattern and no NaN,
+    and agree within `allow` where finite."""
+    expect(f"{tag}: no NaN, nor in the plain version",
+           not bool(torch.isnan(got).any() or torch.isnan(ref).any()))
+    fin = torch.isfinite(ref)
+    same = torch.equal(torch.isfinite(got), fin) and torch.equal(got[~fin], ref[~fin])
+    expect(f"{tag}: the plain version's finite/inf pattern ({int((~fin).sum())} infinite)",
+           same)
+    if fin.any():
+        check(f"{tag}: finite values vs plain", got[fin], ref[fin], 1.0, allow[fin])
+
+
+def run_families_transposed_serving(dev):
+    """Path 12: transposed serving of `families` at B = 131072 in all four
+    modes of the whole-model kernel through the public calls:
+    `batched_logdensity_t_fn()`, its `value_and_grad_fn`, autograd's
+    backward and `torch.func.jvp` of `linked_logdensity_t`; slab rows of
+    every term group (the exp and log1p groups, per-element coefficients)
+    and the PD loop entries (Wishart(5), InverseWishart(4), two Wishart(3)
+    copies sharing one parameter block); the counters zeroed just before
+    and read just after. Each against float64 and each kernel against its
+    plain version at `families_allowances`, lp against the composed
+    per-leaf path within RTOL_COMPOSED of the terms' magnitude; and the
+    extremes block (`families_extremes`) in every mode against the plain
+    versions. Returns (launches, vT, dvT, lp, g, the kernels' max errors,
+    the entry points' times, (cf, loops) of the model)."""
+    import tpu_bijectors_torch as tbt
+    from tpu_bijectors_torch import dists, kernels
+    from tpu_bijectors_torch.vectorize import fused_base as fb
+    from tpu_bijectors_torch.vectorize import fused_kernel as fk
+
+    model = tbt.Model(families_model(dists, tbt, dev, torch.float32), device=dev)
+    m64 = tbt.Model(families_model(dists, tbt, dev, torch.float64), device=dev)
+    u = model.unconstrainer()
+    expect(f"families: dim {model.dim()} == {FAM_DIM}, LKJCholesky's rows from {FAM_LC_ROW0}",
+           model.dim() == FAM_DIM and families_rows(u)["lc"].start == FAM_LC_ROW0)
+    vT, dvT = families_states(dev)
+    f = model.batched_logdensity_t_fn()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    lp = f(vT)
+    lp_vg, g = f.value_and_grad_fn(vT)
+    vr = vT.detach().requires_grad_(True)
+    (g_ag,) = torch.autograd.grad(u.linked_logdensity_t(vr).sum(), vr)
+    lp_j, dlp = torch.func.jvp(u.linked_logdensity_t, (vT,), (dvT,))
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    print(f"launches on the families transposed serving path: {launches}", flush=True)
+    for k in SLAB_KERNELS + ("slab_jvp",):
+        expect(f"{k} launched on the families transposed serving path", launches[k] > 0)
+    B = vT.shape[1]
+    expect("families: lp (B,), g (125, B), dlp (B,)",
+           lp.shape == (B,) and g.shape == (FAM_DIM, B) and dlp.shape == (B,))
+    cf, loops, c0sum = fk._prep(u, vT)
+    cf64, loops64, c0sum64 = fk._prep(m64.unconstrainer(), vT.double())
+    print(f"families loop entries (kind, first row, K, offset): {loops.entries}", flush=True)
+    expect("families: the two iidw copies share one parameter block",
+           loops.entries[-1][3] == loops.entries[-2][3])
+    lp64, g64, lp_allow, g_allow, mag = families_allowances(vT, cf64, loops64)
+    lp64 = lp64 + c0sum64
+    dlp64 = (g64 * dvT.double()).sum(0)
+    j_allow = jvp_allowance(g64, g_allow, dvT)
+    check("families: linked_logdensity_t vs float64", lp, lp64, 1.0, lp_allow)
+    check("families: value_and_grad_fn lp vs float64", lp_vg, lp64, 1.0, lp_allow)
+    check("families: value_and_grad_fn g vs float64", g, g64, 1.0, g_allow)
+    check("families: autograd g vs float64", g_ag, g64, 1.0, g_allow)
+    check("families: torch.func.jvp lp vs float64", lp_j, lp64, 1.0, lp_allow)
+    check("families: torch.func.jvp dlp vs float64", dlp, dlp64, 1.0, j_allow)
+    comp = u._linked_logdensity_t_children(vT)
+    check("families: linked_logdensity_t vs composed", lp, comp, RTOL_COMPOSED, mag)
+    ct = torch.ones(B, device=dev)
+    err = {}
+    err["slab_value"] = check("families value kernel vs plain", fk.slab_value(vT, cf, loops),
+                              fb.slab_value_plain(vT, cf, loops), 1.0, 2 * lp_allow)
+    lp_k, g_k = fk.slab_value_and_grad(vT, cf, loops)
+    lp_p, g_p = fb.slab_value_and_grad_plain(vT, cf, loops)
+    err["slab_value_and_grad"] = max(
+        check("families value-and-grad kernel lp vs plain", lp_k, lp_p, 1.0, 2 * lp_allow),
+        check("families value-and-grad kernel g vs plain", g_k, g_p, 1.0, 2 * g_allow))
+    err["slab_vjp"] = check("families vjp kernel vs plain", fk.slab_vjp(vT, cf, ct, loops),
+                            fb.slab_vjp_plain(vT, cf, ct, loops), 1.0, 2 * g_allow)
+    err["slab_jvp"] = check("families jvp kernel vs plain", fk.slab_jvp(vT, cf, dvT, loops),
+                            fb.slab_jvp_plain(vT, cf, dvT, loops), 1.0, 2 * j_allow)
+    del lp_k, g_k, lp_p, g_p, g64, comp
+
+    # the extremes block: Gamma's c5 exp(V) is -inf at V = +1e10, and its
+    # partial c5 ea e too; InverseGamma's at -1e10; no term is 0 * inf
+    vx = families_extremes(vT, cf)
+    n = vx.shape[1]
+    _, _, lpx_allow, gx_allow, _ = families_allowances(vx, cf64, loops64)
+    dvx = dvT[:, :n].contiguous()
+    ctx = ct[:n].contiguous()
+    lpx_p, gx_p = fb.slab_value_and_grad_plain(vx, cf, loops)
+    check_extremes("families extremes: value kernel", fk.slab_value(vx, cf, loops), lpx_p,
+                   2 * lpx_allow)
+    lpx_k, gx_k = fk.slab_value_and_grad(vx, cf, loops)
+    check_extremes("families extremes: value-and-grad kernel lp", lpx_k, lpx_p, 2 * lpx_allow)
+    check_extremes("families extremes: value-and-grad kernel g", gx_k, gx_p, 2 * gx_allow)
+    check_extremes("families extremes: vjp kernel", fk.slab_vjp(vx, cf, ctx, loops),
+                   fb.slab_vjp_plain(vx, cf, ctx, loops), 2 * gx_allow)
+    fin = torch.isfinite(gx_p).all(0)
+    expect(f"families extremes: {int((~fin).sum())} of {n} columns carry an infinite partial, "
+           f"{int(torch.isfinite(lpx_p).sum())} a finite lp",
+           bool((~fin).any()) and bool(fin.any()) and bool(torch.isfinite(lpx_p).any()))
+    check_extremes("families extremes: jvp kernel, columns of finite partials",
+                   fk.slab_jvp(vx, cf, dvx, loops)[fin],
+                   fb.slab_jvp_plain(vx, cf, dvx, loops)[fin],
+                   2 * jvp_allowance(gx_p.double(), gx_allow, dvx)[fin])
+    expect("families extremes: lp -inf where a Gamma-type row sits at +1e10",
+           bool(torch.isneginf(lpx_p).any()))
+    v64 = vT[:, :CHAINS].contiguous()
+    e2e = {
+        "families_value_ms_B131072": time_ms(lambda: f(vT), device_only=False),
+        "families_value_and_grad_ms_B131072": time_ms(lambda: f.value_and_grad_fn(vT),
+                                                      device_only=False),
+        "families_value_and_grad_ms_B64": time_ms(lambda: f.value_and_grad_fn(v64),
+                                                  device_only=False),
+        "families_func_jvp_ms_B131072": time_ms(
+            lambda: torch.func.jvp(u.linked_logdensity_t, (vT,), (dvT,)), device_only=False),
+    }
+    return launches, vT, dvT, lp, g, err, e2e, (cf, loops)
+
+
+def run_families_batch_major_serving(dev, vT, lp_t, g_t):
+    """Path 13: batch-major serving of `families` on the same states as
+    (B, 125): `Model.batched_logdensity_fn()` and its `value_and_grad_fn`
+    (the LKJ log-det kernel for corr and the iidc copies, its Cholesky
+    variant for lc, the simplex inverse kernel for w and the iidd copies,
+    the PD log-density kernel and its backward for wish, iwish and the iidw
+    copies; the scalar links in torch, as the JAX package leaves them to
+    jnp), the round trip `to_linked_vec(from_linked_vec(v))` (the inverse
+    links and the simplex forward kernel) and the classic
+    `inverse(bijector(Dirichlet))` (the x-only simplex inverse) on w and
+    iidd; the counters zeroed just before and read just after. Checks lp
+    and g against path 12's and float64 on the CPU (4096 rows), and the
+    round trip. Returns (launches, the entry points' times, the Cholesky
+    variant's max error against its plain version)."""
+    import tpu_bijectors_torch as tbt
+    from tpu_bijectors_torch import dists, kernels
+    from tpu_bijectors_torch.kernels import lkj as kl
+    from tpu_bijectors_torch.vectorize import fused_kernel as fk
+
+    model = tbt.Model(families_model(dists, tbt, dev, torch.float32), device=dev)
+    u = model.unconstrainer()
+    rows = families_rows(u)
+    v = vT.T.contiguous()
+    f = model.batched_logdensity_fn()
+    # the stick-breaking link of any K, and the w and iidd rows' K - 1
+    ib = tbt.inverse(tbt.bijector(dists.Dirichlet(np.ones(3), device=dev)))
+    simplex_rows = {"w": 6, "iidd": 3}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    lp = f(v)
+    lp_vg, g = f.value_and_grad_fn(v)
+    x, ld = u.from_linked_vec(v)
+    v2, ld2 = u.to_linked_vec(x)
+    xw = {n: ib.forward(v[:, rows[n]].reshape(BATCH, -1, k)) for n, k in simplex_rows.items()}
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    print(f"launches on the families batch-major serving path: {launches}", flush=True)
+    for k in FAM_BATCH_MAJOR_KERNELS:
+        expect(f"{k} launched on the families batch-major serving path", launches[k] > 0)
+    expect("families batch-major: lp (B,) and g (B, 125)",
+           lp.shape == (BATCH,) and g.shape == (BATCH, FAM_DIM))
+    m64 = tbt.Model(families_model(dists, tbt, dev, torch.float64), device=dev)
+    cf64, loops64, _ = fk._prep(m64.unconstrainer(), vT.double())
+    _, _, lp_allow, g_allow, mag = families_allowances(vT, cf64, loops64)
+    check("families batch-major: lp vs value_and_grad_fn lp", lp_vg, lp, 1.0, lp_allow)
+    # the composed Dirichlet is eps-nudged, the fused one not
+    check("families batch-major: lp vs fused transposed lp", lp, lp_t, RTOL_COMPOSED, mag)
+    check("families batch-major: g vs fused transposed g", g, g_t.T, RTOL_VJP,
+          g_t.abs().T + 1e-2 * g_t.abs().max())
+    r = slice(0, 4096)
+    cpu = tbt.Model(families_model(dists, tbt, "cpu", torch.float64), device="cpu")
+    lp64, g64 = cpu.batched_logdensity_fn().value_and_grad_fn(v[r].double().cpu())
+    check("families batch-major: lp vs float64 CPU, 4096 rows", lp[r].cpu(), lp64,
+          RTOL_COMPOSED, mag[r].cpu())
+    check("families batch-major: g vs float64 CPU, 4096 rows", g[r].cpu(), g64, RTOL_VJP,
+          g64.abs() + 1e-2 * g64.abs().max())
+    # the round trip: elementwise links and the simplex rows absolutely;
+    # the rows of the matrix leaves through a Cholesky factorization of X
+    # (LKJ, the Wishart families), each state's row error within
+    # kappa(X) eps32 + ATOL_ROUNDTRIP; the LKJCholesky rows absolutely
+    matrix = ("corr", "iidc", "wish", "iwish", "iidw")
+    flat = torch.ones(FAM_DIM, dtype=torch.bool, device=dev)
+    for n in matrix:
+        flat[rows[n]] = False
+    check("families round trip v -> x -> v, elementwise, simplex and LKJCholesky rows",
+          v2[:, flat], v[:, flat], ATOL_ROUNDTRIP, torch.ones_like(v[:, flat]))
+    for n in matrix:
+        X = x[n].double().cpu()
+        ev = torch.linalg.eigvalsh(X)
+        kappa = (ev[..., -1] / ev[..., 0]).reshape(BATCH, -1).amax(-1)
+        row_err = (v2[:, rows[n]] - v[:, rows[n]]).abs().amax(dim=1).double().cpu()
+        ratio = float((row_err / (kappa * EPS32 + ATOL_ROUNDTRIP)).max())
+        expect(f"families round trip, {n} rows within kappa(X) eps32 + {ATOL_ROUNDTRIP:g} "
+               f"(max kappa {float(kappa.max()):.3e}, max error / bound {ratio:.3e})",
+               ratio <= 1.0)
+    check("families round trip: to_linked_vec's log-det is minus from_linked_vec's", ld2, -ld,
+          RTOL_ROUNDTRIP_LD, ld.abs() + 1e-3 * ld.abs().max())
+    for n, xi in xw.items():
+        expect(f"families: the x-only simplex inverse of {n} equals from_linked_vec's",
+               bool(torch.allclose(xi.reshape(x[n].shape), x[n], rtol=0, atol=ATOL_UNIT)))
+    del x, v2
+    # #5's Cholesky variant against its plain version on the lc rows
+    ylc = v[:, rows["lc"]]
+    got, ref = kl.lkj_logdet(ylc, 5, True), kl.lkj_logdet_plain(ylc, 5, True)
+    err = max(check("lkj_logdet chol=True logJ vs plain (lc, batch-major slice)", got[0],
+                    ref[0], RTOL_SUM, ref[0].abs() + 1e-3 * ref[0].abs().max()),
+              check("lkj_logdet chol=True log diag vs plain (lc, batch-major slice)", got[1],
+                    ref[1], RTOL_SUM, ref[1].abs() + 1e-3 * ref[1].abs().max()))
+    v64 = v[:CHAINS].contiguous()
+    e2e = {
+        "families_batch_major_value_ms_B131072": time_slow_ms(lambda: f(v), device_only=False),
+        "families_batch_major_value_and_grad_ms_B131072": time_slow_ms(
+            lambda: f.value_and_grad_fn(v), device_only=False),
+        "families_batch_major_value_and_grad_ms_B64": time_slow_ms(
+            lambda: f.value_and_grad_fn(v64), device_only=False),
+    }
+    return launches, e2e, err
+
+
+def families_variants(vT, dvT, cf, loops):
+    """`model_variants` of `families` at B = 131072, each PD entry's
+    operations from `pd_ops` (the unpacking of y shared by the value and
+    the gradient)."""
+    from tpu_bijectors_torch.vectorize import fused_base as fb
+
+    B = vT.shape[1]
+    pd = dict.fromkeys(OPS, 0)
+    for code, _, K, _ in loops.entries:
+        m, po = fb.PD_MODES[code], pd_ops(K)
+        pd["value"] += B * po[m]
+        pd["value_and_grad"] += B * (po[m] + po[m + "_grad"] - (K * (K + 1) // 2 + 5 * K))
+        pd["vjp"] += B * po[m + "_grad"]
+        pd["jvp"] += B * (po[m + "_grad"] + K * (K + 1))
+    return model_variants("(families)", vT, dvT, cf, loops, pd)
+
+
+# --- eight schools, non-centered (the sixth slice's sampler cell) -----------
+
+# Rubin's (1981) data, as examples/eight_schools_nuts.py
+ES_Y = (28.0, 8.0, -3.0, 7.0, -1.0, 1.0, 18.0, 12.0)
+ES_SIGMA = (15.0, 10.0, 16.0, 11.0, 9.0, 11.0, 10.0, 18.0)
+# the example's starts 0.5 N(0, 1) and its target acceptance 0.8; chains,
+# depth, warmup and kept draws as the other sampler cells
+ES_INIT_SCALE, ES_TARGET = 0.5, 0.8
+# the JAX package's own float64 CPU run of the same model and settings with
+# 4000 kept draws a chain (nuts_batched_t, jax.random.PRNGKey(0)):
+#   python tests/test_torch_eight_schools.py --engine jax --kept 4000
+# the posterior means of mu and tau and their MCSE
+ES_JAX = {"mu": (4.3613426994105104, 0.012813402441898816),
+          "tau": (3.6889598000248975, 0.014590762749884878)}
+
+
+def eight_schools_model(dists, device, dtype):
+    """The example's priors: mu ~ Normal(0, 5), tau ~ HalfCauchy(5),
+    theta_raw ~ IIDProduct(Normal(0, 1), 8); linked dim 10."""
+    kw = dict(device=device, dtype=dtype)
+    return dists.NamedProduct.of(
+        mu=dists.Normal(0.0, 5.0, **kw),
+        tau=dists.HalfCauchy(5.0, **kw),
+        theta_raw=dists.IIDProduct(dists.Normal(0.0, 1.0, **kw), 8),
+    )
+
+
+def eight_schools_loglik(device, dtype):
+    """The example's likelihood (user code), non-centered: theta = mu +
+    tau theta_raw, sum of -((y - theta) / sigma)^2 / 2."""
+    y = torch.as_tensor(ES_Y, dtype=dtype, device=device)
+    sigma = torch.as_tensor(ES_SIGMA, dtype=dtype, device=device)
+
+    def loglik(x):
+        theta = x["mu"] + x["tau"] * x["theta_raw"]
+        return torch.sum(-0.5 * ((y - theta) / sigma) ** 2)
+
+    return loglik
+
+
+def run_eight_schools(dev):
+    """Path 14, the eight_schools cell: the steps of `Model(priors,
+    loglik).sample(kernel='auto')` (`nuts_batched_t`: each leapfrog runs the
+    value-and-gradient kernel on HalfCauchy's lin, absv and sp rows and the
+    Normal rows), `warmup_and_sample` from `Model.init_positions(gen, 64,
+    0.5)` for the warmup and `resume_sampling` for the draws; 64 chains,
+    max_depth 8, 300 warmup and 200 kept transitions, target 0.8, torch
+    seed 0. Gates: R-hat <= 1.05 over the 10 coordinates, divergences <=
+    1%, the means of mu and tau within 5 combined MCSE of the JAX package's
+    (ES_JAX)."""
+    import tpu_bijectors_torch as tbt
+    from tpu_bijectors_torch import diagnostics, dists, kernels
+    from tpu_bijectors_torch.infer import hmc_batched, resume_sampling, warmup_and_sample
+
+    model = tbt.Model(eight_schools_model(dists, dev, torch.float32),
+                      loglik=eight_schools_loglik(dev, torch.float32), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    hmc_batched.reset_sync_count()
+    t0 = time.perf_counter()
+    kernel = model._auto_kernel()
+    expect(f"eight_schools: kernel='auto' takes nuts_batched_t (took {kernel})",
+           kernel == "nuts_batched_t")
+    density = model.batched_logdensity_t_fn()
+    _, state, _ = warmup_and_sample(
+        density, gen, model.init_positions(gen, CHAINS, ES_INIT_SCALE), n_warmup=WARMUP,
+        n_samples=0, kernel=kernel, max_depth=MAX_DEPTH, target_accept=ES_TARGET,
+    )
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    l1, s1 = dict(kernels.LAUNCHES), hmc_batched.SYNCS["any_active"]
+    raw, state, stats = resume_sampling(density, state, KEPT, kernel=kernel, max_depth=MAX_DEPTH)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    l2, s2 = dict(kernels.LAUNCHES), hmc_batched.SYNCS["any_active"]
+    x = model.constrain(raw)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = dict(kernels.LAUNCHES)
+    print(f"launches on the eight_schools sampler path: {launches}", flush=True)
+    expect("slab_value_and_grad launched on the eight_schools sampler path",
+           launches["slab_value_and_grad"] > 0)
+    during = {k: l2[k] - l1[k] for k in l2}
+    leapfrogs = during["slab_value_and_grad"]
+    sampling_s = t2 - t1
+    expect("eight_schools: raw draws (200, 64, 10) and finite",
+           tuple(raw.shape) == (KEPT, CHAINS, 10) and bool(torch.isfinite(raw).all()))
+    r_hat = diagnostics.rhat(raw)
+    ess = diagnostics.ess_bulk(raw)
+    n_div = int(stats.diverging.sum())
+    dev_in_mcse = {}
+    for k in ("mu", "tau"):
+        draws = x[k].double()
+        mean, mcse = float(draws.mean()), float(diagnostics.mcse_mean(draws))
+        ref_mean, ref_mcse = ES_JAX[k]
+        dev_in_mcse[k] = abs(mean - ref_mean) / math.hypot(mcse, ref_mcse)
+        print(f"eight_schools: {k} mean {mean:.4f} (MCSE {mcse:.4f}); the JAX package's "
+              f"{ref_mean:.4f} (MCSE {ref_mcse:.4f})", flush=True)
+    line = {
+        "kernel": "nuts_batched_t", "cell": "eight_schools",
+        "chains": CHAINS, "warmup": WARMUP, "kept": KEPT, "max_depth": MAX_DEPTH,
+        "target_accept": ES_TARGET, "init_scale": ES_INIT_SCALE,
+        "warmup_s": t1 - t0,
+        "sampling_s": sampling_s,
+        "constrain_s": t3 - t2,
+        "draws_per_s": CHAINS * KEPT / sampling_s,
+        "leapfrogs_per_transition": float(stats.n_steps.float().mean()),
+        "batched_leapfrogs": leapfrogs,
+        "ms_per_leapfrog": 1e3 * sampling_s / max(leapfrogs, 1),
+        "host_syncs_per_leapfrog": (s2 - s1) / max(leapfrogs, 1),
+        "step_size": float(state.eps),
+        "mean_accept": float(stats.accept_prob.mean()),
+        "divergences": n_div,
+        "transitions": CHAINS * KEPT,
+        "launches_during_sampling": during,
+        "max_rhat": float(np.max(r_hat)),
+        "min_ess_bulk": float(np.min(ess)),
+        "mu_dev_in_mcse": dev_in_mcse["mu"],
+        "tau_dev_in_mcse": dev_in_mcse["tau"],
+    }
+    expect(f"eight_schools: max R-hat {line['max_rhat']:.4f} <= 1.05", line["max_rhat"] <= 1.05)
+    expect(f"eight_schools: divergences {n_div} <= 1% of {CHAINS * KEPT}",
+           n_div <= 0.01 * CHAINS * KEPT)
+    for k, d in dev_in_mcse.items():
+        expect(f"eight_schools: the mean of {k} within 5 combined MCSE of the JAX package's "
+               f"({d:.2f})", d <= 5.0)
+    return line
+
+
+def run_probe(dev):
+    """Path 15, the #13 probe: every variant of `kernels/probe.py` against
+    its plain version at dim 151, B = 131072 (lp within RTOL_SUM of the sum
+    of |terms| in float64; floor_g's g = X + 1 within ATOL_UNIT), then the
+    probe's driver (`probe.run`, the counters zeroed just before and read
+    just after), which times every variant with CUDA events. Returns
+    (launches, the driver's rows, max error, the floor variant's inputs,
+    each variant's plain version's time)."""
+    from tpu_bijectors_torch import kernels
+    from tpu_bijectors_torch.kernels import probe
+
+    vT, c = probe.inputs(dev)
+    err = 0.0
+    for v in probe.VARIANTS:
+        got, ref = probe.probe(v, vT, c), probe.probe_plain(v, vT, c)
+        ref64 = probe.probe_plain(v, vT.double(), c.double())
+        if v == "floor_g":
+            err = max(err, check(f"probe {v} g vs plain", got[1], ref[1], ATOL_UNIT,
+                                 torch.ones_like(ref[1])))
+            got, ref, ref64 = got[0], ref[0], ref64[0]
+        mag = probe.magnitude(v, vT.double(), c.double())
+        err = max(err, check(f"probe {v} lp vs plain", got, ref, RTOL_SUM, mag))
+        check(f"probe {v} lp vs float64", got, ref64, RTOL_SUM, mag)
+    plain_ms = {v: time_slow_ms(lambda v=v: probe.probe_plain(v, vT, c)) for v in probe.VARIANTS}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    rows = probe.run()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    print(f"launches on the probe's path: {launches}", flush=True)
+    expect("transcend_probe launched by the probe's driver", launches["transcend_probe"] > 0)
+    for r in rows:
+        r["plain_us"] = 1e3 * plain_ms[r["variant"]]
+    print(json.dumps({"transcend_probe": rows}), flush=True)
+    return launches, rows, err, (vT, c)
+
+
+def kernel_table(vT, xT, cf, ones, dvT, fam_vT, probe_in):
     """Every ported kernel at B = 131072: name -> (wrapper, plain version,
     bytes, operations, {layout: input}), the layout the path reads first.
     The bytes count each input the function reads once and each output
     once; the operations are floors (see OPS, PD_OPS). #4 (`slab_jvp`) is
     timed on the bench model with the tangent dvT. The PD log-density
     and trace-gradient rows are the dot mode with the PD models' C = I
-    (the solve mode is in `pd_variants`)."""
+    (the solve mode is in `pd_variants`). The LKJ log-det's Cholesky
+    variant (`lkj_logdet_chol`) reads the families model's LKJCholesky(5)
+    rows of fam_vT (its path's), the probe (#13) is its floor variant on
+    `probe_in` = (vT, c) (every variant: the `transcend_probe` line)."""
     from tpu_bijectors_torch.kernels import lkj as kl
     from tpu_bijectors_torch.kernels import pd as kp
+    from tpu_bijectors_torch.kernels import probe
     from tpu_bijectors_torch.kernels import simplex as ks
     from tpu_bijectors_torch.vectorize import fused_base as fb
     from tpu_bijectors_torch.vectorize import fused_kernel as fk
 
     dim, B = vT.shape
+    pv, pc = probe_in
+    lc_rows = slice(FAM_LC_ROW0, FAM_LC_ROW0 + 10)
     groups_per_row = [fb._groups_and_used(cf[r : r + 1])[0] for r in range(dim)]
 
     def slab_ops(mode):
@@ -2007,6 +2588,17 @@ def kernel_table(vT, xT, cf, ones, dvT):
             B * 4 * (136 + 136) + eye.numel() * 4, B * PD_OPS["dot_grad"],
             layouts(vT, PD_ROWS, B, "batch-major slice"),
         ),
+        # LKJCholesky(5): reads y (10), writes logJ and log diag W (5)
+        "lkj_logdet_chol": (
+            lambda y: kl.lkj_logdet(y, 5, True), lambda y: kl.lkj_logdet_plain(y, 5, True),
+            B * 4 * (10 + 1 + 5), B * 10 * OPS_LKJ_LOGDET_SLOT,
+            layouts(fam_vT, lc_rows, B, "batch-major slice"),
+        ),
+        # reads vT (151, B) and c, writes lp; a scale, a multiply-add
+        "transcend_probe": (
+            lambda y: probe.probe("floor", y, pc), lambda y: probe.probe_plain("floor", y, pc),
+            probe.probe_bytes("floor", *pv.shape), 3 * pv.numel(), {"transposed": pv},
+        ),
     }
 
 
@@ -2061,11 +2653,11 @@ def pd_variants(vT, dvT, pd_preps):
     return out
 
 
-def mv_variants(vT, dvT, cf, loops):
-    """The four whole-model kernels with the Gaussian and t entries on
-    mvdense at B = 131072, name -> (call, bytes, operations, the plain
-    version's call): the slab rows' operations as in `kernel_table`, each
-    loop entry's from QUAD_OPS."""
+def model_variants(tag, vT, dvT, cf, loops, loop_ops):
+    """The four whole-model kernels on one model at vT's batch, name ->
+    (call, bytes, operations, the plain version's call): the slab rows'
+    operations as in `kernel_table`, plus the loop entries' `loop_ops`
+    (mode -> operations); the forward-mode kernel with the tangent dvT."""
     from tpu_bijectors_torch.vectorize import fused_base as fb
     from tpu_bijectors_torch.vectorize import fused_kernel as fk
 
@@ -2074,10 +2666,6 @@ def mv_variants(vT, dvT, cf, loops):
     slab = {k: B * sum(2 + sum(OPS[k][g] for g in fb._groups_and_used(cf[r:r + 1])[0])
                        for r in range(dim) if cf[r, fb._MASK_COL] > 0)
             for k in OPS}
-    n_ent = len(loops.entries)
-    form, val, grad = (B * n_ent * QUAD_OPS[k] for k in ("form", "value", "grad"))
-    quad = {"value": form + val, "value_and_grad": form + val + grad, "vjp": form + grad,
-            "jvp": form + grad + B * n_ent * 2 * MV_K}
     nbytes = vT.numel() * 4 + B * 4 + cf.numel() * 4 + loops.prm.numel() * 4
     calls = {
         "value": (lambda: fk.slab_value(vT, cf, loops), nbytes,
@@ -2090,8 +2678,18 @@ def mv_variants(vT, dvT, cf, loops):
         "jvp": (lambda: fk.slab_jvp(vT, cf, dvT, loops), nbytes + vT.numel() * 4,
                 lambda: fb.slab_jvp_plain(vT, cf, dvT, loops)),
     }
-    return {f"slab_{k} with the Gaussian and t entries (mvdense)":
-            (call, nb, slab[k] + quad[k], plain) for k, (call, nb, plain) in calls.items()}
+    return {f"slab_{k} {tag}": (call, nb, slab[k] + loop_ops[k], plain)
+            for k, (call, nb, plain) in calls.items()}
+
+
+def mv_variants(vT, dvT, cf, loops):
+    """`model_variants` of mvdense at B = 131072, each Gaussian or t
+    entry's operations from QUAD_OPS."""
+    B, n_ent = vT.shape[1], len(loops.entries)
+    form, val, grad = (B * n_ent * QUAD_OPS[k] for k in ("form", "value", "grad"))
+    quad = {"value": form + val, "value_and_grad": form + val + grad, "vjp": form + grad,
+            "jvp": form + grad + B * n_ent * 2 * MV_K}
+    return model_variants("with the Gaussian and t entries (mvdense)", vT, dvT, cf, loops, quad)
 
 
 def time_kernels(table, launches, err, variants):
@@ -2330,6 +2928,27 @@ def main():
     err["slab_jvp"] = max(err["slab_jvp"], check_jvp_earlier(dev, vT))
     lap("repair checks and #4 on the earlier models")
 
+    # --- the twelfth: transposed serving of families, all four modes ----------
+    (_, fam_vT, fam_dvT, lp_fam, g_fam, fam_err, fam_e2e,
+     fam_prep) = run_families_transposed_serving(dev)
+    for k, e in fam_err.items():
+        err[k] = max(err[k], e)
+    lap("families transposed serving")
+    # --- the thirteenth: batch-major serving of families ---------------------
+    fam_bm_launches, fam_bm_e2e, err["lkj_logdet_chol"] = run_families_batch_major_serving(
+        dev, fam_vT, lp_fam, g_fam)
+    launches["lkj_logdet_chol"] = fam_bm_launches["lkj_logdet_chol"]
+    fam_e2e.update(fam_bm_e2e)
+    del lp_fam, g_fam
+    lap("families batch-major serving")
+    # --- the fourteenth: NUTS on eight schools --------------------------------
+    es_line = run_eight_schools(dev)
+    lap("eight_schools sampler")
+    # --- the fifteenth: the probe of the slab math (#13) -----------------------
+    probe_launches, _, err["transcend_probe"], probe_in = run_probe(dev)
+    launches["transcend_probe"] = probe_launches["transcend_probe"]
+    lap("transcend probe")
+
     # --- timing ----------------------------------------------------------------
     # the variants the paths also run: the LKJ inverse writing W for the
     # backward (the leapfrog's case) and the LKJ log-det's Cholesky form
@@ -2348,7 +2967,9 @@ def main():
     mv_u = tbt.Model(mvdense_model(dists, dev, torch.float32)[0], device=dev).unconstrainer()
     variants.update(mv_variants(vT, dvT, *fk._prep(mv_u, vT)[:2]))
     variants.update(repair_variants)
-    rows = time_kernels(kernel_table(vT, xT, cf, ones, dvT), launches, err, variants)
+    variants.update(families_variants(fam_vT, fam_dvT, *fam_prep))
+    rows = time_kernels(kernel_table(vT, xT, cf, ones, dvT, fam_vT, probe_in), launches, err,
+                        variants)
     lap("kernel timing")
 
     # the entry points as a caller sees them: host dispatch included, at the
@@ -2367,6 +2988,7 @@ def main():
     e2e.update(bm_e2e)
     e2e.update(pd_e2e)
     e2e.update(mv_e2e)
+    e2e.update(fam_e2e)
     lap("entry-point timing")
     print(json.dumps({"end_to_end": e2e}), flush=True)
     print(json.dumps({"phases_s": phases}), flush=True)
@@ -2374,6 +2996,7 @@ def main():
     print(json.dumps({"sampler": bm_sampler_line}), flush=True)
     print(json.dumps({"sampler": pd_sampler_line}), flush=True)
     print(json.dumps({"sampler": mv_sampler_line}), flush=True)
+    print(json.dumps({"sampler": es_line}), flush=True)
 
     if failures:
         print("FAILED: " + "; ".join(failures), file=sys.stderr)

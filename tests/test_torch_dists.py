@@ -158,7 +158,7 @@ def test_model_parts_not_ported_raise():
     with pytest.raises(NotImplementedError):
         tbt.Model(d, device="cpu").sample(g, init="laplace")
     with pytest.raises(NotImplementedError):
-        tbt.dist_from_spec({"type": "Gamma", "params": {}}, **CPU64)
+        tbt.dist_from_spec({"type": "Kumaraswamy", "params": {}}, **CPU64)
 
 
 def test_bare_leaf_with_a_likelihood_samples_as_in_jax(rng):

@@ -33,16 +33,22 @@ RTOL, ATOL = 1e-12, 1e-10  # float64, the same closed form on both sides
 
 
 def spec_of(d):
-    """A JAX distribution as a `dist_from_spec` description."""
+    """A JAX distribution as a `dist_from_spec` description. A
+    TransformedDistribution must be `transformed(base)` (the base's registry
+    bijector), which is what the spec rebuilds."""
     kind = type(d).__name__
     if kind == "NamedProduct":
         return {"type": kind, "children": {n: spec_of(c) for n, c in zip(d.names, d.components)}}
     if kind == "IIDProduct":
         return {"type": kind, "inner": spec_of(d.base), "n": d.n}
+    if kind in ("ElementwiseProduct", "TransformedDistribution"):
+        return {"type": kind, "inner": spec_of(d.base)}
     spec = {"type": kind, "params": {}}
     for f in dataclasses.fields(d):
         v = getattr(d, f.name)
-        if isinstance(v, int) and not isinstance(v, bool):
+        if f.name.endswith("_static"):
+            continue  # the JAX package's float copy of a bound parameter
+        if isinstance(v, (int, str)) and not isinstance(v, bool):
             spec[f.name] = v
         else:
             spec["params"][f.name] = np.asarray(v)

@@ -13,6 +13,7 @@ from .bijectors import Chain, Invert, inverse
 from .convert import dist_from_spec
 from .infer.model import Model
 from .registry import bijector, logpdf_with_trans
+from .transformed import TransformedDistribution, transformed
 from .vectorize.core import unconstrain
 
 __all__ = [
@@ -25,5 +26,7 @@ __all__ = [
     "inverse",
     "kernels",
     "logpdf_with_trans",
+    "TransformedDistribution",
+    "transformed",
     "unconstrain",
 ]

@@ -1,7 +1,7 @@
 """Bijectors of the port (counterpart of `tpu_bijectors.bijectors`)."""
 
 from .base import Bijector, Block, Chain, Identity, Invert, elementwise, inverse
-from .corr import VecCorrBijector
+from .corr import VecCholeskyBijector, VecCorrBijector
 from .pd import CholeskyVecBijector, PDBijector, PDVecBijector
 from .scalar import Truncated
 from .simplex import SimplexBijector
@@ -14,6 +14,7 @@ __all__ = [
     "Invert",
     "elementwise",
     "inverse",
+    "VecCholeskyBijector",
     "VecCorrBijector",
     "CholeskyVecBijector",
     "PDBijector",

@@ -1,5 +1,7 @@
-"""Correlation-matrix bijector (LKJ link), PyTorch counterpart of
-`tpu_bijectors/bijectors/corr.py` (`VecCorrBijector`, plain path only).
+"""Correlation-matrix bijectors (LKJ links), PyTorch counterpart of
+`tpu_bijectors/bijectors/corr.py`: `VecCorrBijector` (correlation matrix
+-> packed vector) and `VecCholeskyBijector` (its Cholesky factor -> the
+same packed vector).
 
 Every recurrence of the reference's per-column loops (corr.jl:293-399) is a
 masked cumulative sum along the row axis:
@@ -18,7 +20,10 @@ The inverse (X, logJ, log diag W) and the log-det alone (logJ, log diag
 W) are `torch.autograd.Function`s: their forwards are `kernels/lkj.py`'s
 wrappers `lkj_inverse` and `lkj_logdet` (the CUDA kernels for a CUDA
 tensor, the plain cumulative sums there for a CPU tensor), their backward
-the closed forms of `_vec_corr_vjp` and `_logdet_vjp` on both.
+the closed forms of `_vec_corr_vjp` and `_logdet_vjp` on both. The
+Cholesky link's log-det alone is `lkj_logdet`'s `chol=True` variant; its
+inverse is the factor W itself, formed by the torch cumulative sums (the
+JAX package forms it in jnp, outside any kernel).
 Any leading batch axes are flattened into the kernel's batch.
 """
 
@@ -29,7 +34,13 @@ from functools import lru_cache
 
 import torch
 
-from ..kernels.lkj import _tri_masks, _up_mask, lkj_inverse, lkj_logdet
+from ..kernels.lkj import (
+    _inv_link_chol_lkj_with_logdiag,
+    _tri_masks,
+    _up_mask,
+    lkj_inverse,
+    lkj_logdet,
+)
 from ..utils import (
     _triu_index_arrays,
     _triu_index_tensors,
@@ -62,6 +73,13 @@ def _logabsdetjac_inv_corr_vec(y):
     """-sum_s (K - i_s) logcosh(y_s), 0-based row i_s (corr.jl:474-483)."""
     K = triu1_dim_from_length(y.shape[-1])
     return -torch.sum(_row_coeff(K, y.dtype, y.device) * logcosh(y), dim=-1)
+
+
+def _logabsdetjac_inv_chol(y):
+    """-sum_s (j_s - i_s + 1) logcosh(y_s): the Cholesky link's per-column
+    sums of lr_incl - lc (corr.jl:485-501), telescoped."""
+    K = triu1_dim_from_length(y.shape[-1])
+    return -torch.sum(_row_coeff(K, y.dtype, y.device, True) * logcosh(y), dim=-1)
 
 
 @lru_cache(maxsize=None)
@@ -160,9 +178,8 @@ class _LkjLogdet(torch.autograd.Function):
 def _lkj_logdet_all(y, chol: bool):
     """(logJ, log diag W) over any leading axes of y (..., K(K-1)/2), X
     never formed: the vec-corr inverse link's, or with `chol` the
-    Cholesky variant's (the JAX package's `_chol_logdet_pallas`; the
-    LKJCholesky family that reaches it from an entry point is not ported
-    yet)."""
+    Cholesky link's (the JAX package's `_chol_logdet_pallas`, which
+    LKJCholesky's linked density reaches)."""
     K = triu1_dim_from_length(y.shape[-1])
     lead = y.shape[:-1]
     logJ, log_diag = _LkjLogdet.apply(y.reshape(-1, y.shape[-1]), K, chol)
@@ -219,3 +236,58 @@ class VecCorrBijector(Bijector):
         (the kernel takes the swapped view through its strides); log diag W
         comes back (B, K)."""
         return _lkj_logdet_all(yT.transpose(0, 1), False)
+
+
+@dataclass(frozen=True)
+class VecCholeskyBijector(Bijector):
+    """Cholesky factor of a correlation matrix -> packed vector of length
+    K(K-1)/2 (reference VecCholeskyBijector, corr.jl:164-259). mode 'U':
+    the factor is upper triangular (X = W), 'L': lower (X = W')."""
+
+    mode: str = "U"
+
+    event_ndims_in = 2
+    event_ndims_out = 1
+
+    def __post_init__(self):
+        if self.mode not in ("U", "L"):
+            raise ValueError("mode must be 'U' or 'L'")
+
+    def forward_event_shape(self, shape):
+        n = shape[-1]
+        return tuple(shape[:-2]) + (n * (n - 1) // 2,)
+
+    def inverse_event_shape(self, shape):
+        n = triu1_dim_from_length(shape[-1])
+        return tuple(shape[:-1]) + (n, n)
+
+    def _factor(self, W):
+        return W if self.mode == "U" else W.transpose(-1, -2)
+
+    def forward(self, X):
+        return triu_to_vec(_link_chol_lkj(self._factor(X)), k=1)
+
+    def forward_and_log_det(self, X):
+        y = self.forward(X)
+        return y, -_logabsdetjac_inv_chol(y)
+
+    def inverse_and_log_det_with_factor(self, y):
+        """(X, logJ, log diag W): the sample is the factor, so this also
+        gives its log-diagonal, from the running sums (finite at 1e10
+        states, where the diagonal underflows to 0), for
+        LKJCholesky.logpdf_from_factor."""
+        K = triu1_dim_from_length(y.shape[-1])
+        W, logJ, log_diag = _inv_link_chol_lkj_with_logdiag(vec_to_triu(y, 1, K))
+        return self._factor(W), logJ, log_diag
+
+    def inverse_and_log_det(self, y):
+        return self.inverse_and_log_det_with_factor(y)[:2]
+
+    def inverse_log_det_and_factor_only(self, y):
+        """(logJ, log diag W) without forming the factor: the LKJ log-det
+        kernel's Cholesky variant (`chol=True`)."""
+        return _lkj_logdet_all(y, True)
+
+    def inverse_log_det_and_factor_only_t(self, yT):
+        """The same on the transposed (P, B) block, read in place."""
+        return _lkj_logdet_all(yT.transpose(0, 1), True)

@@ -5,28 +5,41 @@ parameters can be handed to the JAX package and to the port:
 
   {"type": "NamedProduct", "children": {"mu": spec, ...}}
   {"type": "IIDProduct", "inner": spec, "n": 8}
+  {"type": "ElementwiseProduct", "inner": spec}   (arraydist of (n,) parameters)
+  {"type": "TransformedDistribution", "inner": spec}   (transformed(d): the
+      base's registry bijector)
+  {"type": "Gamma", "params": {"concentration": np.ndarray, "rate": np.ndarray}}
+  {"type": "LKJCholesky", "dim": 5, "mode": "L", "params": {"eta": np.ndarray}}
   {"type": "Dirichlet", "params": {"alpha": np.ndarray}}
   {"type": "LKJ", "dim": 16, "params": {"eta": np.ndarray}}
   {"type": "Wishart", "params": {"df": np.ndarray, "scale": np.ndarray}}
   {"type": "InverseWishart", "params": {"df": np.ndarray, "psi": np.ndarray}}
   {"type": "MvNormalTril", "params": {"loc": np.ndarray, "scale_tril": np.ndarray}}
 
-(and alike MvNormalDiag and MvLogNormal {loc, scale_diag}, MvStudentT
-{df, loc, scale_tril}, MvNormalCanon {h, prec}, the JAX families' fields).
+(and alike every scalar family of `dists/univariate.py`, MvNormalDiag and
+MvLogNormal {loc, scale_diag}, MvStudentT {df, loc, scale_tril},
+MvNormalCanon {h, prec}: the JAX families' fields).
 
 Any key other than "type", "params", "children" and "inner" is a static
-argument of the constructor (an int such as `n` or `dim`).
+argument of the constructor (an int such as `n` or `dim`, a string such
+as `mode`).
 """
 
 from __future__ import annotations
 
 from . import dists
+from .transformed import transformed
 
-_LEAVES = {
-    "Normal": dists.Normal,
-    "LogNormal": dists.LogNormal,
+_SCALAR = (
+    "Normal", "StudentT", "Cauchy", "Laplace", "Logistic", "Gumbel", "LogNormal",
+    "Exponential", "Gamma", "InverseGamma", "Chi", "Weibull", "Rayleigh", "Frechet",
+    "HalfNormal", "HalfCauchy", "Beta", "LogitNormal", "Uniform", "Pareto", "Levy",
+)
+_LEAVES = {name: getattr(dists, name) for name in _SCALAR}
+_LEAVES.update({
     "Dirichlet": dists.Dirichlet,
     "LKJ": dists.LKJ,
+    "LKJCholesky": dists.LKJCholesky,
     "Wishart": dists.Wishart,
     "InverseWishart": dists.InverseWishart,
     "MvNormalDiag": dists.MvNormalDiag,
@@ -34,7 +47,7 @@ _LEAVES = {
     "MvLogNormal": dists.MvLogNormal,
     "MvStudentT": dists.MvStudentT,
     "MvNormalCanon": dists.MvNormalCanon,
-}
+})
 
 
 def dist_from_spec(spec: dict, *, device, dtype):
@@ -52,6 +65,10 @@ def dist_from_spec(spec: dict, *, device, dtype):
         return dists.IIDProduct(
             dist_from_spec(spec["inner"], device=device, dtype=dtype), int(spec["n"])
         )
+    if kind == "ElementwiseProduct":
+        return dists.arraydist(dist_from_spec(spec["inner"], device=device, dtype=dtype))
+    if kind == "TransformedDistribution":
+        return transformed(dist_from_spec(spec["inner"], device=device, dtype=dtype))
     if kind not in _LEAVES:
         raise NotImplementedError(f"no ported distribution named {kind!r}")
     static = {k: v for k, v in spec.items() if k not in ("type", "params")}

@@ -24,7 +24,8 @@ from ..utils import resolve_device
 @dataclass(frozen=True)
 class Support:
     """Static support descriptor: kind 'interval' (with bounds and their
-    finiteness), 'real_vector', 'simplex', 'corr', 'pd' or 'product'."""
+    finiteness), 'real_vector', 'simplex', 'corr', 'chol_corr', 'pd' or
+    'product'."""
 
     kind: str = "interval"
     lower: float = -math.inf
@@ -41,9 +42,23 @@ def positive() -> Support:
     return Support("interval", 0.0, math.inf, True, False)
 
 
+def unit_interval() -> Support:
+    return Support("interval", 0.0, 1.0, True, True)
+
+
+def interval(lo: float, hi: float) -> Support:
+    """The finite interval (lo, hi)."""
+    return Support("interval", lo, hi, True, True)
+
+
+def lower_bounded(lo: float) -> Support:
+    return Support("interval", lo, math.inf, True, False)
+
+
 REAL_VECTOR = Support("real_vector")
 SIMPLEX = Support("simplex")
 CORRELATION = Support("corr")
+CHOLESKY_CORRELATION = Support("chol_corr")
 POSITIVE_DEFINITE = Support("pd")
 
 

@@ -1,5 +1,11 @@
 """Matrix-variate families, PyTorch counterpart of
-`tpu_bijectors/dists/matrix.py`: LKJ, Wishart and InverseWishart.
+`tpu_bijectors/dists/matrix.py`: LKJ, LKJCholesky, Wishart and
+InverseWishart.
+
+LKJ and LKJCholesky fuse their linked densities on the log-diagonal of
+the factor that the inverse link computes anyway (`logpdf_from_factor`):
+on the batch-major path the LKJ log-det kernel gives it without forming
+the factor (its Cholesky variant for LKJCholesky).
 
 The Wishart families fuse their linked density on the PD links' kernels
 (bijectors/pd.py): `fused_linked_logdensity` and its transposed form run
@@ -20,7 +26,7 @@ import torch
 
 from ..kernels.pd import MAX_K
 from ..utils import cholesky_lower
-from .base import CORRELATION, POSITIVE_DEFINITE, LeafDistribution
+from .base import CHOLESKY_CORRELATION, CORRELATION, POSITIVE_DEFINITE, LeafDistribution
 
 LOG2 = math.log(2.0)
 LOGPI = math.log(math.pi)
@@ -67,6 +73,52 @@ class LKJ(LeafDistribution):
     @property
     def support(self):
         return CORRELATION
+
+
+@dataclass(frozen=True)
+class LKJCholesky(LeafDistribution):
+    """LKJCholesky(dim, eta, mode) over Cholesky factors of LKJ(eta)
+    correlation matrices, lower ('L', the default) or upper ('U'):
+
+      log p(L) = sum_{j=2}^{K} (2 eta - 2 + K - j) log L_jj - log c_K(eta)
+
+    (1-based j; the Jacobian of R -> L is prod_j L_jj^(K-j))."""
+
+    dim: int
+    eta: object = 1.0
+    mode: str = "L"
+
+    _params = ("eta",)
+    event_ndims = 2
+
+    def __post_init__(self, device, dtype):
+        if self.mode not in ("L", "U"):
+            raise ValueError("mode must be 'L' or 'U'")
+        super().__post_init__(device, dtype)
+
+    @property
+    def event_shape(self):
+        return (self.dim, self.dim)
+
+    def _coeff(self):
+        K = self.dim
+        jj = torch.arange(1, K + 1, dtype=self.eta.dtype, device=self.eta.device)
+        return 2.0 * self.eta[..., None] - 2.0 + K - jj
+
+    def logpdf(self, X):
+        d = torch.diagonal(X, dim1=-2, dim2=-1)
+        first = torch.arange(self.dim, device=X.device) == 0
+        lp = torch.sum(self._coeff() * torch.log(torch.where(first, torch.ones_like(d), d)), -1)
+        return lp - _lkj_log_normalizer(self.dim, self.eta)
+
+    def logpdf_from_factor(self, log_diag, x=None):
+        """Density from the factor's log-diagonal, which the VecCholesky
+        inverse link gives without forming the factor."""
+        return torch.sum(self._coeff() * log_diag, -1) - _lkj_log_normalizer(self.dim, self.eta)
+
+    @property
+    def support(self):
+        return CHOLESKY_CORRELATION
 
 
 def _mv_lgamma(a, p: int):

@@ -1,5 +1,6 @@
 """Product distributions, PyTorch counterpart of
-`tpu_bijectors/dists/product.py`: IIDProduct and NamedProduct."""
+`tpu_bijectors/dists/product.py`: IIDProduct, ElementwiseProduct (the
+`arraydist` of a family with per-element parameters) and NamedProduct."""
 
 from __future__ import annotations
 
@@ -39,6 +40,49 @@ class IIDProduct(Distribution):
 
     def to(self, device):
         return IIDProduct(self.base.to(device), self.n)
+
+
+@dataclass(frozen=True)
+class ElementwiseProduct(Distribution):
+    """The product of a scalar family with per-element parameters: `base`
+    has batch shape (n,), a sample is an (n,) vector and logpdf sums the
+    per-element densities (Distributions.jl `arraydist`, reference
+    src/vector/product/product.jl). Shared parameters are an IIDProduct."""
+
+    base: Distribution
+
+    @property
+    def n(self) -> int:
+        return int(self.base.batch_shape[-1])
+
+    @property
+    def event_ndims(self):  # type: ignore[override]
+        return self.base.event_ndims + 1
+
+    @property
+    def event_shape(self):
+        return (self.n,) + tuple(self.base.event_shape)
+
+    @property
+    def support(self) -> Support:
+        return self.base.support
+
+    def logpdf(self, x):
+        return torch.sum(self.base.logpdf(x), dim=-1)
+
+    def to(self, device):
+        return ElementwiseProduct(self.base.to(device))
+
+
+def arraydist(base: Distribution) -> ElementwiseProduct:
+    """`arraydist(Normal(mu, sigma))` with (n,) parameters: n independent
+    elements of one family. Raises unless `base` has a 1-D batch shape."""
+    if len(base.batch_shape) != 1:
+        raise ValueError(
+            "arraydist needs a base with 1-D batch_shape (per-element "
+            f"parameters); got {tuple(base.batch_shape)}"
+        )
+    return ElementwiseProduct(base)
 
 
 @dataclass(frozen=True)

@@ -1,5 +1,21 @@
 """Univariate families, PyTorch counterpart of
-`tpu_bijectors/dists/univariate.py`: Normal and LogNormal."""
+`tpu_bijectors/dists/univariate.py`: the continuous families the fused
+slab serves.
+
+Real line (identity link): Normal, StudentT, Cauchy, Laplace, Logistic,
+Gumbel. Positive half-line (log link): LogNormal, Exponential, Gamma,
+InverseGamma, Chi, Weibull, Rayleigh, Frechet, HalfNormal, HalfCauchy.
+Unit interval or (low, high) (logit link): Beta, LogitNormal, Uniform.
+Lower-bounded (shifted-log link): Pareto, Levy.
+
+Parameters broadcast: a family with (n,) parameters is n families side by
+side (`product.arraydist`). Every family with a transformed support has a
+telescoped `fused_linked_logdensity` hook, as in the JAX package: with
+its registry link the linked density is written in v directly, so it is
+finite (or -inf, never NaN) at |v| ~ 1e10, where exp(v) or sigmoid(v)
+saturate and the generic composition forms inf - inf. A hook declines
+(returns None) for any other link.
+"""
 
 from __future__ import annotations
 
@@ -9,9 +25,12 @@ from dataclasses import dataclass
 import torch
 
 from ..bijectors.scalar import Truncated
-from .base import LeafDistribution, positive
+from ..utils import log1pexp
+from .base import LeafDistribution, interval, lower_bounded, positive, unit_interval
 
 LOG2PI = math.log(2.0 * math.pi)
+LOG2 = math.log(2.0)
+LOGPI = math.log(math.pi)
 
 
 def _is_log_link(b) -> bool:
@@ -24,6 +43,47 @@ def _is_log_link(b) -> bool:
         and not b.upper_finite
         and float(b.lb) == 0.0
     )
+
+
+def _is_interval_logit_link(b, lo, hi) -> bool:
+    """True when the registry link is the logit rescale over (lo, hi): the
+    both-finite Truncated(lo, hi) branch (y = logit((x-lo)/(hi-lo)),
+    reference truncated.jl:20-31)."""
+    return (
+        type(b) is Truncated
+        and b.lower_finite
+        and b.upper_finite
+        and float(b.lb) == float(lo)
+        and float(b.ub) == float(hi)
+    )
+
+
+def _is_shifted_log_link(b, lo) -> bool:
+    """True when the registry link is y = log(x - lo): the lower-only
+    Truncated branch of a lower-bounded support such as Pareto's or Levy's
+    (reference truncated.jl:35, src/transformed_distribution.jl:135)."""
+    return (
+        type(b) is Truncated
+        and b.lower_finite
+        and not b.upper_finite
+        and float(b.lb) == float(lo)
+    )
+
+
+def _static_bound(t, family, name):
+    """A support bound as a float: the registry's link needs one bound for
+    the whole family."""
+    if t.ndim != 0:
+        raise NotImplementedError(
+            f"{family} with a per-element {name} has no single support; "
+            "per-element bounds are not ported"
+        )
+    return float(t)
+
+
+# ---------------------------------------------------------------------------
+# real line (identity link: the linked density is logpdf)
+# ---------------------------------------------------------------------------
 
 
 @dataclass(frozen=True)
@@ -39,7 +99,96 @@ class Normal(LeafDistribution):
 
 
 @dataclass(frozen=True)
-class LogNormal(LeafDistribution):
+class StudentT(LeafDistribution):
+    """Student's t with `df` degrees of freedom, location and scale."""
+
+    df: object = 1.0
+    loc: object = 0.0
+    scale: object = 1.0
+
+    _params = ("df", "loc", "scale")
+
+    def logpdf(self, x):
+        v = self.df
+        z = (x - self.loc) / self.scale
+        lognorm = torch.lgamma(0.5 * (v + 1.0)) - torch.lgamma(0.5 * v) - 0.5 * (
+            torch.log(v) + LOGPI
+        )
+        return lognorm - 0.5 * (v + 1.0) * torch.log1p(z * z / v) - torch.log(self.scale)
+
+
+@dataclass(frozen=True)
+class Cauchy(LeafDistribution):
+    loc: object = 0.0
+    scale: object = 1.0
+
+    _params = ("loc", "scale")
+
+    def logpdf(self, x):
+        z = (x - self.loc) / self.scale
+        return -LOGPI - torch.log(self.scale) - torch.log1p(z * z)
+
+
+@dataclass(frozen=True)
+class Laplace(LeafDistribution):
+    loc: object = 0.0
+    scale: object = 1.0
+
+    _params = ("loc", "scale")
+
+    def logpdf(self, x):
+        z = torch.abs(x - self.loc) / self.scale
+        return -z - LOG2 - torch.log(self.scale)
+
+
+@dataclass(frozen=True)
+class Logistic(LeafDistribution):
+    loc: object = 0.0
+    scale: object = 1.0
+
+    _params = ("loc", "scale")
+
+    def logpdf(self, x):
+        z = (x - self.loc) / self.scale
+        return -z - 2.0 * log1pexp(-z) - torch.log(self.scale)
+
+
+@dataclass(frozen=True)
+class Gumbel(LeafDistribution):
+    loc: object = 0.0
+    scale: object = 1.0
+
+    _params = ("loc", "scale")
+
+    def logpdf(self, x):
+        z = (x - self.loc) / self.scale
+        return -(z + torch.exp(-z)) - torch.log(self.scale)
+
+
+# ---------------------------------------------------------------------------
+# positive half-line (log link, telescoped hooks)
+# ---------------------------------------------------------------------------
+
+
+class _Positive(LeafDistribution):
+    """A family on (0, inf) whose linked density under the log link is the
+    closed form `_linked(y)` of v = log x."""
+
+    def _linked(self, y):
+        raise NotImplementedError
+
+    def fused_linked_logdensity(self, bijector, y, want_x: bool = True):
+        if not _is_log_link(bijector):
+            return None
+        return (torch.exp(y) if want_x else None), self._linked(y)
+
+    @property
+    def support(self):
+        return positive()
+
+
+@dataclass(frozen=True)
+class LogNormal(_Positive):
     mu: object = 0.0
     sigma: object = 1.0
 
@@ -50,16 +199,305 @@ class LogNormal(LeafDistribution):
         z = (lx - self.mu) / self.sigma
         return -0.5 * (z * z + LOG2PI) - torch.log(self.sigma) - lx
 
-    def fused_linked_logdensity(self, bijector, y, want_x: bool = True):
-        """Telescoped linked density: with the log link, logpdf(exp(v)) + v
-        is the Normal density of v — finite at |v| ~ 1e10, where exp(v)
-        over/underflows and the generic composition gives inf - inf."""
-        if not _is_log_link(bijector):
-            return None
+    def _linked(self, y):
+        """logpdf(exp(v)) + v is the Normal density of v."""
         z = (y - self.mu) / self.sigma
-        lp = -0.5 * (z * z + LOG2PI) - torch.log(self.sigma)
-        return (torch.exp(y) if want_x else None), lp
+        return -0.5 * (z * z + LOG2PI) - torch.log(self.sigma)
+
+
+@dataclass(frozen=True)
+class Exponential(_Positive):
+    rate: object = 1.0
+
+    _params = ("rate",)
+
+    def logpdf(self, x):
+        return torch.log(self.rate) - self.rate * x
+
+    def _linked(self, y):
+        """log r + v - r e^v: -inf, never NaN, where e^v overflows."""
+        r = self.rate
+        return torch.log(r) + y - r * torch.exp(y)
+
+
+@dataclass(frozen=True)
+class Gamma(_Positive):
+    concentration: object = 1.0
+    rate: object = 1.0
+
+    _params = ("concentration", "rate")
+
+    def logpdf(self, x):
+        a, r = self.concentration, self.rate
+        return a * torch.log(r) + (a - 1.0) * torch.log(x) - r * x - torch.lgamma(a)
+
+    def _linked(self, y):
+        """a log r + a v - r e^v - lgamma(a)."""
+        a, r = self.concentration, self.rate
+        return a * torch.log(r) + a * y - r * torch.exp(y) - torch.lgamma(a)
+
+
+@dataclass(frozen=True)
+class InverseGamma(_Positive):
+    concentration: object = 1.0
+    scale: object = 1.0
+
+    _params = ("concentration", "scale")
+
+    def logpdf(self, x):
+        a, b = self.concentration, self.scale
+        return a * torch.log(b) - (a + 1.0) * torch.log(x) - b / x - torch.lgamma(a)
+
+    def _linked(self, y):
+        """a log b - a v - b e^-v - lgamma(a)."""
+        a, b = self.concentration, self.scale
+        return a * torch.log(b) - a * y - b * torch.exp(-y) - torch.lgamma(a)
+
+
+@dataclass(frozen=True)
+class Chi(_Positive):
+    df: object = 1.0
+
+    _params = ("df",)
+
+    def logpdf(self, x):
+        k2 = 0.5 * self.df
+        return (2.0 * k2 - 1.0) * torch.log(x) - 0.5 * x * x - (k2 - 1.0) * LOG2 - torch.lgamma(k2)
+
+    def _linked(self, y):
+        """df v - e^(2v) / 2 - (df/2 - 1) log 2 - lgamma(df/2)."""
+        df = self.df
+        k2 = 0.5 * df
+        return df * y - 0.5 * torch.exp(2.0 * y) - (k2 - 1.0) * LOG2 - torch.lgamma(k2)
+
+
+@dataclass(frozen=True)
+class Weibull(_Positive):
+    concentration: object = 1.0  # shape k
+    scale: object = 1.0
+
+    _params = ("concentration", "scale")
+
+    def logpdf(self, x):
+        k, lam = self.concentration, self.scale
+        z = x / lam
+        return torch.log(k / lam) + (k - 1.0) * torch.log(z) - z**k
+
+    def _linked(self, y):
+        """log k - k log lam + k v - e^(k v - k log lam)."""
+        k = self.concentration
+        c1 = k * torch.log(self.scale)
+        return torch.log(k) - c1 + k * y - torch.exp(k * y - c1)
+
+
+@dataclass(frozen=True)
+class Rayleigh(_Positive):
+    scale: object = 1.0
+
+    _params = ("scale",)
+
+    def logpdf(self, x):
+        s2 = self.scale**2
+        return torch.log(x) - torch.log(s2) - 0.5 * x * x / s2
+
+    def _linked(self, y):
+        """2v - 2 log s - e^(2(v - log s)) / 2."""
+        ls = torch.log(self.scale)
+        return 2.0 * y - 2.0 * ls - 0.5 * torch.exp(2.0 * (y - ls))
+
+
+@dataclass(frozen=True)
+class Frechet(_Positive):
+    shape_: object = 1.0
+    scale: object = 1.0
+
+    _params = ("shape_", "scale")
+
+    def logpdf(self, x):
+        a, s = self.shape_, self.scale
+        z = x / s
+        return torch.log(a / s) - (1.0 + a) * torch.log(z) - z ** (-a)
+
+    def _linked(self, y):
+        """With w = v - log s: log a - a w - e^(-a w), a Gumbel form."""
+        a = self.shape_
+        w = y - torch.log(self.scale)
+        return torch.log(a) - a * w - torch.exp(-a * w)
+
+
+@dataclass(frozen=True)
+class HalfNormal(_Positive):
+    scale: object = 1.0
+
+    _params = ("scale",)
+
+    def logpdf(self, x):
+        z = x / self.scale
+        return LOG2 - 0.5 * (z * z + LOG2PI) - torch.log(self.scale)
+
+    def _linked(self, y):
+        """const + v - e^(2(v - log s)) / 2."""
+        ls = torch.log(self.scale)
+        return (LOG2 - 0.5 * LOG2PI) - ls + y - 0.5 * torch.exp(2.0 * (y - ls))
+
+
+@dataclass(frozen=True)
+class HalfCauchy(_Positive):
+    scale: object = 1.0
+
+    _params = ("scale",)
+
+    def logpdf(self, x):
+        z = x / self.scale
+        return LOG2 - LOGPI - torch.log(self.scale) - torch.log1p(z * z)
+
+    def _linked(self, y):
+        """log1p(z^2) with z = e^(v - log s) is softplus(2(v - log s))."""
+        ls = torch.log(self.scale)
+        return (LOG2 - LOGPI) - ls + y - log1pexp(2.0 * (y - ls))
+
+
+# ---------------------------------------------------------------------------
+# bounded intervals (logit link, telescoped hooks)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Beta(LeafDistribution):
+    a: object = 1.0
+    b: object = 1.0
+
+    _params = ("a", "b")
+
+    def _lbeta(self):
+        return torch.lgamma(self.a) + torch.lgamma(self.b) - torch.lgamma(self.a + self.b)
+
+    def logpdf(self, x):
+        return (self.a - 1.0) * torch.log(x) + (self.b - 1.0) * torch.log1p(-x) - self._lbeta()
+
+    def fused_linked_logdensity(self, bijector, y, want_x: bool = True):
+        """With the unit-interval logit link the linked density is
+        -a softplus(-v) - b softplus(v) - log B(a, b)."""
+        if not _is_interval_logit_link(bijector, 0.0, 1.0):
+            return None
+        lp = -self.a * log1pexp(-y) - self.b * log1pexp(y) - self._lbeta()
+        return (torch.sigmoid(y) if want_x else None), lp
 
     @property
     def support(self):
-        return positive()
+        return unit_interval()
+
+
+@dataclass(frozen=True)
+class LogitNormal(LeafDistribution):
+    mu: object = 0.0
+    sigma: object = 1.0
+
+    _params = ("mu", "sigma")
+
+    def logpdf(self, x):
+        lx = torch.log(x) - torch.log1p(-x)
+        z = (lx - self.mu) / self.sigma
+        return (-0.5 * (z * z + LOG2PI) - torch.log(self.sigma) - torch.log(x)
+                - torch.log1p(-x))
+
+    def fused_linked_logdensity(self, bijector, y, want_x: bool = True):
+        """With the unit-interval logit link the density's -log x - log(1-x)
+        cancels the link's log-det: the Normal density of v."""
+        if not _is_interval_logit_link(bijector, 0.0, 1.0):
+            return None
+        z = (y - self.mu) / self.sigma
+        lp = -0.5 * (z * z + LOG2PI) - torch.log(self.sigma)
+        return (torch.sigmoid(y) if want_x else None), lp
+
+    @property
+    def support(self):
+        return unit_interval()
+
+
+@dataclass(frozen=True)
+class Uniform(LeafDistribution):
+    low: object = 0.0
+    high: object = 1.0
+
+    _params = ("low", "high")
+
+    def logpdf(self, x):
+        lo, hi = self.low, self.high
+        inside = (x >= lo) & (x <= hi)
+        return torch.where(inside, -torch.log(hi - lo), torch.full_like(x, -math.inf))
+
+    def fused_linked_logdensity(self, bijector, y, want_x: bool = True):
+        """The width log(hi - lo) of the link's log-det cancels the density:
+        -|v| - 2 softplus(-|v|), parameter-free."""
+        if not _is_interval_logit_link(bijector, self.low, self.high):
+            return None
+        ay = torch.abs(y)
+        lp = -ay - 2.0 * log1pexp(-ay)
+        if not want_x:
+            return None, lp
+        return (self.high - self.low) * torch.sigmoid(y) + self.low, lp
+
+    @property
+    def support(self):
+        return interval(_static_bound(self.low, "Uniform", "low"),
+                        _static_bound(self.high, "Uniform", "high"))
+
+
+# ---------------------------------------------------------------------------
+# lower-bounded (shifted-log link, telescoped hooks)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Pareto(LeafDistribution):
+    """Pareto(shape alpha, scale x_m) on [x_m, inf)."""
+
+    alpha: object = 1.0
+    scale: object = 1.0
+
+    _params = ("alpha", "scale")
+
+    def logpdf(self, x):
+        a = self.alpha
+        return torch.log(a) + a * torch.log(self.scale) - (a + 1.0) * torch.log(x)
+
+    def fused_linked_logdensity(self, bijector, y, want_x: bool = True):
+        """y = log(x - x_m), so log x = logaddexp(log x_m, v)."""
+        if not _is_shifted_log_link(bijector, self.scale):
+            return None
+        a = self.alpha
+        lm = torch.log(self.scale)
+        lp = torch.log(a) + a * lm + y - (a + 1.0) * torch.logaddexp(lm, y)
+        return (self.scale + torch.exp(y) if want_x else None), lp
+
+    @property
+    def support(self):
+        return lower_bounded(_static_bound(self.scale, "Pareto", "scale"))
+
+
+@dataclass(frozen=True)
+class Levy(LeafDistribution):
+    """Levy(mu, sigma) on [mu, inf)."""
+
+    mu: object = 0.0
+    sigma: object = 1.0
+
+    _params = ("mu", "sigma")
+
+    def logpdf(self, x):
+        s = self.sigma
+        d = x - self.mu
+        return 0.5 * (torch.log(s) - LOG2PI) - 0.5 * s / d - 1.5 * torch.log(d)
+
+    def fused_linked_logdensity(self, bijector, y, want_x: bool = True):
+        """y = log(x - mu): 0.5 (log s - log 2pi) - s e^-v / 2 - v / 2."""
+        if not _is_shifted_log_link(bijector, self.mu):
+            return None
+        s = self.sigma
+        lp = 0.5 * (torch.log(s) - LOG2PI) - 0.5 * s * torch.exp(-y) - 0.5 * y
+        return (self.mu + torch.exp(y) if want_x else None), lp
+
+    @property
+    def support(self):
+        return lower_bounded(_static_bound(self.mu, "Levy", "mu"))

@@ -13,8 +13,10 @@ raises.
 
 Wrappers: `vectorize/fused_kernel.py` (slab_value, slab_value_and_grad,
 slab_vjp, slab_jvp), `kernels/simplex.py` (simplex_inverse_logdet, simplex_inverse,
-simplex_forward_logdet), `kernels/lkj.py` (lkj_inverse, lkj_logdet) and
-`kernels/pd.py` (pd_inverse, pd_logdensity, pd_trace_grad).
+simplex_forward_logdet), `kernels/lkj.py` (lkj_inverse, lkj_logdet, lkj_logdet_chol: its
+Cholesky variant), `kernels/pd.py` (pd_inverse, pd_logdensity,
+pd_trace_grad) and `kernels/probe.py` (transcend_probe, a measurement of
+the slab's per-element math, not on any model's path).
 """
 
 _ENABLED = True
@@ -27,11 +29,13 @@ LAUNCHES = {
     "simplex_inverse_logdet": 0,
     "lkj_inverse": 0,
     "lkj_logdet": 0,
+    "lkj_logdet_chol": 0,
     "simplex_inverse": 0,
     "simplex_forward_logdet": 0,
     "pd_inverse": 0,
     "pd_logdensity": 0,
     "pd_trace_grad": 0,
+    "transcend_probe": 0,
 }
 
 

@@ -31,6 +31,7 @@ _SOURCES = (
     "pd_inverse.cu",
     "pd_logdensity.cu",
     "pd_trace_grad.cu",
+    "transcend_probe.cu",
 )
 _HEADERS = ("pd_common.cuh",)
 _FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
@@ -130,6 +131,9 @@ def load():
             "tbt_pd_logdensity": [p, ll, ll, p, p, p, p, i, i, ll, p],
             # y, y strides, C, g, g strides (batch, slot), K, solve, B, stream
             "tbt_pd_trace_grad": [p, ll, ll, p, p, ll, ll, i, i, ll, p],
+            # variant, vT, c, lp, g, the 8 polynomial coefficients (host
+            # floats), dim, B, stream
+            "tbt_transcend_probe": [i, p, p, p, p, ctypes.POINTER(ctypes.c_float), i, ll, p],
         }
         for name, args in sigs.items():
             fn = getattr(lib, name)

@@ -7,7 +7,8 @@ diagonal-coefficient term, log diag W (B, K), and the upper factor W
 (B, K, K) when `want_w` (else None), which the backward of the inverse
 link uses. `lkj_logdet(y, K, chol)` (`lkj_logdet_pallas`) gives logJ and
 log diag W alone, without forming W or X: `chol=False` with the VecCorr
-term, `chol=True` the Cholesky variant's logJ (no diagonal coefficients).
+term, `chol=True` the Cholesky variant's logJ (no diagonal coefficients;
+its launches are counted as `lkj_logdet_chol`).
 For a CUDA tensor each launches its kernel (`csrc/lkj_inv.cu`,
 `csrc/lkj_logdet.cu`) or raises; for a CPU tensor it runs its plain
 version. y may be any 2-D strided view (read in place), so the swapped
@@ -112,7 +113,7 @@ def lkj_logdet(y, K: int, chol: bool = False):
     logJ = torch.empty(B, dtype=y.dtype, device=y.device)
     log_diag = torch.empty((B, K), dtype=y.dtype, device=y.device)
     kernels.launch(
-        "tbt_lkj_logdet", "lkj_logdet", y.device,
+        "tbt_lkj_logdet", "lkj_logdet_chol" if chol else "lkj_logdet", y.device,
         y.data_ptr(), y.stride(0), y.stride(1), logJ.data_ptr(), log_diag.data_ptr(),
         K, int(chol), B,
     )

@@ -3,11 +3,15 @@
 and src/Bijectors.jl:249-262).
 
 `bijector(d)` resolves from the distribution's static `support`:
-simplex -> SimplexBijector, corr -> VecCorrBijector, pd -> PDVecBijector
-(`tpu_bijectors/registry.py:61`), interval -> the
+simplex -> SimplexBijector, corr -> VecCorrBijector, chol_corr ->
+VecCholeskyBijector in the family's triangle mode (`tpu_bijectors/
+registry.py:65-69`), pd -> PDVecBijector (`:61`), interval -> the
 Truncated(lb, ub) branch its finite bounds select, or Identity on the
-real line, real_vector -> elementwise Identity (`:79`). Other support
-kinds are not ported yet and raise.
+real line, real_vector -> elementwise Identity (`:79`). A
+TransformedDistribution composes its wrapper away
+(`Chain((bijector(base), inverse(transform)))`,
+src/transformed_distribution.jl:45-48). Other support kinds are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -16,8 +20,8 @@ import math
 
 import torch
 
-from .bijectors.base import Bijector, Identity, elementwise
-from .bijectors.corr import VecCorrBijector
+from .bijectors.base import Bijector, Chain, Identity, elementwise, inverse
+from .bijectors.corr import VecCholeskyBijector, VecCorrBijector
 from .bijectors.pd import PDVecBijector
 from .bijectors.scalar import Truncated
 from .bijectors.simplex import SimplexBijector
@@ -27,6 +31,10 @@ from .utils import _eps
 
 def bijector(d: Distribution) -> Bijector:
     """The constrained -> unconstrained bijector for `d`."""
+    from .transformed import TransformedDistribution
+
+    if isinstance(d, TransformedDistribution):
+        return Chain((bijector(d.base), inverse(d.transform)))
     s = d.support
     n = d.event_ndims
     if s.kind == "simplex":
@@ -35,6 +43,8 @@ def bijector(d: Distribution) -> Bijector:
         return PDVecBijector()
     if s.kind == "corr":
         return VecCorrBijector()
+    if s.kind == "chol_corr":
+        return VecCholeskyBijector(getattr(d, "mode", "L"))
     if s.kind == "interval":
         if not s.lower_finite and not s.upper_finite:
             return elementwise(Identity(), n)
@@ -52,14 +62,19 @@ def bijector(d: Distribution) -> Bijector:
     )
 
 
+def _logpdf_eps_safe(d: Distribution, x):
+    """logpdf(d, x), with the reference's eps-nudge logpdf(d, x .+ eps) for
+    simplex-supported families (src/Bijectors.jl:253)."""
+    if d.support.kind == "simplex":
+        return d.logpdf(x + _eps(x.dtype))
+    return d.logpdf(x)
+
+
 def logpdf_with_trans(d: Distribution, x, transform: bool = False):
     """logpdf(d, x) - logabsdetjac(bijector(d), x), with the reference's
-    Dirichlet eps-nudge logpdf(d, x .+ eps) (src/Bijectors.jl:253)."""
+    Dirichlet eps-nudge (`_logpdf_eps_safe`)."""
     x = torch.as_tensor(x)
-    if d.support.kind == "simplex":
-        lp = d.logpdf(x + _eps(x.dtype))
-    else:
-        lp = d.logpdf(x)
+    lp = _logpdf_eps_safe(d, x)
     if not transform:
         return lp
     b = bijector(d)

@@ -12,6 +12,11 @@
   u.linked_logdensity_t(vT)               the same on the transposed (dim, B)
                                           state; (B,) out
 
+Leaves (`LeafUnconstrainer`), IID blocks of one leaf (`IIDUnconstrainer`,
+also the per-element parameters of `arraydist`), named products
+(`TreeUnconstrainer`) and transformed distributions
+(`TransformedUnconstrainer`, whose linked density is its base's).
+
 Offsets are static, so a batch of states is one (B, dim) array. On the
 batch-major layout each leaf runs its own link: on the card the simplex,
 LKJ and Wishart-family leaves launch their kernels (kernels/simplex.py,
@@ -33,8 +38,9 @@ import torch
 
 from ..bijectors.base import Bijector
 from ..dists.base import Distribution
-from ..dists.product import IIDProduct, NamedProduct
+from ..dists.product import ElementwiseProduct, IIDProduct, NamedProduct
 from ..registry import bijector
+from ..transformed import TransformedDistribution
 from ..utils import resolve_device
 
 
@@ -279,6 +285,50 @@ class TreeUnconstrainer(Unconstrainer):
         return acc
 
 
+@dataclass(frozen=True, eq=False)
+class TransformedUnconstrainer(Unconstrainer):
+    """to_linked_vec(td) = to_linked_vec(td.base) o inverse(td.transform)
+    (reference src/vector/transformed.jl:4-11). The linked density
+    telescopes to the base's: the transform's forward and inverse log-dets
+    cancel, so no sample is formed and the transform is not evaluated."""
+
+    base: Unconstrainer
+    td: TransformedDistribution
+
+    @property
+    def linked_vec_length(self):  # type: ignore[override]
+        return self.base.linked_vec_length
+
+    def _extra_dims(self):
+        return self.td.base.event_ndims - int(self.td.transform.event_ndims_in)
+
+    def to_linked_vec(self, y):
+        x, ld = self.td.transform.inverse_and_log_det(y)
+        extra = self._extra_dims()
+        if extra > 0:
+            ld = torch.sum(ld, dim=tuple(range(-extra, 0)))
+        v, ld2 = self.base.to_linked_vec(x)
+        return v, ld + ld2
+
+    def from_linked_vec(self, v):
+        x, ld = self.base.from_linked_vec(v)
+        y, ld2 = self.td.transform.forward_and_log_det(x)
+        extra = self._extra_dims()
+        if extra > 0:
+            ld2 = torch.sum(ld2, dim=tuple(range(-extra, 0)))
+        return y, ld + ld2
+
+    def from_linked_vec_with_logpdf(self, v):
+        x, lpld = self.base.from_linked_vec_with_logpdf(v)
+        return self.td.transform.forward(x), lpld
+
+    def linked_logdensity(self, v):
+        return self.base.linked_logdensity(v)
+
+    def _linked_logdensity_t_children(self, vT):
+        return self.base._linked_logdensity_t_children(vT)
+
+
 def unconstrain(d: Distribution, *, device=None) -> Unconstrainer:
     """Build the Unconstrainer for `d` with every parameter on `device`
     (default `cuda`; raises when CUDA is absent and no device was given)."""
@@ -286,14 +336,27 @@ def unconstrain(d: Distribution, *, device=None) -> Unconstrainer:
 
 
 def _unconstrain(d: Distribution) -> Unconstrainer:
+    if isinstance(d, TransformedDistribution):
+        return TransformedUnconstrainer(_unconstrain(d.base), d)
     if isinstance(d, IIDProduct):
         inner = _unconstrain(d.base)
-        if not isinstance(inner, LeafUnconstrainer):
-            raise NotImplementedError(
-                "IIDProduct of a structured base is not ported; build a "
-                "NamedProduct of explicit copies instead"
-            )
-        return IIDUnconstrainer(inner, d.n)
+        if isinstance(inner, LeafUnconstrainer):
+            return IIDUnconstrainer(inner, d.n)
+        # a nested IID chain of one family is one leaf with a larger event
+        base = d.base
+        while isinstance(base, IIDProduct):
+            base = base.base
+        if isinstance(_unconstrain(base), LeafUnconstrainer):
+            return _leaf_unconstrain(d)
+        raise NotImplementedError(
+            "IIDProduct of a named-structured base has a stacked-array sample "
+            "per component, not n separate samples; build a NamedProduct of "
+            "explicit copies instead"
+        )
+    if isinstance(d, ElementwiseProduct):
+        # arraydist: the inner leaf's (n,) parameters broadcast along the
+        # block axis of every IIDUnconstrainer method
+        return IIDUnconstrainer(_leaf_unconstrain(d.base), d.n)
     if isinstance(d, NamedProduct):
         return TreeUnconstrainer.build(
             tuple(_unconstrain(c) for c in d.components), d.names

@@ -5,10 +5,14 @@ form in fused_base.py) or a LOOP entry (a block of rows with its own
 parameters, evaluated by a loop body in the kernel), or returns None when
 a leaf has neither.
 
-Slab forms ported: Normal (identity link) and LogNormal (log link, the
-telescoped density), alone or as IID blocks with scalar parameters;
-MvNormalDiag and MvLogNormal (its telescoped density), a row each; the
-telescoped Dirichlet; the LKJ weighted logcosh. Loop forms ported, K <= 16
+Slab forms ported: every scalar family of `dists/univariate.py` under its
+registry link (the identity for the real-line families, the telescoped
+densities of the log, logit and shifted-log links), alone, as IID blocks
+or with per-element parameters (arraydist); MvNormalDiag and MvLogNormal
+(its telescoped density), a row each; the telescoped Dirichlet; the LKJ
+and LKJCholesky weighted logcosh. A transformed distribution takes its
+base's rows; the copies of an IID block of a structured leaf are
+shifted-row copies of its entry (loop copies share one parameter block). Loop forms ported, K <= 16
 (MAX_K): the PD entry of Wishart (`pd_dot`) and InverseWishart
 (`pd_solve`, `fused_emit.py::_emit_pd`); the Gaussian quadratic form of
 MvNormalTril (`gauss_lower`) and MvNormalCanon (`gauss_upper`,
@@ -26,7 +30,7 @@ from typing import Callable
 import torch
 
 from ..bijectors.base import Identity
-from ..bijectors.corr import VecCorrBijector
+from ..bijectors.corr import VecCholeskyBijector, VecCorrBijector
 from ..bijectors.pd import PDVecBijector
 from ..bijectors.simplex import SimplexBijector
 from ..dists import matrix as mx
@@ -52,47 +56,260 @@ class _Entry:
 
 
 def _scalar_entry(dist, link, n, row0):
-    """Slab coefficients of a scalar family; they encode the composed
-    path's math exactly, up to float reassociation."""
-    t = type(dist)
-    params = [getattr(dist, p) for p in dist._params]
-    if any(p.ndim != 0 for p in params):
-        raise _Unsupported(f"{t.__name__} with non-scalar parameters")
+    """Slab coefficients of a scalar family over n rows (`fused_plan.py:
+    43-307` of the JAX package); they encode the composed path's math (the
+    family's telescoped hook, or its logpdf under the identity link)
+    exactly, up to float reassociation. Parameters are scalars or
+    per-element (n,) tensors (arraydist), which the per-row coefficient
+    columns absorb. The normalisers are formed in the state's dtype."""
+    d = dist
+    t = type(d)
+    ident = type(link) is Identity
 
-    def entry(fn):
+    def guard(ok, *params):
+        if not ok:
+            raise _Unsupported(f"{t.__name__} with link {type(link).__name__}")
+        for p in params:
+            if tuple(p.shape) not in ((), (n,)):
+                raise _Unsupported(
+                    f"{t.__name__} with a parameter of shape {tuple(p.shape)} over {n} rows"
+                )
+
+    dev = getattr(d, d._params[0]).device
+
+    def mk(fn):
         def slab(dtype):
-            return {k: v.to(dtype).expand(n) for k, v in fn(dtype).items()}
+            return {k: torch.broadcast_to(torch.as_tensor(v, dtype=dtype, device=dev), (n,))
+                    for k, v in fn(dtype).items()}
 
         return _Entry(row0, n, slab)
 
-    if t is uv.Normal and type(link) is Identity:
+    def p(name, dtype):
+        return getattr(d, name).to(dtype)
 
-        def cf(dtype, d=dist):
-            sig = d.scale.to(dtype)
+    # --- real line (identity link: the linked density is logpdf) ---
+    if t is uv.Normal:
+        guard(ident, d.loc, d.scale)
+
+        def cf(dtype):
+            sig = p("scale", dtype)
             inv_s = 1.0 / sig
-            return {"m": d.loc.to(dtype), "cq": -0.5 * inv_s * inv_s,
+            return {"m": p("loc", dtype), "cq": -0.5 * inv_s * inv_s,
                     "c0": -0.5 * LOG2PI - torch.log(sig)}
 
-        return entry(cf)
-    if t is uv.LogNormal and uv._is_log_link(link):
+        return mk(cf)
+    if t is uv.StudentT:
+        guard(ident, d.df, d.loc, d.scale)
 
-        def cf(dtype, d=dist):
-            sig = d.sigma.to(dtype)
+        def cf(dtype):
+            v = p("df", dtype)
+            sig = p("scale", dtype)
+            lognorm = (torch.lgamma(0.5 * (v + 1.0)) - torch.lgamma(0.5 * v)
+                       - 0.5 * (torch.log(v) + LOGPI))
+            return {"m": p("loc", dtype), "c6": -0.5 * (v + 1.0),
+                    "la": (1.0 / sig) / torch.sqrt(v), "c0": lognorm - torch.log(sig)}
+
+        return mk(cf)
+    if t is uv.Cauchy:
+        guard(ident, d.loc, d.scale)
+
+        def cf(dtype):
+            sig = p("scale", dtype)
+            return {"m": p("loc", dtype), "c6": -1.0, "la": 1.0 / sig,
+                    "c0": -LOGPI - torch.log(sig)}
+
+        return mk(cf)
+    if t is uv.Laplace:
+        guard(ident, d.loc, d.scale)
+
+        def cf(dtype):
+            sig = p("scale", dtype)
             inv_s = 1.0 / sig
-            return {"m": d.mu.to(dtype), "cq": -0.5 * inv_s * inv_s,
+            return {"m": p("loc", dtype), "c3p": -inv_s, "c3n": -inv_s,
+                    "c0": -LOG2 - torch.log(sig)}
+
+        return mk(cf)
+    if t is uv.Logistic:
+        guard(ident, d.loc, d.scale)
+
+        def cf(dtype):
+            # -z - 2 sp(-z) == -(|z| + 2 sp(-|z|)) by sp(x) = max(x, 0) + sp(-|x|)
+            sig = p("scale", dtype)
+            inv_s = 1.0 / sig
+            return {"m": p("loc", dtype), "c3p": -inv_s, "c3n": -inv_s, "c4": -2.0,
+                    "sa": -inv_s, "c0": -torch.log(sig)}
+
+        return mk(cf)
+    if t is uv.Gumbel:
+        guard(ident, d.loc, d.scale)
+
+        def cf(dtype):
+            sig = p("scale", dtype)
+            inv_s = 1.0 / sig
+            mi = p("loc", dtype) * inv_s
+            return {"c1": -inv_s, "c5": -1.0, "ea": -inv_s, "eb": mi,
+                    "c0": mi - torch.log(sig)}
+
+        return mk(cf)
+
+    # --- positive half-line (log link, the telescoped hooks) ---
+    log_link = uv._is_log_link(link)
+    if t is uv.LogNormal:
+        guard(log_link, d.mu, d.sigma)
+
+        def cf(dtype):
+            sig = p("sigma", dtype)
+            inv_s = 1.0 / sig
+            return {"m": p("mu", dtype), "cq": -0.5 * inv_s * inv_s,
                     "c0": -0.5 * LOG2PI - torch.log(sig)}
 
-        return entry(cf)
+        return mk(cf)
+    if t is uv.Gamma:
+        guard(log_link, d.concentration, d.rate)
+
+        def cf(dtype):
+            a, r = p("concentration", dtype), p("rate", dtype)
+            return {"c1": a, "c5": -r, "ea": 1.0, "c0": a * torch.log(r) - torch.lgamma(a)}
+
+        return mk(cf)
+    if t is uv.Exponential:
+        guard(log_link, d.rate)
+
+        def cf(dtype):
+            r = p("rate", dtype)
+            return {"c1": 1.0, "c5": -r, "ea": 1.0, "c0": torch.log(r)}
+
+        return mk(cf)
+    if t is uv.InverseGamma:
+        guard(log_link, d.concentration, d.scale)
+
+        def cf(dtype):
+            a, b = p("concentration", dtype), p("scale", dtype)
+            return {"c1": -a, "c5": -b, "ea": -1.0, "c0": a * torch.log(b) - torch.lgamma(a)}
+
+        return mk(cf)
+    if t is uv.HalfNormal:
+        guard(log_link, d.scale)
+
+        def cf(dtype):
+            ls = torch.log(p("scale", dtype))
+            return {"c1": 1.0, "c5": -0.5, "ea": 2.0, "eb": -2.0 * ls,
+                    "c0": (LOG2 - 0.5 * LOG2PI) - ls}
+
+        return mk(cf)
+    if t is uv.HalfCauchy:
+        guard(log_link, d.scale)
+
+        def cf(dtype):
+            # const + v - sp(2(v - ls)), the softplus folded into the U form
+            ls = torch.log(p("scale", dtype))
+            return {"m": ls, "c1": 1.0, "c3p": -2.0, "c4": -1.0, "sa": -2.0,
+                    "c0": (LOG2 - LOGPI) - ls}
+
+        return mk(cf)
+    if t is uv.Weibull:
+        guard(log_link, d.concentration, d.scale)
+
+        def cf(dtype):
+            k = p("concentration", dtype)
+            c1_ = k * torch.log(p("scale", dtype))
+            return {"c1": k, "c5": -1.0, "ea": k, "eb": -c1_, "c0": torch.log(k) - c1_}
+
+        return mk(cf)
+    if t is uv.Chi:
+        guard(log_link, d.df)
+
+        def cf(dtype):
+            df = p("df", dtype)
+            k2 = 0.5 * df
+            return {"c1": df, "c5": -0.5, "ea": 2.0,
+                    "c0": -(k2 - 1.0) * LOG2 - torch.lgamma(k2)}
+
+        return mk(cf)
+    if t is uv.Rayleigh:
+        guard(log_link, d.scale)
+
+        def cf(dtype):
+            ls = torch.log(p("scale", dtype))
+            return {"c1": 2.0, "c5": -0.5, "ea": 2.0, "eb": -2.0 * ls, "c0": -2.0 * ls}
+
+        return mk(cf)
+    if t is uv.Frechet:
+        guard(log_link, d.shape_, d.scale)
+
+        def cf(dtype):
+            a = p("shape_", dtype)
+            als = a * torch.log(p("scale", dtype))
+            return {"c1": -a, "c5": -1.0, "ea": -a, "eb": als, "c0": torch.log(a) + als}
+
+        return mk(cf)
+
+    # --- unit interval and (low, high) (logit link, the telescoped hooks) ---
+    if t is uv.Beta:
+        guard(uv._is_interval_logit_link(link, 0.0, 1.0), d.a, d.b)
+
+        def cf(dtype):
+            # -a sp(-v) - b sp(v) == -(b 1[v>0] + a 1[v<0])|v| - (a+b) sp(-|v|)
+            a, b = p("a", dtype), p("b", dtype)
+            return {"c3p": -b, "c3n": -a, "c4": -(a + b), "sa": -1.0,
+                    "c0": -(torch.lgamma(a) + torch.lgamma(b) - torch.lgamma(a + b))}
+
+        return mk(cf)
+    if t is uv.LogitNormal:
+        guard(uv._is_interval_logit_link(link, 0.0, 1.0), d.mu, d.sigma)
+
+        def cf(dtype):
+            sig = p("sigma", dtype)
+            inv_s = 1.0 / sig
+            return {"m": p("mu", dtype), "cq": -0.5 * inv_s * inv_s,
+                    "c0": -0.5 * LOG2PI - torch.log(sig)}
+
+        return mk(cf)
+    if t is uv.Uniform:
+        guard(d.low.ndim == 0 and d.high.ndim == 0
+              and uv._is_interval_logit_link(link, d.low, d.high), d.low, d.high)
+
+        def cf(dtype):
+            # -|v| - 2 sp(-|v|): parameter-free
+            return {"c3p": -1.0, "c3n": -1.0, "c4": -2.0, "sa": -1.0}
+
+        return mk(cf)
+
+    # --- lower-bounded (shifted-log link, the telescoped hooks) ---
+    if t is uv.Pareto:
+        guard(d.scale.ndim == 0 and uv._is_shifted_log_link(link, d.scale), d.alpha, d.scale)
+
+        def cf(dtype):
+            # log a - lm + v - (a+1) sp(v - lm), the softplus in the U form
+            a = p("alpha", dtype)
+            lm = torch.log(p("scale", dtype))
+            return {"m": lm, "c1": 1.0, "c3p": -(a + 1.0), "c4": -(a + 1.0), "sa": -1.0,
+                    "c0": torch.log(a) - lm}
+
+        return mk(cf)
+    if t is uv.Levy:
+        guard(d.mu.ndim == 0 and uv._is_shifted_log_link(link, d.mu), d.mu, d.sigma)
+
+        def cf(dtype):
+            s = p("sigma", dtype)
+            return {"c1": -0.5, "c5": -0.5 * s, "ea": -1.0, "c0": 0.5 * (torch.log(s) - LOG2PI)}
+
+        return mk(cf)
     raise _Unsupported(f"{t.__name__} with link {type(link).__name__}")
 
 
-def _lkj_weights(K, eta):
+def _lkj_weights(K, eta, chol=False):
     """Per-slot weight w_s with lp = -sum_s w_s logcosh(y_s) + const: the
-    closed-form logJ coefficient K - i (corr.jl:474-483) plus the density's
-    column weight 2(eta - 1)."""
-    rows, _ = _triu_index_arrays(K, 1)
-    base = torch.as_tensor(K - rows, dtype=eta.dtype, device=eta.device)
-    return base + 2.0 * (eta - 1.0)
+    closed-form logJ coefficient (K - i for the vec-corr link,
+    corr.jl:474-483; j - i + 1 for the Cholesky link, corr.jl:485-501) plus
+    the density's column weight (2(eta - 1); LKJCholesky's
+    2 eta - 2 + K - (j + 1) on column j)."""
+    rows, cols = _triu_index_arrays(K, 1)
+    like = dict(dtype=eta.dtype, device=eta.device)
+    if chol:
+        return (torch.as_tensor(cols - rows + 1, **like)
+                + 2.0 * eta - 2.0 + K - (torch.as_tensor(cols, **like) + 1.0))
+    return torch.as_tensor(K - rows, **like) + 2.0 * (eta - 1.0)
 
 
 def _leaf_entry(leaf, row0):
@@ -129,17 +346,19 @@ def _leaf_entry(leaf, row0):
             }
 
         return _Entry(row0, K - 1, slab)
-    if t is mx.LKJ and type(b) is VecCorrBijector and d.eta.ndim == 0:
+    if ((t is mx.LKJ and type(b) is VecCorrBijector)
+            or (t is mx.LKJCholesky and type(b) is VecCholeskyBijector)) and d.eta.ndim == 0:
         # the whole LKJ contribution telescopes to one weighted logcosh sum
         # over the packed slots: logcosh(y) = |y| + sp(-2|y|) - log 2 maps
         # onto (c3, c4/sa, c0); d lp/d y_s = -w_s tanh(y_s) falls out of the
         # same coefficients
         K = int(d.dim)
         P = K * (K - 1) // 2
+        chol = t is mx.LKJCholesky
 
         def slab(dtype, d=d, K=K, P=P):
             eta = d.eta.to(dtype)
-            w = _lkj_weights(K, eta)
+            w = _lkj_weights(K, eta, chol)
             const = -mx._lkj_log_normalizer(K, eta)
             e0 = torch.zeros(P, dtype=dtype, device=eta.device)
             e0[0] = 1.0
@@ -236,7 +455,12 @@ def _pd_entry(d, row0):
 def _plan_with_reason(u):
     """(entries covering every linked row, None), or (None, the leaf that
     has neither a slab nor a loop form)."""
-    from .core import IIDUnconstrainer, LeafUnconstrainer, TreeUnconstrainer
+    from .core import (
+        IIDUnconstrainer,
+        LeafUnconstrainer,
+        TransformedUnconstrainer,
+        TreeUnconstrainer,
+    )
 
     entries = []
 
@@ -244,6 +468,9 @@ def _plan_with_reason(u):
         if isinstance(node, TreeUnconstrainer):
             for c, (s, _) in zip(node.children, node.linked_offsets):
                 visit(c, row0 + s)
+        elif isinstance(node, TransformedUnconstrainer):
+            # the linked density telescopes to the base's: the same rows
+            visit(node.base, row0)
         elif isinstance(node, IIDUnconstrainer):
             inner = node.inner
             if inner.event_shape == () and inner.linked_shape == ():
