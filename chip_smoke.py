@@ -13,7 +13,12 @@ MvNormalTril(16), MvNormalCanon(16), 4 x MvStudentT(5, 16), MvLogNormal(4),
 MvNormalDiag(3): linked dim 151) on three more, `families` (the JAX
 package's whole-family test model: every slab-served scalar family,
 arraydist, IID blocks of structured leaves, LKJCholesky, a transformed
-Beta; linked dim 125) on two, eight schools on one, and the #13 probe:
+Beta; linked dim 125) on two, eight schools on one, the #13 probe, the
+traced models (`generic-traced` of tools/tpu_sweep.py: two truncated
+priors, Kumaraswamy, BetaPrime, InverseGaussian, JohnsonSU,
+TriangularDist, a Normal mixture and four joint order statistics, linked
+dim 12; the JAX tests' truncated-leaves and vector-leaves models) on two,
+and the #14 probe:
 
 1. transposed serving at B = 131072: `Model.batched_logdensity_t_fn()`
    (the slab value kernel), its `value_and_grad_fn` (the one-pass
@@ -80,7 +85,22 @@ Beta; linked dim 125) on two, eight schools on one, and the #13 probe:
    starts at target 0.8, gated against the JAX package's float64 means of
    mu and tau (ES_JAX);
 15. the #13 probe of the slab's per-element math: every variant against
-   its plain version, then its driver, which times them.
+   its plain version, then `probe.run`, which times them;
+16. transposed serving of the three traced models at B = 131072 in all
+   four modes of the whole-model kernel with the traced loop kind (the
+   tape interpreter of kernels/csrc/traced_tape.cuh), each against its
+   plain tape on the card, the float64 plain version and the float64
+   composed path at bounds from the magnitudes its tape forms
+   (`traced_allowances`), and an extremes block of 64 columns at +-1e10
+   on generic-traced (the plain version's pattern, no NaN in lp);
+17. traced sampling: `Model(generic-traced).sample(kernel='auto')`'s steps
+   on the prior alone, 64 chains from 0.3 N(0, 1), target 0.8, 300 warmup
+   and 1000 kept transitions (TRACED_KEPT), gated on R-hat, divergences
+   and every coordinate's mean within 5 MCSE of its exact mean;
+18. the #14 probe: every opcode of the traced entries' admission set as a
+   one-instruction tape on the interpreter, against its plain version,
+   the torch op and torch.autograd in float64 at its edge points, timed;
+   then `_prep`'s first call on the generic-traced and bench models.
 
 The launch counters are set to 0 just before each path and read just after
 it; each kernel of the path must have launched. Each kernel is held against
@@ -109,7 +129,8 @@ families variants with their bounds (`pd_variants`, `model_variants`).
 
 Prints the card's name and power limit, one JSON line per kernel, a
 `kernel_variants` line (every layout's time), a `transcend_probe` line
-(every probe variant's time), an `end_to_end` line (the
+(every probe variant's time), a `prim_probe` line per opcode, a `prep_s`
+line, an `end_to_end` line (the
 entry points with host dispatch), a `phases_s` line (each phase's wall
 time), a `sampler` line per cell, a `{"kernels": [...]}` line, and as
 the last line `{"ok": true, "device": {...}}`. Exits non-zero, with no
@@ -165,6 +186,10 @@ REPLACES = {
     "pd_trace_grad": "tpu_bijectors/kernels/pd.py:302",
     "lkj_logdet_chol": "tpu_bijectors/kernels/lkj.py:88",
     "transcend_probe": "tools/transcend_probe.py:157",
+    # the traced loop kind of #1-#4 (its row: the value-and-gradient mode,
+    # the leapfrog's, on generic-traced) and the per-opcode probe #14
+    "slab_traced": "tpu_bijectors/vectorize/fused_kernel.py:383",
+    "prim_probe": "tools/prim_lowering_probe.py:128",
 }
 CSRC = "tpu_bijectors_torch/kernels/csrc/"
 SOURCES = {
@@ -182,6 +207,8 @@ SOURCES = {
     "pd_trace_grad": CSRC + "pd_trace_grad.cu",
     "lkj_logdet_chol": CSRC + "lkj_logdet.cu",
     "transcend_probe": CSRC + "transcend_probe.cu",
+    "slab_traced": CSRC + "traced_tape.cuh",
+    "prim_probe": CSRC + "prim_probe.cu",
 }
 # the kernels each path must launch: transposed serving (path 1), the
 # inverse links of both samplers (paths 2 and 4), batch-major serving
@@ -2490,7 +2517,503 @@ def run_probe(dev):
     return launches, rows, err, (vT, c)
 
 
-def kernel_table(vT, xT, cf, ones, dvT, fam_vT, probe_in):
+# --- the traced entries (the seventh slice's cells 16-18) -------------------
+
+TRACED_DIM = 12
+# the states 0.6 N(0, 1) (numpy seed 7) and the tangent N(0, 1) (seed 8)
+TRACED_SEED, TRACED_TANGENT_SEED, TRACED_STATE_SCALE = 7, 8, 0.6
+TRACED_EXTREME_COLS = 64
+# a float32 straight-line tape rounds each result; its error is held to
+# RTOL_TAPE of the sum of the magnitudes of every value (for lp) or every
+# tangent (for a partial) its tape forms, in float64 (`traced_allowances`)
+RTOL_TAPE = 1e-5
+# the sampler cell's settings: the prior alone, 0.3 N(0, 1) starts, target
+# 0.8, and 1000 kept draws: at 200 the mixture's coordinate, its modes at
+# -2 and 3 crossed rarely, passed R-hat 1.05 on the card, and the JAX
+# package's sampler passes it on 8 of 10 seeds at 200 and on none at 1000
+# (tests/test_torch_traced_witness.py, run as a script, samples the cell
+# in either package)
+TRACED_INIT_SCALE, TRACED_TARGET, TRACED_KEPT = 0.3, 0.8, 1000
+# the exact means of the generic-traced prior (scipy, float64 quadrature:
+# truncnorm, t restricted to x > 0, b B(1 + 1/a, b), a / (b - 1), mu,
+# johnsonsu, triang, the mixture's weights, the four order statistics'
+# means of N(0.2, 1.3))
+TRACED_MEANS = {
+    "tn": (0.6105611200620137,), "tst": (1.1569068123998736,), "ku": (0.4571428571428571,),
+    "bp": (0.8,), "ig": (1.2,), "js": (-0.40088828645675456,), "tri": (0.5,), "mx": (0.5,),
+    "jo": (-1.138187984905159, -0.1861147969570391, 0.5861147969570388, 1.5381879849051536),
+}
+
+
+def traced_model(dists, device, dtype):
+    """The `generic-traced` model of tools/tpu_sweep.py:92-104, exactly as
+    written: two truncated priors, five families with no slab form, a
+    two-component Normal mixture and the joint order statistics of four
+    N(0.2, 1.3) draws; linked dim 12, nine traced entries."""
+    kw = dict(device=device, dtype=dtype)
+    d = dists
+    return d.NamedProduct.of(
+        tn=d.Truncated(d.Normal(0.3, 1.2, **kw), lower=-0.5, upper=2.0),
+        tst=d.Truncated(d.StudentT(4.0, 0.2, 1.1, **kw), lower=0.0),
+        ku=d.Kumaraswamy(2.0, 3.0, **kw),
+        bp=d.BetaPrime(2.0, 3.5, **kw),
+        ig=d.InverseGaussian(1.2, 2.0, **kw),
+        js=d.JohnsonSU(0.1, 1.2, 0.3, 1.1, **kw),
+        tri=d.TriangularDist(-1.0, 2.0, 0.5, **kw),
+        mx=d.Mixture(d.Normal([-2.0, 3.0], [1.0, 2.0], **kw), np.log([0.5, 0.5]), **kw),
+        jo=d.JointOrderStatistics(d.Normal(0.2, 1.3, **kw), 4),
+    )
+
+
+def truncated_model(dists, device, dtype):
+    """The JAX test's truncated-leaves model
+    (tests/test_transposed_layout.py:273-283): the three interval branches,
+    an IID block of three truncated Logistics (one traced entry over three
+    rows) and a slab row; linked dim 8."""
+    kw = dict(device=device, dtype=dtype)
+    d = dists
+    return d.NamedProduct.of(
+        tn=d.Truncated(d.Normal(0.3, 1.2, **kw), lower=-0.5, upper=2.0),
+        tlo=d.Truncated(d.Cauchy(0.0, 1.0, **kw), lower=0.4),
+        thi=d.Truncated(d.Gumbel(0.1, 0.9, **kw), upper=1.5),
+        iid=d.IIDProduct(d.Truncated(d.Logistic(0.0, 0.7, **kw), lower=-1.0, upper=1.0), 3),
+        tln=d.Truncated(d.LogNormal(0.2, 0.6, **kw), upper=3.0),
+        mu=d.Normal(0.0, 2.0, **kw),
+    )
+
+
+def vector_model(dists, device, dtype):
+    """The JAX test's vector-leaves model (:381-385): two
+    JointOrderStatistics (traced vector entries of 4 and 3 rows) and a
+    slab row; linked dim 8."""
+    kw = dict(device=device, dtype=dtype)
+    d = dists
+    return d.NamedProduct.of(
+        jo=d.JointOrderStatistics(d.Normal(0.2, 1.3, **kw), 4),
+        jg=d.JointOrderStatistics(d.Gamma(2.0, 1.0, **kw), 3),
+        mu=d.Normal(0.0, 2.0, **kw),
+    )
+
+
+TRACED_MODELS = {"generic-traced": traced_model, "truncated-leaves": truncated_model,
+                 "vector-leaves": vector_model}
+
+
+def traced_states(dev, dim, B=BATCH):
+    """(vT, dvT): 0.6 N(0, 1) (numpy seed 7) and N(0, 1) (seed 8), (dim, B)
+    float32 on `dev`."""
+    vT = TRACED_STATE_SCALE * np.random.default_rng(TRACED_SEED).standard_normal((dim, B))
+    dvT = np.random.default_rng(TRACED_TANGENT_SEED).standard_normal((dim, B))
+    return (torch.as_tensor(vT, dtype=torch.float32, device=dev),
+            torch.as_tensor(dvT, dtype=torch.float32, device=dev))
+
+
+def tape_magnitudes(tape, consts, V):
+    """The sums of |value| (B,) and, per input row, of |tangent| (rows, B)
+    over every instruction of one traced entry's passes on its rows V (its
+    plain version's unit tangents); infinite intermediates (an unselected
+    branch's) are left out."""
+    from tpu_bijectors_torch.vectorize import fused_traced as ft
+
+    acc = {"v": 0.0, "t": 0.0}
+
+    def fin(x):
+        return torch.where(torch.isfinite(x), x.abs(), torch.zeros_like(x))
+
+    def on_step(r, t):
+        acc["v"] = acc["v"] + fin(r)
+        if t is not None:
+            acc["t"] = acc["t"] + fin(t)
+
+    ft.traced_val_par(tape, consts, V, True, True, on_step)
+    vm = torch.broadcast_to(acc["v"], V.shape if not tape.vector else V.shape[1:])
+    return (vm if tape.vector else vm.sum(0)), torch.broadcast_to(acc["t"], V.shape)
+
+
+def traced_allowances(vT, cf64, loops64):
+    """Float64 (lp, g) of a model's fused plain version on vT (slab rows
+    and traced entries) and the error float32 may carry: the slab rows'
+    terms and c0 at RTOL_LP of their magnitudes, each partial at RTOL_G of
+    its terms' (as `families_allowances`); each traced entry at RTOL_TAPE
+    of its tape's `tape_magnitudes` (and of |partial|). Returns (lp64,
+    g64, lp_allow, g_allow, the terms' magnitude)."""
+    from tpu_bijectors_torch.vectorize import fused_base as fb
+
+    vT64 = vT.double()
+    lp64, g64 = fb.slab_value_and_grad_plain(vT64, cf64, loops64)
+    groups, used = fb._groups_and_used(cf64)
+    terms = [fb._group_val_par(gr, vT64, cf64, used, True, True, False) for gr in groups]
+    mag = cf64[:, fb._CI["c0"]].abs().sum() + torch.zeros_like(lp64)
+    g_mag = torch.zeros_like(vT64)
+    for v, p in terms:
+        mag = mag + v.abs().sum(0)
+        g_mag = g_mag + p.abs()
+    lp_allow = RTOL_LP * mag + 1e-6
+    g_allow = RTOL_G * (g64.abs() + g_mag) + 1e-6
+    for i, (code, row0, K, off) in enumerate(loops64.entries):
+        if code != fb.TRACED:
+            raise ValueError(f"loop kind {code} has no allowance here")
+        tape = loops64.tapes[loops64.toffs[i]]
+        vm, tm = tape_magnitudes(tape, loops64.prm[off: off + len(tape.consts)],
+                                 vT64[row0: row0 + K])
+        mag = mag + vm
+        lp_allow = lp_allow + RTOL_TAPE * vm
+        g_allow[row0: row0 + K] += RTOL_TAPE * (tm + g64[row0: row0 + K].abs())
+    return lp64, g64, lp_allow, g_allow, mag
+
+
+def traced_extremes(vT, u):
+    """The extremes block: the first TRACED_EXTREME_COLS columns of vT with
+    every row at +-1e10 (signs from numpy seed 7); in the second half of
+    the columns the rows of the leaves whose linked density is -inf at
+    either extreme (ku, ig, tri) and of jo past its first keep their
+    states and tst sits at -1e10, so that lp stays finite there."""
+    n = TRACED_EXTREME_COLS
+    sign = torch.as_tensor(np.sign(np.random.default_rng(7).standard_normal((vT.shape[0], n))),
+                           dtype=vT.dtype, device=vT.device)
+    vx = 1e10 * sign
+    rows = families_rows(u)
+    for name in ("ku", "ig", "tri"):
+        vx[rows[name], n // 2:] = vT[rows[name], n // 2: n]
+    jo = rows["jo"]
+    vx[jo.start + 1: jo.stop, n // 2:] = vT[jo.start + 1: jo.stop, n // 2: n]
+    vx[rows["tst"], n // 2:] = -1e10
+    return vx.contiguous()
+
+
+def check_pattern(tag, got, ref, allow):
+    """got and ref carry the same NaN / +inf / -inf pattern and agree
+    within `allow` where finite (the gradients at +-1e10: a partial of a
+    density at an overflowed point may be NaN in the plain version too)."""
+    same = (torch.equal(torch.isnan(got), torch.isnan(ref))
+            and torch.equal(torch.isposinf(got), torch.isposinf(ref))
+            and torch.equal(torch.isneginf(got), torch.isneginf(ref)))
+    expect(f"{tag}: the plain version's NaN/inf pattern ({int(torch.isnan(ref).sum())} NaN, "
+           f"{int(torch.isinf(ref).sum())} infinite)", same)
+    fin = torch.isfinite(ref) & torch.isfinite(got)
+    if fin.any():
+        check(f"{tag}: finite values vs plain", got[fin], ref[fin], 1.0, allow[fin])
+
+
+def tape_ops(loops, B):
+    """Operations of a model's traced entries at batch B by kernel mode:
+    each instruction of a pass counts one for its value and its tangent
+    rule's `dual_ops` (fused_decomp.OPS) on dual numbers; a scalar entry
+    runs a pass a row, a vector entry one pass for the value and one a row
+    for the partials; the JVP's partial times dv adds two a row."""
+    from tpu_bijectors_torch.vectorize import fused_base as fb
+    from tpu_bijectors_torch.vectorize import fused_decomp as fd
+
+    out = dict.fromkeys(OPS, 0)
+    for i, (code, _, K, _) in enumerate(loops.entries):
+        if code != fb.TRACED:
+            continue
+        tape = loops.tapes[loops.toffs[i]]
+        ins = tape.instructions()
+        val = len(ins)
+        dual = sum(1 + fd.OPS[n].dual_ops for n, *_ in ins)
+        passes = K if not tape.vector else 1
+        grad_passes = K
+        out["value"] += B * passes * val
+        out["value_and_grad"] += B * grad_passes * dual
+        out["vjp"] += B * grad_passes * (dual + 1)
+        out["jvp"] += B * grad_passes * (dual + 2)
+    return out
+
+
+def run_traced_model(dev, tag, build, extremes=False):
+    """One traced model at B = 131072 (`traced_states`) through the public
+    calls, in all four modes: `batched_logdensity_t_fn()`, its `value_and_grad_fn`, autograd's
+    backward and `torch.func.jvp` of `linked_logdensity_t` (the four
+    whole-model kernels with the traced loop kind); the counters zeroed
+    just before and read just after. Each against the plain version in
+    float64 and the float64 composed path (its autograd gradient), and
+    each kernel against its plain version on the card, at
+    `traced_allowances`; with `extremes`, the extremes block
+    (`traced_extremes`) in every mode against the plain versions. Returns
+    (launches, (vT, dvT, cf, loops), the kernels' max errors, the entry
+    points' times)."""
+    import tpu_bijectors_torch as tbt
+    from tpu_bijectors_torch import dists, kernels
+    from tpu_bijectors_torch.vectorize import fused_base as fb
+    from tpu_bijectors_torch.vectorize import fused_kernel as fk
+
+    model = tbt.Model(build(dists, dev, torch.float32), device=dev)
+    m64 = tbt.Model(build(dists, dev, torch.float64), device=dev)
+    u, u64 = model.unconstrainer(), m64.unconstrainer()
+    vT, dvT = traced_states(dev, model.dim())
+    dim, B = vT.shape
+    if tag == "generic-traced":
+        expect(f"generic-traced: dim {dim} == {TRACED_DIM}", dim == TRACED_DIM)
+    f = model.batched_logdensity_t_fn()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    lp = f(vT)
+    lp_vg, g = f.value_and_grad_fn(vT)
+    vr = vT.detach().requires_grad_(True)
+    (g_ag,) = torch.autograd.grad(u.linked_logdensity_t(vr).sum(), vr)
+    lp_j, dlp = torch.func.jvp(u.linked_logdensity_t, (vT,), (dvT,))
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    print(f"launches on the {tag} transposed serving path: {launches}", flush=True)
+    for k in SLAB_KERNELS + ("slab_jvp", "slab_traced"):
+        expect(f"{k} launched on the {tag} transposed serving path", launches[k] > 0)
+    expect(f"{tag}: lp (B,), g ({dim}, B), dlp (B,)",
+           lp.shape == (B,) and g.shape == (dim, B) and dlp.shape == (B,))
+    cf, loops, c0sum = fk._prep(u, vT)
+    cf64, loops64, c0sum64 = fk._prep(u64, vT.double())
+    traced = [e for e in loops.entries if e[0] == fb.TRACED]
+    print(f"{tag} loop entries (kind, first row, K, offset): {loops.entries}; tapes (offset: "
+          f"instructions, slots, constants): "
+          f"{ {o: (t.n_ins, t.n_slots, len(t.consts)) for o, t in loops.tapes.items()} }",
+          flush=True)
+    slab_rows = int((cf[:, fb._MASK_COL] > 0).sum())
+    expect(f"{tag}: every row a traced entry's or a slab row's ({len(traced)} traced entries, "
+           f"{slab_rows} slab rows)",
+           len(traced) == len(loops.entries) and sum(e[2] for e in traced) + slab_rows == dim)
+    lp64, g64, lp_allow, g_allow, mag = traced_allowances(vT, cf64, loops64)
+    lp64 = lp64 + c0sum64
+    dlp64 = (g64 * dvT.double()).sum(0)
+    j_allow = jvp_allowance(g64, g_allow, dvT)
+    check(f"{tag}: linked_logdensity_t vs float64", lp, lp64, 1.0, lp_allow)
+    check(f"{tag}: value_and_grad_fn lp vs float64", lp_vg, lp64, 1.0, lp_allow)
+    check(f"{tag}: value_and_grad_fn g vs float64", g, g64, 1.0, g_allow)
+    check(f"{tag}: autograd g vs float64", g_ag, g64, 1.0, g_allow)
+    check(f"{tag}: torch.func.jvp lp vs float64", lp_j, lp64, 1.0, lp_allow)
+    check(f"{tag}: torch.func.jvp dlp vs float64", dlp, dlp64, 1.0, j_allow)
+    # the float64 composed path and its autograd gradient (another algebra:
+    # the trace's hoisted normalisers, the slab's closed form)
+    v64 = vT.double().requires_grad_(True)
+    comp64 = u64._linked_logdensity_t_children(v64)
+    (gc64,) = torch.autograd.grad(comp64.sum(), v64)
+    check(f"{tag}: linked_logdensity_t vs the float64 composed path", lp, comp64.detach(), 1.0,
+          lp_allow)
+    check(f"{tag}: value_and_grad_fn g vs the float64 composed path's autograd", g, gc64, 1.0,
+          g_allow)
+    del v64, comp64, gc64
+    ct = torch.ones(B, device=dev)
+    err = {}
+    err["slab_value"] = check(f"{tag} value kernel vs plain", fk.slab_value(vT, cf, loops),
+                              fb.slab_value_plain(vT, cf, loops), 1.0, 2 * lp_allow)
+    lp_k, g_k = fk.slab_value_and_grad(vT, cf, loops)
+    lp_p, g_p = fb.slab_value_and_grad_plain(vT, cf, loops)
+    err["slab_value_and_grad"] = max(
+        check(f"{tag} value-and-grad kernel lp vs plain", lp_k, lp_p, 1.0, 2 * lp_allow),
+        check(f"{tag} value-and-grad kernel g vs plain", g_k, g_p, 1.0, 2 * g_allow))
+    err["slab_vjp"] = check(f"{tag} vjp kernel vs plain", fk.slab_vjp(vT, cf, ct, loops),
+                            fb.slab_vjp_plain(vT, cf, ct, loops), 1.0, 2 * g_allow)
+    err["slab_jvp"] = check(f"{tag} jvp kernel vs plain", fk.slab_jvp(vT, cf, dvT, loops),
+                            fb.slab_jvp_plain(vT, cf, dvT, loops), 1.0, 2 * j_allow)
+    err["slab_traced"] = max(err.values())
+    del lp_k, g_k, lp_p, g_p
+    if extremes:
+        vx = traced_extremes(vT, u)
+        n = vx.shape[1]
+        _, _, lpx_allow, gx_allow, _ = traced_allowances(vx, cf64, loops64)
+        dvx, ctx = dvT[:, :n].contiguous(), ct[:n].contiguous()
+        lpx_p, gx_p = fb.slab_value_and_grad_plain(vx, cf, loops)
+        check_extremes(f"{tag} extremes: value kernel", fk.slab_value(vx, cf, loops), lpx_p,
+                       2 * lpx_allow)
+        lpx_k, gx_k = fk.slab_value_and_grad(vx, cf, loops)
+        check_extremes(f"{tag} extremes: value-and-grad kernel lp", lpx_k, lpx_p,
+                       2 * lpx_allow)
+        check_pattern(f"{tag} extremes: value-and-grad kernel g", gx_k, gx_p, 2 * gx_allow)
+        check_pattern(f"{tag} extremes: vjp kernel", fk.slab_vjp(vx, cf, ctx, loops),
+                      fb.slab_vjp_plain(vx, cf, ctx, loops), 2 * gx_allow)
+        check_pattern(f"{tag} extremes: jvp kernel", fk.slab_jvp(vx, cf, dvx, loops),
+                      fb.slab_jvp_plain(vx, cf, dvx, loops),
+                      2 * jvp_allowance(torch.nan_to_num(gx_p.double()), gx_allow, dvx))
+        fin = int(torch.isfinite(lpx_p).sum())
+        expect(f"{tag} extremes: lp -inf in {n - fin} of {n} columns, finite in {fin}",
+               0 < fin < n)
+    v64 = vT[:, :CHAINS].contiguous()
+    key = tag.replace("-", "_")
+    e2e = {
+        f"{key}_value_ms_B{B}": time_ms(lambda: f(vT), device_only=False),
+        f"{key}_value_and_grad_ms_B{B}": time_ms(lambda: f.value_and_grad_fn(vT),
+                                                 device_only=False),
+        f"{key}_value_and_grad_ms_B64": time_ms(lambda: f.value_and_grad_fn(v64),
+                                                device_only=False),
+        f"{key}_func_jvp_ms_B{B}": time_ms(
+            lambda: torch.func.jvp(u.linked_logdensity_t, (vT,), (dvT,)), device_only=False),
+    }
+    return launches, (vT, dvT, cf, loops), err, e2e
+
+
+def run_traced_serving(dev):
+    """Cell 16: transposed serving of the three traced models at
+    B = 131072 (`run_traced_model`; the extremes block on generic-traced).
+    Returns (launches summed over the three, {model: (vT, dvT, cf, loops)},
+    the kernels' max errors, the entry points' times)."""
+    launches, preps, err, e2e = {}, {}, {}, {}
+    for tag, build in TRACED_MODELS.items():
+        lc, preps[tag], e, t = run_traced_model(dev, tag, build,
+                                                extremes=tag == "generic-traced")
+        for k, n in lc.items():
+            launches[k] = launches.get(k, 0) + n
+        for k, x in e.items():
+            err[k] = max(err.get(k, 0.0), x)
+        e2e.update(t)
+    return launches, preps, err, e2e
+
+
+def traced_variants(preps):
+    """`model_variants` of each traced model at B = 131072, the traced
+    entries' operations from `tape_ops`."""
+    out = {}
+    for tag, (vT, dvT, cf, loops) in preps.items():
+        out.update(model_variants(f"with the traced entries ({tag})", vT, dvT, cf, loops,
+                                  tape_ops(loops, vT.shape[1])))
+    return out
+
+
+def run_traced_sampler(dev):
+    """Cell 17, traced sampling: the steps of `Model(generic-traced).sample(
+    kernel='auto')` on the prior alone (`nuts_batched_t`: every leapfrog
+    runs the value-and-gradient kernel with the nine traced entries),
+    `warmup_and_sample` from `Model.init_positions(gen, 64, 0.3)` for the
+    warmup and `resume_sampling` for the draws; 64 chains, max_depth 8, 300
+    warmup and TRACED_KEPT kept transitions, target 0.8, torch seed 0. Gates:
+    max rank-normalized R-hat <= 1.05, divergences <= 1%, every
+    coordinate's mean within 5 MCSE of its exact mean (TRACED_MEANS)."""
+    import tpu_bijectors_torch as tbt
+    from tpu_bijectors_torch import diagnostics, dists, kernels
+    from tpu_bijectors_torch.infer import hmc_batched, resume_sampling, warmup_and_sample
+
+    model = tbt.Model(traced_model(dists, dev, torch.float32), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    hmc_batched.reset_sync_count()
+    t0 = time.perf_counter()
+    kernel = model._auto_kernel()
+    expect(f"traced sampling: kernel='auto' takes nuts_batched_t (took {kernel})",
+           kernel == "nuts_batched_t")
+    density = model.batched_logdensity_t_fn()
+    _, state, _ = warmup_and_sample(
+        density, gen, model.init_positions(gen, CHAINS, TRACED_INIT_SCALE), n_warmup=WARMUP,
+        n_samples=0, kernel=kernel, max_depth=MAX_DEPTH, target_accept=TRACED_TARGET,
+    )
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    l1, s1 = dict(kernels.LAUNCHES), hmc_batched.SYNCS["any_active"]
+    raw, state, stats = resume_sampling(density, state, TRACED_KEPT, kernel=kernel,
+                                        max_depth=MAX_DEPTH)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    l2, s2 = dict(kernels.LAUNCHES), hmc_batched.SYNCS["any_active"]
+    x = model.constrain(raw)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = dict(kernels.LAUNCHES)
+    print(f"launches on the traced sampler path: {launches}", flush=True)
+    for k in ("slab_value_and_grad", "slab_traced"):
+        expect(f"{k} launched on the traced sampler path", launches[k] > 0)
+    during = {k: l2[k] - l1[k] for k in l2}
+    leapfrogs = during["slab_value_and_grad"]
+    sampling_s = t2 - t1
+    expect(f"traced sampling: raw draws ({TRACED_KEPT}, {CHAINS}, {TRACED_DIM}) and finite",
+           tuple(raw.shape) == (TRACED_KEPT, CHAINS, TRACED_DIM)
+           and bool(torch.isfinite(raw).all()))
+    r_hat = diagnostics.rhat(raw)
+    ess = diagnostics.ess_bulk(raw)
+    n_div = int(stats.diverging.sum())
+    dev_in_mcse = {}
+    for k, means in TRACED_MEANS.items():
+        draws = x[k].double()
+        for i, exact in enumerate(means):
+            di = draws if draws.ndim == 2 else draws[..., i]
+            mean, mcse = float(di.mean()), float(diagnostics.mcse_mean(di))
+            name = k if len(means) == 1 else f"{k}[{i}]"
+            dev_in_mcse[name] = abs(mean - exact) / mcse
+            print(f"traced sampling: {name} mean {mean:.4f} (MCSE {mcse:.4f}); exact "
+                  f"{exact:.4f}", flush=True)
+    line = {
+        "kernel": "nuts_batched_t", "cell": "traced_sampling",
+        "chains": CHAINS, "warmup": WARMUP, "kept": TRACED_KEPT, "max_depth": MAX_DEPTH,
+        "target_accept": TRACED_TARGET, "init_scale": TRACED_INIT_SCALE,
+        "warmup_s": t1 - t0,
+        "sampling_s": sampling_s,
+        "constrain_s": t3 - t2,
+        "draws_per_s": CHAINS * KEPT / sampling_s,
+        "leapfrogs_per_transition": float(stats.n_steps.float().mean()),
+        "batched_leapfrogs": leapfrogs,
+        "ms_per_leapfrog": 1e3 * sampling_s / max(leapfrogs, 1),
+        "host_syncs_per_leapfrog": (s2 - s1) / max(leapfrogs, 1),
+        "step_size": float(state.eps),
+        "mean_accept": float(stats.accept_prob.mean()),
+        "divergences": n_div,
+        "transitions": CHAINS * TRACED_KEPT,
+        "launches_during_sampling": during,
+        "max_rhat": float(np.max(r_hat)),
+        "rhat": [float(r) for r in np.ravel(r_hat)],
+        "min_ess_bulk": float(np.min(ess)),
+        "dev_in_mcse": dev_in_mcse,
+    }
+    expect(f"traced sampling: max R-hat {line['max_rhat']:.4f} <= 1.05", line["max_rhat"] <= 1.05)
+    expect(f"traced sampling: divergences {n_div} <= 1% of {CHAINS * TRACED_KEPT}",
+           n_div <= 0.01 * CHAINS * TRACED_KEPT)
+    for k, d in dev_in_mcse.items():
+        expect(f"traced sampling: the mean of {k} within 5 MCSE of its exact mean ({d:.2f})",
+               d <= 5.0)
+    return line
+
+
+def run_prim_probe(dev):
+    """Cell 18, #14: the per-opcode probe of the interpreter
+    (`kernels/prim_probe.py::run`, the counters zeroed just before and read
+    just after): every opcode of the admission set against its plain
+    version, the torch op and torch.autograd in float64 at its edge
+    points, then timed. Returns (launches, the rows, the largest error
+    against the plain version)."""
+    from tpu_bijectors_torch import kernels
+    from tpu_bijectors_torch.kernels import prim_probe as pp
+    from tpu_bijectors_torch.vectorize import fused_decomp as fd
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    rows = pp.run(dev)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    print(f"launches on the prim probe's path: {launches}", flush=True)
+    expect("prim_probe launched by the probe", launches["prim_probe"] > 0)
+    for r in rows:
+        print(json.dumps({"prim_probe": r}), flush=True)
+        expect(f"prim_probe {r['op']}: value and tangent within {pp.TOL:g} of plain and float64, "
+               f"the same NaN/inf pattern", r["ok"])
+    expect("prim_probe covers the admission set",
+           sorted(r["op"] for r in rows) == sorted(fd._SAFE_PRIMS))
+    err = max(max(r["err_value_plain"], r["err_tangent_plain"]) for r in rows)
+    return launches, rows, err
+
+
+def time_prep(dev):
+    """`_prep`'s first call (plan, traced entries' traces, table) on a
+    fresh unconstrainer of the generic-traced and the bench models, and a
+    second call (the cache), host clock with a synchronize."""
+    import tpu_bijectors_torch as tbt
+    from tpu_bijectors_torch import dists
+    from tpu_bijectors_torch.vectorize import fused_kernel as fk
+
+    out = {}
+    for tag, build in (("generic_traced", lambda: traced_model(dists, dev, torch.float32)),
+                       ("bench", lambda: bench_model(dists, dev, torch.float32))):
+        model = tbt.Model(build(), device=dev)
+        vT = torch.zeros((model.dim(), 64), device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fk._prep(model.unconstrainer(), vT)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fk._prep(model.unconstrainer(), vT)
+        torch.cuda.synchronize()
+        out[f"{tag}_first_s"] = t1 - t0
+        out[f"{tag}_cached_s"] = time.perf_counter() - t1
+    print(json.dumps({"prep_s": out}), flush=True)
+    return out
+
+
+def kernel_table(vT, xT, cf, ones, dvT, fam_vT, probe_in, traced_in):
     """Every ported kernel at B = 131072: name -> (wrapper, plain version,
     bytes, operations, {layout: input}), the layout the path reads first.
     The bytes count each input the function reads once and each output
@@ -2500,16 +3023,24 @@ def kernel_table(vT, xT, cf, ones, dvT, fam_vT, probe_in):
     (the solve mode is in `pd_variants`). The LKJ log-det's Cholesky
     variant (`lkj_logdet_chol`) reads the families model's LKJCholesky(5)
     rows of fam_vT (its path's), the probe (#13) is its floor variant on
-    `probe_in` = (vT, c) (every variant: the `transcend_probe` line)."""
+    `probe_in` = (vT, c) (every variant: the `transcend_probe` line). The
+    traced loop kind is the value-and-gradient kernel on generic-traced
+    (`traced_in` = (vT, dvT, cf, loops); every mode and model:
+    `traced_variants`), #14 its costliest opcode, pow, with the tangent on
+    the base (every opcode: the `prim_probe` lines)."""
     from tpu_bijectors_torch.kernels import lkj as kl
     from tpu_bijectors_torch.kernels import pd as kp
+    from tpu_bijectors_torch.kernels import prim_probe as pp
     from tpu_bijectors_torch.kernels import probe
     from tpu_bijectors_torch.kernels import simplex as ks
     from tpu_bijectors_torch.vectorize import fused_base as fb
+    from tpu_bijectors_torch.vectorize import fused_decomp as fd
     from tpu_bijectors_torch.vectorize import fused_kernel as fk
 
     dim, B = vT.shape
     pv, pc = probe_in
+    tvT, _, tcf, tloops = traced_in
+    px, py, pz = pp.inputs("pow", vT.device)
     lc_rows = slice(FAM_LC_ROW0, FAM_LC_ROW0 + 10)
     groups_per_row = [fb._groups_and_used(cf[r : r + 1])[0] for r in range(dim)]
 
@@ -2598,6 +3129,22 @@ def kernel_table(vT, xT, cf, ones, dvT, fam_vT, probe_in):
         "transcend_probe": (
             lambda y: probe.probe("floor", y, pc), lambda y: probe.probe_plain("floor", y, pc),
             probe.probe_bytes("floor", *pv.shape), 3 * pv.numel(), {"transposed": pv},
+        ),
+        # reads vT (12, B), the table, the parameters and the tapes; writes
+        # lp (B,) and g (12, B)
+        "slab_traced": (
+            lambda y: fk.slab_value_and_grad(y, tcf, tloops),
+            lambda y: fb.slab_value_and_grad_plain(y, tcf, tloops),
+            2 * tvT.numel() * 4 + B * 4 + tcf.numel() * 4 + tloops.prm.numel() * 4
+            + tloops.tape.numel() * 4,
+            tape_ops(tloops, B)["value_and_grad"], {"transposed": tvT},
+        ),
+        # reads x, y, z, writes the value and the tangent; pow's value and
+        # its tangent rule
+        "prim_probe": (
+            lambda x: pp.prim_probe("pow", x, py, pz, 0),
+            lambda x: pp.prim_probe_plain("pow", x, py, pz, 0),
+            5 * 4 * B, B * (1 + fd.OPS["pow"].dual_ops), {"grid": px},
         ),
     }
 
@@ -2948,6 +3495,21 @@ def main():
     probe_launches, _, err["transcend_probe"], probe_in = run_probe(dev)
     launches["transcend_probe"] = probe_launches["transcend_probe"]
     lap("transcend probe")
+    # --- the sixteenth: transposed serving of the traced models ---------------
+    tr_launches, tr_preps, tr_err, tr_e2e = run_traced_serving(dev)
+    launches["slab_traced"] = tr_launches["slab_traced"]
+    for k, e in tr_err.items():
+        err[k] = max(err.get(k, 0.0), e)
+    lap("traced serving")
+    # --- the seventeenth: NUTS on the generic-traced prior ---------------------
+    tr_sampler_line = run_traced_sampler(dev)
+    lap("traced sampler")
+    # --- the eighteenth: the per-opcode probe of the interpreter (#14) ---------
+    pp_launches, _, err["prim_probe"] = run_prim_probe(dev)
+    launches["prim_probe"] = pp_launches["prim_probe"]
+    lap("prim probe")
+    prep_s = time_prep(dev)
+    lap("_prep first calls")
 
     # --- timing ----------------------------------------------------------------
     # the variants the paths also run: the LKJ inverse writing W for the
@@ -2968,8 +3530,9 @@ def main():
     variants.update(mv_variants(vT, dvT, *fk._prep(mv_u, vT)[:2]))
     variants.update(repair_variants)
     variants.update(families_variants(fam_vT, fam_dvT, *fam_prep))
-    rows = time_kernels(kernel_table(vT, xT, cf, ones, dvT, fam_vT, probe_in), launches, err,
-                        variants)
+    variants.update(traced_variants(tr_preps))
+    rows = time_kernels(kernel_table(vT, xT, cf, ones, dvT, fam_vT, probe_in,
+                                     tr_preps["generic-traced"]), launches, err, variants)
     lap("kernel timing")
 
     # the entry points as a caller sees them: host dispatch included, at the
@@ -2989,6 +3552,8 @@ def main():
     e2e.update(pd_e2e)
     e2e.update(mv_e2e)
     e2e.update(fam_e2e)
+    e2e.update(tr_e2e)
+    e2e.update({f"prep_{k}": v for k, v in prep_s.items()})
     lap("entry-point timing")
     print(json.dumps({"end_to_end": e2e}), flush=True)
     print(json.dumps({"phases_s": phases}), flush=True)
@@ -2997,6 +3562,7 @@ def main():
     print(json.dumps({"sampler": pd_sampler_line}), flush=True)
     print(json.dumps({"sampler": mv_sampler_line}), flush=True)
     print(json.dumps({"sampler": es_line}), flush=True)
+    print(json.dumps({"sampler": tr_sampler_line}), flush=True)
 
     if failures:
         print("FAILED: " + "; ".join(failures), file=sys.stderr)

@@ -48,7 +48,9 @@ def spec_of(d):
         v = getattr(d, f.name)
         if f.name.endswith("_static"):
             continue  # the JAX package's float copy of a bound parameter
-        if isinstance(v, (int, str)) and not isinstance(v, bool):
+        if isinstance(v, jd.Distribution):
+            spec[f.name] = spec_of(v)  # a wrapper's base or components
+        elif isinstance(v, (int, str)) and not isinstance(v, bool):
             spec[f.name] = v
         else:
             spec["params"][f.name] = np.asarray(v)

@@ -3,7 +3,8 @@
 from .base import Bijector, Block, Chain, Identity, Invert, elementwise, inverse
 from .corr import VecCholeskyBijector, VecCorrBijector
 from .pd import CholeskyVecBijector, PDBijector, PDVecBijector
-from .scalar import Truncated
+from .ordered import OrderedBijector
+from .scalar import SignFlip, Truncated
 from .simplex import SimplexBijector
 
 __all__ = [
@@ -19,6 +20,8 @@ __all__ = [
     "CholeskyVecBijector",
     "PDBijector",
     "PDVecBijector",
+    "OrderedBijector",
+    "SignFlip",
     "Truncated",
     "SimplexBijector",
 ]

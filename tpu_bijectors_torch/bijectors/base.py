@@ -24,6 +24,9 @@ class Bijector:
 
     event_ndims_in: int = 0
     event_ndims_out: int = 0
+    # an elementwise map's direction (the ordered links need a monotone one)
+    monotonically_increasing: bool = False
+    monotonically_decreasing: bool = False
 
     def forward_and_log_det(self, x):
         raise NotImplementedError(type(self).__name__)
@@ -185,6 +188,8 @@ def _reduce_to_batch(ld, batch_ndim: int):
 @dataclass(frozen=True)
 class Identity(Bijector):
     """Identity with zero log-det."""
+
+    monotonically_increasing = True
 
     def forward_and_log_det(self, x):
         return x, torch.zeros_like(x)

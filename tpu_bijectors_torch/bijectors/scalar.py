@@ -1,7 +1,8 @@
 """Scalar bijectors, PyTorch counterpart of `tpu_bijectors/bijectors/scalar.py`.
 
-Only `Truncated` is ported: it is the link the registry gives every
-interval-supported family (for LogNormal the lower-only log branch).
+`Truncated` is the link the registry gives every interval-supported family
+(for LogNormal the lower-only log branch); `SignFlip` turns a decreasing
+link increasing in the ordered links of the joint order statistics.
 """
 
 from __future__ import annotations
@@ -32,6 +33,15 @@ class Truncated(Bijector):
     ub: float = math.inf
     lower_finite: bool = False
     upper_finite: bool = False
+
+    @property
+    def monotonically_increasing(self):  # type: ignore[override]
+        # truncated.jl:95-109
+        return self.lower_finite or not self.upper_finite
+
+    @property
+    def monotonically_decreasing(self):  # type: ignore[override]
+        return self.upper_finite and not self.lower_finite
 
     def forward_and_log_det(self, x):
         lb, ub = self.lb, self.ub
@@ -67,3 +77,16 @@ class Truncated(Bijector):
         else:
             x, ld = y, torch.zeros_like(y)
         return x, ld
+
+
+@dataclass(frozen=True)
+class SignFlip(Bijector):
+    """x -> -x, log|J| = 0 (reference src/bijectors/ordered.jl:1-7)."""
+
+    monotonically_decreasing = True
+
+    def forward_and_log_det(self, x):
+        return -x, torch.zeros_like(x)
+
+    def inverse_and_log_det(self, y):
+        return -y, torch.zeros_like(y)

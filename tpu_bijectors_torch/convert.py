@@ -16,13 +16,18 @@ parameters can be handed to the JAX package and to the port:
   {"type": "InverseWishart", "params": {"df": np.ndarray, "psi": np.ndarray}}
   {"type": "MvNormalTril", "params": {"loc": np.ndarray, "scale_tril": np.ndarray}}
 
-(and alike every scalar family of `dists/univariate.py`, MvNormalDiag and
+(and alike every scalar family of `dists/univariate*.py`, MvNormalDiag and
 MvLogNormal {loc, scale_diag}, MvStudentT {df, loc, scale_tril},
-MvNormalCanon {h, prec}: the JAX families' fields).
+MvNormalCanon {h, prec}: the JAX families' fields). The wrappers nest a
+spec under the field that holds a distribution:
 
-Any key other than "type", "params", "children" and "inner" is a static
+  {"type": "Truncated", "base": spec, "params": {"lower": -0.5, "upper": 2.0}}
+  {"type": "Mixture", "components": spec, "params": {"log_weights": np.ndarray}}
+  {"type": "JointOrderStatistics", "base": spec, "n": 4}
+
+Any other key than "type", "params", "children" and "inner" is a static
 argument of the constructor (an int such as `n` or `dim`, a string such
-as `mode`).
+as `mode`, or a nested spec).
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ _SCALAR = (
     "Normal", "StudentT", "Cauchy", "Laplace", "Logistic", "Gumbel", "LogNormal",
     "Exponential", "Gamma", "InverseGamma", "Chi", "Weibull", "Rayleigh", "Frechet",
     "HalfNormal", "HalfCauchy", "Beta", "LogitNormal", "Uniform", "Pareto", "Levy",
+    "Kumaraswamy", "Arcsine", "SkewNormal", "BetaPrime", "InverseGaussian",
+    "TriangularDist", "JohnsonSU", "Mixture",
 )
 _LEAVES = {name: getattr(dists, name) for name in _SCALAR}
 _LEAVES.update({
@@ -69,7 +76,14 @@ def dist_from_spec(spec: dict, *, device, dtype):
         return dists.arraydist(dist_from_spec(spec["inner"], device=device, dtype=dtype))
     if kind == "TransformedDistribution":
         return transformed(dist_from_spec(spec["inner"], device=device, dtype=dtype))
+    static = {
+        k: dist_from_spec(v, device=device, dtype=dtype) if isinstance(v, dict) else v
+        for k, v in spec.items() if k not in ("type", "params")
+    }
+    if kind in ("Truncated", "JointOrderStatistics"):
+        # static bounds and counts: no tensor parameter of their own
+        args = {**static, **{k: float(v) for k, v in spec.get("params", {}).items()}}
+        return getattr(dists, kind)(**args)
     if kind not in _LEAVES:
         raise NotImplementedError(f"no ported distribution named {kind!r}")
-    static = {k: v for k, v in spec.items() if k not in ("type", "params")}
     return _LEAVES[kind](**static, **spec.get("params", {}), device=device, dtype=dtype)

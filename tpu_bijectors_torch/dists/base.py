@@ -98,6 +98,20 @@ def _as_param(v, device, dtype):
     )
 
 
+def first_param(d: Distribution):
+    """The first tensor parameter of `d`, found through products, wrappers
+    and a mixture's components (None where it has none): its dtype and
+    device are the distribution's."""
+    while not getattr(d, "_params", ()):
+        if hasattr(d, "components"):
+            d = d.components[0] if isinstance(d.components, tuple) else d.components
+        elif hasattr(d, "base"):
+            d = d.base
+        else:
+            return None
+    return getattr(d, d._params[0])
+
+
 @dataclass(frozen=True)
 class LeafDistribution(Distribution):
     """A family with tensor parameters (named by `_params`), converted at

@@ -8,6 +8,13 @@ InverseGamma, Chi, Weibull, Rayleigh, Frechet, HalfNormal, HalfCauchy.
 Unit interval or (low, high) (logit link): Beta, LogitNormal, Uniform.
 Lower-bounded (shifted-log link): Pareto, Levy.
 
+With no closed form in the fused slab, served by its traced entries
+(`vectorize/fused_traced.py`): Kumaraswamy and Arcsine (logit link) and
+`Truncated(base, lower, upper)`, any scalar base renormalised by
+cdf(upper) - cdf(lower) (the cdfs of Normal, StudentT, Cauchy, Logistic,
+Gumbel and LogNormal are here). SkewNormal's density reaches log_ndtr of
+the state, which those entries decline.
+
 Parameters broadcast: a family with (n,) parameters is n families side by
 side (`product.arraydist`). Every family with a transformed support has a
 telescoped `fused_linked_logdensity` hook, as in the JAX package: with
@@ -24,9 +31,18 @@ from dataclasses import dataclass
 
 import torch
 
-from ..bijectors.scalar import Truncated
-from ..utils import log1pexp
-from .base import LeafDistribution, interval, lower_bounded, positive, unit_interval
+from ..bijectors.scalar import Truncated as TruncatedLink
+from ..utils import clamp, log1pexp
+from ._special import betainc
+from .base import (
+    Distribution,
+    LeafDistribution,
+    Support,
+    interval,
+    lower_bounded,
+    positive,
+    unit_interval,
+)
 
 LOG2PI = math.log(2.0 * math.pi)
 LOG2 = math.log(2.0)
@@ -38,7 +54,7 @@ def _is_log_link(b) -> bool:
     Truncated(0, inf) branch the positive support resolves to
     (reference truncated.jl:35)."""
     return (
-        type(b) is Truncated
+        type(b) is TruncatedLink
         and b.lower_finite
         and not b.upper_finite
         and float(b.lb) == 0.0
@@ -50,7 +66,7 @@ def _is_interval_logit_link(b, lo, hi) -> bool:
     both-finite Truncated(lo, hi) branch (y = logit((x-lo)/(hi-lo)),
     reference truncated.jl:20-31)."""
     return (
-        type(b) is Truncated
+        type(b) is TruncatedLink
         and b.lower_finite
         and b.upper_finite
         and float(b.lb) == float(lo)
@@ -63,7 +79,7 @@ def _is_shifted_log_link(b, lo) -> bool:
     Truncated branch of a lower-bounded support such as Pareto's or Levy's
     (reference truncated.jl:35, src/transformed_distribution.jl:135)."""
     return (
-        type(b) is Truncated
+        type(b) is TruncatedLink
         and b.lower_finite
         and not b.upper_finite
         and float(b.lb) == float(lo)
@@ -97,6 +113,9 @@ class Normal(LeafDistribution):
         z = (x - self.loc) / self.scale
         return -0.5 * (z * z + LOG2PI) - torch.log(self.scale)
 
+    def cdf(self, x):
+        return torch.special.ndtr((x - self.loc) / self.scale)
+
 
 @dataclass(frozen=True)
 class StudentT(LeafDistribution):
@@ -116,6 +135,12 @@ class StudentT(LeafDistribution):
         )
         return lognorm - 0.5 * (v + 1.0) * torch.log1p(z * z / v) - torch.log(self.scale)
 
+    def cdf(self, x):
+        v = self.df
+        z = (x - self.loc) / self.scale
+        ib = betainc(0.5 * v, torch.full_like(v, 0.5), v / (v + z * z))
+        return torch.where(z >= 0, 1.0 - 0.5 * ib, 0.5 * ib)
+
 
 @dataclass(frozen=True)
 class Cauchy(LeafDistribution):
@@ -127,6 +152,9 @@ class Cauchy(LeafDistribution):
     def logpdf(self, x):
         z = (x - self.loc) / self.scale
         return -LOGPI - torch.log(self.scale) - torch.log1p(z * z)
+
+    def cdf(self, x):
+        return torch.atan((x - self.loc) / self.scale) / math.pi + 0.5
 
 
 @dataclass(frozen=True)
@@ -152,6 +180,9 @@ class Logistic(LeafDistribution):
         z = (x - self.loc) / self.scale
         return -z - 2.0 * log1pexp(-z) - torch.log(self.scale)
 
+    def cdf(self, x):
+        return torch.sigmoid((x - self.loc) / self.scale)
+
 
 @dataclass(frozen=True)
 class Gumbel(LeafDistribution):
@@ -163,6 +194,26 @@ class Gumbel(LeafDistribution):
     def logpdf(self, x):
         z = (x - self.loc) / self.scale
         return -(z + torch.exp(-z)) - torch.log(self.scale)
+
+    def cdf(self, x):
+        return torch.exp(-torch.exp(-(x - self.loc) / self.scale))
+
+
+@dataclass(frozen=True)
+class SkewNormal(LeafDistribution):
+    """Azzalini's skew normal. Its density holds log_ndtr(shape * z), which
+    no fused form serves: a model with it takes the composed path."""
+
+    loc: object = 0.0
+    scale: object = 1.0
+    shape_: object = 0.0
+
+    _params = ("loc", "scale", "shape_")
+
+    def logpdf(self, x):
+        z = (x - self.loc) / self.scale
+        return (LOG2 - 0.5 * (z * z + LOG2PI) + torch.special.log_ndtr(self.shape_ * z)
+                - torch.log(self.scale))
 
 
 # ---------------------------------------------------------------------------
@@ -198,6 +249,9 @@ class LogNormal(_Positive):
         lx = torch.log(x)
         z = (lx - self.mu) / self.sigma
         return -0.5 * (z * z + LOG2PI) - torch.log(self.sigma) - lx
+
+    def cdf(self, x):
+        return torch.special.ndtr((torch.log(x) - self.mu) / self.sigma)
 
     def _linked(self, y):
         """logpdf(exp(v)) + v is the Normal density of v."""
@@ -501,3 +555,100 @@ class Levy(LeafDistribution):
     @property
     def support(self):
         return lower_bounded(_static_bound(self.mu, "Levy", "mu"))
+
+
+# ---------------------------------------------------------------------------
+# no slab form (the traced entries of the fused evaluation serve them)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Kumaraswamy(LeafDistribution):
+    a: object = 1.0
+    b: object = 1.0
+
+    _params = ("a", "b")
+
+    def logpdf(self, x):
+        a, b = self.a, self.b
+        return (torch.log(a) + torch.log(b) + (a - 1.0) * torch.log(x)
+                + (b - 1.0) * torch.log1p(-(x**a)))
+
+    def cdf(self, x):
+        return -torch.expm1(self.b * torch.log1p(-(x**self.a)))
+
+    @property
+    def support(self):
+        return unit_interval()
+
+
+@dataclass(frozen=True)
+class Arcsine(LeafDistribution):
+    """The arcsine distribution on (a, b)."""
+
+    a: object = 0.0
+    b: object = 1.0
+
+    _params = ("a", "b")
+
+    def logpdf(self, x):
+        return -(LOGPI + 0.5 * (torch.log(x - self.a) + torch.log(self.b - x)))
+
+    def cdf(self, x):
+        z = clamp((x - self.a) / (self.b - self.a), 0.0, 1.0)
+        return (2.0 / math.pi) * torch.asin(torch.sqrt(z))
+
+    @property
+    def support(self):
+        return interval(_static_bound(self.a, "Arcsine", "a"),
+                        _static_bound(self.b, "Arcsine", "b"))
+
+
+@dataclass(frozen=True)
+class Truncated(Distribution):
+    """truncated(base; lower, upper) with static bounds (reference
+    Distributions.truncated): logpdf renormalises the base's by
+    cdf(upper) - cdf(lower) and is -inf outside [lower, upper]."""
+
+    base: Distribution
+    lower: float = -math.inf
+    upper: float = math.inf
+
+    def __post_init__(self):
+        object.__setattr__(self, "lower", float(self.lower))
+        object.__setattr__(self, "upper", float(self.upper))
+
+    @property
+    def batch_shape(self):
+        return self.base.batch_shape
+
+    def _bound_cdf(self, bound, like, outside):
+        if not math.isfinite(bound):
+            return outside
+        return self.base.cdf(torch.as_tensor(bound, dtype=like.dtype, device=like.device))
+
+    def logpdf(self, x):
+        lo_c = self._bound_cdf(self.lower, x, 0.0)
+        hi_c = self._bound_cdf(self.upper, x, 1.0)
+        lp = self.base.logpdf(x) - torch.log(hi_c - lo_c)
+        inside = torch.ones_like(lp, dtype=torch.bool)
+        if math.isfinite(self.lower):
+            inside = inside & (x >= self.lower)
+        if math.isfinite(self.upper):
+            inside = inside & (x <= self.upper)
+        return torch.where(inside, lp, torch.full_like(lp, -math.inf))
+
+    def cdf(self, x):
+        lo_c = self._bound_cdf(self.lower, x, 0.0)
+        hi_c = self._bound_cdf(self.upper, x, 1.0)
+        xc = torch.clamp(x, self.lower, self.upper)
+        return (self.base.cdf(xc) - lo_c) / (hi_c - lo_c)
+
+    @property
+    def support(self):
+        bs = self.base.support
+        lo, hi = max(self.lower, bs.lower), min(self.upper, bs.upper)
+        return Support("interval", lo, hi, math.isfinite(lo), math.isfinite(hi))
+
+    def to(self, device):
+        return Truncated(self.base.to(device), self.lower, self.upper)

@@ -21,20 +21,15 @@ from __future__ import annotations
 
 import torch
 
-from ..dists.base import Distribution, LeafDistribution
-from ..dists.product import ElementwiseProduct, IIDProduct, NamedProduct
-from ..transformed import TransformedDistribution
+from ..dists.base import Distribution, first_param
 from ..utils import resolve_device
 from ..vectorize.core import unconstrain
 
 
 def _param_dtype(d: Distribution):
     """The floating dtype of a distribution's parameters (its first leaf's)."""
-    while isinstance(d, (NamedProduct, IIDProduct, ElementwiseProduct, TransformedDistribution)):
-        d = d.components[0] if isinstance(d, NamedProduct) else d.base
-    if isinstance(d, LeafDistribution) and d._params:
-        return getattr(d, d._params[0]).dtype
-    return torch.get_default_dtype()
+    p = first_param(d)
+    return torch.get_default_dtype() if p is None else p.dtype
 
 
 class Model:

@@ -15,8 +15,12 @@ Wrappers: `vectorize/fused_kernel.py` (slab_value, slab_value_and_grad,
 slab_vjp, slab_jvp), `kernels/simplex.py` (simplex_inverse_logdet, simplex_inverse,
 simplex_forward_logdet), `kernels/lkj.py` (lkj_inverse, lkj_logdet, lkj_logdet_chol: its
 Cholesky variant), `kernels/pd.py` (pd_inverse, pd_logdensity,
-pd_trace_grad) and `kernels/probe.py` (transcend_probe, a measurement of
-the slab's per-element math, not on any model's path).
+pd_trace_grad), `kernels/probe.py` (transcend_probe, a measurement of
+the slab's per-element math, not on any model's path) and
+`kernels/prim_probe.py` (prim_probe, the per-opcode check of the traced
+entries' interpreter, not on any model's path either). The traced entries
+themselves run inside the four slab wrappers (their loop kind `traced`):
+`slab_traced` counts the launches of those wrappers that ran it.
 """
 
 _ENABLED = True
@@ -26,6 +30,7 @@ LAUNCHES = {
     "slab_value_and_grad": 0,
     "slab_vjp": 0,
     "slab_jvp": 0,
+    "slab_traced": 0,
     "simplex_inverse_logdet": 0,
     "lkj_inverse": 0,
     "lkj_logdet": 0,
@@ -36,6 +41,7 @@ LAUNCHES = {
     "pd_logdensity": 0,
     "pd_trace_grad": 0,
     "transcend_probe": 0,
+    "prim_probe": 0,
 }
 
 

@@ -32,8 +32,9 @@ _SOURCES = (
     "pd_logdensity.cu",
     "pd_trace_grad.cu",
     "transcend_probe.cu",
+    "prim_probe.cu",
 )
-_HEADERS = ("pd_common.cuh",)
+_HEADERS = ("pd_common.cuh", "traced_tape.cuh")
 _FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
 _COMPILE = ("-c", "-Xcompiler", "-fPIC")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
@@ -104,14 +105,15 @@ def load():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         sigs = {
             # vT, cf, entry table, entries, loop parameters, their count,
-            # largest PD K, then ct or dvT and the outputs, dim, B, stream
-            "tbt_slab_value": [p, p, p, i, p, i, i, p, i, ll, p],
-            "tbt_slab_value_and_grad": [p, p, p, i, p, i, i, p, p, i, ll, p],
-            "tbt_slab_vjp": [p, p, p, i, p, i, i, p, p, i, ll, p],
-            "tbt_slab_jvp": [p, p, p, i, p, i, i, p, p, i, ll, p],
+            # largest PD K, the traced entries' tapes, then ct or dvT and
+            # the outputs, dim, B, stream
+            "tbt_slab_value": [p, p, p, i, p, i, i, p, p, i, ll, p],
+            "tbt_slab_value_and_grad": [p, p, p, i, p, i, i, p, p, p, i, ll, p],
+            "tbt_slab_vjp": [p, p, p, i, p, i, i, p, p, p, i, ll, p],
+            "tbt_slab_jvp": [p, p, p, i, p, i, i, p, p, p, i, ll, p],
             # y, y strides (batch, coordinate), log(K-1-k) table, am1, x, ld,
             # wlog, K-1, B, stream
             "tbt_simplex_inverse_logdet": [p, ll, ll, p, p, p, p, p, i, ll, p],
@@ -134,6 +136,9 @@ def load():
             # variant, vT, c, lp, g, the 8 polynomial coefficients (host
             # floats), dim, B, stream
             "tbt_transcend_probe": [i, p, p, p, p, ctypes.POINTER(ctypes.c_float), i, ll, p],
+            # one-op tape, its constants, x, y, z, the operands' tangents
+            # (host floats), r, t, B, stream
+            "tbt_prim_probe": [p, p, p, p, p, f, f, f, p, p, ll, p],
         }
         for name, args in sigs.items():
             fn = getattr(lib, name)

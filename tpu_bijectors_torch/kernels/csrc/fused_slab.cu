@@ -35,7 +35,17 @@
 //   5     the multivariate t (MvStudentT, C = L^-1 lower) (_emit_mvt,
 //         _partials_mvt): parameters {C, mu, df, const}; q = ||w||^2,
 //         lp += const - (df + K) / 2 * log1p(q / df), partials
-//         -(df + K) / (df + q) * C'w.
+//         -(df + K) / (df + q) * C'w;
+//   6     traced (fused_traced.py::_traced_scalar_entry and
+//         ::_traced_vector_entry, a leaf with no closed form): the entry's
+//         tape (traced_tape.cuh), interpreted with the parameter block as
+//         its constants. The tape array opens with one offset an entry
+//         (entry e's program starts at tapes[tapes[e]]), so the entry
+//         table keeps its four columns. A scalar entry runs it on each of its K rows; a
+//         vector entry once over its K rows. The derivative modes run it
+//         on dual numbers with a unit tangent on one input a pass (one
+//         pass a row; K passes for a vector entry), so each pass gives a
+//         partial, which feeds g or, times dv, acc.
 //
 // Four modes: the value (lp), the value and gradient (lp and g = d lp/dvT,
 // TPU mega_value_and_grad_t), the vector-Jacobian product (g times a
@@ -64,18 +74,29 @@
 // read-only path (__ldg; the same address across a warp, so one
 // transaction a warp and an L1 hit after the first), and computes a row's
 // flags from its coefficients; its blocks are small enough to cover every
-// SM (spread_threads). Only a model with PD entries keeps
+// SM (spread_threads). The traced entries' tapes are read from global
+// memory through the read-only path in either instantiation (every lane
+// of a warp reads the same word). Only a model with PD entries keeps
 // per-thread scratch (pd_common.cuh, in shared memory: at K = 16, 672
 // bytes a thread for the value, 1280 with the gradient), and launches as
 // many threads a block as fit in 100 KB; the Gaussian and t entries keep
 // their two K-vectors (r = v - mu, w) in registers, fixed arrays of 16
 // unrolled with K guards.
+//
+// A traced entry is bound by the interpreter's operations, not its bytes:
+// each tape instruction costs a dispatch (five uniform loads, a switch,
+// local-memory slot reads and writes) around its one or few float
+// operations, and the derivative modes run a pass a row (a vector entry's
+// K passes each recompute its value). It is the simple, general form; a
+// generated kernel per model would remove the dispatch but needs nvcc at
+// every new model.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
 #include "pd_common.cuh"
+#include "traced_tape.cuh"
 
 namespace tbt {
 
@@ -94,7 +115,9 @@ enum Flag : unsigned {
 enum Mode { kValue = 0, kValueAndGrad = 1, kVjp = 2, kJvp = 3 };
 
 // loop-entry kinds and the entry table's columns
-enum LoopKind { kPdDot = 1, kPdSolve = 2, kGaussLower = 3, kGaussUpper = 4, kMvt = 5 };
+enum LoopKind {
+  kPdDot = 1, kPdSolve = 2, kGaussLower = 3, kGaussUpper = 4, kMvt = 5, kTraced = 6
+};
 constexpr int kEntCols = 4;
 constexpr int kMaxQuadK = 16;  // the Gaussian and t entries' K (MAX_K)
 // shared-memory budget of a block with loop entries: the table and the
@@ -238,16 +261,77 @@ __device__ __forceinline__ void quad_entry(const float* __restrict__ vT,
   }
 }
 
+// One traced entry (tape `tp`, constants P, rows row0 .. row0 + K - 1)
+// of batch column b, as quad_entry feeds acc and g. The slots live in
+// this thread's local memory (tape::kMaxSlots floats each for values and
+// tangents; the host declines a tape that needs more).
+template <int MODE, bool G>
+__device__ __forceinline__ void traced_entry(const float* __restrict__ vT,
+                                             const float* __restrict__ dv,
+                                             float* __restrict__ g, const float* P,
+                                             const int* __restrict__ tp, int row0, int K,
+                                             long long b, long long B, float scale,
+                                             float& acc) {
+  const int n_ins = __ldg(tp), out = __ldg(tp + 2), vec = __ldg(tp + 4), out_t = __ldg(tp + 5);
+  const int* code = tp + tape::kHeader;
+  auto konst = [&](int k) { return rd<G>(P + k); };
+  float sv[tape::kMaxSlots], st[tape::kMaxSlots];
+  if (!vec) {  // one row a pass, its own partial
+    for (int r = 0; r < K; ++r) {
+      const size_t at = (size_t)(row0 + r) * B + b;
+      sv[0] = vT[at];
+      if (MODE == kValue) {
+        acc += tape::run<false>(code, n_ins, konst, sv, st, out);
+        continue;
+      }
+      st[0] = 1.0f;
+      const float val = tape::run<true>(code, n_ins, konst, sv, st, out);
+      const float p = out_t ? st[out] : 0.0f;
+      if (MODE == kValueAndGrad) {
+        acc += val;
+        g[at] = p;
+      }
+      if (MODE == kVjp) g[at] = p * scale;
+      if (MODE == kJvp) acc += p * dv[at];
+    }
+    return;
+  }
+  if (MODE == kValue) {
+    for (int i = 0; i < K; ++i) sv[i] = vT[(size_t)(row0 + i) * B + b];
+    acc += tape::run<false>(code, n_ins, konst, sv, st, out);
+    return;
+  }
+  for (int j = 0; j < K; ++j) {  // the partial along input j
+    for (int i = 0; i < K; ++i) {
+      sv[i] = vT[(size_t)(row0 + i) * B + b];
+      st[i] = i == j ? 1.0f : 0.0f;
+    }
+    const float val = tape::run<true>(code, n_ins, konst, sv, st, out);
+    const float p = out_t ? st[out] : 0.0f;
+    const size_t at = (size_t)(row0 + j) * B + b;
+    if (MODE == kValueAndGrad) {
+      if (j == 0) acc += val;
+      g[at] = p;
+    }
+    if (MODE == kVjp) g[at] = p * scale;
+    if (MODE == kJvp) acc += p * dv[at];
+  }
+}
+
 // LOOPS: the model has loop entries. Without them the kernel is the slab
 // pass alone, every row slab-owned, and carries none of the loop code.
 // GTAB: the table, the entry table and the parameters are read from global
 // memory, not staged in shared memory (a model too large for it).
-template <int MODE, bool LOOPS, bool GTAB>
+// TRACED: the model has traced entries. Only then does the kernel carry
+// the interpreter, whose slot arrays would otherwise cost the other loop
+// kinds registers and occupancy.
+template <int MODE, bool LOOPS, bool GTAB, bool TRACED>
 __global__ void __launch_bounds__(kThreads)
 slab_kernel(const float* __restrict__ vT, const float* __restrict__ cf,
             const int* __restrict__ ent, int n_ent, const float* __restrict__ prm,
-            int n_prm, const float* __restrict__ ct, const float* __restrict__ dv,
-            float* __restrict__ lp, float* __restrict__ g, int dim, long long B) {
+            int n_prm, const int* __restrict__ tapes, const float* __restrict__ ct,
+            const float* __restrict__ dv, float* __restrict__ lp, float* __restrict__ g,
+            int dim, long long B) {
   constexpr bool VAL = MODE == kValue || MODE == kValueAndGrad;
   constexpr bool PAR = MODE != kValue;
   extern __shared__ float smem[];
@@ -335,6 +419,11 @@ slab_kernel(const float* __restrict__ vT, const float* __restrict__ cf,
       quad_entry<MODE, kMvt, GTAB>(vT, dv, g, P, row0, K, b, B, scale, acc);
       continue;
     }
+    if (TRACED && kind == kTraced) {
+      traced_entry<MODE, GTAB>(vT, dv, g, P, tapes + __ldg(tapes + e), row0, K, b, B, scale,
+                               acc);
+      continue;
+    }
     // the PD entry: C is P's first K*K floats, then w and const
     const float w = rd<GTAB>(P + K * K);
     const int mode = kind == kPdSolve ? pd::kSolve : pd::kDot;
@@ -393,66 +482,69 @@ int spread_threads(long long B, int max_nt) {
 
 template <int MODE, bool LOOPS, bool GTAB>
 cudaError_t launch_with(const float* vT, const float* cf, const int* ent, int n_ent,
-                        const float* prm, int n_prm, const float* ct, const float* dv,
-                        float* lp, float* g, int dim, long long B, int nt, size_t smem,
-                        cudaStream_t stream) {
+                        const float* prm, int n_prm, const int* tapes, const float* ct,
+                        const float* dv, float* lp, float* g, int dim, long long B, int nt,
+                        size_t smem, cudaStream_t stream) {
+  // the interpreter only where a traced entry needs it (a model of slab
+  // rows only has no tapes)
+  auto kernel = (LOOPS && tapes != nullptr) ? slab_kernel<MODE, LOOPS, GTAB, LOOPS>
+                                            : slab_kernel<MODE, LOOPS, GTAB, false>;
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(slab_kernel<MODE, LOOPS, GTAB>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return err;
   }
   const long long blocks = (B + nt - 1) / nt;
-  slab_kernel<MODE, LOOPS, GTAB><<<(unsigned)blocks, nt, smem, stream>>>(
-      vT, cf, ent, n_ent, prm, n_prm, ct, dv, lp, g, dim, B);
+  kernel<<<(unsigned)blocks, nt, smem, stream>>>(vT, cf, ent, n_ent, prm, n_prm, tapes, ct, dv,
+                                                 lp, g, dim, B);
   return cudaGetLastError();
 }
 
 template <int MODE>
 cudaError_t launch(const float* vT, const float* cf, const int* ent, int n_ent,
-                   const float* prm, int n_prm, int pd_kmax, const float* ct,
-                   const float* dv, float* lp, float* g, int dim, long long B,
+                   const float* prm, int n_prm, int pd_kmax, const int* tapes,
+                   const float* ct, const float* dv, float* lp, float* g, int dim, long long B,
                    cudaStream_t stream) {
   if (B == 0) return cudaSuccess;
   const size_t table = fixed_smem_bytes(dim, n_ent, n_prm);
   if (n_ent == 0) {
     if (table <= limits().smem_optin)
-      return launch_with<MODE, false, false>(vT, cf, ent, n_ent, prm, n_prm, ct, dv, lp, g,
-                                             dim, B, kThreads, table, stream);
-    return launch_with<MODE, false, true>(vT, cf, ent, n_ent, prm, n_prm, ct, dv, lp, g,
-                                          dim, B, spread_threads(B, kThreads), 0, stream);
+      return launch_with<MODE, false, false>(vT, cf, ent, n_ent, prm, n_prm, tapes, ct, dv,
+                                             lp, g, dim, B, kThreads, table, stream);
+    return launch_with<MODE, false, true>(vT, cf, ent, n_ent, prm, n_prm, tapes, ct, dv, lp,
+                                          g, dim, B, spread_threads(B, kThreads), 0, stream);
   }
   if (pd_kmax < 0 || pd_kmax > pd::kMaxK) return cudaErrorInvalidValue;
   // per-thread scratch only where a PD entry exists
   const int slots = pd_kmax > 0 ? pd::scratch_slots(pd_kmax, MODE != kValue) : 0;
   int nt = pd::threads_for(slots, table, kThreads, kLoopBudget);
   if (nt > 0)
-    return launch_with<MODE, true, false>(vT, cf, ent, n_ent, prm, n_prm, ct, dv, lp, g, dim,
-                                          B, nt, table + (size_t)slots * sizeof(float) * nt,
-                                          stream);
+    return launch_with<MODE, true, false>(vT, cf, ent, n_ent, prm, n_prm, tapes, ct, dv, lp,
+                                          g, dim, B, nt,
+                                          table + (size_t)slots * sizeof(float) * nt, stream);
   nt = pd::threads_for(slots, 0, spread_threads(B, kThreads), kLoopBudget);
   if (nt == 0) return cudaErrorInvalidValue;
-  return launch_with<MODE, true, true>(vT, cf, ent, n_ent, prm, n_prm, ct, dv, lp, g, dim, B,
-                                       nt, (size_t)slots * sizeof(float) * nt, stream);
+  return launch_with<MODE, true, true>(vT, cf, ent, n_ent, prm, n_prm, tapes, ct, dv, lp, g,
+                                       dim, B, nt, (size_t)slots * sizeof(float) * nt, stream);
 }
 
 cudaError_t launch_slab(int mode, const float* vT, const float* cf, const int* ent,
-                        int n_ent, const float* prm, int n_prm, int pd_kmax, const float* ct,
-                        const float* dv, float* lp, float* g, int dim, long long B,
-                        cudaStream_t stream) {
+                        int n_ent, const float* prm, int n_prm, int pd_kmax, const int* tapes,
+                        const float* ct, const float* dv, float* lp, float* g, int dim,
+                        long long B, cudaStream_t stream) {
   switch (mode) {
     case kValue:
-      return launch<kValue>(vT, cf, ent, n_ent, prm, n_prm, pd_kmax, ct, dv, lp, g, dim, B,
-                            stream);
+      return launch<kValue>(vT, cf, ent, n_ent, prm, n_prm, pd_kmax, tapes, ct, dv, lp, g, dim,
+                            B, stream);
     case kValueAndGrad:
-      return launch<kValueAndGrad>(vT, cf, ent, n_ent, prm, n_prm, pd_kmax, ct, dv, lp, g,
-                                   dim, B, stream);
+      return launch<kValueAndGrad>(vT, cf, ent, n_ent, prm, n_prm, pd_kmax, tapes, ct, dv, lp,
+                                   g, dim, B, stream);
     case kVjp:
-      return launch<kVjp>(vT, cf, ent, n_ent, prm, n_prm, pd_kmax, ct, dv, lp, g, dim, B,
-                          stream);
+      return launch<kVjp>(vT, cf, ent, n_ent, prm, n_prm, pd_kmax, tapes, ct, dv, lp, g, dim,
+                          B, stream);
     case kJvp:
-      return launch<kJvp>(vT, cf, ent, n_ent, prm, n_prm, pd_kmax, ct, dv, lp, g, dim, B,
-                          stream);
+      return launch<kJvp>(vT, cf, ent, n_ent, prm, n_prm, pd_kmax, tapes, ct, dv, lp, g, dim,
+                          B, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -4,7 +4,9 @@
 // cudaError_t (0 on success). The caller has checked devices, dtypes, shapes
 // and contiguity, and allocated every output. The loop entries: `ent`
 // (n_ent, 4) int32 rows {kind, first row, K, parameter offset} into `prm`
-// (n_prm floats), `kmax` the largest K of the PD entries (0 where there is
+// (n_prm floats), `tape` the traced entries' programs (int32: n_ent
+// offsets, entry e's program at tape[tape[e]]; null where the model has no
+// traced entry), `kmax` the largest K of the PD entries (0 where there is
 // none: it sizes the per-thread scratch); n_ent = 0 (null pointers) for a
 // model of slab rows only.
 
@@ -12,43 +14,43 @@
 
 namespace tbt {
 cudaError_t launch_slab(int mode, const float* vT, const float* cf, const int* ent,
-                        int n_ent, const float* prm, int n_prm, int pd_kmax, const float* ct,
-                        const float* dv, float* lp, float* g, int dim, long long B,
-                        cudaStream_t stream);
+                        int n_ent, const float* prm, int n_prm, int pd_kmax, const int* tape,
+                        const float* ct, const float* dv, float* lp, float* g, int dim,
+                        long long B, cudaStream_t stream);
 }  // namespace tbt
 
 extern "C" {
 
 // lp (B,) = sum over rows and loop entries; vT (dim, B), cf (dim, 15)
 int tbt_slab_value(const float* vT, const float* cf, const int* ent, int n_ent,
-                   const float* prm, int n_prm, int kmax, float* lp, int dim, long long B,
-                   void* stream) {
-  return (int)tbt::launch_slab(0, vT, cf, ent, n_ent, prm, n_prm, kmax, nullptr, nullptr, lp,
-                               nullptr, dim, B, (cudaStream_t)stream);
+                   const float* prm, int n_prm, int kmax, const int* tape, float* lp, int dim,
+                   long long B, void* stream) {
+  return (int)tbt::launch_slab(0, vT, cf, ent, n_ent, prm, n_prm, kmax, tape, nullptr,
+                               nullptr, lp, nullptr, dim, B, (cudaStream_t)stream);
 }
 
 // lp (B,) and g = d lp / d vT (dim, B) in one pass
 int tbt_slab_value_and_grad(const float* vT, const float* cf, const int* ent, int n_ent,
-                            const float* prm, int n_prm, int kmax, float* lp, float* g,
-                            int dim, long long B, void* stream) {
-  return (int)tbt::launch_slab(1, vT, cf, ent, n_ent, prm, n_prm, kmax, nullptr, nullptr, lp,
-                               g, dim, B, (cudaStream_t)stream);
+                            const float* prm, int n_prm, int kmax, const int* tape, float* lp,
+                            float* g, int dim, long long B, void* stream) {
+  return (int)tbt::launch_slab(1, vT, cf, ent, n_ent, prm, n_prm, kmax, tape, nullptr,
+                               nullptr, lp, g, dim, B, (cudaStream_t)stream);
 }
 
 // g = (d lp / d vT) * ct, ct (B,)
 int tbt_slab_vjp(const float* vT, const float* cf, const int* ent, int n_ent,
-                 const float* prm, int n_prm, int kmax, const float* ct, float* g, int dim,
-                 long long B, void* stream) {
-  return (int)tbt::launch_slab(2, vT, cf, ent, n_ent, prm, n_prm, kmax, ct, nullptr, nullptr,
-                               g, dim, B, (cudaStream_t)stream);
+                 const float* prm, int n_prm, int kmax, const int* tape, const float* ct,
+                 float* g, int dim, long long B, void* stream) {
+  return (int)tbt::launch_slab(2, vT, cf, ent, n_ent, prm, n_prm, kmax, tape, ct, nullptr,
+                               nullptr, g, dim, B, (cudaStream_t)stream);
 }
 
 // dlp (B,) = sum over rows of (d lp / d vT) * dvT, dvT (dim, B)
 int tbt_slab_jvp(const float* vT, const float* cf, const int* ent, int n_ent,
-                 const float* prm, int n_prm, int kmax, const float* dvT, float* dlp, int dim,
-                 long long B, void* stream) {
-  return (int)tbt::launch_slab(3, vT, cf, ent, n_ent, prm, n_prm, kmax, nullptr, dvT, dlp,
-                               nullptr, dim, B, (cudaStream_t)stream);
+                 const float* prm, int n_prm, int kmax, const int* tape, const float* dvT,
+                 float* dlp, int dim, long long B, void* stream) {
+  return (int)tbt::launch_slab(3, vT, cf, ent, n_ent, prm, n_prm, kmax, tape, nullptr, dvT,
+                               dlp, nullptr, dim, B, (cudaStream_t)stream);
 }
 
 const char* tbt_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

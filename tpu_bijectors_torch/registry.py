@@ -7,7 +7,9 @@ simplex -> SimplexBijector, corr -> VecCorrBijector, chol_corr ->
 VecCholeskyBijector in the family's triangle mode (`tpu_bijectors/
 registry.py:65-69`), pd -> PDVecBijector (`:61`), interval -> the
 Truncated(lb, ub) branch its finite bounds select, or Identity on the
-real line, real_vector -> elementwise Identity (`:79`). A
+real line, real_vector -> elementwise Identity (`:79`), joint_order ->
+Chain(Invert(Ordered), Block(base link)), with a SignFlip sandwich for
+a decreasing base link (`:88-109`). A
 TransformedDistribution composes its wrapper away
 (`Chain((bijector(base), inverse(transform)))`,
 src/transformed_distribution.jl:45-48). Other support kinds are not
@@ -20,10 +22,11 @@ import math
 
 import torch
 
-from .bijectors.base import Bijector, Chain, Identity, elementwise, inverse
+from .bijectors.base import Bijector, Block, Chain, Identity, elementwise, inverse
 from .bijectors.corr import VecCholeskyBijector, VecCorrBijector
+from .bijectors.ordered import OrderedBijector
 from .bijectors.pd import PDVecBijector
-from .bijectors.scalar import Truncated
+from .bijectors.scalar import SignFlip, Truncated
 from .bijectors.simplex import SimplexBijector
 from .dists.base import Distribution
 from .utils import _eps
@@ -57,6 +60,21 @@ def bijector(d: Distribution) -> Bijector:
         return elementwise(b, n)
     if s.kind == "real_vector":
         return elementwise(Identity(), n)
+    if s.kind == "joint_order":
+        # JointOrderWrap (src/vector/order/order.jl:14-76): the base's link
+        # elementwise, a sign-flip sandwich for a decreasing one, then
+        # unordered by the ordered bijector's inverse
+        b_scalar = bijector(d.base)
+        eb = Block(b_scalar, 1)
+        if b_scalar.monotonically_decreasing:
+            flip = Block(SignFlip(), 1)
+            return Chain((flip, inverse(OrderedBijector()), flip, eb))
+        if not b_scalar.monotonically_increasing:
+            raise ValueError(
+                "joint order statistics need a monotone scalar link; "
+                f"bijector({type(d.base).__name__}) declares neither direction"
+            )
+        return Chain((inverse(OrderedBijector()), eb))
     raise NotImplementedError(
         f"no bijector ported for {type(d).__name__} ({s.kind})"
     )

@@ -28,7 +28,11 @@ write its partials, as the JAX package's `fused_emit.py` assembles them:
   lp = -||w||^2 / 2 + const, d lp / dv = -C'w;
 - multivariate t (`_emit_mvt`, `_partials_mvt`; MvStudentT, C = L^-1
   lower): q = ||w||^2, lp = const - (df + K)/2 log1p(q / df),
-  d lp / dv = -(df + K) / (df + q) C'w.
+  d lp / dv = -(df + K) / (df + q) C'w;
+- traced (`fused_traced.py`'s `_traced_scalar_entry` and
+  `_traced_vector_entry`): a leaf with no closed form, its linked density
+  a tape of scalar opcodes over its rows, its constants the parameter
+  block, its partials from dual numbers (`fused_traced.traced_val_par`).
 
 The fourth plain version, `slab_jvp_plain`, is the forward-mode product
 sum_rows (d lp / d vT) dvT of every row, slab and loop alike.
@@ -38,6 +42,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Callable
 
 import torch
 
@@ -50,6 +55,23 @@ LOGPI = math.log(math.pi)
 
 class _Unsupported(Exception):
     """A leaf with no slab form; the message names it."""
+
+
+@dataclass(frozen=True)
+class _Entry:
+    """One entry of a plan (`fused_plan.py`): the rows it owns and either
+    its slab coefficients or its loop kind with its parameter block."""
+
+    row0: int  # first state row
+    rows: int  # rows consumed
+    slab: Callable | None = None  # (dtype) -> {coefficient key: (rows,) tensor}
+    loop: str | None = None  # a loop entry's kind (LOOP_CODES)
+    # loop entry: (dtype) -> its parameter block as a flat tensor
+    # (PARAM_FLOATS): PD [C (K*K, row-major), w, const]; Gaussian [C, mu,
+    # const]; t [C, mu, df, const]; traced: the tape's constants
+    params: Callable | None = None
+    k: int = 0  # a loop entry's K (a traced entry's rows)
+    tape: object = None  # a traced entry's fused_traced.Tape
 
 
 _COEF_KEYS = (
@@ -181,7 +203,9 @@ def _groups_and_used(cf):
 
 
 # the loop kinds' codes in the kernel's entry table (csrc/fused_slab.cu)
-LOOP_CODES = {"pd_dot": 1, "pd_solve": 2, "gauss_lower": 3, "gauss_upper": 4, "mvt": 5}
+LOOP_CODES = {"pd_dot": 1, "pd_solve": 2, "gauss_lower": 3, "gauss_upper": 4, "mvt": 5,
+              "traced": 6}
+TRACED = LOOP_CODES["traced"]
 PD_MODES = {1: "dot", 2: "solve"}
 # floats of a loop entry's parameter block at K, by code
 PARAM_FLOATS = {
@@ -197,14 +221,21 @@ PARAM_FLOATS = {
 class LoopTable:
     """A model's loop entries, packed once: `entries` holds one (code,
     first row, K, offset into prm) per entry (`LOOP_CODES`); `ent` is the
-    same as an (n, 4) int32 tensor and `prm` the entries' parameter blocks,
-    both on the state's device; `kmax` is the largest K of the PD entries
-    (0 where there is none), which sizes the kernel's per-thread scratch."""
+    same as an (n, 4) int32 tensor and `prm` the entries' parameter
+    blocks, both on the state's device; `kmax` is the largest K of the PD
+    entries (0 where there is none), which sizes the kernel's per-thread
+    scratch. `tape` holds the traced entries' programs (int32, None where
+    there is none): n offsets, then the programs, entry e's at
+    tape[tape[e]]; `toffs` holds those offsets on the host (-1 but for a
+    traced entry) and `tapes` maps an offset to its fused_traced.Tape."""
 
     entries: tuple
     ent: torch.Tensor
     prm: torch.Tensor
     kmax: int
+    tape: torch.Tensor | None = None
+    toffs: tuple = ()
+    tapes: dict | None = None
 
 
 def _pd_val_par(y, blk, K, code, value, partial):
@@ -240,8 +271,20 @@ def _quad_val_par(vT, blk, K, code, value, partial):
 def _loop_val_par(vT, loops, value, partial):
     """Each loop entry of `loops` over vT: (the sum of their values (B,) or
     None, [(rows slice, partials (rows, B))] or None)."""
+    from .fused_traced import traced_val_par
+
     val, pars = None, []
-    for code, row0, K, off in loops.entries:
+    for i, (code, row0, K, off) in enumerate(loops.entries):
+        if code == TRACED:
+            tape = loops.tapes[loops.toffs[i]]
+            rows = slice(row0, row0 + K)
+            v, p = traced_val_par(tape, loops.prm[off: off + len(tape.consts)], vT[rows],
+                                  value, partial)
+            if value:
+                val = v if val is None else val + v
+            if partial:
+                pars.append((rows, p))
+            continue
         blk = loops.prm[off : off + PARAM_FLOATS[code](K)]
         if code in PD_MODES:
             rows = slice(row0, row0 + K * (K + 1) // 2)

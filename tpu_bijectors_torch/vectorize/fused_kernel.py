@@ -8,8 +8,9 @@ over the state, slab rows and loop entries in one launch each, the four
 modes of one CUDA kernel (kernels/csrc/fused_slab.cu): `slab_value` (lp),
 `slab_value_and_grad` (lp and d lp / d vT), `slab_vjp` (d lp / d vT times
 a cotangent) and `slab_jvp` (sum_rows d lp / d vT times a tangent). The
-loop entries come in five kinds (fused_base.LOOP_CODES): PD dot and solve,
-the Gaussian quadratic form lower and upper, and the multivariate t.
+loop entries come in six kinds (fused_base.LOOP_CODES): PD dot and solve,
+the Gaussian quadratic form lower and upper, the multivariate t, and the
+traced entries (fused_traced.py), whose tapes the kernel interprets.
 For a CUDA tensor each wrapper launches its kernel or raises; for a CPU
 tensor it runs the plain version (fused_base.py). The kernel keeps the
 coefficient table and row flags (64 bytes a row), the entry table and the
@@ -53,19 +54,29 @@ _PREP_CACHE: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 def _loop_table(plan, dtype, device):
     """The plan's loop entries as a LoopTable, or None where it has none.
     Entries that share a parameter function (the copies of an IID block)
-    share one parameter block."""
+    share one parameter block, and traced entries that share a tape one
+    program."""
     loop = [e for e in plan if e.loop is not None]
     if not loop:
         return None
     blocks, offsets, rows = [], {}, []
+    words, toff_of, toffs, tapes = [], {}, [], {}
     for e in loop:
         if id(e.params) not in offsets:
             offsets[id(e.params)] = sum(b.numel() for b in blocks)
             blocks.append(e.params(dtype).to(device))
         rows.append((LOOP_CODES[e.loop], e.row0, e.k, offsets[id(e.params)]))
+        if e.tape is not None and id(e.tape) not in toff_of:
+            # the programs follow one offset an entry
+            toff_of[id(e.tape)] = len(loop) + len(words)
+            tapes[toff_of[id(e.tape)]] = e.tape
+            words.extend(e.tape.words)
+        toffs.append(-1 if e.tape is None else toff_of[id(e.tape)])
     ent = torch.tensor(rows, dtype=torch.int32, device=device)
     pd_k = [r[2] for r in rows if r[0] in PD_MODES]
-    return LoopTable(tuple(rows), ent, torch.cat(blocks), max(pd_k, default=0))
+    tape = torch.tensor(toffs + words, dtype=torch.int32, device=device) if words else None
+    return LoopTable(tuple(rows), ent, torch.cat(blocks), max(pd_k, default=0), tape,
+                     tuple(toffs), tapes)
 
 
 def _prep(u, vT):
@@ -125,8 +136,10 @@ def _check_cuda(vT, cf, loops, ct=None, dvT=None):
     ts = tuple(t for t in (vT, cf, ct, dvT) if t is not None)
     if loops is not None:
         ts = ts + (loops.prm,)
-        if loops.ent.device != vT.device or loops.ent.dtype != torch.int32:
-            raise ValueError("the loop entry table must be int32 on the state's device")
+        for t in (loops.ent, loops.tape):
+            if t is not None and (t.device != vT.device or t.dtype != torch.int32):
+                raise ValueError("the loop entry table and the tapes must be int32 on the "
+                                 "state's device")
     for t in ts:
         if t.dtype != torch.float32:
             raise TypeError(f"the slab kernels take float32; got {t.dtype}")
@@ -148,13 +161,16 @@ def _check_cuda(vT, cf, loops, ct=None, dvT=None):
 def _launch(fn, name, vT, cf, loops, *ptrs):
     dim, B = vT.shape
     if loops is None:
-        table = (None, 0, None, 0, 0)
+        table = (None, 0, None, 0, 0, None)
     else:
+        tape = None if loops.tape is None else loops.tape.data_ptr()
         table = (loops.ent.data_ptr(), len(loops.entries), loops.prm.data_ptr(),
-                 loops.prm.numel(), loops.kmax)
+                 loops.prm.numel(), loops.kmax, tape)
     kernels.launch(
         fn, name, vT.device, vT.data_ptr(), cf.data_ptr(), *table, *ptrs, dim, B
     )
+    if loops is not None and loops.tapes:
+        kernels.LAUNCHES["slab_traced"] += 1  # a launch that ran the traced loop kind
 
 
 def slab_value(vT, cf, loops=None):

@@ -16,16 +16,20 @@ shifted-row copies of its entry (loop copies share one parameter block). Loop fo
 (MAX_K): the PD entry of Wishart (`pd_dot`) and InverseWishart
 (`pd_solve`, `fused_emit.py::_emit_pd`); the Gaussian quadratic form of
 MvNormalTril (`gauss_lower`) and MvNormalCanon (`gauss_upper`,
-`_emit_gauss_quad`); the t form of MvStudentT (`mvt`, `_emit_mvt`). Every
-other leaf, and a loop family beyond K = 16, raises `_Unsupported`
-naming it.
+`_emit_gauss_quad`); the t form of MvStudentT (`mvt`, `_emit_mvt`). A
+leaf with none of these takes a traced entry where its linked density
+traces and admits (`fused_traced.py`, as `fused_plan.py:55, 306, 569` of
+the JAX package): Truncated and every scalar family with no slab form
+(`_traced_scalar_entry`), any other vector leaf of linked length 2-16
+(`_traced_vector_entry`). Every other leaf, and a loop family beyond
+K = 16, raises `_Unsupported` naming it. `_plan_with_reason` is memoised
+per unconstrainer: a traced entry's trace is paid once.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
-from typing import Callable
+import weakref
 
 import torch
 
@@ -39,20 +43,8 @@ from ..dists import univariate as uv
 from ..dists.multivariate import Dirichlet
 from ..kernels.pd import MAX_K
 from ..utils import _triu_index_arrays
-from .fused_base import LOG2, LOG2PI, LOGPI, _Unsupported
-
-
-@dataclass(frozen=True)
-class _Entry:
-    row0: int  # first state row
-    rows: int  # rows consumed
-    slab: Callable | None = None  # (dtype) -> {coefficient key: (rows,) tensor}
-    loop: str | None = None  # a loop entry's kind (fused_base.LOOP_CODES)
-    # loop entry: (dtype) -> its parameter block as a flat tensor
-    # (fused_base.PARAM_FLOATS): PD [C (K*K, row-major), w, const];
-    # Gaussian [C, mu, const]; t [C, mu, df, const]
-    params: Callable | None = None
-    k: int = 0  # a loop entry's K
+from .fused_base import LOG2, LOG2PI, LOGPI, _Entry, _Unsupported
+from .fused_traced import _traced_scalar_entry, _traced_vector_entry
 
 
 def _scalar_entry(dist, link, n, row0):
@@ -64,6 +56,8 @@ def _scalar_entry(dist, link, n, row0):
     columns absorb. The normalisers are formed in the state's dtype."""
     d = dist
     t = type(d)
+    if t is uv.Truncated:
+        return _traced_scalar_entry(d, link, n, row0)
     ident = type(link) is Identity
 
     def guard(ok, *params):
@@ -75,9 +69,9 @@ def _scalar_entry(dist, link, n, row0):
                     f"{t.__name__} with a parameter of shape {tuple(p.shape)} over {n} rows"
                 )
 
-    dev = getattr(d, d._params[0]).device
-
     def mk(fn):
+        dev = getattr(d, d._params[0]).device
+
         def slab(dtype):
             return {k: torch.broadcast_to(torch.as_tensor(v, dtype=dtype, device=dev), (n,))
                     for k, v in fn(dtype).items()}
@@ -295,7 +289,8 @@ def _scalar_entry(dist, link, n, row0):
             return {"c1": -0.5, "c5": -0.5 * s, "ea": -1.0, "c0": 0.5 * (torch.log(s) - LOG2PI)}
 
         return mk(cf)
-    raise _Unsupported(f"{t.__name__} with link {type(link).__name__}")
+    # no slab form: the generic traced entry
+    return _traced_scalar_entry(d, link, n, row0)
 
 
 def _lkj_weights(K, eta, chol=False):
@@ -375,7 +370,8 @@ def _leaf_entry(leaf, row0):
         b, mv._is_identity
     ):
         return _quad_entry(d, row0)
-    raise _Unsupported(f"{t.__name__} with link {type(b).__name__}")
+    # no hand-written form: the generic traced vector entry
+    return _traced_vector_entry(leaf, row0)
 
 
 def _mvdiag_entry(d, b, row0):
@@ -452,9 +448,20 @@ def _pd_entry(d, row0):
     return _Entry(row0, K * (K + 1) // 2, loop=f"pd_{d.mode}", params=params, k=K)
 
 
+# unconstrainer -> (plan or None, reason); the unconstrainers hash by
+# identity (eq=False), and an entry goes with its unconstrainer
+_PLAN_CACHE: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
 def _plan_with_reason(u):
     """(entries covering every linked row, None), or (None, the leaf that
-    has neither a slab nor a loop form)."""
+    has neither a slab nor a loop form). Memoised per unconstrainer."""
+    if u not in _PLAN_CACHE:
+        _PLAN_CACHE[u] = _plan_uncached(u)
+    return _PLAN_CACHE[u]
+
+
+def _plan_uncached(u):
     from .core import (
         IIDUnconstrainer,
         LeafUnconstrainer,
