@@ -68,7 +68,8 @@ and the #14 probe:
    entries;
 11. the launch-size repairs: `wide` (4000 slab rows, the table in global
    memory) in all four modes, `pdwide` (dim 1051 with a PD entry) and the
-   LKJ inverse at K = 64 (the factors in global scratch), against their
+   LKJ inverse at K = 64 (its tiles in shared memory) and at K = 200 and
+   337 (one element's factor packed in shared memory), against their
    plain versions; and #4 on the bench and PD models;
 12. transposed serving of `families` at B = 131072 in all four modes of
    the whole-model kernel (slab rows of every term group, the exp and
@@ -476,6 +477,7 @@ def check_link_kernels(dev, vT, vxT, counts):
         Xn, ljn, _, Wn = kl.lkj_inverse(yc, 16)
         expect(f"lkj without W gives the same X and logJ ({lay})",
                Wn is None and torch.equal(Xn, Xk) and torch.equal(ljn, ljk))
+        expect(f"lkj X exactly symmetric ({lay})", torch.equal(Xk, Xk.mT))
         err["lkj_inverse"] = e
 
         # backward: the closed form (kernel forward) against autograd
@@ -1017,6 +1019,7 @@ def check_pd_kernels(dev, vT, vxT):
             Xp, ljp, Lp = kp.pd_inverse_plain(y, PD_K)
             e = err["pd_inverse"]
             e = max(e, check(f"pd_inverse X vs plain ({tag})", X, Xp, 1.0, 2 * x_allow))
+            expect(f"pd_inverse X exactly symmetric ({tag})", torch.equal(X, X.mT))
             check(f"pd_inverse X vs float64 ({tag})", X, X64, 1.0, x_allow)
             e = max(e, check(f"pd_inverse L vs plain ({tag})", L, Lp, ATOL_UNIT, rel(Lp)))
             e = max(e, check(f"pd_inverse logJ vs plain ({tag})", lj, ljp, RTOL_SUM, mag_lj))
@@ -1926,14 +1929,18 @@ LKJ_BIG_K = 64
 
 
 def check_lkj64(dev, B=4096):
-    """The repair of the LKJ inverse #6: K = 64 at B = 4096 (states 0.5
-    N(0, 1), numpy seed 6), the factors in global scratch, against the plain
-    version and float64; and `Model.constrain` of 64 draws of a model with
-    an LKJ(64, 2.0) leaf. Bounds from the sums done: a column's running sum
-    of up to K - 1 logcosh terms within (K - 1) eps of their sum, which
-    exp carries into W relatively; X = W'W within K eps (|W's columns| = 1)
-    plus twice W's relative error; logJ, a sum of K(K-1)/2 + K same-signed
-    running sums, within (K + K(K-1)/2) eps of its magnitude."""
+    """The LKJ inverse #6 at large K: K = 64 at B = 4096 (states 0.5
+    N(0, 1), numpy seed 6; a warp an element, its tiles in shared memory)
+    against the plain version and float64, and `Model.constrain` of 64 draws
+    of a model with an LKJ(64, 2.0) leaf; then the kernel that packs one
+    element's factor in shared memory (beyond K = 138), at K = 200 with 64
+    elements and at the wrapper's largest K with 4 (numpy seed 7), against
+    float64. X exactly symmetric throughout. Bounds from the sums done: a
+    column's running sum of up to K - 1 logcosh terms within (K - 1) eps of
+    their sum, which exp carries into W relatively; X = W'W within K eps
+    (|W's columns| = 1) plus twice W's relative error; logJ, a sum of
+    K(K-1)/2 + K same-signed running sums, within (K + K(K-1)/2) eps of its
+    magnitude."""
     import tpu_bijectors_torch as tbt
     from tpu_bijectors_torch import dists, kernels
     from tpu_bijectors_torch.kernels import lkj as kl
@@ -1960,6 +1967,7 @@ def check_lkj64(dev, B=4096):
           (w_rel[:, None] + EPS32 * ld64.abs()).expand(B, K))
     check("lkj_inverse K = 64: logJ vs plain", lj, ljp, 1.0, 2 * lj_allow)
     check("lkj_inverse K = 64: logJ vs float64", lj, lj64, 1.0, lj_allow)
+    expect("lkj_inverse K = 64: X exactly symmetric", torch.equal(X, X.mT))
     model = tbt.Model(dists.NamedProduct.of(
         c=dists.LKJ(K, 2.0, device=dev), m=dists.Normal(0.0, 1.0, device=dev)), device=dev)
     v = torch.cat([y[:CHAINS], torch.zeros((CHAINS, 1), device=dev)], 1)
@@ -1969,10 +1977,30 @@ def check_lkj64(dev, B=4096):
     expect("Model.constrain with an LKJ(64) leaf launched lkj_inverse",
            kernels.LAUNCHES["lkj_inverse"] > 0)
     check("Model.constrain's LKJ(64) X vs float64", x["c"], X64[:CHAINS], 1.0, x_allow[:CHAINS])
+    rng = np.random.default_rng(7)
+    for Kb, n in ((200, CHAINS), (kl.MAX_K, 4)):
+        Pb = Kb * (Kb - 1) // 2
+        yb = torch.as_tensor(0.5 * rng.standard_normal((n, Pb)), dtype=torch.float32, device=dev)
+        kernels.reset_launch_counts()
+        Xb, ljb, ldb, Wb = kl.lkj_inverse(yb, Kb, want_w=True)
+        torch.cuda.synchronize()
+        tag = f"lkj_inverse K = {Kb}, B = {n}"
+        expect(f"{tag} launched its kernel", kernels.LAUNCHES["lkj_inverse"] == 1)
+        Xr, ljr, ldr, Wr = kl.lkj_inverse_plain(yb.double(), Kb, want_w=True)
+        col = logcosh(vec_to_triu(yb.double(), 1, Kb)).sum(-2).max(-1).values
+        wb_rel = EPS32 * ((Kb - 1) * col + 4)
+        xb_allow = (Kb * EPS32 + 2 * wb_rel)[:, None, None].expand(n, Kb, Kb)
+        check(f"{tag}: X vs float64", Xb, Xr, 1.0, xb_allow)
+        check(f"{tag}: W vs float64", Wb, Wr, 1.0, xb_allow)
+        check(f"{tag}: log diag W vs float64", ldb, ldr, 1.0,
+              (wb_rel[:, None] + EPS32 * ldr.abs()).expand(n, Kb))
+        check(f"{tag}: logJ vs float64", ljb, ljr, 1.0, (Kb + Pb) * EPS32 * ljr.abs() + 1e-6)
+        expect(f"{tag}: X exactly symmetric", torch.equal(Xb, Xb.mT))
+        del Xb, Wb, Xr, Wr
     # reads y, writes X, logJ and log diag W; ops as OPS_LKJ_SLOT per slot and
     # X = W'W's K(K+1)(K+2)/6 multiply-adds
     tri3 = K * (K + 1) * (K + 2) // 6
-    return {"lkj_inverse K = 64, factors in global scratch (contiguous)": (
+    return {"lkj_inverse K = 64 (contiguous)": (
         lambda: kl.lkj_inverse(y, K), B * 4 * (P + K * K + 1 + K),
         B * (P * OPS_LKJ_SLOT + 2 * tri3), lambda: kl.lkj_inverse_plain(y, K))}
 
@@ -3513,14 +3541,57 @@ def main():
 
     # --- timing ----------------------------------------------------------------
     # the variants the paths also run: the LKJ inverse writing W for the
-    # backward (the leapfrog's case) and the LKJ log-det's Cholesky form
+    # backward (the leapfrog's case), the LKJ log-det's Cholesky form, and
+    # the kernels each batched leapfrog launches at the samplers' 64 chains
+    # in their layout (the swapped view; #2 on the (151, 64) state)
     from tpu_bijectors_torch.kernels import lkj as kl
+    from tpu_bijectors_torch.kernels import pd as kp
+    from tpu_bijectors_torch.kernels import simplex as ks
 
     yc = vT[C_ROWS].T
     variants = {
-        "lkj_inverse with W (swapped)": lambda: kl.lkj_inverse(yc, 16, want_w=True),
+        "lkj_inverse with W (swapped)": (
+            lambda: kl.lkj_inverse(yc, 16, want_w=True), BATCH * 4 * (120 + 256 + 1 + 16 + 256),
+            BATCH * (120 * OPS_LKJ_SLOT + 2 * 816),
+            lambda: kl.lkj_inverse_plain(yc, 16, want_w=True)),
         "lkj_logdet chol=True (swapped)": lambda: kl.lkj_logdet(yc, 16, True),
     }
+    n, v64 = CHAINS, vT[:, :CHAINS].contiguous()
+    yc64, yp64, yw64 = vT[C_ROWS, :n].T, vT[PD_ROWS, :n].T, vT[W_ROWS, :n].T
+    variants.update({
+        "lkj_inverse (swapped, B = 64)": (
+            lambda: kl.lkj_inverse(yc64, 16), n * 4 * (120 + 256 + 1 + 16),
+            n * (120 * OPS_LKJ_SLOT + 2 * 816), lambda: kl.lkj_inverse_plain(yc64, 16)),
+        "lkj_inverse with W (swapped, B = 64)": (
+            lambda: kl.lkj_inverse(yc64, 16, want_w=True), n * 4 * (120 + 256 + 1 + 16 + 256),
+            n * (120 * OPS_LKJ_SLOT + 2 * 816),
+            lambda: kl.lkj_inverse_plain(yc64, 16, want_w=True)),
+        "pd_inverse (swapped, B = 64)": (
+            lambda: kp.pd_inverse(yp64, PD_K), n * 4 * (136 + 256 + 1 + 256),
+            n * PD_OPS["inverse"], lambda: kp.pd_inverse_plain(yp64, PD_K)),
+        "simplex_inverse_logdet (swapped, B = 64)": (
+            lambda: ks.simplex_inverse_logdet(yw64), n * 4 * (15 + 16 + 1),
+            n * 15 * OPS_SIMPLEX_COORD, lambda: ks.simplex_inverse_logdet_plain(yw64)),
+        "slab_value_and_grad (transposed, B = 64)": (
+            lambda: fk.slab_value_and_grad(v64, cf),
+            2 * v64.numel() * 4 + n * 4 + cf.numel() * 4,
+            n * sum(2 + sum(OPS["value_and_grad"][g] for g in fb._groups_and_used(cf[r:r + 1])[0])
+                    for r in range(dim)),
+            lambda: fb.slab_value_and_grad_plain(v64, cf)),
+    })
+    # #2's traced kind at cell 17's 64 chains (generic-traced)
+    tvT, _, tcf, tloops = tr_preps["generic-traced"]
+    tv64 = tvT[:, :n].contiguous()
+    variants["slab_traced (generic-traced, transposed, B = 64)"] = (
+        lambda: fk.slab_value_and_grad(tv64, tcf, tloops),
+        2 * tv64.numel() * 4 + n * 4 + tcf.numel() * 4 + tloops.prm.numel() * 4
+        + tloops.tape.numel() * 4, tape_ops(tloops, n)["value_and_grad"],
+        lambda: fb.slab_value_and_grad_plain(tv64, tcf, tloops))
+    # a yardstick, not the same function (X = LL' from #10's own L alone, as
+    # cuBLAS forms it): never a library_ms
+    L_pd = kp.pd_inverse(vT[PD_ROWS].T, PD_K)[2]
+    variants["yardstick: torch.bmm(L, L.mT) on pd_inverse's L (B = 131072)"] = (
+        lambda: torch.bmm(L_pd, L_pd.mT))
     pd_preps = {}
     for fam in PD_MODES:
         pd_u = tbt.Model(pd_model(dists, dev, torch.float32, fam), device=dev).unconstrainer()

@@ -135,6 +135,33 @@ def test_cpu_wrappers_run_plain_versions_without_launching(rng):
     assert kernels.LAUNCHES == before
 
 
+def test_lkj_inverse_beyond_the_kernels_k_raises_off_the_cpu(monkeypatch):
+    """K = 338 > MAX_K off the CPU: the wrapper and VecCorrBijector's
+    inverse raise, naming the limit, and no plain version runs there; on
+    the CPU the plain version still serves that K."""
+    from tpu_bijectors_torch.kernels import lkj as klkj
+
+    K = klkj.MAX_K + 1
+    assert K == 338
+    y = torch.zeros((2, K * (K - 1) // 2), device="meta")
+
+    def no_plain(*args, **kw):
+        raise AssertionError("a plain version ran off the CPU")
+
+    monkeypatch.setattr(klkj, "lkj_inverse_plain", no_plain)
+    match = f"K <= {klkj.MAX_K}; got K = 338"
+    with pytest.raises(NotImplementedError, match=match):
+        klkj.lkj_inverse(y, K, want_w=True)
+    b = VecCorrBijector()
+    for call in (b.inverse_and_log_det, b.inverse):
+        with pytest.raises(NotImplementedError, match=match):
+            call(y)
+    monkeypatch.undo()
+    X, logJ, _, _ = lkj_inverse(torch.zeros((1, K * (K - 1) // 2), dtype=torch.float64), K)
+    assert torch.equal(X[0], torch.eye(K, dtype=torch.float64))
+    assert float(logJ[0]) == 0.0
+
+
 # ---------------------------------------------------------------------------
 # gradients
 # ---------------------------------------------------------------------------

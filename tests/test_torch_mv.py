@@ -400,14 +400,13 @@ def test_nuts_recovers_the_conjugate_gaussian_posterior():
 
 
 # ---------------------------------------------------------------------------
-# the LKJ inverse at K = 64 (the kernel's global-scratch instantiation)
+# the LKJ inverse at K = 64 (a warp an element, its tiles in shared memory)
 # ---------------------------------------------------------------------------
 
 
 def test_lkj64_inverse_plain_matches_jax():
-    """The plain LKJ(64) inverse link, which the kernel's global-scratch
-    instantiation is held to on the card, against the JAX package's (its
-    jnp path: K > 16)."""
+    """The plain LKJ(64) inverse link, which the kernel is held to on the
+    card at K = 64, against the JAX package's (its jnp path: K > 16)."""
     K = 64
     y = 0.4 * np.random.default_rng(9).standard_normal((3, K * (K - 1) // 2))
     X, logJ, _, _ = klkj.lkj_inverse_plain(torch.as_tensor(y), K)

@@ -59,20 +59,6 @@ def reset_launch_counts():
         LAUNCHES[k] = 0
 
 
-def scratch_floats(fn: str, device, *args) -> int:
-    """The floats of global scratch a kernel asks for, from its library
-    query `fn` on `device` (0 while the kernels are disabled: the launch
-    then raises)."""
-    import torch
-
-    from . import build
-
-    if not _ENABLED:
-        return 0
-    with torch.cuda.device(device):
-        return int(getattr(build.load(), fn)(*args))
-
-
 def launch(fn: str, name: str, device, *args):
     """Call the C function `fn` of the kernel library on `device`'s current
     stream (the stream is appended to `args`); raise on a nonzero

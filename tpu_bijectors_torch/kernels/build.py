@@ -34,7 +34,7 @@ _SOURCES = (
     "transcend_probe.cu",
     "prim_probe.cu",
 )
-_HEADERS = ("pd_common.cuh", "traced_tape.cuh")
+_HEADERS = ("link_tiles.cuh", "pd_common.cuh", "traced_tape.cuh")
 _FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
 _COMPILE = ("-c", "-Xcompiler", "-fPIC")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
@@ -122,9 +122,8 @@ def load():
             # x, x strides (batch, coordinate), log(K-1-k) table, y, ld, K,
             # B, stream
             "tbt_simplex_forward_logdet": [p, ll, ll, p, p, p, i, ll, p],
-            # y, y strides (batch, slot), X, logJ, log diag W, W, global
-            # scratch, K, B, stream
-            "tbt_lkj_inverse": [p, ll, ll, p, p, p, p, p, i, ll, p],
+            # y, y strides (batch, slot), X, logJ, log diag W, W, K, B, stream
+            "tbt_lkj_inverse": [p, ll, ll, p, p, p, p, i, ll, p],
             # y, y strides (batch, slot), logJ, log diag W, K, chol, B, stream
             "tbt_lkj_logdet": [p, ll, ll, p, p, i, i, ll, p],
             # y, y strides (batch, slot), X, logJ, L, K, B, stream
@@ -144,8 +143,6 @@ def load():
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = i
-        lib.tbt_lkj_inverse_scratch.argtypes = [i, ll]
-        lib.tbt_lkj_inverse_scratch.restype = ll
         lib.tbt_error_string.argtypes = [i]
         lib.tbt_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -18,138 +18,200 @@
 // log diag W (B, K) and, on request, W (B, K, K) are written batch-major.
 //
 // Bound on the card: memory. At K = 16 an element reads 120 floats and
-// writes 256 + 16 + 1, against 120 tanh/exp/log1p chains and 816 FMAs for
-// X; at B = 131072 that is 206 MB, about 61.5 us at 3.35 TB/s, while the
-// FMAs take about 3.2 us at the float32 peak. One thread walks one batch
-// element. Its factor W (K(K+1)/2 floats, 544 B at K = 16) would spill out
-// of registers, so it lives in shared memory, slot-major across the
-// block's threads (ws[slot * nthreads + tid]: a warp touches 32 consecutive
-// words, no bank conflicts). From K = 60 on, one warp's factors pass the
-// block's 227 KB: there they live in a global scratch buffer the wrapper
-// allocates, slot-major across the grid's threads (coalesced likewise),
-// and a grid of at most 528 one-warp blocks walks the batch, so the
-// buffer stays at most 16896 factors (140 MB at K = 64) whatever B. The X write is 1 KB per element at a 1 KB
-// stride across the warp, so it is not coalesced; staging it through
-// shared memory is later work.
+// writes 256 + 16 + 1 (and 256 more with W), against 120 tanh/exp/log1p
+// chains and 816 multiply-adds for X; at B = 131072 that is 206.0 MB, 61.5
+// us at 3.35 TB/s (340.3 MB, 101.6 us with W), while the multiply-adds
+// take about 3.2 us at the float32 peak. So the design moves the bytes well
+// and keeps enough warps busy (link_tiles.cuh):
+// - each element is a half-warp's (K <= 16; a warp's above), its work split
+//   over the lanes: tanh and logcosh of every slot, the column running sums
+//   (adds only, a lane a column), W_ij = t exp(lr) over the slots, logJ a
+//   sum over the lanes;
+// - its factor lives in a K x K tile of shared memory, element-major and
+//   padded so that the two elements of a warp use disjoint banks: 16
+//   elements take 50 KB, and four such blocks (32 warps) share an SM;
+// - X is formed row by row from that tile, never mirrored (link::gram:
+//   exactly symmetric), and X and W leave as whole K x K tiles, one TMA bulk
+//   store each; only log diag W and logJ are written by lanes;
+// - a block stays resident and walks its tiles, the next tile's y loaded
+//   by cp.async (coalesced along whichever stride is 1) while it works;
+// - the block size follows B: at a sampler's B = 64 a block holds two
+//   elements, so the batch spreads over 32 SMs.
+// Where one element's tiles pass a block's shared memory (K > 138 on the
+// H100), a warp walks one element's columns with W packed in shared memory
+// (K(K+1)/2 floats, within the block's 232448 bytes up to K = 340; the
+// wrapper takes K <= 337) and writes X and W row by row from its lanes.
 
-#include <cuda_runtime.h>
+#include "link_tiles.cuh"
 
 #include <cmath>
 
 namespace tbt {
 namespace {
 
-constexpr int kMaxThreads = 128;
-constexpr float kLog2 = 0.693147180559945309f;
-// the grid of the global-scratch instantiation: blocks of one warp, four on
-// each of the H100's 132 SMs at most (16896 threads), walking the batch
-// with a grid stride; one-warp blocks spread a small batch over every SM
-constexpr int kScratchThreads = 32;
-constexpr long long kScratchBlocks = 4 * 132;
+using link::tri;
 
-// GSCR: the factors live in a global scratch buffer (slot s of thread t at
-// gscr[s * nthreads_of_the_grid + t]), for a K whose factors of one warp
-// do not fit in shared memory; the fixed grid walks the batch.
-template <bool WANT_W, bool GSCR>
-__global__ void __launch_bounds__(kMaxThreads)
-lkj_inv_kernel(const float* __restrict__ y, long long sb, long long sp,
-               float* __restrict__ X, float* __restrict__ logJ,
-               float* __restrict__ ldw, float* __restrict__ Wout,
-               float* __restrict__ gscr, int K, long long B) {
-  extern __shared__ float ws[];
-  const int tid = threadIdx.x;
-  const long long gt = (long long)blockIdx.x * blockDim.x + tid;
-  const long long nthreads = (long long)gridDim.x * blockDim.x;
-  float* const fac = GSCR ? gscr + gt : ws + tid;
-  const long long stride = GSCR ? nthreads : blockDim.x;
-  // W[i][j], i <= j, at packed slot j(j+1)/2 + i
-  auto W = [&](int i, int j) -> float& { return fac[(j * (j + 1) / 2 + i) * stride]; };
-  auto element = [&](long long b) {
-    const float* yb = y + b * sb;
-    float* lb = ldw + b * K;
-    float lj = 0.0f;
-    W(0, 0) = 1.0f;
-    lb[0] = 0.0f;
-    for (int j = 1; j < K; ++j) {
-      float lr = 0.0f;  // -sum of logcosh down column j so far
-      const int base = j * (j - 1) / 2;
-      for (int i = 0; i < j; ++i) {
-        const float yv = yb[(base + i) * sp];
-        const float t = tanhf(yv);
-        const float a = fabsf(yv);
-        const float lc = a + log1pf(expf(-2.0f * a)) - kLog2;
-        W(i, j) = t * expf(lr);
-        lr -= lc;
-        lj += lr;
+// X and W leave by TMA bulk stores; 16-byte stores from shared memory
+// (false) are timed beside them in PERF.md
+constexpr bool kBulkStore = true;
+
+constexpr float kLog2 = 0.693147180559945309f;
+
+__device__ __forceinline__ float logcosh(float v) {
+  const float a = fabsf(v);
+  return a + log1pf(expf(-2.0f * a)) - kLog2;
+}
+
+// tiles: 0 the factor W, 1 X (first the scratch of t). U's zeros below the
+// diagonal are written once: no tile writes there again. KS = K when it is
+// known at compile time (16, a half-warp an element): the slot loops then
+// unroll, and each lane keeps in registers the tile offsets of its NM slots
+// for every tile the block walks, and their t from the first pass to the
+// last.
+template <bool WANT_W, int KS>
+__global__ void __launch_bounds__(link::kMaxThreads)
+lkj_inv_tiled(const float* __restrict__ y, long long sb, long long sp,
+              float* __restrict__ X, float* __restrict__ logJ,
+              float* __restrict__ ldw, float* __restrict__ Wout, link::Shape s, long long B) {
+  extern __shared__ __align__(16) float smem[];
+  const int K = KS ? KS : s.K, Kp = KS ? KS : s.Kp, P = K * (K - 1) / 2;
+  const int G = link::group_lanes(K);
+  const int e = threadIdx.x / G, l = threadIdx.x % G;
+  float* U = smem + e * s.Fs;
+  float* Xt = smem + (s.E + e) * s.Fs;
+  for (int i = threadIdx.x; i < s.E * s.Fs; i += blockDim.x) smem[i] = 0.0f;
+  // slot q = l + m G is W's (i, j) at offset i Kp + j
+  constexpr int NM = KS ? (KS * (KS - 1) / 2 + 15) / 16 : 1;
+  int at[NM];
+  float t[NM];
+  if constexpr (KS > 0) {
+    for (int m = 0, j = 1; m < NM; ++m) {
+      const int q = min(l + m * G, P - 1);
+      while (tri(j) <= q) ++j;
+      at[m] = (q - tri(j - 1)) * Kp + j;
+    }
+  }
+  link::for_each_tile<kBulkStore>(y, sb, sp, B, s, smem + 2 * s.E * s.Fs,
+                      [&](float* ybuf, long long b0, int n) {
+    const bool live = e < n;
+    float* ys = ybuf + e * s.Pp;
+    // t and logcosh of every slot; the slot then holds logcosh
+    if constexpr (KS > 0) {
+#pragma unroll
+      for (int m = 0; m < NM; ++m) {
+        const int q = l + m * G;
+        if (q < P) {
+          const float v = ys[q];
+          t[m] = tanhf(v);
+          ys[q] = logcosh(v);
+        }
       }
-      W(j, j) = expf(lr);
-      lb[j] = lr;
+    } else {
+      for (int q = l; q < P; q += G) {
+        const float v = ys[q];
+        Xt[q] = tanhf(v);
+        ys[q] = logcosh(v);
+      }
+    }
+    __syncwarp();
+    // lane j walks column j's running sum, leaving lr before each row in its
+    // slot; the diagonal and log diag W from the sum at the bottom
+    float lj = 0.0f;
+    for (int j = l; j < K; j += G) {
+      float* col = ys + tri(j - 1);
+      float lr = 0.0f;
+#pragma unroll
+      for (int i = 0; i < (KS ? KS - 1 : j); ++i) {
+        if (i < j) {
+          const float lc = col[i];
+          col[i] = lr;
+          lr -= lc;
+          lj += lr;
+        }
+      }
+      U[j * Kp + j] = expf(lr);
+      if (live) ldw[(b0 + e) * K + j] = lr;
       lj += lr * (float)(K - j);  // the diagonal term, 1 + (K-1-j) times
     }
-    logJ[b] = lj;
-    // X = W'W: X[a][c] = sum_{k <= a} W[k][a] W[k][c], a <= c
-    float* Xb = X + b * K * K;
-    for (int a = 0; a < K; ++a) {
-      for (int c = a; c < K; ++c) {
-        float acc = 0.0f;
-        for (int k = 0; k <= a; ++k) acc += W(k, a) * W(k, c);
-        Xb[a * K + c] = acc;
-        Xb[c * K + a] = acc;
+    lj = link::group_sum(lj, G);
+    if (live && l == 0) logJ[b0 + e] = lj;
+    __syncwarp();
+    // W_ij = t exp(lr) over the slots (slot q of column j, row
+    // i = q - tri(j-1))
+    if constexpr (KS > 0) {
+#pragma unroll
+      for (int m = 0; m < NM; ++m) {
+        const int q = l + m * G;
+        if (q < P) U[at[m]] = t[m] * expf(ys[q]);
+      }
+    } else {
+      for (int q = l, j = 1; q < P; q += G) {
+        while (tri(j) <= q) ++j;
+        U[(q - tri(j - 1)) * Kp + j] = Xt[q] * expf(ys[q]);
       }
     }
-    if (WANT_W) {
-      float* Wb = Wout + b * K * K;
-      for (int i = 0; i < K; ++i)
-        for (int j = 0; j < K; ++j) Wb[i * K + j] = i <= j ? W(i, j) : 0.0f;
+    __syncwarp();
+    link::gram<KS>(link::TileU{U, Kp}, K, l, G,
+                   [&](int a, int c, float v) { Xt[a * Kp + c] = v; });
+    link::tiles_written<kBulkStore>();
+    link::store_tile<kBulkStore>(X, smem, 1, b0, n, s);
+    if (WANT_W) link::store_tile<kBulkStore>(Wout, smem, 0, b0, n, s);
+  });
+}
+
+// one warp an element, W packed by columns in shared memory
+template <bool WANT_W>
+__global__ void __launch_bounds__(32)
+lkj_inv_packed(const float* __restrict__ y, long long sb, long long sp,
+               float* __restrict__ X, float* __restrict__ logJ,
+               float* __restrict__ ldw, float* __restrict__ Wout, int K) {
+  extern __shared__ __align__(16) float fac[];
+  const long long b = blockIdx.x;
+  const int l = threadIdx.x;
+  const float* yb = y + b * sb;
+  float lj = 0.0f;
+  for (int j = l; j < K; j += 32) {
+    const long long base = tri(j - 1);
+    float lr = 0.0f;
+    for (int i = 0; i < j; ++i) {
+      const float v = yb[(base + i) * sp];
+      fac[tri(j) + i] = tanhf(v) * expf(lr);
+      lr -= logcosh(v);
+      lj += lr;
     }
-  };
-  if (GSCR) {
-    for (long long b = gt; b < B; b += nthreads) element(b);
-  } else if (gt < B) {  // no block-wide barrier
-    element(gt);
+    fac[tri(j) + j] = expf(lr);
+    ldw[b * K + j] = lr;
+    lj += lr * (float)(K - j);
   }
-}
-
-size_t smem_bytes(int K, int nt) { return (size_t)K * (K + 1) / 2 * sizeof(float) * nt; }
-
-// as many threads as keep the block's factors within 100 KB (two blocks an
-// SM), at least one warp; 0 when one warp's factors pass the block's
-// shared-memory limit (K >= 60 on the H100)
-int shared_threads(int K) {
-  int dev = 0, optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  int nt = kMaxThreads;
-  while (nt > 32 && smem_bytes(K, nt) > 100 * 1024) nt -= 32;
-  return smem_bytes(K, nt) <= (size_t)optin ? nt : 0;
-}
-
-long long scratch_blocks(long long B) {
-  const long long need = (B + kScratchThreads - 1) / kScratchThreads;
-  return need < kScratchBlocks ? need : kScratchBlocks;
+  lj = link::group_sum(lj, 32);
+  if (l == 0) logJ[b] = lj;
+  __syncwarp();
+  const long long KK = (long long)K * K;
+  float* Xb = X + b * KK;
+  link::gram<0>(link::PackedU{fac, K}, K, l, 32, [&](int a, int c, float v) { Xb[a * K + c] = v; });
+  if (WANT_W) {
+    float* Wb = Wout + b * KK;
+    for (int a = 0; a < K; ++a)
+      for (int c = l; c < K; c += 32) Wb[a * K + c] = a <= c ? fac[tri(c) + a] : 0.0f;
+  }
 }
 
 template <bool WANT_W>
 cudaError_t launch(const float* y, long long sb, long long sp, float* X, float* logJ,
-                   float* ldw, float* Wout, float* gscr, int K, long long B,
-                   cudaStream_t stream) {
-  const int nt = shared_threads(K);
-  if (nt == 0) {
-    if (gscr == nullptr) return cudaErrorInvalidValue;
-    lkj_inv_kernel<WANT_W, true><<<(unsigned)scratch_blocks(B), kScratchThreads, 0, stream>>>(
-        y, sb, sp, X, logJ, ldw, Wout, gscr, K, B);
-    return cudaGetLastError();
-  }
-  const size_t smem = smem_bytes(K, nt);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(lkj_inv_kernel<WANT_W, false>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const long long blocks = (B + nt - 1) / nt;
-  lkj_inv_kernel<WANT_W, false><<<(unsigned)blocks, nt, smem, stream>>>(
-      y, sb, sp, X, logJ, ldw, Wout, nullptr, K, B);
+                   float* ldw, float* Wout, int K, long long B, cudaStream_t stream) {
+  const link::Shape s = link::shape(K, K * (K - 1) / 2, 2, B);
+  if (s.E > 0)
+    return link::launch_tiles(K == 16 ? lkj_inv_tiled<WANT_W, 16> : lkj_inv_tiled<WANT_W, 0>,
+                              s, B, stream, y, sb, sp, X, logJ, ldw, Wout, s, B);
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  const size_t bytes = sizeof(float) * (size_t)tri(K);
+  if (bytes > (size_t)optin) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(lkj_inv_packed<WANT_W>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  lkj_inv_packed<WANT_W><<<(unsigned)B, 32, bytes, stream>>>(y, sb, sp, X, logJ, ldw, Wout, K);
   return cudaGetLastError();
 }
 
@@ -158,24 +220,16 @@ cudaError_t launch(const float* y, long long sb, long long sp, float* X, float* 
 
 extern "C" {
 
-// The floats of global scratch tbt_lkj_inverse needs at K and B on the
-// current device: 0 where the factors fit in shared memory, else K(K+1)/2
-// for each thread of the fixed grid.
-long long tbt_lkj_inverse_scratch(int K, long long B) {
-  if (B == 0 || tbt::shared_threads(K) > 0) return 0;
-  return (long long)K * (K + 1) / 2 * tbt::scratch_blocks(B) * tbt::kScratchThreads;
-}
-
 // y (B, K(K-1)/2) with element strides (sb, sp) -> X (B, K, K), logJ (B,),
 // log diag W (B, K), and W (B, K, K) when Wout is not null; all outputs
-// contiguous; gscr the scratch of tbt_lkj_inverse_scratch floats (null
-// where that is 0). Launches on `stream`, does not synchronise, returns
-// the cudaError_t.
+// contiguous. Launches on `stream`, does not synchronise, returns the
+// cudaError_t (cudaErrorInvalidValue where one element's factor passes the
+// block's shared memory).
 int tbt_lkj_inverse(const float* y, long long sb, long long sp, float* X, float* logJ,
-                    float* ldw, float* Wout, float* gscr, int K, long long B, void* stream) {
+                    float* ldw, float* Wout, int K, long long B, void* stream) {
   if (B == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (Wout) return (int)tbt::launch<true>(y, sb, sp, X, logJ, ldw, Wout, gscr, K, B, st);
-  return (int)tbt::launch<false>(y, sb, sp, X, logJ, ldw, Wout, gscr, K, B, st);
+  if (Wout) return (int)tbt::launch<true>(y, sb, sp, X, logJ, ldw, Wout, K, B, st);
+  return (int)tbt::launch<false>(y, sb, sp, X, logJ, ldw, Wout, K, B, st);
 }
 }

@@ -13,7 +13,8 @@ For a CUDA tensor each launches its kernel (`csrc/lkj_inv.cu`,
 `csrc/lkj_logdet.cu`) or raises; for a CPU tensor it runs its plain
 version. y may be any 2-D strided view (read in place), so the swapped
 view of a transposed (P, B) state needs no copy (the TPU kernels'
-`pre_t`).
+`pre_t`). The inverse kernel keeps one element's factor in shared memory
+and takes K <= MAX_K; beyond it `lkj_inverse` raises off the CPU.
 
 The plain versions' masked cumulative sums live here, beside the kernels
 they define; `bijectors/corr.py` builds the bijector on them.
@@ -28,6 +29,11 @@ import torch
 
 from .. import kernels
 from ..utils import logcosh, pd_from_upper, vec_to_triu
+
+# the inverse kernel's K: one element's factor, K(K+1)/2 floats (227812
+# bytes at K = 337), within the 232448 bytes of shared memory a block may
+# use on the H100
+MAX_K = 337
 
 
 @lru_cache(maxsize=None)
@@ -124,18 +130,18 @@ def lkj_inverse(y, K: int, want_w: bool = False):
     """(X (B, K, K), logJ (B,), log diag W (B, K), W (B, K, K) or None)."""
     if y.device.type == "cpu":
         return lkj_inverse_plain(y, K, want_w)
+    if K > MAX_K:
+        raise NotImplementedError(
+            f"the LKJ inverse kernel takes K <= {MAX_K}; got K = {K} on {y.device}"
+        )
     _check_cuda(y, K)
     B = y.shape[0]
     new = lambda *s: torch.empty(s, dtype=y.dtype, device=y.device)  # noqa: E731
     X, logJ, log_diag = new(B, K, K), new(B), new(B, K)
     W = new(B, K, K) if want_w else None
-    # from K = 60 the factors live in a global scratch buffer (csrc/lkj_inv.cu)
-    n_scratch = kernels.scratch_floats("tbt_lkj_inverse_scratch", y.device, K, B)
-    scratch = new(n_scratch) if n_scratch else None
     kernels.launch(
         "tbt_lkj_inverse", "lkj_inverse", y.device,
         y.data_ptr(), y.stride(0), y.stride(1), X.data_ptr(), logJ.data_ptr(),
-        log_diag.data_ptr(), None if W is None else W.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), K, B,
+        log_diag.data_ptr(), None if W is None else W.data_ptr(), K, B,
     )
     return X, logJ, log_diag, W
