@@ -103,6 +103,15 @@ and the #14 probe:
    the torch op and torch.autograd in float64 at its edge points, timed;
    then `_prep`'s first call on the generic-traced and bench models.
 
+After them, #2's small-batch design (the item kernel, which the
+value-and-gradient wrapper launches at B <= SMALL_B: every sampler's
+leapfrog) is held to its plain version on every model the paths drive
+(`ITEM_MODELS`) at B = 1, 31, 64, 65, 200 and SMALL_B, at the allowances
+of each model's own checks, bit for bit on a second launch, and on the
+extremes blocks of families and generic-traced (`check_small_design`).
+The sampler paths count its launches (`slab_value_and_grad_small`); the
+B = 131072 serving paths must launch it no time.
+
 The launch counters are set to 0 just before each path and read just after
 it; each kernel of the path must have launched. Each kernel is held against
 its plain PyTorch version on the same inputs: the slab kernels at
@@ -129,7 +138,11 @@ version (`kernel_table`, `time_kernels`), and the PD, mvdense, repair and
 families variants with their bounds (`pd_variants`, `model_variants`).
 
 Prints the card's name and power limit, one JSON line per kernel, a
-`kernel_variants` line (every layout's time), a `transcend_probe` line
+`kernel_variants` line (every layout's time; #2 at 64 chains in both
+designs on each sampler cell's model; a kernel that does nothing, the
+launch floor), a `slab_small_b_sweep` line (#2 in both designs at
+B = 64 to 131072 on the bench, mvdense and pdonly models: the crossover
+that sets SMALL_B), a `transcend_probe` line
 (every probe variant's time), a `prim_probe` line per opcode, a `prep_s`
 line, an `end_to_end` line (the
 entry points with host dispatch), a `phases_s` line (each phase's wall
@@ -191,6 +204,8 @@ REPLACES = {
     # the leapfrog's, on generic-traced) and the per-opcode probe #14
     "slab_traced": "tpu_bijectors/vectorize/fused_kernel.py:383",
     "prim_probe": "tools/prim_lowering_probe.py:128",
+    # #2's small-batch design, the samplers' (its row: cell 2's B = 64)
+    "slab_value_and_grad_small": "tpu_bijectors/vectorize/fused_kernel.py:383",
 }
 CSRC = "tpu_bijectors_torch/kernels/csrc/"
 SOURCES = {
@@ -210,11 +225,16 @@ SOURCES = {
     "transcend_probe": CSRC + "transcend_probe.cu",
     "slab_traced": CSRC + "traced_tape.cuh",
     "prim_probe": CSRC + "prim_probe.cu",
+    "slab_value_and_grad_small": CSRC + "fused_slab.cu",
 }
 # the kernels each path must launch: transposed serving (path 1), the
 # inverse links of both samplers (paths 2 and 4), batch-major serving
 # (path 3, which runs the inverse links too)
 SLAB_KERNELS = ("slab_value", "slab_value_and_grad", "slab_vjp")
+# #2's small-batch design (the item kernel), which the value-and-gradient
+# wrapper launches at B <= SMALL_B: every sampler's leapfrog, never the
+# B = 131072 serving paths
+SMALL = "slab_value_and_grad_small"
 LINK_KERNELS = ("simplex_inverse_logdet", "lkj_inverse")
 BATCH_MAJOR_KERNELS = ("lkj_logdet", "simplex_inverse", "simplex_forward_logdet")
 # the link kernels against their plain versions, float32: x and X are
@@ -556,7 +576,7 @@ def check_link_entry_points(dev, vT, loglik, counts):
              links[:1])
     launched("value_and_grad_fn with the likelihood",
              lambda: f.value_and_grad_fn(v64.T.contiguous()),
-             ("slab_value_and_grad",) + links)
+             (SMALL,) + links)
 
     # the likelihood model in float32 on the card against float64 on the
     # CPU, at the leapfrog's batch of 64 chains and at 4096
@@ -819,9 +839,10 @@ def run_sampler(dev, loglik, counts, kernel):
 
     transposed = kernel == "nuts_batched_t"
     # one launch per batched leapfrog: the fused value-and-gradient kernel
-    # of the transposed density, the LKJ inverse link of the batch-major one
-    per_leapfrog = "slab_value_and_grad" if transposed else "lkj_inverse"
-    path = (("slab_value_and_grad",) if transposed else ()) + LINK_KERNELS
+    # of the transposed density (its small design at 64 chains), the LKJ
+    # inverse link of the batch-major one
+    per_leapfrog = SMALL if transposed else "lkj_inverse"
+    path = ((SMALL,) if transposed else ()) + LINK_KERNELS
     model = tbt.Model(bench_model(dists, dev, torch.float32), loglik=loglik, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     torch.cuda.synchronize()
@@ -1178,6 +1199,7 @@ def run_pd_transposed_serving(dev, vT, family):
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     print(f"launches on the {family} transposed serving path: {launches}", flush=True)
+    expect(f"{SMALL} not launched on the {family} transposed serving path", launches[SMALL] == 0)
     for k in SLAB_KERNELS:
         expect(f"{k} launched on the {family} transposed serving path", launches[k] > 0)
     expect(f"{family}: lp (B,) and g (151, B)",
@@ -1331,10 +1353,10 @@ def run_pd_sampler(dev):
     t3 = time.perf_counter()
     launches = dict(kernels.LAUNCHES)
     print(f"launches on the pd_conjugate sampler path: {launches}", flush=True)
-    for k in ("slab_value_and_grad", "pd_inverse"):
+    for k in (SMALL, "pd_inverse"):
         expect(f"{k} launched on the pd_conjugate sampler path", launches[k] > 0)
     during = {k: l2[k] - l1[k] for k in l2}
-    leapfrogs = during["slab_value_and_grad"]
+    leapfrogs = during[SMALL]
     sampling_s = t2 - t1
     expect("pd_conjugate: raw draws (200, 64, 151) and finite",
            tuple(raw.shape) == (KEPT, CHAINS, 151) and bool(torch.isfinite(raw).all()))
@@ -1556,6 +1578,7 @@ def run_mv_transposed_serving(dev, vT, dvT):
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     print(f"launches on the mvdense transposed serving path: {launches}", flush=True)
+    expect(f"{SMALL} not launched on the mvdense transposed serving path", launches[SMALL] == 0)
     for k in SLAB_KERNELS + ("slab_jvp",):
         expect(f"{k} launched on the mvdense transposed serving path", launches[k] > 0)
     B = vT.shape[1]
@@ -1717,10 +1740,9 @@ def run_mv_sampler(dev):
     t3 = time.perf_counter()
     launches = dict(kernels.LAUNCHES)
     print(f"launches on the mv_conjugate sampler path: {launches}", flush=True)
-    expect("slab_value_and_grad launched on the mv_conjugate sampler path",
-           launches["slab_value_and_grad"] > 0)
+    expect(f"{SMALL} launched on the mv_conjugate sampler path", launches[SMALL] > 0)
     during = {k: l2[k] - l1[k] for k in l2}
-    leapfrogs = during["slab_value_and_grad"]
+    leapfrogs = during[SMALL]
     sampling_s = t2 - t1
     expect(f"mv_conjugate: raw draws ({MV_KEPT}, 64, 151) and finite",
            tuple(raw.shape) == (MV_KEPT, CHAINS, 151) and bool(torch.isfinite(raw).all()))
@@ -1810,20 +1832,29 @@ def check_jvp_earlier(dev, vT):
     return err
 
 
+def wide_model(dists, device, dtype):
+    """`wide`: IIDProduct(Normal(0.5, 2.0), 4000), dim 4000 (a 256 KB table,
+    beyond a block's shared memory)."""
+    return dists.IIDProduct(dists.Normal(0.5, 2.0, device=device, dtype=dtype), 4000)
+
+
 def check_wide(dev, B=16384):
     """The repair of the whole-model kernels' table: `wide`,
     IIDProduct(Normal(0.5, 2.0), 4000), dim 4000 (a 256 KB table, beyond
     the block's 227 KB of shared memory) at B = 16384, states 0.5 N(0, 1)
     from numpy seed 4: the four modes (the value through
     `Model.batched_logdensity_t_fn()` too) against their plain versions and
-    float64. Returns the four modes as `time_kernels` variants."""
+    float64. Returns the four modes as `time_kernels` variants. The
+    value-and-gradient mode is the kernel of a thread a column (a batch
+    this size may take the small design, which `check_small_design`
+    holds)."""
     import tpu_bijectors_torch as tbt
     from tpu_bijectors_torch import dists
     from tpu_bijectors_torch.vectorize import fused_base as fb
     from tpu_bijectors_torch.vectorize import fused_kernel as fk
 
     n = 4000
-    model = tbt.Model(dists.IIDProduct(dists.Normal(0.5, 2.0, device=dev), n), device=dev)
+    model = tbt.Model(wide_model(dists, dev, torch.float32), device=dev)
     rng = np.random.default_rng(4)
     vT = torch.as_tensor(0.5 * rng.standard_normal((n, B)), dtype=torch.float32, device=dev)
     dvT = torch.as_tensor(rng.standard_normal((n, B)), dtype=torch.float32, device=dev)
@@ -1838,7 +1869,7 @@ def check_wide(dev, B=16384):
     check("wide: batched_logdensity_t_fn vs float64", lp, lp64 + c0, 1.0, lp_allow)
     check("wide: value kernel vs plain", fk.slab_value(vT, cf), fb.slab_value_plain(vT, cf), 1.0,
           2 * lp_allow)
-    lp_k, g_k = fk.slab_value_and_grad(vT, cf)
+    lp_k, g_k = fk.slab_value_and_grad(vT, cf, design="wide")
     lp_p, g_p = fb.slab_value_and_grad_plain(vT, cf)
     check("wide: value-and-grad kernel lp vs plain", lp_k, lp_p, 1.0, 2 * lp_allow)
     check("wide: value-and-grad kernel g vs plain", g_k, g_p, 1.0, 2 * g_allow)
@@ -1859,7 +1890,7 @@ def check_wide(dev, B=16384):
             lambda: fk.slab_value(vT, cf), nbytes, ops["value"],
             lambda: fb.slab_value_plain(vT, cf)),
         "slab_value_and_grad, table in global memory (wide)": (
-            lambda: fk.slab_value_and_grad(vT, cf), nbytes + vT.numel() * 4,
+            lambda: fk.slab_value_and_grad(vT, cf, design="wide"), nbytes + vT.numel() * 4,
             ops["value_and_grad"], lambda: fb.slab_value_and_grad_plain(vT, cf)),
         "slab_vjp, table in global memory (wide)": (
             lambda: fk.slab_vjp(vT, cf, ct), nbytes + vT.numel() * 4, ops["vjp"],
@@ -1887,7 +1918,9 @@ def check_pdwide(dev, B=16384):
     from numpy seed 5: value and gradient and the VJP kernels against their
     plain versions and float64 (`pd_entry_allowances`), and one
     `value_and_grad_fn` of `Model.batched_logdensity_t_fn()` at B = 64.
-    Returns the value-and-gradient kernel as a `time_kernels` variant."""
+    Returns the value-and-gradient kernel as a `time_kernels` variant. The
+    value-and-gradient kernel here is the one of a thread a column
+    (`check_small_design` holds the small design on this model)."""
     import tpu_bijectors_torch as tbt
     from tpu_bijectors_torch import dists
     from tpu_bijectors_torch.vectorize import fused_base as fb
@@ -1903,7 +1936,7 @@ def check_pdwide(dev, B=16384):
     cf, loops, c0sum = fk._prep(u, vT)
     cf64, loops64, c0sum64 = fk._prep(m64.unconstrainer(), vT.double())
     lp64, g64, lp_allow, g_allow = pd_entry_allowances(vT, cf64, loops64)
-    lp, g = fk.slab_value_and_grad(vT, cf, loops)
+    lp, g = fk.slab_value_and_grad(vT, cf, loops, design="wide")
     lpp, gp = fb.slab_value_and_grad_plain(vT, cf, loops)
     check("pdwide: value-and-grad kernel lp vs plain", lp, lpp, 1.0, 2 * lp_allow)
     check("pdwide: value-and-grad kernel g vs plain", g, gp, 1.0, 2 * g_allow)
@@ -1920,7 +1953,7 @@ def check_pdwide(dev, B=16384):
     slab = B * sum(2 + OPS["value_and_grad"]["quad"] for r in range(dim) if cf[r, fb._MASK_COL] > 0)
     nbytes = 2 * vT.numel() * 4 + B * 4 + cf.numel() * 4 + loops.prm.numel() * 4
     return {"slab_value_and_grad with the PD entry, table in global memory (pdwide)": (
-        lambda: fk.slab_value_and_grad(vT, cf, loops), nbytes,
+        lambda: fk.slab_value_and_grad(vT, cf, loops, design="wide"), nbytes,
         slab + B * (PD_OPS["dot"] + PD_OPS["dot_grad"] - 216),
         lambda: fb.slab_value_and_grad_plain(vT, cf, loops))}
 
@@ -2187,6 +2220,7 @@ def run_families_transposed_serving(dev):
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     print(f"launches on the families transposed serving path: {launches}", flush=True)
+    expect(f"{SMALL} not launched on the families transposed serving path", launches[SMALL] == 0)
     for k in SLAB_KERNELS + ("slab_jvp",):
         expect(f"{k} launched on the families transposed serving path", launches[k] > 0)
     B = vT.shape[1]
@@ -2459,10 +2493,9 @@ def run_eight_schools(dev):
     t3 = time.perf_counter()
     launches = dict(kernels.LAUNCHES)
     print(f"launches on the eight_schools sampler path: {launches}", flush=True)
-    expect("slab_value_and_grad launched on the eight_schools sampler path",
-           launches["slab_value_and_grad"] > 0)
+    expect(f"{SMALL} launched on the eight_schools sampler path", launches[SMALL] > 0)
     during = {k: l2[k] - l1[k] for k in l2}
-    leapfrogs = during["slab_value_and_grad"]
+    leapfrogs = during[SMALL]
     sampling_s = t2 - t1
     expect("eight_schools: raw draws (200, 64, 10) and finite",
            tuple(raw.shape) == (KEPT, CHAINS, 10) and bool(torch.isfinite(raw).all()))
@@ -2626,6 +2659,21 @@ def vector_model(dists, device, dtype):
 TRACED_MODELS = {"generic-traced": traced_model, "truncated-leaves": truncated_model,
                  "vector-leaves": vector_model}
 
+# every model the paths drive, (dists, tbt, device, dtype) -> its
+# distribution: the small design of #2 is held to its plain version on each
+# (`check_small_design`)
+ITEM_MODELS = {
+    "bench": lambda d, t, dev, dt: bench_model(d, dev, dt),
+    "pdonly": lambda d, t, dev, dt: pd_model(d, dev, dt, "wishart"),
+    "pdonly-invwishart": lambda d, t, dev, dt: pd_model(d, dev, dt, "invwishart"),
+    "mvdense": lambda d, t, dev, dt: mvdense_model(d, dev, dt)[0],
+    "families": families_model,
+    "eight-schools": lambda d, t, dev, dt: eight_schools_model(d, dev, dt),
+    **{k: (lambda d, t, dev, dt, f=f: f(d, dev, dt)) for k, f in TRACED_MODELS.items()},
+    "wide": lambda d, t, dev, dt: wide_model(d, dev, dt),
+    "pdwide": lambda d, t, dev, dt: pdwide_model(d, dev, dt),
+}
+
 
 def traced_states(dev, dim, B=BATCH):
     """(vT, dvT): 0.6 N(0, 1) (numpy seed 7) and N(0, 1) (seed 8), (dim, B)
@@ -2660,7 +2708,8 @@ def tape_magnitudes(tape, consts, V):
 
 def traced_allowances(vT, cf64, loops64):
     """Float64 (lp, g) of a model's fused plain version on vT (slab rows
-    and traced entries) and the error float32 may carry: the slab rows'
+    and traced entries, or slab rows alone where loops64 is None) and the
+    error float32 may carry: the slab rows'
     terms and c0 at RTOL_LP of their magnitudes, each partial at RTOL_G of
     its terms' (as `families_allowances`); each traced entry at RTOL_TAPE
     of its tape's `tape_magnitudes` (and of |partial|). Returns (lp64,
@@ -2678,7 +2727,7 @@ def traced_allowances(vT, cf64, loops64):
         g_mag = g_mag + p.abs()
     lp_allow = RTOL_LP * mag + 1e-6
     g_allow = RTOL_G * (g64.abs() + g_mag) + 1e-6
-    for i, (code, row0, K, off) in enumerate(loops64.entries):
+    for i, (code, row0, K, off) in enumerate(() if loops64 is None else loops64.entries):
         if code != fb.TRACED:
             raise ValueError(f"loop kind {code} has no allowance here")
         tape = loops64.tapes[loops64.toffs[i]]
@@ -2784,6 +2833,7 @@ def run_traced_model(dev, tag, build, extremes=False):
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     print(f"launches on the {tag} transposed serving path: {launches}", flush=True)
+    expect(f"{SMALL} not launched on the {tag} transposed serving path", launches[SMALL] == 0)
     for k in SLAB_KERNELS + ("slab_jvp", "slab_traced"):
         expect(f"{k} launched on the {tag} transposed serving path", launches[k] > 0)
     expect(f"{tag}: lp (B,), g ({dim}, B), dlp (B,)",
@@ -2935,10 +2985,10 @@ def run_traced_sampler(dev):
     t3 = time.perf_counter()
     launches = dict(kernels.LAUNCHES)
     print(f"launches on the traced sampler path: {launches}", flush=True)
-    for k in ("slab_value_and_grad", "slab_traced"):
+    for k in (SMALL, "slab_traced"):
         expect(f"{k} launched on the traced sampler path", launches[k] > 0)
     during = {k: l2[k] - l1[k] for k in l2}
-    leapfrogs = during["slab_value_and_grad"]
+    leapfrogs = during[SMALL]
     sampling_s = t2 - t1
     expect(f"traced sampling: raw draws ({TRACED_KEPT}, {CHAINS}, {TRACED_DIM}) and finite",
            tuple(raw.shape) == (TRACED_KEPT, CHAINS, TRACED_DIM)
@@ -3041,6 +3091,184 @@ def time_prep(dev):
     return out
 
 
+# --- #2 at small batch: the item kernel (the ninth slice) -------------------
+
+# the batches the small design is held to its plain version at (and SMALL_B)
+SMALL_BS = (1, 31, 64, 65, 200)
+# the models each sampler cell's leapfrog runs #2 on, by cell
+SAMPLER_MODELS = {2: "bench", 7: "pdonly", 10: "mvdense", 14: "eight-schools",
+                  17: "generic-traced"}
+SWEEP_BS = (64, 256, 1024, 4096, 16384, BATCH)
+
+
+def item_states(dev, name, dim, B):
+    """The states the small design is checked on: the path's own where it
+    has them (families, the traced models), else 0.5 N(0, 1) from numpy
+    seed SEED; (dim, B) float32."""
+    if name == "families":
+        return families_states(dev, B)[0]
+    if name in TRACED_MODELS:
+        return traced_states(dev, dim, B)[0]
+    v = 0.5 * np.random.default_rng(SEED).standard_normal((dim, B))
+    return torch.as_tensor(v, dtype=torch.float32, device=dev)
+
+
+def item_allowances(name, x, cf, loops, cf64, loops64):
+    """Float64 (lp, g) of a model's plain function on x (without c0) and
+    the allowances its path's checks hold it to: for a model of slab rows
+    the rows' terms at RTOL_LP and RTOL_G of their magnitudes (as
+    `families_allowances` holds them: the LKJ rows' partials are sums of
+    terms that cancel), `pd_entry_allowances`, `mv_allowances`,
+    `families_allowances` and `traced_allowances` for the others."""
+    from tpu_bijectors_torch.vectorize import fused_base as fb
+
+    if loops is None or name in TRACED_MODELS:
+        return traced_allowances(x, cf64, loops64)[:4]
+    if name == "mvdense":
+        lp64, g64, la, ga = mv_allowances(x, cf, loops, cf64, loops64)
+        return lp64 - cf64[:, fb._CI["c0"]].sum(), g64, la, ga
+    if name == "families":
+        return families_allowances(x, cf64, loops64)[:4]
+    return pd_entry_allowances(x, cf64, loops64)
+
+
+def vg_ops(cf, loops, B):
+    """The value-and-gradient mode's operation floor on a model at batch B:
+    the slab rows' (OPS), each PD entry's (`pd_ops`), each Gaussian or t
+    entry's (QUAD_OPS at K = 16, the same count at any K) and the traced
+    entries' (`tape_ops`)."""
+    from tpu_bijectors_torch.vectorize import fused_base as fb
+
+    ops = B * sum(2 + sum(OPS["value_and_grad"][g] for g in fb._groups_and_used(cf[r:r + 1])[0])
+                  for r in range(cf.shape[0]) if cf[r, fb._MASK_COL] > 0)
+    if loops is None:
+        return ops
+    for code, _, K, _ in loops.entries:
+        if code in fb.PD_MODES:
+            mode = fb.PD_MODES[code]
+            p = pd_ops(K)
+            ops += B * (p[mode] + p[mode + "_grad"] - (K * (K + 1) // 2 + 5 * K))
+        elif code != fb.TRACED:
+            tri = K * (K + 1) // 2
+            ops += B * ((K + 2 * tri + 2 * K) + 3 + (2 * tri + K))
+    return ops + tape_ops(loops, B)["value_and_grad"]
+
+
+def vg_bytes(x, cf, loops):
+    """Bytes the value-and-gradient mode must move: x, the table, the loop
+    parameters and tapes read once, lp and g written once."""
+    n = 2 * x.numel() * 4 + x.shape[1] * 4 + cf.numel() * 4
+    if loops is not None:
+        n += loops.prm.numel() * 4 + (0 if loops.tape is None else loops.tape.numel() * 4)
+    return n
+
+
+def check_small_design(dev):
+    """#2's small design (the item kernel) on every model the paths drive
+    (ITEM_MODELS) at B = 1, 31, 64, 65, 200 and SMALL_B: lp and g against
+    the plain version at twice the allowances of the model's own checks
+    (`item_allowances`) and against float64 at them; two launches give the
+    same lp and g bit for bit; on families and generic-traced the extremes
+    blocks of 64 columns keep the plain version's NaN/inf pattern.
+    Returns (the max absolute error against the plain version, name ->
+    (cf, loops, the (dim, 64) states) of the sampler cells' models)."""
+    import tpu_bijectors_torch as tbt
+    from tpu_bijectors_torch import dists, kernels
+    from tpu_bijectors_torch.vectorize import fused_base as fb
+    from tpu_bijectors_torch.vectorize import fused_kernel as fk
+
+    err, preps = 0.0, {}
+    kernels.reset_launch_counts()
+    for name, build in ITEM_MODELS.items():
+        model = tbt.Model(build(dists, tbt, dev, torch.float32), device=dev)
+        m64 = tbt.Model(build(dists, tbt, dev, torch.float64), device=dev)
+        u = model.unconstrainer()
+        X = item_states(dev, name, model.dim(), fk.SMALL_B)
+        cf, loops, _ = fk._prep(u, X)
+        cf64, loops64, _ = fk._prep(m64.unconstrainer(), X.double())
+        for B in SMALL_BS + (fk.SMALL_B,):
+            x = X[:, :B].contiguous()
+            lp64, g64, la, ga = item_allowances(name, x, cf, loops, cf64, loops64)
+            lp, g = fk.slab_value_and_grad(x, cf, loops, design="small")
+            lpp, gp = fb.slab_value_and_grad_plain(x, cf, loops)
+            tag = f"small design ({name}, B = {B})"
+            err = max(err, check(f"{tag} lp vs plain", lp, lpp, 1.0, 2 * la),
+                      check(f"{tag} g vs plain", g, gp, 1.0, 2 * ga))
+            check(f"{tag} lp vs float64", lp, lp64, 1.0, la)
+            check(f"{tag} g vs float64", g, g64, 1.0, ga)
+            if B in (CHAINS, fk.SMALL_B):
+                lp2, g2 = fk.slab_value_and_grad(x, cf, loops, design="small")
+                expect(f"{tag}: a second launch gives lp and g bit for bit",
+                       torch.equal(lp, lp2) and torch.equal(g, g2))
+        if name in ("families", "generic-traced"):
+            vx = (families_extremes(X, cf) if name == "families" else traced_extremes(X, u))
+            _, _, lpx_allow, gx_allow, _ = (families_allowances if name == "families"
+                                            else traced_allowances)(vx, cf64, loops64)
+            lpx, gx = fk.slab_value_and_grad(vx, cf, loops, design="small")
+            lpx_p, gx_p = fb.slab_value_and_grad_plain(vx, cf, loops)
+            # the families path holds g to the finite/inf pattern, the
+            # traced one to the NaN/inf pattern (a partial at an overflowed
+            # point may be NaN in the plain version too)
+            check_extremes(f"small design ({name}) extremes: lp", lpx, lpx_p, 2 * lpx_allow)
+            (check_extremes if name == "families" else check_pattern)(
+                f"small design ({name}) extremes: g", gx, gx_p, 2 * gx_allow)
+        if name in SAMPLER_MODELS.values():
+            preps[name] = (cf, loops, X[:, :CHAINS].contiguous())
+    torch.cuda.synchronize()
+    expect(f"{SMALL} launched by the small-design checks", kernels.LAUNCHES[SMALL] > 0)
+    expect("slab_value_and_grad not launched by the small-design checks",
+           kernels.LAUNCHES["slab_value_and_grad"] == 0)
+    return err, preps
+
+
+def small_design_variants(preps):
+    """`time_kernels` variants: #2 at the samplers' 64 chains on each
+    sampler cell's model in both designs, with their bytes, bound and
+    plain version (`vg_bytes`, `vg_ops`), and a kernel that does nothing,
+    timed in the same window: the launch floor."""
+    from tpu_bijectors_torch.vectorize import fused_base as fb
+    from tpu_bijectors_torch.vectorize import fused_kernel as fk
+
+    out = {}
+    for cell, name in SAMPLER_MODELS.items():
+        cf, loops, x = preps[name]
+        for design in ("small", "wide"):
+            out[f"slab_value_and_grad {design} design ({name}, cell {cell}, B = 64)"] = (
+                lambda cf=cf, loops=loops, x=x, design=design:
+                    fk.slab_value_and_grad(x, cf, loops, design=design),
+                vg_bytes(x, cf, loops), vg_ops(cf, loops, x.shape[1]),
+                lambda cf=cf, loops=loops, x=x: fb.slab_value_and_grad_plain(x, cf, loops))
+    dev = next(iter(preps.values()))[2].device
+    out["launch floor: a kernel that does nothing"] = lambda: fk.launch_floor(dev)
+    return out
+
+
+def small_b_sweep(dev, vT):
+    """#2's time in both designs at SWEEP_BS on the bench, mvdense and
+    pdonly models (the states: vT's first B columns). Prints one
+    `slab_small_b_sweep` line with each time and, per model, the largest
+    batch at which the small design is the faster: SMALL_B is set from
+    it."""
+    import tpu_bijectors_torch as tbt
+    from tpu_bijectors_torch import dists
+    from tpu_bijectors_torch.vectorize import fused_kernel as fk
+
+    out = {}
+    for name in ("bench", "mvdense", "pdonly"):
+        model = tbt.Model(ITEM_MODELS[name](dists, tbt, dev, torch.float32), device=dev)
+        u = model.unconstrainer()
+        rows = {}
+        for B in SWEEP_BS:
+            x = vT[:, :B].contiguous()
+            cf, loops, _ = fk._prep(u, x)
+            rows[B] = {d: time_ms(lambda d=d: fk.slab_value_and_grad(x, cf, loops, design=d))
+                       for d in ("small", "wide")}
+        faster = [B for B, t in rows.items() if t["small"] <= t["wide"]]
+        out[name] = {"ms": rows, "small_faster_up_to": max(faster, default=None)}
+    print(json.dumps({"slab_small_b_sweep": out, "SMALL_B": fk.SMALL_B}), flush=True)
+    return out
+
+
 def kernel_table(vT, xT, cf, ones, dvT, fam_vT, probe_in, traced_in):
     """Every ported kernel at B = 131072: name -> (wrapper, plain version,
     bytes, operations, {layout: input}), the layout the path reads first.
@@ -3070,6 +3298,7 @@ def kernel_table(vT, xT, cf, ones, dvT, fam_vT, probe_in, traced_in):
     tvT, _, tcf, tloops = traced_in
     px, py, pz = pp.inputs("pow", vT.device)
     lc_rows = slice(FAM_LC_ROW0, FAM_LC_ROW0 + 10)
+    v64 = vT[:, :CHAINS].contiguous()
     groups_per_row = [fb._groups_and_used(cf[r : r + 1])[0] for r in range(dim)]
 
     def slab_ops(mode):
@@ -3167,6 +3396,11 @@ def kernel_table(vT, xT, cf, ones, dvT, fam_vT, probe_in, traced_in):
             + tloops.tape.numel() * 4,
             tape_ops(tloops, B)["value_and_grad"], {"transposed": tvT},
         ),
+        # #2's small design at cell 2's 64 chains: reads vT (151, 64) and
+        # the table, writes lp and g
+        SMALL: (lambda y: fk.slab_value_and_grad(y, cf, design="small"),
+                lambda y: fb.slab_value_and_grad_plain(y, cf),
+                vg_bytes(v64, cf, None), vg_ops(cf, None, CHAINS), {"transposed, B = 64": v64}),
         # reads x, y, z, writes the value and the tangent; pow's value and
         # its tangent rule
         "prim_probe": (
@@ -3374,6 +3608,7 @@ def main():
     print(f"launches on the main path: {launches}", flush=True)
     for k in SLAB_KERNELS:
         expect(f"{k} launched on the main path", launches[k] > 0)
+    expect(f"{SMALL} not launched on the main path (B = {BATCH})", launches[SMALL] == 0)
     expect("lp shape (B,)", lp.shape == (BATCH,) and lp_vg.shape == (BATCH,))
     expect("g shape (dim, B)", g_vg.shape == (dim, BATCH) and g_ag.shape == (dim, BATCH))
 
@@ -3538,6 +3773,10 @@ def main():
     lap("prim probe")
     prep_s = time_prep(dev)
     lap("_prep first calls")
+    # --- #2's small design on every model the paths drive ---------------------
+    err[SMALL], small_preps = check_small_design(dev)
+    launches[SMALL] = sampler_launches[SMALL]  # cell 2's leapfrogs
+    lap("small-design checks")
 
     # --- timing ----------------------------------------------------------------
     # the variants the paths also run: the LKJ inverse writing W for the
@@ -3556,7 +3795,7 @@ def main():
             lambda: kl.lkj_inverse_plain(yc, 16, want_w=True)),
         "lkj_logdet chol=True (swapped)": lambda: kl.lkj_logdet(yc, 16, True),
     }
-    n, v64 = CHAINS, vT[:, :CHAINS].contiguous()
+    n = CHAINS
     yc64, yp64, yw64 = vT[C_ROWS, :n].T, vT[PD_ROWS, :n].T, vT[W_ROWS, :n].T
     variants.update({
         "lkj_inverse (swapped, B = 64)": (
@@ -3572,21 +3811,10 @@ def main():
         "simplex_inverse_logdet (swapped, B = 64)": (
             lambda: ks.simplex_inverse_logdet(yw64), n * 4 * (15 + 16 + 1),
             n * 15 * OPS_SIMPLEX_COORD, lambda: ks.simplex_inverse_logdet_plain(yw64)),
-        "slab_value_and_grad (transposed, B = 64)": (
-            lambda: fk.slab_value_and_grad(v64, cf),
-            2 * v64.numel() * 4 + n * 4 + cf.numel() * 4,
-            n * sum(2 + sum(OPS["value_and_grad"][g] for g in fb._groups_and_used(cf[r:r + 1])[0])
-                    for r in range(dim)),
-            lambda: fb.slab_value_and_grad_plain(v64, cf)),
     })
-    # #2's traced kind at cell 17's 64 chains (generic-traced)
-    tvT, _, tcf, tloops = tr_preps["generic-traced"]
-    tv64 = tvT[:, :n].contiguous()
-    variants["slab_traced (generic-traced, transposed, B = 64)"] = (
-        lambda: fk.slab_value_and_grad(tv64, tcf, tloops),
-        2 * tv64.numel() * 4 + n * 4 + tcf.numel() * 4 + tloops.prm.numel() * 4
-        + tloops.tape.numel() * 4, tape_ops(tloops, n)["value_and_grad"],
-        lambda: fb.slab_value_and_grad_plain(tv64, tcf, tloops))
+    # #2 at the samplers' 64 chains in both designs on every sampler cell's
+    # model (the traced kind: cell 17's generic-traced), and the launch floor
+    variants.update(small_design_variants(small_preps))
     # a yardstick, not the same function (X = LL' from #10's own L alone, as
     # cuBLAS forms it): never a library_ms
     L_pd = kp.pd_inverse(vT[PD_ROWS].T, PD_K)[2]
@@ -3605,6 +3833,8 @@ def main():
     rows = time_kernels(kernel_table(vT, xT, cf, ones, dvT, fam_vT, probe_in,
                                      tr_preps["generic-traced"]), launches, err, variants)
     lap("kernel timing")
+    small_b_sweep(dev, vT)
+    lap("small-batch sweep")
 
     # the entry points as a caller sees them: host dispatch included, at the
     # full batch and at a sampler's batch of 64 chains

@@ -1,8 +1,11 @@
-"""Time the bench model's three whole-model kernels (slab value,
-value-and-gradient, vector-Jacobian product) on the PyTorch port at
-B = 131072, float32, with the `tpu_bijectors_torch` of the checkout given as
-the argument; prints one JSON line with the card times (CUDA events, median
-of 25 timings of 10 calls) and checksums of lp and g.
+"""Time the whole-model kernels of the PyTorch port with the
+`tpu_bijectors_torch` of the checkout given as the argument: the bench
+model's four modes (slab value, value-and-gradient, vector-Jacobian and
+forward-mode products) at B = 131072, and the value-and-gradient mode
+(#2) at the samplers' 64 chains on each sampler cell's model (bench,
+pdonly, mvdense, eight schools, generic-traced; `chip_smoke.SAMPLER_MODELS`),
+float32. Prints one JSON line with the card times (CUDA events, median of
+25 timings of 10 calls) and checksums of lp and g.
 
     python3 tools/torch_slab_ab.py CHECKOUT
 
@@ -19,7 +22,15 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import bench_model, time_ms  # noqa: E402  (one model, one timer for A and B)
+# one set of models, states and one timer for A and B
+from chip_smoke import (  # noqa: E402
+    CHAINS,
+    ITEM_MODELS,
+    SAMPLER_MODELS,
+    bench_model,
+    item_states,
+    time_ms,
+)
 
 
 def main(checkout):
@@ -34,6 +45,8 @@ def main(checkout):
     u = tbt.Model(bench_model(dists, dev, torch.float32), device=dev).unconstrainer()
     v = 0.5 * np.random.default_rng(0).standard_normal((131072, 151))
     vT = torch.as_tensor(np.ascontiguousarray(v.T), dtype=torch.float32, device=dev)
+    dvT = torch.as_tensor(np.random.default_rng(3).standard_normal((151, 131072)),
+                          dtype=torch.float32, device=dev)
     cf = fk._prep(u, vT)[0]
     ones = torch.ones(131072, device=dev)
     out = {
@@ -41,10 +54,20 @@ def main(checkout):
         "slab_value": time_ms(lambda: fk.slab_value(vT, cf)),
         "slab_value_and_grad": time_ms(lambda: fk.slab_value_and_grad(vT, cf)),
         "slab_vjp": time_ms(lambda: fk.slab_vjp(vT, cf, ones)),
+        "slab_jvp": time_ms(lambda: fk.slab_jvp(vT, cf, dvT)),
     }
     lp, g = fk.slab_value_and_grad(vT, cf)
     out["lp_sum"] = float(lp.double().sum())
     out["g_sum"] = float(g.double().sum())
+    for cell, name in SAMPLER_MODELS.items():
+        model = tbt.Model(ITEM_MODELS[name](dists, tbt, dev, torch.float32), device=dev)
+        x = item_states(dev, name, model.dim(), CHAINS)
+        cf_m, loops, _ = fk._prep(model.unconstrainer(), x)
+        key = f"slab_value_and_grad B = 64 ({name}, cell {cell})"
+        out[key] = time_ms(lambda: fk.slab_value_and_grad(x, cf_m, loops))
+        lp, g = fk.slab_value_and_grad(x, cf_m, loops)
+        out[key + " lp_sum"] = float(lp.double().sum())
+        out[key + " g_sum"] = float(g.double().sum())
     print(json.dumps(out), flush=True)
 
 

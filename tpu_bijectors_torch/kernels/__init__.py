@@ -12,7 +12,10 @@ no plain path stands in for a kernel, every launch with the kernels off
 raises.
 
 Wrappers: `vectorize/fused_kernel.py` (slab_value, slab_value_and_grad,
-slab_vjp, slab_jvp), `kernels/simplex.py` (simplex_inverse_logdet, simplex_inverse,
+slab_vjp, slab_jvp; slab_value_and_grad_small, the value-and-gradient
+mode's small-batch design, which the wrapper of slab_value_and_grad
+launches at B <= SMALL_B; launch_floor, a kernel that does nothing, timed
+as the floor of a launch), `kernels/simplex.py` (simplex_inverse_logdet, simplex_inverse,
 simplex_forward_logdet), `kernels/lkj.py` (lkj_inverse, lkj_logdet, lkj_logdet_chol: its
 Cholesky variant), `kernels/pd.py` (pd_inverse, pd_logdensity,
 pd_trace_grad), `kernels/probe.py` (transcend_probe, a measurement of
@@ -28,6 +31,7 @@ _ENABLED = True
 LAUNCHES = {
     "slab_value": 0,
     "slab_value_and_grad": 0,
+    "slab_value_and_grad_small": 0,
     "slab_vjp": 0,
     "slab_jvp": 0,
     "slab_traced": 0,
@@ -42,6 +46,7 @@ LAUNCHES = {
     "pd_trace_grad": 0,
     "transcend_probe": 0,
     "prim_probe": 0,
+    "launch_floor": 0,
 }
 
 

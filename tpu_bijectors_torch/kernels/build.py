@@ -114,6 +114,11 @@ def load():
             "tbt_slab_value_and_grad": [p, p, p, i, p, i, i, p, p, p, i, ll, p],
             "tbt_slab_vjp": [p, p, p, i, p, i, i, p, p, p, i, ll, p],
             "tbt_slab_jvp": [p, p, p, i, p, i, i, p, p, p, i, ll, p],
+            # vT, cf, item table, items, loop parameters, tapes, scratch
+            # floats a warp, loops, lp, g, dim, B, stream
+            "tbt_slab_value_and_grad_items": [p, p, p, i, p, p, i, i, p, p, i, ll, p],
+            # stream
+            "tbt_empty": [p],
             # y, y strides (batch, coordinate), log(K-1-k) table, am1, x, ld,
             # wlog, K-1, B, stream
             "tbt_simplex_inverse_logdet": [p, ll, ll, p, p, p, p, p, i, ll, p],

@@ -90,11 +90,51 @@
 // K passes each recompute its value). It is the simple, general form; a
 // generated kernel per model would remove the dispatch but needs nvcc at
 // every new model.
+//
+// SMALL BATCH. The samplers call the value-and-gradient mode on 64 chains,
+// where a thread a column leaves one block of two warps to walk the whole
+// model alone: a chain of row loads, then every loop entry one after
+// another. There the card's time is latency, not bytes (the bench model's
+// (151, 64) state is 39 KB in and out, 0.03 us at the memory's rate), and
+// the floor is the launch itself. The item kernel (`item_kernel`, chosen by
+// the wrapper at B <= SMALL_B) splits the model's work into ITEMS, built
+// once per model on the host (vectorize/fused_kernel.py::item_rows): a
+// group of up to 8 consecutive slab rows, one Gaussian or t entry, a run of
+// a traced scalar entry's rows, one pass of a traced vector entry (pass j
+// writes row j's partial, pass 0 alone adds the value), and one pair of
+// columns of a PD entry. A block takes a tile of 32 batch columns; its warp
+// w of W (up to 32 for a model of slab rows, 16 with loop entries, whose
+// items take up to 128 registers a thread) takes items w, w + W, ... with
+// the lanes as the tile's columns (a row's loads and stores are 32
+// neighbouring floats), so the items run side by side on the block's
+// warps. Where it fits, the block first stages its (dim x 32) slab of the
+// state in shared memory by cp.async (row stride 33, so the PD items'
+// lanes, which read one column down many rows, meet on distinct banks);
+// every item reads it there. A warp loads its item's coefficients or
+// parameters into its own shared scratch with coalesced reads through the
+// read-only path, its first item's while the state is on its way: no pass
+// stages the whole table, so a table of any size takes the same path. Items own disjoint rows of g and
+// write them directly. Each warp keeps its share of lp per column in a
+// register; the block sums the warps' shares in warp order after one
+// barrier: no atomics, the same lp and g bit for bit on every launch.
+//
+// A PD item is one pair of the tile's columns, a half-warp an element with
+// a lane a row and a column of the K x K matrices (K <= 16): L is unpacked
+// into a tile of shared memory (row stride 17, exp(-y_rr) in column 16);
+// dot mode forms M = C L one column a lane (the trace is sum L .* M, the
+// partials 2 M); solve mode forms A = L^-1 C one column a lane by forward
+// substitution and At = L^-T A by back substitution, the trace sum A .* A,
+// and the partials -2 At A' from the two as tiles; the half-warp's sums
+// are group_sum (link_tiles.cuh). Tensor cores do not apply: the products
+// are K <= 16 in float32, a few hundred multiply-adds an element, too
+// small for an mma tile to pay, and 3xTF32 would loosen the float32 bounds
+// the checks hold.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
+#include "link_tiles.cuh"
 #include "pd_common.cuh"
 #include "traced_tape.cuh"
 
@@ -526,6 +566,401 @@ cudaError_t launch(const float* vT, const float* cf, const int* ent, int n_ent,
   if (nt == 0) return cudaErrorInvalidValue;
   return launch_with<MODE, true, true>(vT, cf, ent, n_ent, prm, n_prm, tapes, ct, dv, lp, g,
                                        dim, B, nt, (size_t)slots * sizeof(float) * nt, stream);
+}
+
+// ---------------------------------------------------------------------------
+// the value-and-gradient mode at small batch: the item kernel
+// ---------------------------------------------------------------------------
+
+namespace items {
+
+constexpr int kTile = 32;       // batch columns a block: a warp's lanes
+constexpr int kLd = kTile + 1;  // the staged state's row stride
+// a block's warps: 32 for a model of slab rows alone, 16 with loop entries
+// (whose items take up to 128 registers a thread)
+__host__ __device__ constexpr int max_warps(bool loops) { return loops ? 16 : 32; }
+constexpr int kCols = 6;        // an item: {kind, first row, rows or K, offset, tape, j}
+constexpr int kSlabGroup = 0;   // a group of slab rows; the loop kinds keep their codes
+// a PD item's scratch: C (K x K), w, const, then a half-warp's L tile and
+// A tile (16 rows of stride 17 each), the second half-warp's kPdHalf
+// further (16 floats of padding put its tiles on the other banks);
+// vectorize/fused_kernel.py::PD_SCRATCH is kPdScratch
+constexpr int kPdLd = 17;
+constexpr int kPdTile = 16 * kPdLd;
+constexpr int kPdTiles = 16 * 16 + 16;
+constexpr int kPdHalf = 2 * kPdTile + 16;
+constexpr int kPdScratch = kPdTiles + 2 * kPdHalf;
+static_assert(kPdScratch == 1392, "vectorize/fused_kernel.py::PD_SCRATCH");
+constexpr unsigned kFull = 0xffffffffu;
+
+// the block's tile of the state and of g: column `col` of the tile is batch
+// column c0 + col; `staged`: the state is read from the block's shared copy
+struct Cols {
+  const float* __restrict__ vT;
+  const float* vs;
+  float* __restrict__ g;
+  long long B, c0;
+  bool staged;
+  __device__ __forceinline__ float v(int r, int col) const {
+    if (staged) return vs[r * kLd + col];
+    return c0 + col < B ? vT[(size_t)r * B + c0 + col] : 0.0f;
+  }
+  __device__ __forceinline__ void put(int r, int col, float p) const {
+    if (c0 + col < B) g[(size_t)r * B + c0 + col] = p;
+  }
+};
+
+// n floats from global memory into the warp's scratch, then the warp meets
+__device__ __forceinline__ void warp_load(float* dst, const float* __restrict__ src, int n,
+                                          int lane) {
+  for (int i = lane; i < n; i += 32) dst[i] = __ldg(src + i);
+  __syncwarp();
+}
+
+// n <= kRowBlock slab rows from row0, all slab-owned
+// (the items below find their coefficients or parameters in the warp's
+// scratch ws, put there by load_item)
+__device__ __forceinline__ void slab_item(const Cols& s, int row0, int n, const float* ws,
+                                          int lane, float& acc) {
+  float v[kRowBlock];
+#pragma unroll
+  for (int k = 0; k < kRowBlock; ++k) v[k] = k < n ? s.v(row0 + k, lane) : 0.0f;
+#pragma unroll
+  for (int k = 0; k < kRowBlock; ++k) {
+    if (k < n) {
+      const float* c = ws + k * kNcf;
+      float val, par;
+      slab_row<true, true>(c, row_flags(c), v[k], val, par);
+      acc += val;
+      s.put(row0 + k, lane, par);
+    }
+  }
+  __syncwarp();
+}
+
+// one Gaussian or t entry (KIND), as quad_entry computes it, its parameter
+// block in the warp's scratch
+template <int KIND>
+__device__ __forceinline__ void quad_item(const Cols& s, int row0, int K, const float* ws,
+                                          int lane, float& acc) {
+  constexpr bool UPPER = KIND == kGaussUpper;
+  const float* C = ws;
+  const float* mu = ws + K * K;
+  float r[kMaxQuadK], w[kMaxQuadK];
+#pragma unroll
+  for (int j = 0; j < kMaxQuadK; ++j) r[j] = j < K ? s.v(row0 + j, lane) - mu[j] : 0.0f;
+  float q = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kMaxQuadK; ++i) {
+    float a = 0.0f;
+#pragma unroll
+    for (int j = UPPER ? i : 0; j < (UPPER ? kMaxQuadK : i + 1); ++j)
+      if (i < K && j < K) a += C[i * K + j] * r[j];
+    w[i] = a;
+    q += w[i] * w[i];
+  }
+  const float df = KIND == kMvt ? ws[K * K + K] : 0.0f;
+  if (KIND == kMvt)
+    acc += ws[K * K + K + 1] - 0.5f * (df + K) * log1pf(q / df);
+  else
+    acc += -0.5f * q + ws[K * K + K];
+  const float sc = KIND == kMvt ? -(df + K) / (df + q) : -1.0f;
+#pragma unroll
+  for (int j = 0; j < kMaxQuadK; ++j) {
+    if (j < K) {
+      float a = 0.0f;
+#pragma unroll
+      for (int i = UPPER ? 0 : j; i < (UPPER ? j + 1 : kMaxQuadK); ++i)
+        if (i < K) a += C[i * K + j] * w[i];
+      s.put(row0 + j, lane, sc * a);
+    }
+  }
+  __syncwarp();
+}
+
+// a run of K rows of a traced scalar entry, or pass j of a traced vector
+// entry of K rows (the partial along input j; pass 0 adds the value), on
+// the tape at tp with the constants P (read through the read-only path)
+__device__ __forceinline__ void traced_item(const Cols& s, const float* __restrict__ P,
+                                            const int* __restrict__ tp, int row0, int K, int j,
+                                            int lane, float& acc) {
+  const int n_ins = __ldg(tp), out = __ldg(tp + 2), vec = __ldg(tp + 4), out_t = __ldg(tp + 5);
+  const int* code = tp + tape::kHeader;
+  auto konst = [&](int k) { return __ldg(P + k); };
+  float sv[tape::kMaxSlots], st[tape::kMaxSlots];
+  if (!vec) {
+    for (int r = 0; r < K; ++r) {
+      sv[0] = s.v(row0 + r, lane);
+      st[0] = 1.0f;
+      acc += tape::run<true>(code, n_ins, konst, sv, st, out);
+      s.put(row0 + r, lane, out_t ? st[out] : 0.0f);
+    }
+    return;
+  }
+  for (int i = 0; i < K; ++i) {
+    sv[i] = s.v(row0 + i, lane);
+    st[i] = i == j ? 1.0f : 0.0f;
+  }
+  const float val = tape::run<true>(code, n_ins, konst, sv, st, out);
+  if (j == 0) acc += val;
+  s.put(row0 + j, lane, out_t ? st[out] : 0.0f);
+}
+
+// columns 2 pair and 2 pair + 1 of a PD entry (K <= 16): a half-warp each,
+// lane l the matrices' row and column l; lp += logJ + w sum_r y_rr - tr / 2
+// + const, partials -d tr/dy / 2 plus (K+1-r) + w on the diagonal slots
+// (pd_common.cuh's terms, summed here over the half-warp's lanes)
+__device__ __forceinline__ void pd_item(const Cols& s, bool solve, int row0, int K, int pair,
+                                        float* ws, int lane, float& acc) {
+  const float* C = ws;
+  const float w = ws[K * K], cst = ws[K * K + 1];
+  const int h = lane >> 4, l = lane & 15, col = 2 * pair + h;
+  float* Lt = ws + kPdTiles + h * kPdHalf;  // L, then At in solve mode
+  float* At = Lt + kPdTile;                 // A in solve mode
+  const bool live = l < K;
+  float lj = 0.0f, sd = 0.0f, ldiag = 0.0f;
+  if (live) {
+    const int base = pd::tri(l);
+    for (int c = 0; c < l; ++c) Lt[l * kPdLd + c] = s.v(row0 + base + c, col);
+    const float yd = s.v(row0 + base + l, col);
+    ldiag = expf(yd);
+    Lt[l * kPdLd + l] = ldiag;
+    Lt[l * kPdLd + 16] = expf(-yd);
+    for (int c = l + 1; c < K; ++c) Lt[l * kPdLd + c] = 0.0f;
+    lj = (K + 1.0f - l) * yd;
+    sd = yd;
+  }
+  const float logJ = link::group_sum(lj, 16) + K * pd::kLog2;
+  const float sumd = link::group_sum(sd, 16);
+  __syncwarp();
+  float t = 0.0f;
+  if (!solve) {
+    float m[16];  // column l of M = C L
+#pragma unroll
+    for (int a = 0; a < 16; ++a) m[a] = 0.0f;
+#pragma unroll
+    for (int b = 0; b < 16; ++b) {
+      if (b < K && live) {
+        const float lb = Lt[b * kPdLd + l];
+#pragma unroll
+        for (int a = 0; a < 16; ++a)
+          if (a < K) m[a] += C[a * K + b] * lb;
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 16; ++a)
+      if (a < K && live && a >= l) t += Lt[a * kPdLd + l] * m[a];
+    if (live) {
+#pragma unroll
+      for (int r = 0; r < 16; ++r) {
+        if (r < K && r >= l) {
+          float gt = 2.0f * m[r];
+          if (r == l) gt *= ldiag;
+          float p = -0.5f * gt;
+          if (r == l) p += (K + 1.0f - r) + w;
+          s.put(row0 + pd::tri(r) + l, col, p);
+        }
+      }
+    }
+  } else {
+    float a[16], at[16];  // column l of A = L^-1 C and of At = L^-T A
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      float x = 0.0f;
+      if (i < K && live) {
+        x = C[i * K + l];
+#pragma unroll
+        for (int k = 0; k < i; ++k) x -= Lt[i * kPdLd + k] * a[k];
+        x *= Lt[i * kPdLd + 16];
+      }
+      a[i] = x;
+      t += a[i] * a[i];
+    }
+#pragma unroll
+    for (int i = 15; i >= 0; --i) {
+      float x = 0.0f;
+      if (i < K && live) {
+        x = a[i];
+#pragma unroll
+        for (int k = i + 1; k < 16; ++k)
+          if (k < K) x -= Lt[k * kPdLd + i] * at[k];
+        x *= Lt[i * kPdLd + 16];
+      }
+      at[i] = x;
+    }
+    __syncwarp();  // every lane is done with L: At takes its place
+    if (live) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        if (i < K) {
+          At[i * kPdLd + l] = a[i];
+          Lt[i * kPdLd + l] = at[i];
+        }
+      }
+    }
+    __syncwarp();
+    if (live) {
+#pragma unroll
+      for (int r = 0; r < 16; ++r) {
+        if (r < K && r >= l) {
+          float G = 0.0f;  // (At A')_rl, summed over the columns j in order
+#pragma unroll
+          for (int j = 0; j < 16; ++j)
+            if (j < K) G += Lt[r * kPdLd + j] * At[l * kPdLd + j];
+          float gt = -2.0f * G;
+          if (r == l) gt *= ldiag;
+          float p = -0.5f * gt;
+          if (r == l) p += (K + 1.0f - r) + w;
+          s.put(row0 + pd::tri(r) + l, col, p);
+        }
+      }
+    }
+  }
+  const float tr = link::group_sum(t, 16);
+  const float val = logJ + w * sumd - 0.5f * tr + cst;
+  const float got = __shfl_sync(kFull, val, lane == 2 * pair + 1 ? 16 : 0);
+  if (lane == 2 * pair || lane == 2 * pair + 1) acc += got;
+  __syncwarp();
+}
+
+// An item's coefficients (a slab group's rows of cf) or parameter block (a
+// Gaussian, t or PD entry's; a traced entry reads its constants in place)
+// into the warp's scratch.
+template <bool LOOPS>
+__device__ __forceinline__ void load_item(const int* __restrict__ im,
+                                          const float* __restrict__ cf,
+                                          const float* __restrict__ prm, float* ws, int lane) {
+  const int kind = __ldg(im), row0 = __ldg(im + 1), n = __ldg(im + 2);
+  if (!LOOPS || kind == kSlabGroup) {
+    warp_load(ws, cf + (size_t)row0 * kNcf, n * kNcf, lane);
+    return;
+  }
+  const float* P = prm + __ldg(im + 3);
+  if (kind == kGaussLower || kind == kGaussUpper)
+    warp_load(ws, P, n * n + n + 1, lane);
+  else if (kind == kMvt)
+    warp_load(ws, P, n * n + n + 2, lane);
+  else if (kind != kTraced)
+    warp_load(ws, P, n * n + 2, lane);  // PD: C, w, const
+}
+
+// LOOPS: the model has loop entries (else every item is a slab group);
+// TRACED: traced entries (only then the interpreter's slots); `staged`:
+// the block's slab of the state sits in shared memory
+template <bool LOOPS, bool TRACED>
+__global__ void __launch_bounds__(max_warps(LOOPS) * 32)
+item_kernel(const float* __restrict__ vT, const float* __restrict__ cf,
+            const int* __restrict__ items, int n_items, const float* __restrict__ prm,
+            const int* __restrict__ tapes, int wscr, int staged, float* __restrict__ lp,
+            float* __restrict__ g, int dim, long long B) {
+  extern __shared__ float smem[];
+  const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* part = smem;                             // the warps' shares of lp
+  float* ws = smem + nw * kTile + warp * wscr;    // this warp's scratch
+  float* vs = smem + nw * kTile + nw * wscr;      // the staged state
+  const long long c0 = (long long)blockIdx.x * kTile;
+  if (staged) {
+    for (int i = threadIdx.x; i < dim * kTile; i += blockDim.x) {
+      const int r = i / kTile, c = i % kTile;
+      float* dst = vs + r * kLd + c;
+      if (c0 + c < B)
+        link::cp_async4(dst, vT + (size_t)r * B + c0 + c);
+      else
+        *dst = 0.0f;
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  }
+  // the warp's first item's parameters load while the state is on its way
+  if (warp < n_items) load_item<LOOPS>(items + warp * kCols, cf, prm, ws, lane);
+  if (staged) {
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncthreads();
+  }
+  const Cols s{vT, vs, g, B, c0, staged != 0};
+  float acc = 0.0f;
+  for (int it = warp; it < n_items; it += nw) {
+    const int* im = items + it * kCols;
+    if (it != warp) load_item<LOOPS>(im, cf, prm, ws, lane);
+    const int kind = __ldg(im), row0 = __ldg(im + 1), n = __ldg(im + 2);
+    if (!LOOPS || kind == kSlabGroup) {
+      slab_item(s, row0, n, ws, lane, acc);
+      continue;
+    }
+    if constexpr (LOOPS) {
+      const int j = __ldg(im + 5);
+      if (kind == kGaussLower) {
+        quad_item<kGaussLower>(s, row0, n, ws, lane, acc);
+      } else if (kind == kGaussUpper) {
+        quad_item<kGaussUpper>(s, row0, n, ws, lane, acc);
+      } else if (kind == kMvt) {
+        quad_item<kMvt>(s, row0, n, ws, lane, acc);
+      } else if (kind == kTraced) {
+        if constexpr (TRACED)
+          traced_item(s, prm + __ldg(im + 3), tapes + __ldg(im + 4), row0, n, j, lane, acc);
+      } else if (c0 + 2 * j < B) {  // a PD pair with a column in the batch
+        pd_item(s, kind == kPdSolve, row0, n, j, ws, lane, acc);
+      }
+    }
+  }
+  part[warp * kTile + lane] = acc;
+  __syncthreads();
+  if (warp == 0) {
+    float t = part[lane];
+    for (int k = 1; k < nw; ++k) t += part[k * kTile + lane];
+    if (c0 + lane < B) lp[c0 + lane] = t;
+  }
+}
+
+template <bool LOOPS, bool TRACED>
+cudaError_t launch_with(const float* vT, const float* cf, const int* items, int n_items,
+                        const float* prm, const int* tapes, int wscr, bool staged, float* lp,
+                        float* g, int dim, long long B, int nw, size_t smem,
+                        cudaStream_t stream) {
+  auto kernel = item_kernel<LOOPS, TRACED>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const long long blocks = (B + kTile - 1) / kTile;
+  kernel<<<(unsigned)blocks, nw * 32, smem, stream>>>(vT, cf, items, n_items, prm, tapes, wscr,
+                                                      (int)staged, lp, g, dim, B);
+  return cudaGetLastError();
+}
+
+}  // namespace items
+
+// The item kernel on n_items items (items::kCols int32 each), `wscr`
+// floats of scratch a warp, `loops` whether any item is a loop entry. The
+// state is staged where it fits beside the warps' scratch.
+cudaError_t launch_items(const float* vT, const float* cf, const int* item_tab, int n_items,
+                         const float* prm, const int* tapes, int wscr, int loops, float* lp,
+                         float* g, int dim, long long B, cudaStream_t stream) {
+  using namespace items;
+  if (B == 0) return cudaSuccess;
+  if (n_items <= 0 || wscr < 0) return cudaErrorInvalidValue;
+  const int nw = n_items < max_warps(loops) ? n_items : max_warps(loops);
+  const size_t fixed = (size_t)nw * (kTile + wscr) * sizeof(float);
+  const size_t staged = (size_t)dim * kLd * sizeof(float);
+  const bool stage = fixed + staged <= limits().smem_optin;
+  const size_t smem = fixed + (stage ? staged : 0);
+  if (smem > limits().smem_optin) return cudaErrorInvalidValue;
+  if (!loops)
+    return launch_with<false, false>(vT, cf, item_tab, n_items, prm, tapes, wscr, stage, lp, g,
+                                     dim, B, nw, smem, stream);
+  if (tapes != nullptr)
+    return launch_with<true, true>(vT, cf, item_tab, n_items, prm, tapes, wscr, stage, lp, g, dim,
+                                   B, nw, smem, stream);
+  return launch_with<true, false>(vT, cf, item_tab, n_items, prm, tapes, wscr, stage, lp, g, dim,
+                                  B, nw, smem, stream);
+}
+
+// a kernel that does nothing: its time is the launch floor
+__global__ void empty_kernel() {}
+
+cudaError_t launch_empty(cudaStream_t stream) {
+  empty_kernel<<<1, 32, 0, stream>>>();
+  return cudaGetLastError();
 }
 
 cudaError_t launch_slab(int mode, const float* vT, const float* cf, const int* ent,

@@ -17,6 +17,10 @@ cudaError_t launch_slab(int mode, const float* vT, const float* cf, const int* e
                         int n_ent, const float* prm, int n_prm, int pd_kmax, const int* tape,
                         const float* ct, const float* dv, float* lp, float* g, int dim,
                         long long B, cudaStream_t stream);
+cudaError_t launch_items(const float* vT, const float* cf, const int* item_tab, int n_items,
+                         const float* prm, const int* tapes, int wscr, int loops, float* lp,
+                         float* g, int dim, long long B, cudaStream_t stream);
+cudaError_t launch_empty(cudaStream_t stream);
 }  // namespace tbt
 
 extern "C" {
@@ -36,6 +40,21 @@ int tbt_slab_value_and_grad(const float* vT, const float* cf, const int* ent, in
   return (int)tbt::launch_slab(1, vT, cf, ent, n_ent, prm, n_prm, kmax, tape, nullptr,
                                nullptr, lp, g, dim, B, (cudaStream_t)stream);
 }
+
+// lp and g as tbt_slab_value_and_grad, by the item kernel (the small-batch
+// design): `items` (n_items, 6) int32 rows {kind, first row, rows or K,
+// parameter offset, tape offset, pass or column pair}, `wscr` floats of
+// shared scratch a warp, `loops` nonzero where an item is a loop entry
+int tbt_slab_value_and_grad_items(const float* vT, const float* cf, const int* items,
+                                  int n_items, const float* prm, const int* tape, int wscr,
+                                  int loops, float* lp, float* g, int dim, long long B,
+                                  void* stream) {
+  return (int)tbt::launch_items(vT, cf, items, n_items, prm, tape, wscr, loops, lp, g, dim, B,
+                                (cudaStream_t)stream);
+}
+
+// a kernel that does nothing, on one warp: the launch floor
+int tbt_empty(void* stream) { return (int)tbt::launch_empty((cudaStream_t)stream); }
 
 // g = (d lp / d vT) * ct, ct (B,)
 int tbt_slab_vjp(const float* vT, const float* cf, const int* ent, int n_ent,

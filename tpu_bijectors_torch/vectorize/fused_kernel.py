@@ -22,6 +22,12 @@ model of any size launches.
 `mega_logdensity_t` is differentiable in the state: its backward is the
 vector-Jacobian mode, its forward-mode derivative (`torch.func.jvp`,
 `torch.autograd.forward_ad`) the jvp mode.
+
+At a sampler's batch (B <= SMALL_B, `slab_design`) the value-and-gradient
+wrapper launches the item kernel instead: the model's work cut into items
+(`item_rows`: groups of slab rows, loop entries, traced runs and passes,
+PD column pairs), built once per model and run side by side on a block's
+warps, a block a tile of 32 batch columns (kernels/csrc/fused_slab.cu).
 """
 
 from __future__ import annotations
@@ -36,7 +42,9 @@ from .fused_base import (
     _MASK_COL,
     LOOP_CODES,
     NCF,
+    PARAM_FLOATS,
     PD_MODES,
+    TRACED,
     LoopTable,
     slab_jvp_plain,
     slab_value_and_grad_plain,
@@ -115,11 +123,116 @@ def _prep(u, vT):
             )
         c0sum = cf[:, _CI["c0"]].sum()
         cache[key] = (cf, loops, c0sum)
+        item_table(cf, loops)  # the small design's items, built once per model
     if vT.shape[0] != cf.shape[0]:
         raise ValueError(
             f"the state has {vT.shape[0]} rows; the model has {cf.shape[0]}"
         )
     return cf, loops, c0sum
+
+
+# ---------------------------------------------------------------------------
+# the small-batch design's item table
+# ---------------------------------------------------------------------------
+
+# the value-and-gradient mode takes the item kernel at B <= SMALL_B and the
+# kernel of a thread a column above: the crossover of chip_smoke.py's
+# `slab_small_b_sweep` on the H100 (PERF.md section 6)
+SMALL_B = 16384
+TILE = 32  # batch columns a block of the item kernel (kTile)
+ITEM_COLS = 6  # {kind, first row, rows or K, parameter offset, tape offset, j}
+ITEM_ROWS = 8  # slab rows a group item at most (kRowBlock)
+TRACED_RUN = 4  # rows a run item of a traced scalar entry
+SLAB_ITEM = 0  # the kind of a group of slab rows; loop items keep LOOP_CODES
+PD_SCRATCH = 1392  # a PD item's floats of scratch a warp (kPdScratch)
+
+
+def slab_design(B: int) -> str:
+    """The value-and-gradient kernel's design at batch B: "small" (the
+    item kernel) at B <= SMALL_B, else "wide" (a thread a column)."""
+    return "small" if B <= SMALL_B else "wide"
+
+
+def item_warps(n_items, loops):
+    """A block's warps for n_items items (max_warps): at most 32 for a
+    model of slab rows alone, 16 with loop entries."""
+    return min(n_items, 16 if loops is not None else 32)
+
+
+def _entry_rows(code, K):
+    return K * (K + 1) // 2 if code in PD_MODES else K
+
+
+def _entry_items(loops, i):
+    """The items of loop entry i, and the floats of scratch a warp needs
+    for them."""
+    code, row0, K, off = loops.entries[i]
+    if code == TRACED:
+        toff = loops.toffs[i]
+        if loops.tapes[toff].vector:
+            return [(code, row0, K, off, toff, j) for j in range(K)], 0
+        return [(code, a, min(TRACED_RUN, row0 + K - a), off, toff, 0)
+                for a in range(row0, row0 + K, TRACED_RUN)], 0
+    if code in PD_MODES:
+        return [(code, row0, K, off, 0, j) for j in range(TILE // 2)], PD_SCRATCH
+    return [(code, row0, K, off, 0, 0)], PARAM_FLOATS[code](K)
+
+
+def item_rows(owned, loops):
+    """The item kernel's items in their fixed order, as tuples {kind,
+    first row, rows or K, parameter offset, tape offset, j}, and the
+    floats of scratch a warp needs. `owned[r]` says whether the slab owns
+    row r; `loops` is the model's LoopTable or None. In row order: a
+    Gaussian or t entry is one item; a PD entry one item a pair of a
+    tile's columns (j the pair); a traced scalar entry one item a run of
+    TRACED_RUN rows; a traced vector entry one item a pass (j the input
+    whose partial it writes; pass 0 adds the value); each run of
+    consecutive slab-owned rows is cut into groups of up to ITEM_ROWS, as
+    few rows a group as spread the slab rows over the warps the loop items
+    leave free. Raises on a row that neither the slab nor a loop entry
+    owns."""
+    entries = {} if loops is None else {
+        e[1]: (_entry_rows(e[0], e[2]),) + _entry_items(loops, i)
+        for i, e in enumerate(loops.entries)}
+    free = item_warps(1 << 30, loops) - sum(len(e[1]) for e in entries.values())
+    group = ITEM_ROWS if free <= 0 else min(ITEM_ROWS, max(1, -(-sum(owned) // free)))
+    out, scratch, r, dim = [], 0, 0, len(owned)
+    while r < dim:
+        if r in entries:
+            rows, its, need = entries[r]
+            out += its
+            scratch = max(scratch, need)
+            r += rows
+        elif owned[r]:
+            n = 1
+            while n < group and r + n < dim and owned[r + n] and r + n not in entries:
+                n += 1
+            out.append((SLAB_ITEM, r, n, 0, 0, 0))
+            scratch = max(scratch, group * NCF)
+            r += n
+        else:
+            raise ValueError(f"row {r} is owned by neither the slab nor a loop entry")
+    return out, scratch
+
+
+# id(cf) -> (weak reference to cf, id(loops), items (n, ITEM_COLS) int32 on
+# cf's device, scratch floats a warp); an entry leaves with its cf
+_ITEMS: dict = {}
+
+
+def item_table(cf, loops):
+    """(items, scratch) of the model whose table is cf: `item_rows` as an
+    int32 tensor on cf's device, built at the first call for this cf (by
+    `_prep`, when it builds cf) and kept while cf lives."""
+    hit = _ITEMS.get(id(cf))
+    if hit is not None and hit[0]() is cf and hit[1] == id(loops):
+        return hit[2], hit[3]
+    owned = (cf[:, _MASK_COL] > 0).tolist()
+    rows, scratch = item_rows(owned, loops)
+    items = torch.tensor(rows, dtype=torch.int32, device=cf.device).reshape(-1, ITEM_COLS)
+    _ITEMS[id(cf)] = (weakref.ref(cf), id(loops), items, scratch)
+    weakref.finalize(cf, _ITEMS.pop, id(cf), None)
+    return items, scratch
 
 
 # ---------------------------------------------------------------------------
@@ -184,18 +297,44 @@ def slab_value(vT, cf, loops=None):
     return lp
 
 
-def slab_value_and_grad(vT, cf, loops=None):
-    """(lp (B,), g = d lp / d vT (dim, B)) in one pass."""
+def slab_value_and_grad(vT, cf, loops=None, design=None):
+    """(lp (B,), g = d lp / d vT (dim, B)) in one pass. On the card the
+    design is `slab_design(B)` unless `design` ("small" or "wide") names
+    one."""
     if vT.device.type == "cpu":
         return slab_value_and_grad_plain(vT, cf, loops)
     _check_cuda(vT, cf, loops)
+    design = design or slab_design(vT.shape[1])
     lp = torch.empty(vT.shape[1], dtype=vT.dtype, device=vT.device)
     g = torch.empty_like(vT)
-    _launch(
-        "tbt_slab_value_and_grad", "slab_value_and_grad", vT, cf, loops,
-        lp.data_ptr(), g.data_ptr(),
+    if design == "wide":
+        _launch(
+            "tbt_slab_value_and_grad", "slab_value_and_grad", vT, cf, loops,
+            lp.data_ptr(), g.data_ptr(),
+        )
+        return lp, g
+    if design != "small":
+        raise ValueError(f"design must be 'small' or 'wide'; got {design!r}")
+    items, scratch = item_table(cf, loops)
+    prm = tape = None
+    if loops is not None:
+        prm = loops.prm.data_ptr()
+        tape = None if loops.tape is None else loops.tape.data_ptr()
+    dim, B = vT.shape
+    kernels.launch(
+        "tbt_slab_value_and_grad_items", "slab_value_and_grad_small", vT.device,
+        vT.data_ptr(), cf.data_ptr(), items.data_ptr(), items.shape[0], prm, tape, scratch,
+        int(loops is not None), lp.data_ptr(), g.data_ptr(), dim, B,
     )
+    if loops is not None and loops.tapes:
+        kernels.LAUNCHES["slab_traced"] += 1
     return lp, g
+
+
+def launch_floor(device):
+    """Launch a kernel that does nothing on `device` (a yardstick: its time
+    is the floor of any launch)."""
+    kernels.launch("tbt_empty", "launch_floor", torch.device(device))
 
 
 def slab_vjp(vT, cf, ct, loops=None):
