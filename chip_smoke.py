@@ -110,7 +110,17 @@ leapfrog) is held to its plain version on every model the paths drive
 of each model's own checks, bit for bit on a second launch, and on the
 extremes blocks of families and generic-traced (`check_small_design`).
 The sampler paths count its launches (`slab_value_and_grad_small`); the
-B = 131072 serving paths must launch it no time.
+B = 131072 serving paths must launch it no time. The simplex inverse #7
+and #8 have two designs by batch too (`kernels/simplex.py::simplex_design`:
+a group of lanes an element at B <= simplex.SMALL_B, its #7 launches
+counted as `simplex_inverse_logdet_small`; a thread an element above): each
+is held to the plain version at B = 1 ... 131072 and K = 2 ... 128 in the
+three layouts, with x the same bit for bit in both designs, in #8 and on a
+repeat (`check_simplex_designs`), and the sampler paths 2 and 4 must launch
+the small design on every batched leapfrog. The PD trace gradient #12 is
+held to its plain version and float64 in both modes at B = 1 ... 131072
+and K = 1 ... 16 in the three layouts, bit for bit on a repeat, with its
+log-density's backward against autograd (`check_pd_trace_grad`).
 
 The launch counters are set to 0 just before each path and read just after
 it; each kernel of the path must have launched. Each kernel is held against
@@ -139,10 +149,13 @@ families variants with their bounds (`pd_variants`, `model_variants`).
 
 Prints the card's name and power limit, one JSON line per kernel, a
 `kernel_variants` line (every layout's time; #2 at 64 chains in both
-designs on each sampler cell's model; a kernel that does nothing, the
-launch floor), a `slab_small_b_sweep` line (#2 in both designs at
+designs on each sampler cell's model; #7 in both designs at 64 and
+131072; #12 in both modes at 64; a kernel that does nothing, the launch
+floor), a `slab_small_b_sweep` line (#2 in both designs at
 B = 64 to 131072 on the bench, mvdense and pdonly models: the crossover
-that sets SMALL_B), a `transcend_probe` line
+that sets SMALL_B), a `simplex_small_b_sweep` line (#7 in both designs
+at B = 64 to 131072 in the swapped view and the batch-major slice: the
+crossover that sets simplex.SMALL_B), a `transcend_probe` line
 (every probe variant's time), a `prim_probe` line per opcode, a `prep_s`
 line, an `end_to_end` line (the
 entry points with host dispatch), a `phases_s` line (each phase's wall
@@ -151,6 +164,7 @@ the last line `{"ok": true, "device": {...}}`. Exits non-zero, with no
 result, when CUDA is absent or any check fails.
 """
 
+import hashlib
 import json
 import math
 import statistics
@@ -206,6 +220,8 @@ REPLACES = {
     "prim_probe": "tools/prim_lowering_probe.py:128",
     # #2's small-batch design, the samplers' (its row: cell 2's B = 64)
     "slab_value_and_grad_small": "tpu_bijectors/vectorize/fused_kernel.py:383",
+    # #7's small-batch design, the samplers' (its row: cell 2's B = 64)
+    "simplex_inverse_logdet_small": "tpu_bijectors/kernels/simplex.py:181",
 }
 CSRC = "tpu_bijectors_torch/kernels/csrc/"
 SOURCES = {
@@ -226,6 +242,7 @@ SOURCES = {
     "slab_traced": CSRC + "traced_tape.cuh",
     "prim_probe": CSRC + "prim_probe.cu",
     "slab_value_and_grad_small": CSRC + "fused_slab.cu",
+    "simplex_inverse_logdet_small": CSRC + "simplex_inv.cu",
 }
 # the kernels each path must launch: transposed serving (path 1), the
 # inverse links of both samplers (paths 2 and 4), batch-major serving
@@ -235,6 +252,9 @@ SLAB_KERNELS = ("slab_value", "slab_value_and_grad", "slab_vjp")
 # wrapper launches at B <= SMALL_B: every sampler's leapfrog, never the
 # B = 131072 serving paths
 SMALL = "slab_value_and_grad_small"
+# #7's small-batch design (a group of lanes an element), which its wrapper
+# launches at B <= kernels/simplex.py's SMALL_B: every sampler's leapfrog
+SIMPLEX_SMALL = "simplex_inverse_logdet_small"
 LINK_KERNELS = ("simplex_inverse_logdet", "lkj_inverse")
 BATCH_MAJOR_KERNELS = ("lkj_logdet", "simplex_inverse", "simplex_forward_logdet")
 # the link kernels against their plain versions, float32: x and X are
@@ -383,6 +403,16 @@ def vjp(fn, y, cts):
     v = y.detach().requires_grad_(True)
     loss = sum(torch.sum(o * c) for o, c in zip(fn(v), cts))
     return torch.autograd.grad(loss, v)[0]
+
+
+def digest(ts):
+    """The first 16 hex digits of the sha256 of the tensors' bytes (None
+    entries skipped)."""
+    h = hashlib.sha256()
+    for t in ts:
+        if t is not None:
+            h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def time_ms(fn, reps=25, inner=10, warmup=5, device_only=True):
@@ -566,7 +596,7 @@ def check_link_entry_points(dev, vT, loglik, counts):
     v64 = vT[:, :64].T.contiguous()  # 64 batch-major states
     f = model.batched_logdensity_t_fn()
 
-    links = ("simplex_inverse_logdet", "lkj_inverse")
+    links = (SIMPLEX_SMALL, "lkj_inverse")
     launched("from_linked_vec", lambda: u.from_linked_vec(v64), links)
     launched("Model.constrain of (4, 16, dim) draws",
              lambda: model.constrain(v64.reshape(4, 16, dim)), links)
@@ -593,6 +623,96 @@ def check_link_entry_points(dev, vT, loglik, counts):
         # error scales with max |g|
         check(f"likelihood model g vs float64 CPU, B = {n}", g.cpu(), g64, 1e-4,
               g64.abs() + 1e-2 * g64.abs().max())
+
+
+SIMPLEX_KS = (2, 3, 16, 17, 33, 128)
+
+
+def simplex_bs():
+    """The batches #7 and #8 are checked at: around the half-warp and warp
+    edges, the samplers' 64 chains and a partial tile, the crossover
+    SMALL_B of kernels/simplex.py and one past it, and B = 131072."""
+    from tpu_bijectors_torch.kernels import simplex as ks
+
+    return (1, 15, 16, 17, 31, 32, 33, 64, 65, 200, ks.SMALL_B, ks.SMALL_B + 1, BATCH)
+
+
+def check_simplex_designs(dev, vT, vxT):
+    """#7 and #8 in the design their wrappers pick (`simplex_design`) at
+    `simplex_bs()` and K in SIMPLEX_KS (y: the first K-1 rows of vT), in the
+    three `layouts`, with Dirichlet weights am1 (numpy seed K): x within
+    ATOL_UNIT of the plain version, ld and wlog within RTOL_SUM of their
+    magnitude; x, ld and wlog bit for bit on a second launch; x the same
+    bit for bit as #8's and as the other design's, and ld the same without
+    x or wlog. Then both designs at K = 600 and 29100, past each design's
+    shared memory, and the 1e10 states of `check_link_kernels`: finite and
+    within RTOL_SUM of the plain version. Returns the max absolute error of
+    each design (and of #8) against the plain version at the paths' K = 16
+    (ld and wlog, sums of K terms, carry errors that grow with K)."""
+    from tpu_bijectors_torch.kernels import simplex as ks
+
+    err = {"simplex_inverse_logdet": 0.0, SIMPLEX_SMALL: 0.0, "simplex_inverse": 0.0}
+
+    def rel(t):
+        return t.abs() + 1e-3 * t.abs().max()
+
+    for K in SIMPLEX_KS:
+        am1 = torch.as_tensor(np.random.default_rng(K).uniform(0.0, 3.0, K),
+                              dtype=torch.float32, device=dev)
+        for B in simplex_bs():
+            design = ks.simplex_design(B)
+            key = SIMPLEX_SMALL if design == "small" else "simplex_inverse_logdet"
+            for lay, y in layouts(vT, slice(0, K - 1), B, "swapped").items():
+                tag = f"simplex {design} design, K = {K} ({lay}, B = {B})"
+                x, ld, wl = ks.simplex_inverse_logdet(y, am1)
+                xp, ldp, wlp = ks.simplex_inverse_logdet_plain(y, am1)
+                e = max(check(f"{tag} x vs plain", x, xp, ATOL_UNIT, torch.ones_like(xp)),
+                        check(f"{tag} ld vs plain", ld, ldp, RTOL_SUM, rel(ldp)),
+                        check(f"{tag} wlog vs plain", wl, wlp, RTOL_SUM, rel(wlp)))
+                x2, ld2, wl2 = ks.simplex_inverse_logdet(y, am1)
+                expect(f"{tag}: a second launch gives x, ld and wlog bit for bit",
+                       torch.equal(x, x2) and torch.equal(ld, ld2) and torch.equal(wl, wl2))
+                x8 = ks.simplex_inverse(y)
+                if K == 16:  # the paths' K: the errors the kernels line reports
+                    err[key] = max(err[key], e)
+                    err["simplex_inverse"] = max(err["simplex_inverse"],
+                                                 float((x8 - xp).abs().max()))
+                other = "wide" if design == "small" else "small"
+                expect(f"{tag}: x equals #8's and the {other} design's bit for bit",
+                       torch.equal(x, x8)
+                       and torch.equal(x, ks.simplex_inverse_logdet(y, am1, design=other)[0]))
+                xn, ldn, wn = ks.simplex_inverse_logdet(y, None, want_x=False)
+                expect(f"{tag}: ld without x or wlog is the same",
+                       xn is None and wn is None and torch.equal(ldn, ld))
+    # K past the shared memory of each design: at K = 600 a block of 32
+    # elements of the wide design does not fit, and the group design serves
+    # it; at K = 29100 one element's y does not fit either, and the group
+    # design reads y from device memory (0.5 N(0, 1), the card's generator)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    for K, B in ((600, 65), (600, ks.SMALL_B + 1), (29100, 65)):
+        y = 0.5 * torch.randn((B, K - 1), generator=gen, device=dev)
+        am1 = torch.ones(K, device=dev)
+        xp, ldp, wlp = ks.simplex_inverse_logdet_plain(y, am1)
+        for design in ks.DESIGNS:
+            tag = f"simplex {design} design, K = {K} (contiguous, B = {B})"
+            x, ld, wl = ks.simplex_inverse_logdet(y, am1, design=design)
+            check(f"{tag} x vs plain", x, xp, ATOL_UNIT, torch.ones_like(xp))
+            check(f"{tag} ld vs plain", ld, ldp, RTOL_SUM, rel(ldp))
+            check(f"{tag} wlog vs plain", wl, wlp, RTOL_SUM, rel(wlp))
+            expect(f"{tag}: x equals #8's bit for bit",
+                   torch.equal(x, ks.simplex_inverse(y, design=design)))
+        del y, xp
+    y = vxT[W_ROWS].T
+    am1 = torch.ones(16, device=dev)
+    ref = ks.simplex_inverse_logdet_plain(y, am1)
+    for design in ks.DESIGNS:
+        outs = ks.simplex_inverse_logdet(y, am1, design=design)
+        expect(f"1e10: simplex {design} design outputs finite",
+               all(bool(torch.isfinite(t).all()) for t in outs))
+        for got, r, nm in zip(outs, ref, ("x", "ld", "wlog")):
+            check(f"1e10: simplex {design} design {nm} vs plain", got, r, RTOL_SUM,
+                  rel(r) + 1e-6)
+    return err
 
 
 def face_points(rng, n):
@@ -842,7 +962,7 @@ def run_sampler(dev, loglik, counts, kernel):
     # of the transposed density (its small design at 64 chains), the LKJ
     # inverse link of the batch-major one
     per_leapfrog = SMALL if transposed else "lkj_inverse"
-    path = ((SMALL,) if transposed else ()) + LINK_KERNELS
+    path = ((SMALL,) if transposed else ()) + (SIMPLEX_SMALL, "lkj_inverse")
     model = tbt.Model(bench_model(dists, dev, torch.float32), loglik=loglik, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     torch.cuda.synchronize()
@@ -873,6 +993,12 @@ def run_sampler(dev, loglik, counts, kernel):
 
     during = {k: l2[k] - l1[k] for k in l2}
     leapfrogs = during[per_leapfrog]
+    # both inverse links run once a batched leapfrog: #7 in its small design
+    expect(f"{kernel}: {SIMPLEX_SMALL} launched by every batched leapfrog "
+           f"({during[SIMPLEX_SMALL]}, lkj_inverse {during['lkj_inverse']}), "
+           f"simplex_inverse_logdet by none ({during['simplex_inverse_logdet']})",
+           during[SIMPLEX_SMALL] == during["lkj_inverse"] > 0
+           and during["simplex_inverse_logdet"] == 0)
     sampling_s = t2 - t1
     expect(f"{kernel}: raw draws (200, 64, 151) and finite",
            tuple(raw.shape) == (KEPT, CHAINS, 151) and bool(torch.isfinite(raw).all()))
@@ -944,10 +1070,10 @@ def pd_model(dists, device, dtype, family, scale=None):
     )
 
 
-def random_spd(seed):
-    """A 16 x 16 SPD matrix from numpy seed `seed` (eigenvalues above 1/2)."""
-    A = np.random.default_rng(seed).standard_normal((PD_K, PD_K))
-    return A @ A.T / PD_K + 0.5 * np.eye(PD_K)
+def random_spd(seed, K=PD_K):
+    """A K x K SPD matrix from numpy seed `seed` (eigenvalues above 1/2)."""
+    A = np.random.default_rng(seed).standard_normal((K, K))
+    return A @ A.T / K + 0.5 * np.eye(K)
 
 
 def pd_c(S, mode):
@@ -1108,6 +1234,63 @@ def check_pd_kernels(dev, vT, vxT):
     g = kp.pd_trace_grad(yx, PD_K, C, "dot")
     expect("1e10 off the diagonal: dot trace gradient finite", bool(torch.isfinite(g).all()))
     check("1e10 off the diagonal: dot trace gradient vs float64", g, g64, 1.0, g_allow)
+    return err
+
+
+PD_TILE_KS = (1, 2, 3, 8, 15, 16)
+PD_TILE_BS = (1, 2, 31, 32, 33, 64, 65, BATCH)
+
+
+def check_pd_trace_grad(dev, vT):
+    """#12 at B in PD_TILE_BS and K in PD_TILE_KS (y: the first K(K+1)/2
+    rows of vT; C from a random K x K SPD matrix, numpy seed K), in both
+    modes and the three `layouts`: against the plain version at twice
+    `pd_reference`'s bounds and against float64 at them, g in y's layout,
+    bit for bit on a second launch; at B = 2, 65 and 131072 the log-density
+    pieces' backward (`_PDLogdensity`: the affine slopes plus
+    ct_tr * pd_trace_grad) against autograd through the float64 plain
+    version. Returns the max absolute error against the plain version."""
+    from tpu_bijectors_torch.bijectors.pd import _pd_logdensity
+    from tpu_bijectors_torch.kernels import pd as kp
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    err = 0.0
+    for K in PD_TILE_KS:
+        P = K * (K + 1) // 2
+        Cs = {m: torch.as_tensor(pd_c(random_spd(K, K), m), dtype=torch.float32, device=dev)
+              for m in ("dot", "solve")}
+        for B in PD_TILE_BS:
+            y_ref = vT[:P, :B].T.contiguous()
+            for m, C in Cs.items():
+                _, _, _, g64, _, g_allow, _ = pd_reference(y_ref, C, m)
+                if m == "dot":
+                    # pd_reference holds a dot slot to 2K eps of 2 (|C| |L|)_rc
+                    # (the sums); the float32 exp of L's diagonal (2 ulp)
+                    # enters a slot up to twice, 4 eps more: (2K + 4) eps in
+                    # all, which matters at small K (at K = 1 the sums alone
+                    # would leave the exp's error out)
+                    g_allow = g_allow * (K + 2) / K
+                for lay, y in layouts(vT, slice(0, P), B, "batch-major slice").items():
+                    tag = f"pd_trace_grad {m}, K = {K} ({lay}, B = {B})"
+                    g = kp.pd_trace_grad(y, K, C, m)
+                    gp = kp.pd_trace_grad_plain(y, K, C, m)
+                    expect(f"{tag} in the input's layout and bit for bit on a second launch",
+                           (P == 1 or (g.stride(0) == 1) == (lay == "swapped"))
+                           and torch.equal(g, kp.pd_trace_grad(y, K, C, m)))
+                    err = max(err, check(f"{tag} vs plain", g, gp, 1.0, 2 * g_allow))
+                    check(f"{tag} vs float64", g, g64, 1.0, g_allow)
+                    if B not in (2, 65, BATCH):
+                        continue
+                    cts = tuple(torch.randn(B, generator=gen, device=dev) for _ in range(3))
+                    g_k = vjp(lambda v, C=C, m=m: _pd_logdensity(v, K, C, m), y, cts)
+                    g_64 = vjp(lambda v, C=C, m=m: kp.pd_logdensity_plain(v, K, C.double(), m),
+                               y.double(), tuple(c.double() for c in cts))
+                    coeff, diag = kp.affine_coeffs(K, g_64)
+                    allow = (RTOL_VJP * (coeff * cts[0][:, None].abs()
+                                         + diag * cts[1][:, None].abs())
+                             + cts[2][:, None].abs() * g_allow + 1e-6)
+                    check(f"{tag}: the log-density's backward vs autograd of float64 plain",
+                          g_k, g_64, 1.0, allow)
     return err
 
 
@@ -3269,6 +3452,30 @@ def small_b_sweep(dev, vT):
     return out
 
 
+SIMPLEX_SWEEP_BS = (64, 256, 1024, 2048, 4096, 8192, 16384, 32768, BATCH)
+
+
+def simplex_small_b_sweep(vT):
+    """#7's time in both designs at SIMPLEX_SWEEP_BS (x and ld, as the
+    samplers' leapfrogs call it) in the swapped view and the batch-major
+    slice of vT's Dirichlet rows. Prints one `simplex_small_b_sweep` line
+    with each time and, per layout, the largest batch at which the small
+    design is the faster: kernels/simplex.py's SMALL_B is set from it."""
+    from tpu_bijectors_torch.kernels import simplex as ks
+
+    out = {}
+    for lay in ("swapped", "batch-major slice"):
+        rows = {}
+        for B in SIMPLEX_SWEEP_BS:
+            y = layouts(vT, W_ROWS, B, lay)[lay]
+            rows[B] = {d: time_ms(lambda y=y, d=d: ks.simplex_inverse_logdet(y, design=d))
+                       for d in ks.DESIGNS}
+        faster = [B for B, t in rows.items() if t["small"] <= t["wide"]]
+        out[lay] = {"ms": rows, "small_faster_up_to": max(faster, default=None)}
+    print(json.dumps({"simplex_small_b_sweep": out, "SMALL_B": ks.SMALL_B}), flush=True)
+    return out
+
+
 def kernel_table(vT, xT, cf, ones, dvT, fam_vT, probe_in, traced_in):
     """Every ported kernel at B = 131072: name -> (wrapper, plain version,
     bytes, operations, {layout: input}), the layout the path reads first.
@@ -3395,6 +3602,13 @@ def kernel_table(vT, xT, cf, ones, dvT, fam_vT, probe_in, traced_in):
             2 * tvT.numel() * 4 + B * 4 + tcf.numel() * 4 + tloops.prm.numel() * 4
             + tloops.tape.numel() * 4,
             tape_ops(tloops, B)["value_and_grad"], {"transposed": tvT},
+        ),
+        # #7's small design at cell 2's 64 chains, the swapped view the
+        # leapfrog hands it: reads y (15), writes x (16) and ld
+        SIMPLEX_SMALL: (
+            lambda y: ks.simplex_inverse_logdet(y, design="small"),
+            ks.simplex_inverse_logdet_plain, CHAINS * 4 * (15 + 16 + 1),
+            CHAINS * 15 * OPS_SIMPLEX_COORD, {"swapped, B = 64": vT[W_ROWS, :CHAINS].T},
         ),
         # #2's small design at cell 2's 64 chains: reads vT (151, 64) and
         # the table, writes lp and g
@@ -3671,10 +3885,13 @@ def main():
     err.update(check_link_kernels(dev, vT, vxT, counts))
     check_link_entry_points(dev, vT, loglik, counts)
     lap("link kernel checks")
+    for k, e in check_simplex_designs(dev, vT, vxT).items():
+        err[k] = max(err.get(k, 0.0), e)
+    lap("simplex design checks")
 
     # --- the second main path: NUTS with the likelihood ----------------------
     sampler_line, sampler_launches = run_sampler(dev, loglik, counts, "nuts_batched_t")
-    launches.update({k: sampler_launches[k] for k in LINK_KERNELS})
+    launches.update({k: sampler_launches[k] for k in (SIMPLEX_SMALL, "lkj_inverse")})
     lap("nuts_batched_t sampler")
 
     # --- the third: the batch-major entry points -------------------------------
@@ -3683,6 +3900,7 @@ def main():
     lap("batch-major kernel checks")
     bm_launches, bm_e2e = run_batch_major_serving(dev, vT, scale, loglik)
     launches.update({k: bm_launches[k] for k in BATCH_MAJOR_KERNELS})
+    launches["simplex_inverse_logdet"] = bm_launches["simplex_inverse_logdet"]  # B = 131072
     lap("batch-major serving and its checks")
 
     # --- the fourth: batch-major NUTS with the likelihood ----------------------
@@ -3691,6 +3909,7 @@ def main():
 
     # --- the Wishart families: the PD kernels and the PD entry ---------------
     err.update(check_pd_kernels(dev, vT, vxT))
+    err["pd_trace_grad"] = max(err["pd_trace_grad"], check_pd_trace_grad(dev, vT))
     for fam in PD_MODES:
         for S in (None, random_spd(3)):
             check_pd_entry(dev, vT, fam, S)
@@ -3808,10 +4027,24 @@ def main():
         "pd_inverse (swapped, B = 64)": (
             lambda: kp.pd_inverse(yp64, PD_K), n * 4 * (136 + 256 + 1 + 256),
             n * PD_OPS["inverse"], lambda: kp.pd_inverse_plain(yp64, PD_K)),
-        "simplex_inverse_logdet (swapped, B = 64)": (
-            lambda: ks.simplex_inverse_logdet(yw64), n * 4 * (15 + 16 + 1),
-            n * 15 * OPS_SIMPLEX_COORD, lambda: ks.simplex_inverse_logdet_plain(yw64)),
     })
+    # #7 in both designs at the samplers' 64 chains and at B = 131072, and
+    # #12 in both modes at 64 (the solve mode at 131072: pd_variants)
+    yw = vT[W_ROWS].T
+    for y in (yw64, yw):
+        B = y.shape[0]
+        for design in ks.DESIGNS:
+            variants[f"simplex_inverse_logdet {design} design (swapped, B = {B})"] = (
+                lambda y=y, d=design: ks.simplex_inverse_logdet(y, design=d),
+                B * 4 * (15 + 16 + 1), B * 15 * OPS_SIMPLEX_COORD,
+                lambda y=y: ks.simplex_inverse_logdet_plain(y))
+    yp64b = layouts(vT, PD_ROWS, n, "batch-major slice")["batch-major slice"]
+    eye = torch.eye(PD_K, device=dev)
+    for mode in PD_MODES.values():
+        variants[f"pd_trace_grad {mode} (batch-major slice, B = 64)"] = (
+            lambda m=mode: kp.pd_trace_grad(yp64b, PD_K, eye, m),
+            n * 4 * (136 + 136) + eye.numel() * 4, n * PD_OPS[f"{mode}_grad"],
+            lambda m=mode: kp.pd_trace_grad_plain(yp64b, PD_K, eye, m))
     # #2 at the samplers' 64 chains in both designs on every sampler cell's
     # model (the traced kind: cell 17's generic-traced), and the launch floor
     variants.update(small_design_variants(small_preps))
@@ -3834,7 +4067,8 @@ def main():
                                      tr_preps["generic-traced"]), launches, err, variants)
     lap("kernel timing")
     small_b_sweep(dev, vT)
-    lap("small-batch sweep")
+    simplex_small_b_sweep(vT)
+    lap("small-batch sweeps")
 
     # the entry points as a caller sees them: host dispatch included, at the
     # full batch and at a sampler's batch of 64 chains

@@ -1,12 +1,20 @@
-"""Time the two matrix inverse-link kernels, #6 (`lkj_inverse`, with and
-without W) and #10 (`pd_inverse`), of the PyTorch port in the checkout
-given as the argument, float32 on the card: at K = 16 in the samplers'
+"""Time the link kernels of the PyTorch port in the checkout given as the
+argument, float32 on the card: the matrix inverse links #6 (`lkj_inverse`,
+with and without W) and #10 (`pd_inverse`) at K = 16 in the samplers'
 layout (the swapped view of a transposed (151, B) state, as
 `chip_smoke.py` makes it) at B = 131072 and B = 64, and #6 at K = 64,
-B = 4096 on a contiguous y beside its plain version. Prints one JSON line:
-the card times (CUDA events, median of 25 timings of 10 calls), each with
-its byte bound's share, and the largest difference from the plain
-version.
+B = 4096 on a contiguous y beside its plain version; the simplex inverse
+#7 (`simplex_inverse_logdet`) at B = 64 in the swapped view and, with
+the Dirichlet weights, the batch-major slice, and at B = 131072 in the
+swapped view with and without them, and #8 (`simplex_inverse`, x alone) at B = 64 and 131072 in the
+batch-major slice; the PD trace gradient #12 (`pd_trace_grad`, K = 16,
+C = I) in both modes at B = 64 and 131072 in the batch-major slice and at
+131072 in the swapped view, and the PD log-density #11 in both modes at
+131072. Each in the design its wrapper picks for the batch. Prints one
+JSON line: the card times (CUDA events, median of 25 timings of 10
+calls), each with its byte bound's share, the largest difference from the
+plain version and, for #7, #8, #11 and #12, a digest of the outputs' bits
+(equal digests: the same outputs bit for bit).
 
     python3 tools/torch_link_ab.py CHECKOUT
 
@@ -27,7 +35,16 @@ import numpy as np
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 # one timer, one set of states and one byte count for every checkout
-from chip_smoke import C_ROWS, PD_K, PD_ROWS, PEAK_BYTES_PER_S, time_ms, time_slow_ms  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    C_ROWS,
+    PD_K,
+    PD_ROWS,
+    PEAK_BYTES_PER_S,
+    W_ROWS,
+    digest,
+    time_ms,
+    time_slow_ms,
+)
 
 
 def main(checkout):
@@ -36,18 +53,24 @@ def main(checkout):
 
     from tpu_bijectors_torch.kernels import lkj as kl
     from tpu_bijectors_torch.kernels import pd as kp
+    from tpu_bijectors_torch.kernels import simplex as ks
 
     dev = torch.device("cuda")
     v = 0.5 * np.random.default_rng(0).standard_normal((151, 131072))
     vT = torch.as_tensor(v, dtype=torch.float32, device=dev)
     out = {"checkout": checkout}
 
-    def row(name, fn, plain, nbytes):
+    def row(name, fn, plain, nbytes, bits=False):
         got, ref = fn(), plain()
+        if isinstance(got, torch.Tensor):
+            got, ref = (got,), (ref,)
         err = max(float((g - r).abs().max()) for g, r in zip(got, ref) if g is not None)
         ms = time_ms(fn)
         out[name] = {"ms": ms, "byte_bound_share": nbytes / PEAK_BYTES_PER_S * 1e3 / ms,
                      "max_abs_err": err}
+        if bits:
+            out[name]["digest"] = digest(got)
+            out[name]["digest_x"] = digest(got[:1])
 
     for B in (131072, 64):
         yc, yp = vT[C_ROWS, :B].T, vT[PD_ROWS, :B].T
@@ -65,6 +88,39 @@ def main(checkout):
         lambda: kl.lkj_inverse_plain(y, K), B * 4 * (P + K * K + 1 + K))
     out["lkj_inverse K = 64 (contiguous, B = 4096)"]["plain_ms"] = time_slow_ms(
         lambda: kl.lkj_inverse_plain(y, K))
+    # the simplex inverse: y (B, 15), x (B, 16), ld (B,), and wlog (B,)
+    # with the Dirichlet weights: as cell 2's leapfrog calls it (the swapped
+    # view, no weights) and cell 4's (the batch-major slice, weights)
+    am1 = torch.arange(16, dtype=torch.float32, device=dev)
+    vb = vT.T.contiguous()  # (131072, 151), batch-major
+    for B, lay, y, a in ((64, "swapped", vT[W_ROWS, :64].T, None),
+                         (64, "batch-major slice", vb[:64, W_ROWS], am1),
+                         (131072, "swapped", vT[W_ROWS].T, None),
+                         (131072, "swapped", vT[W_ROWS].T, am1)):
+        row(f"simplex_inverse_logdet{'' if a is None else ' with wlog'} ({lay}, B = {B})",
+            lambda y=y, a=a: ks.simplex_inverse_logdet(y, a),
+            lambda y=y, a=a: ks.simplex_inverse_logdet_plain(y, a),
+            B * 4 * (15 + 16 + (1 if a is None else 2)), True)
+    for B in (64, 131072):
+        y = vb[:B, W_ROWS]
+        row(f"simplex_inverse (batch-major slice, B = {B})", lambda y=y: ks.simplex_inverse(y),
+            lambda y=y: ks.simplex_inverse_plain(y), B * 4 * (15 + 16), True)
+    # the PD trace gradient: y (B, 136) and C = I, g (B, 136); and the PD
+    # log-density #11 beside it (its digest: the same outputs as before)
+    eye = torch.eye(PD_K, device=dev)
+    for mode in ("dot", "solve"):
+        y = vb[:, PD_ROWS]
+        row(f"pd_logdensity {mode} (batch-major slice, B = 131072)",
+            lambda y=y, m=mode: kp.pd_logdensity(y, PD_K, eye, m),
+            lambda y=y, m=mode: kp.pd_logdensity_plain(y, PD_K, eye, m),
+            131072 * 4 * (136 + 3) + eye.numel() * 4, True)
+        for B, lay, y in ((64, "batch-major slice", vb[:64, PD_ROWS]),
+                          (131072, "batch-major slice", vb[:, PD_ROWS]),
+                          (131072, "swapped", vT[PD_ROWS].T)):
+            row(f"pd_trace_grad {mode} ({lay}, B = {B})",
+                lambda y=y, m=mode: kp.pd_trace_grad(y, PD_K, eye, m),
+                lambda y=y, m=mode: kp.pd_trace_grad_plain(y, PD_K, eye, m),
+                B * 4 * (136 + 136) + eye.numel() * 4, True)
     print(json.dumps(out), flush=True)
 
 

@@ -4,8 +4,10 @@ model's four modes (slab value, value-and-gradient, vector-Jacobian and
 forward-mode products) at B = 131072, and the value-and-gradient mode
 (#2) at the samplers' 64 chains on each sampler cell's model (bench,
 pdonly, mvdense, eight schools, generic-traced; `chip_smoke.SAMPLER_MODELS`),
-float32. Prints one JSON line with the card times (CUDA events, median of
-25 timings of 10 calls) and checksums of lp and g.
+float32, and on the InverseWishart twin of pdonly (the PD entry's solve
+mode). Prints one JSON line with the card times (CUDA events, median of
+25 timings of 10 calls), checksums of lp and g, and at 64 chains a digest
+of their bits (equal digests: the same lp and g bit for bit).
 
     python3 tools/torch_slab_ab.py CHECKOUT
 
@@ -28,6 +30,7 @@ from chip_smoke import (  # noqa: E402
     ITEM_MODELS,
     SAMPLER_MODELS,
     bench_model,
+    digest,
     item_states,
     time_ms,
 )
@@ -59,15 +62,17 @@ def main(checkout):
     lp, g = fk.slab_value_and_grad(vT, cf)
     out["lp_sum"] = float(lp.double().sum())
     out["g_sum"] = float(g.double().sum())
-    for cell, name in SAMPLER_MODELS.items():
+    cells = [(f"cell {cell}", name) for cell, name in SAMPLER_MODELS.items()]
+    for tag, name in cells + [("solve mode", "pdonly-invwishart")]:
         model = tbt.Model(ITEM_MODELS[name](dists, tbt, dev, torch.float32), device=dev)
         x = item_states(dev, name, model.dim(), CHAINS)
         cf_m, loops, _ = fk._prep(model.unconstrainer(), x)
-        key = f"slab_value_and_grad B = 64 ({name}, cell {cell})"
+        key = f"slab_value_and_grad B = 64 ({name}, {tag})"
         out[key] = time_ms(lambda: fk.slab_value_and_grad(x, cf_m, loops))
         lp, g = fk.slab_value_and_grad(x, cf_m, loops)
         out[key + " lp_sum"] = float(lp.double().sum())
         out[key + " g_sum"] = float(g.double().sum())
+        out[key + " digest"] = digest((lp, g))
     print(json.dumps(out), flush=True)
 
 

@@ -15,8 +15,10 @@ Wrappers: `vectorize/fused_kernel.py` (slab_value, slab_value_and_grad,
 slab_vjp, slab_jvp; slab_value_and_grad_small, the value-and-gradient
 mode's small-batch design, which the wrapper of slab_value_and_grad
 launches at B <= SMALL_B; launch_floor, a kernel that does nothing, timed
-as the floor of a launch), `kernels/simplex.py` (simplex_inverse_logdet, simplex_inverse,
-simplex_forward_logdet), `kernels/lkj.py` (lkj_inverse, lkj_logdet, lkj_logdet_chol: its
+as the floor of a launch), `kernels/simplex.py` (simplex_inverse_logdet;
+simplex_inverse_logdet_small, its small-batch design, which its wrapper
+launches at B <= simplex.SMALL_B; simplex_inverse, simplex_forward_logdet),
+`kernels/lkj.py` (lkj_inverse, lkj_logdet, lkj_logdet_chol: its
 Cholesky variant), `kernels/pd.py` (pd_inverse, pd_logdensity,
 pd_trace_grad), `kernels/probe.py` (transcend_probe, a measurement of
 the slab's per-element math, not on any model's path) and
@@ -36,6 +38,7 @@ LAUNCHES = {
     "slab_jvp": 0,
     "slab_traced": 0,
     "simplex_inverse_logdet": 0,
+    "simplex_inverse_logdet_small": 0,
     "lkj_inverse": 0,
     "lkj_logdet": 0,
     "lkj_logdet_chol": 0,

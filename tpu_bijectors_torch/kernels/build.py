@@ -34,7 +34,7 @@ _SOURCES = (
     "transcend_probe.cu",
     "prim_probe.cu",
 )
-_HEADERS = ("link_tiles.cuh", "pd_common.cuh", "traced_tape.cuh")
+_HEADERS = ("link_tiles.cuh", "pd_common.cuh", "pd_tiles.cuh", "traced_tape.cuh")
 _FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
 _COMPILE = ("-c", "-Xcompiler", "-fPIC")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
@@ -120,10 +120,10 @@ def load():
             # stream
             "tbt_empty": [p],
             # y, y strides (batch, coordinate), log(K-1-k) table, am1, x, ld,
-            # wlog, K-1, B, stream
-            "tbt_simplex_inverse_logdet": [p, ll, ll, p, p, p, p, p, i, ll, p],
-            # y, y strides, log(K-1-k) table, x, K-1, B, stream
-            "tbt_simplex_inverse": [p, ll, ll, p, p, i, ll, p],
+            # wlog, K-1, small design, B, stream
+            "tbt_simplex_inverse_logdet": [p, ll, ll, p, p, p, p, p, i, i, ll, p],
+            # y, y strides, log(K-1-k) table, x, K-1, small design, B, stream
+            "tbt_simplex_inverse": [p, ll, ll, p, p, i, i, ll, p],
             # x, x strides (batch, coordinate), log(K-1-k) table, y, ld, K,
             # B, stream
             "tbt_simplex_forward_logdet": [p, ll, ll, p, p, p, i, ll, p],

@@ -124,11 +124,9 @@
 // dot mode forms M = C L one column a lane (the trace is sum L .* M, the
 // partials 2 M); solve mode forms A = L^-1 C one column a lane by forward
 // substitution and At = L^-T A by back substitution, the trace sum A .* A,
-// and the partials -2 At A' from the two as tiles; the half-warp's sums
-// are group_sum (link_tiles.cuh). Tensor cores do not apply: the products
-// are K <= 16 in float32, a few hundred multiply-adds an element, too
-// small for an mma tile to pay, and 3xTF32 would loosen the float32 bounds
-// the checks hold.
+// and the partials -2 At A' from the two as tiles (pd_tiles.cuh, which the
+// trace-gradient kernel pd_trace_grad.cu runs too); the half-warp's sums
+// are group_sum (link_tiles.cuh).
 
 #include <cuda_runtime.h>
 
@@ -136,6 +134,7 @@
 
 #include "link_tiles.cuh"
 #include "pd_common.cuh"
+#include "pd_tiles.cuh"
 #include "traced_tape.cuh"
 
 namespace tbt {
@@ -585,8 +584,8 @@ constexpr int kSlabGroup = 0;   // a group of slab rows; the loop kinds keep the
 // A tile (16 rows of stride 17 each), the second half-warp's kPdHalf
 // further (16 floats of padding put its tiles on the other banks);
 // vectorize/fused_kernel.py::PD_SCRATCH is kPdScratch
-constexpr int kPdLd = 17;
-constexpr int kPdTile = 16 * kPdLd;
+constexpr int kPdLd = pdt::kLd;
+constexpr int kPdTile = pdt::kTile;
 constexpr int kPdTiles = 16 * 16 + 16;
 constexpr int kPdHalf = 2 * kPdTile + 16;
 constexpr int kPdScratch = kPdTiles + 2 * kPdHalf;
@@ -709,7 +708,8 @@ __device__ __forceinline__ void traced_item(const Cols& s, const float* __restri
 // columns 2 pair and 2 pair + 1 of a PD entry (K <= 16): a half-warp each,
 // lane l the matrices' row and column l; lp += logJ + w sum_r y_rr - tr / 2
 // + const, partials -d tr/dy / 2 plus (K+1-r) + w on the diagonal slots
-// (pd_common.cuh's terms, summed here over the half-warp's lanes)
+// (pd_tiles.cuh's trace gradient, the terms summed here over the
+// half-warp's lanes)
 __device__ __forceinline__ void pd_item(const Cols& s, bool solve, int row0, int K, int pair,
                                         float* ws, int lane, float& acc) {
   const float* C = ws;
@@ -717,105 +717,21 @@ __device__ __forceinline__ void pd_item(const Cols& s, bool solve, int row0, int
   const int h = lane >> 4, l = lane & 15, col = 2 * pair + h;
   float* Lt = ws + kPdTiles + h * kPdHalf;  // L, then At in solve mode
   float* At = Lt + kPdTile;                 // A in solve mode
-  const bool live = l < K;
   float lj = 0.0f, sd = 0.0f, ldiag = 0.0f;
-  if (live) {
-    const int base = pd::tri(l);
-    for (int c = 0; c < l; ++c) Lt[l * kPdLd + c] = s.v(row0 + base + c, col);
-    const float yd = s.v(row0 + base + l, col);
-    ldiag = expf(yd);
-    Lt[l * kPdLd + l] = ldiag;
-    Lt[l * kPdLd + 16] = expf(-yd);
-    for (int c = l + 1; c < K; ++c) Lt[l * kPdLd + c] = 0.0f;
+  if (l < K) {
+    const float yd =
+        pdt::unpack_row<kPdLd>([&](int q) { return s.v(row0 + q, col); }, K, l, Lt, ldiag);
     lj = (K + 1.0f - l) * yd;
     sd = yd;
   }
   const float logJ = link::group_sum(lj, 16) + K * pd::kLog2;
   const float sumd = link::group_sum(sd, 16);
-  __syncwarp();
-  float t = 0.0f;
-  if (!solve) {
-    float m[16];  // column l of M = C L
-#pragma unroll
-    for (int a = 0; a < 16; ++a) m[a] = 0.0f;
-#pragma unroll
-    for (int b = 0; b < 16; ++b) {
-      if (b < K && live) {
-        const float lb = Lt[b * kPdLd + l];
-#pragma unroll
-        for (int a = 0; a < 16; ++a)
-          if (a < K) m[a] += C[a * K + b] * lb;
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < 16; ++a)
-      if (a < K && live && a >= l) t += Lt[a * kPdLd + l] * m[a];
-    if (live) {
-#pragma unroll
-      for (int r = 0; r < 16; ++r) {
-        if (r < K && r >= l) {
-          float gt = 2.0f * m[r];
-          if (r == l) gt *= ldiag;
-          float p = -0.5f * gt;
-          if (r == l) p += (K + 1.0f - r) + w;
-          s.put(row0 + pd::tri(r) + l, col, p);
-        }
-      }
-    }
-  } else {
-    float a[16], at[16];  // column l of A = L^-1 C and of At = L^-T A
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      float x = 0.0f;
-      if (i < K && live) {
-        x = C[i * K + l];
-#pragma unroll
-        for (int k = 0; k < i; ++k) x -= Lt[i * kPdLd + k] * a[k];
-        x *= Lt[i * kPdLd + 16];
-      }
-      a[i] = x;
-      t += a[i] * a[i];
-    }
-#pragma unroll
-    for (int i = 15; i >= 0; --i) {
-      float x = 0.0f;
-      if (i < K && live) {
-        x = a[i];
-#pragma unroll
-        for (int k = i + 1; k < 16; ++k)
-          if (k < K) x -= Lt[k * kPdLd + i] * at[k];
-        x *= Lt[i * kPdLd + 16];
-      }
-      at[i] = x;
-    }
-    __syncwarp();  // every lane is done with L: At takes its place
-    if (live) {
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        if (i < K) {
-          At[i * kPdLd + l] = a[i];
-          Lt[i * kPdLd + l] = at[i];
-        }
-      }
-    }
-    __syncwarp();
-    if (live) {
-#pragma unroll
-      for (int r = 0; r < 16; ++r) {
-        if (r < K && r >= l) {
-          float G = 0.0f;  // (At A')_rl, summed over the columns j in order
-#pragma unroll
-          for (int j = 0; j < 16; ++j)
-            if (j < K) G += Lt[r * kPdLd + j] * At[l * kPdLd + j];
-          float gt = -2.0f * G;
-          if (r == l) gt *= ldiag;
-          float p = -0.5f * gt;
-          if (r == l) p += (K + 1.0f - r) + w;
-          s.put(row0 + pd::tri(r) + l, col, p);
-        }
-      }
-    }
-  }
+  const float t = pdt::trace_grad<0, kPdLd>(pdt::Rows{C, K, false}, K, solve, Lt, At, l, ldiag,
+                                  [&](int r, float gt) {
+    float p = -0.5f * gt;
+    if (r == l) p += (K + 1.0f - r) + w;
+    s.put(row0 + pd::tri(r) + l, col, p);
+  });
   const float tr = link::group_sum(t, 16);
   const float val = logJ + w * sumd - 0.5f * tr + cst;
   const float got = __shfl_sync(kFull, val, lane == 2 * pair + 1 ? 16 : 0);

@@ -260,27 +260,72 @@ __device__ __forceinline__ void store_tile(float* __restrict__ out, const float*
   }
 }
 
-// Launch kern(args...) for the tiles of B elements: as many blocks as stay
-// on the card at once (at most one a tile), each walking its tiles.
+// Write n rows of w floats, row e of the shared tile at tile + e ld, to the
+// elements b0 .. b0 + n - 1 of out, whose element e, slot q is at
+// out[(b0 + e) ob + q oq], with the block's threads in the order that
+// keeps each warp's stores on neighbouring addresses: along the slots when
+// the n rows are one contiguous run (ob = w, oq = 1; 16-byte stores where
+// the run is 16-byte aligned), else along the batch, which needs ob = 1
+// (the swapped view of a (w, B) tensor).
+__device__ __forceinline__ void store_rows(float* __restrict__ out, long long ob, long long oq,
+                                           const float* tile, int ld, long long b0, int n,
+                                           int w) {
+  const int tid = threadIdx.x, nt = blockDim.x, total = n * w;
+  if (oq == 1 && ob == w) {
+    float* dst = out + b0 * w;
+    int q0 = 0;
+    if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+      q0 = total & ~3;
+      for (int q = 4 * tid; q < q0; q += 4 * nt) {
+        int e = q / w, c = q - e * w;  // one division for the four floats
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          v[j] = tile[e * ld + c];
+          if (++c == w) {
+            c = 0;
+            ++e;
+          }
+        }
+        *reinterpret_cast<float4*>(dst + q) = make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+    for (int q = q0 + tid; q < total; q += nt) dst[q] = tile[(q / w) * ld + q % w];
+    return;
+  }
+  for (int i = tid; i < total; i += nt) {
+    const int q = i / n, e = i % n;
+    out[q * oq + b0 + e] = tile[e * ld + q];
+  }
+}
+
+// Launch kern(args...) with `threads` threads and `bytes` of dynamic shared
+// memory a block for `tiles` tiles: as many blocks as stay on the card at
+// once (at most one a tile), each walking its tiles.
 template <class... P, class... A>
-cudaError_t launch_tiles(void (*kern)(P...), const Shape& s, long long B, cudaStream_t stream,
-                         A... args) {
-  const size_t bytes = s.bytes();
+cudaError_t launch_blocks(void (*kern)(P...), int threads, size_t bytes, long long tiles,
+                          cudaStream_t stream, A... args) {
   if (bytes > 48 * 1024) {
     cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return err;
   }
-  const int threads = s.E * group_lanes(s.K);
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, bytes);
   if (err != cudaSuccess) return err;
-  const long long tiles = (B + s.E - 1) / s.E;
   const long long resident = (long long)(per_sm > 0 ? per_sm : 1) * sms;
   kern<<<(unsigned)(tiles < resident ? tiles : resident), threads, bytes, stream>>>(args...);
   return cudaGetLastError();
+}
+
+// launch_blocks for the tiles of B elements of shape s, G lanes an element
+template <class... P, class... A>
+cudaError_t launch_tiles(void (*kern)(P...), const Shape& s, long long B, cudaStream_t stream,
+                         A... args) {
+  return launch_blocks(kern, s.E * group_lanes(s.K), s.bytes(), (B + s.E - 1) / s.E, stream,
+                       args...);
 }
 
 }  // namespace link

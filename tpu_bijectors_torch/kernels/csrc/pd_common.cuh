@@ -1,6 +1,7 @@
 // Device functions of the positive-definite (Wishart-family) links, shared by
-// pd_inverse.cu, pd_logdensity.cu, pd_trace_grad.cu and the PD loop entry of
-// fused_slab.cu. One thread handles one batch element.
+// pd_logdensity.cu and the PD loop entry of fused_slab.cu. One thread
+// handles one batch element. (The trace-gradient kernel pd_trace_grad.cu and
+// #2's PD items run pd_tiles.cuh's half-warp design instead.)
 //
 // y packs the lower triangle of the factor row by row: slot r(r+1)/2 + c for
 // c <= r (the reference's pd.jl:36-43 order). L has y off the diagonal and

@@ -13,7 +13,10 @@ For a CUDA tensor each launches its kernel (`csrc/simplex_inv.cu`, the
 first two; `csrc/simplex_fwd.cu`) or raises; for a CPU tensor it runs its
 plain version. The input may be any 2-D strided view: the kernels read it
 through its strides, so the swapped view of a transposed (dim, B) state is
-read in place.
+read in place. The inverse kernels have two designs, chosen by the batch
+(`simplex_design`): a group of lanes an element for a sampler's few chains
+(counted as `simplex_inverse_logdet_small` for the first), a thread an
+element above SMALL_B; both give the same x bit for bit.
 
 The plain versions' recurrence, forward link and log-det live here, beside
 the kernels they define; `bijectors/simplex.py` builds the bijector on
@@ -115,6 +118,26 @@ def simplex_forward_logdet_plain(x):
     return logit(z) + _log_km1_minus_k(K, x), -_inverse_logdet_from_x(x)
 
 
+# the inverse kernels take the group design at B <= SMALL_B and the design
+# of a thread an element above: the crossover of chip_smoke.py's
+# `simplex_small_b_sweep` on the H100 (PERF.md section 6)
+SMALL_B = 8192
+DESIGNS = ("small", "wide")
+
+
+def simplex_design(B: int) -> str:
+    """The inverse kernels' design at batch B: "small" (a group of lanes
+    an element) at B <= SMALL_B, else "wide" (a thread an element)."""
+    return "small" if B <= SMALL_B else "wide"
+
+
+def _design(B, design):
+    design = simplex_design(B) if design is None else design
+    if design not in DESIGNS:
+        raise ValueError(f"design must be one of {DESIGNS}; got {design!r}")
+    return design
+
+
 def _check_cuda(y, am1=None):
     if y.dtype != torch.float32:
         raise TypeError(f"the simplex kernels take float32; got {y.dtype}")
@@ -127,26 +150,30 @@ def _check_cuda(y, am1=None):
             raise ValueError(f"am1 must be contiguous ({y.shape[1] + 1},); got {tuple(am1.shape)}")
 
 
-def simplex_inverse_logdet(y, am1=None, want_x: bool = True):
-    """(x (B, K) or None, ld (B,), wlog (B,) or None) from y (B, K-1)."""
+def simplex_inverse_logdet(y, am1=None, want_x: bool = True, design=None):
+    """(x (B, K) or None, ld (B,), wlog (B,) or None) from y (B, K-1).
+    `design` ("small" or "wide") overrides `simplex_design(B)` on the card."""
     if y.device.type == "cpu":
         return simplex_inverse_logdet_plain(y, am1, want_x)
     _check_cuda(y, am1)
     B, Km1 = y.shape
+    small = _design(B, design) == "small"
     x = torch.empty((B, Km1 + 1), dtype=y.dtype, device=y.device) if want_x else None
     ld = torch.empty(B, dtype=y.dtype, device=y.device)
     wlog = None if am1 is None else torch.empty(B, dtype=y.dtype, device=y.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     kernels.launch(
-        "tbt_simplex_inverse_logdet", "simplex_inverse_logdet", y.device,
+        "tbt_simplex_inverse_logdet",
+        "simplex_inverse_logdet_small" if small else "simplex_inverse_logdet", y.device,
         y.data_ptr(), y.stride(0), y.stride(1), _log_km1_minus_k(Km1 + 1, y).data_ptr(),
-        ptr(am1), ptr(x), ld.data_ptr(), ptr(wlog), Km1, B,
+        ptr(am1), ptr(x), ld.data_ptr(), ptr(wlog), Km1, int(small), B,
     )
     return x, ld, wlog
 
 
-def simplex_inverse(y):
-    """x (B, K) from y (B, K-1), with no log-det."""
+def simplex_inverse(y, design=None):
+    """x (B, K) from y (B, K-1), with no log-det; `design` as in
+    `simplex_inverse_logdet`."""
     if y.device.type == "cpu":
         return simplex_inverse_plain(y)
     _check_cuda(y)
@@ -155,7 +182,7 @@ def simplex_inverse(y):
     kernels.launch(
         "tbt_simplex_inverse", "simplex_inverse", y.device,
         y.data_ptr(), y.stride(0), y.stride(1), _log_km1_minus_k(Km1 + 1, y).data_ptr(),
-        x.data_ptr(), Km1, B,
+        x.data_ptr(), Km1, int(_design(B, design) == "small"), B,
     )
     return x
 
