@@ -120,7 +120,16 @@ repeat (`check_simplex_designs`), and the sampler paths 2 and 4 must launch
 the small design on every batched leapfrog. The PD trace gradient #12 is
 held to its plain version and float64 in both modes at B = 1 ... 131072
 and K = 1 ... 16 in the three layouts, bit for bit on a repeat, with its
-log-density's backward against autograd (`check_pd_trace_grad`).
+log-density's backward against autograd (`check_pd_trace_grad`); the PD
+log-density #11 likewise at B = 1, 15, 16, 17, 64 and 131072 and K = 1, 2,
+5, 15 and 16 (`check_pd_logdensity`). The value kernel #1 walks runs of
+rows (`fused_kernel.run_rows`): it is held to its plain version and
+float64 on every model the paths drive and on `wide-general` (4000 {lin,
+exp} rows, whose packed coefficients lie beyond shared memory: the walk's
+read-only-path instantiation) at B = 1, 65 and the paths' batch, bit for
+bit on a repeat, on the extremes blocks of families and generic-traced,
+and on each run of families that takes the general row function, alone
+(`check_run_walk`).
 
 The launch counters are set to 0 just before each path and read just after
 it; each kernel of the path must have launched. Each kernel is held against
@@ -150,8 +159,8 @@ families variants with their bounds (`pd_variants`, `model_variants`).
 Prints the card's name and power limit, one JSON line per kernel, a
 `kernel_variants` line (every layout's time; #2 at 64 chains in both
 designs on each sampler cell's model; #7 in both designs at 64 and
-131072; #12 in both modes at 64; a kernel that does nothing, the launch
-floor), a `slab_small_b_sweep` line (#2 in both designs at
+131072; #11 and #12 in both modes at 64; a kernel that does nothing, the
+launch floor), a `slab_small_b_sweep` line (#2 in both designs at
 B = 64 to 131072 on the bench, mvdense and pdonly models: the crossover
 that sets SMALL_B), a `simplex_small_b_sweep` line (#7 in both designs
 at B = 64 to 131072 in the swapped view and the batch-major slice: the
@@ -1294,6 +1303,52 @@ def check_pd_trace_grad(dev, vT):
     return err
 
 
+PD_LOGDENSITY_KS = (1, 2, 5, 15, 16)
+PD_LOGDENSITY_BS = (1, 15, 16, 17, 64, BATCH)
+
+
+def check_pd_logdensity(dev, vT):
+    """#11 at B in PD_LOGDENSITY_BS and K in PD_LOGDENSITY_KS (y: the first
+    K(K+1)/2 rows of vT; C from a random K x K SPD matrix, numpy seed K),
+    in both modes and the three `layouts`: logJ and sum y_rr against the
+    plain version at RTOL_SUM of the sums of their terms' magnitudes, the
+    trace against the plain version at twice `pd_reference`'s bound and
+    against float64 at it, bit for bit on a second launch. pd_reference's
+    bounds count the sums' roundings (2K eps in dot mode, 4K kappa eps in
+    solve mode); the float32 exp of L's diagonal (2 ulp) enters a product
+    twice, 4 eps more, which matters at small K: the trace is held at
+    (K + 2) / K times them. Returns the max absolute error against the
+    plain version."""
+    from tpu_bijectors_torch.kernels import pd as kp
+
+    err = 0.0
+    for K in PD_LOGDENSITY_KS:
+        P = K * (K + 1) // 2
+        Cs = {m: torch.as_tensor(pd_c(random_spd(K, K), m), dtype=torch.float32, device=dev)
+              for m in ("dot", "solve")}
+        for B in PD_LOGDENSITY_BS:
+            y_ref = vT[:P, :B].T.contiguous()
+            coeff, diag = kp.affine_coeffs(K, y_ref)
+            mag_lj = (coeff * y_ref.abs()).sum(-1) + K * math.log(2.0)
+            mag_sd = (diag * y_ref.abs()).sum(-1)
+            for m, C in Cs.items():
+                lj64, sd64, tr64, _, tr_allow, _, _ = pd_reference(y_ref, C, m)
+                tr_allow = tr_allow * (K + 2) / K
+                for lay, y in layouts(vT, slice(0, P), B, "batch-major slice").items():
+                    tag = f"pd_logdensity {m}, K = {K} ({lay}, B = {B})"
+                    got = kp.pd_logdensity(y, K, C, m)
+                    ref = kp.pd_logdensity_plain(y, K, C, m)
+                    again = kp.pd_logdensity(y, K, C, m)
+                    expect(f"{tag}: bit for bit on a second launch",
+                           all(torch.equal(a, b) for a, b in zip(got, again)))
+                    err = max(err, check(f"{tag} logJ vs plain", got[0], ref[0], RTOL_SUM, mag_lj),
+                              check(f"{tag} sumd vs plain", got[1], ref[1], RTOL_SUM, mag_sd),
+                              check(f"{tag} trace vs plain", got[2], ref[2], 1.0, 2 * tr_allow))
+                    check(f"{tag} logJ vs float64", got[0], lj64, RTOL_SUM, mag_lj)
+                    check(f"{tag} trace vs float64", got[2], tr64, 1.0, tr_allow)
+    return err
+
+
 def pd_entry_allowances(vT, cf64, loops64):
     """Float64 (lp, g) of a PD model's fused plain version on vT and the
     error float32 may carry: the sum of the terms at RTOL_LP / RTOL_G of
@@ -2021,7 +2076,22 @@ def wide_model(dists, device, dtype):
     return dists.IIDProduct(dists.Normal(0.5, 2.0, device=device, dtype=dtype), 4000)
 
 
-def check_wide(dev, B=16384):
+def wide_general_model(dists, device, dtype):
+    """`wide-general`: IIDProduct(Exponential(1.5), 4000), dim 4000: {lin,
+    exp} rows, a term set without a row function of its own, so the value
+    mode packs cf's whole row (64 bytes) and its 256 KB of packed
+    coefficients lie beyond a block's shared memory (the run walk's GTAB
+    instantiation)."""
+    return dists.IIDProduct(dists.Exponential(1.5, device=device, dtype=dtype), 4000)
+
+
+# the models of the tables in global memory, at B = 16384
+WIDE_MODELS = {"wide": lambda d, t, dev, dt: wide_model(d, dev, dt),
+               "wide-general": lambda d, t, dev, dt: wide_general_model(d, dev, dt)}
+WIDE_B = 16384
+
+
+def check_wide(dev, B=WIDE_B):
     """The repair of the whole-model kernels' table: `wide`,
     IIDProduct(Normal(0.5, 2.0), 4000), dim 4000 (a 256 KB table, beyond
     the block's 227 KB of shared memory) at B = 16384, states 0.5 N(0, 1)
@@ -3404,6 +3474,81 @@ def check_small_design(dev):
     return err, preps
 
 
+RUN_BS = (1, 65, BATCH)
+
+
+def check_run_walk(dev):
+    """#1's walk over runs of rows (the value kernel, `fused_kernel.
+    run_rows`) on every model the paths drive (ITEM_MODELS) and on
+    wide-general, at B = 1, 65 and 131072 (the wide models at 1, 65 and
+    WIDE_B): lp against the plain version at twice the allowances of the
+    model's own checks (`item_allowances`) and against float64 at them,
+    bit for bit on a second launch; the extremes blocks of families and
+    generic-traced keep the plain version's finite/inf pattern. families,
+    the model with most runs, has runs of both specialised sets and runs
+    that take the general row function (slab_row); each of those runs
+    alone (a table of its rows only) is held to the plain version too.
+    wide-general's tables exceed a block's shared memory, so its walk reads
+    them through the read-only path. Returns the max absolute error
+    against the plain version."""
+    import tpu_bijectors_torch as tbt
+    from tpu_bijectors_torch import dists
+    from tpu_bijectors_torch.vectorize import fused_base as fb
+    from tpu_bijectors_torch.vectorize import fused_kernel as fk
+
+    err = 0.0
+    # a block's shared memory at most (227 KB on the H100)
+    optin = getattr(torch.cuda.get_device_properties(dev), "shared_memory_per_block_optin",
+                    227 * 1024)
+    for name, build in {**ITEM_MODELS, **WIDE_MODELS}.items():
+        model = tbt.Model(build(dists, tbt, dev, torch.float32), device=dev)
+        m64 = tbt.Model(build(dists, tbt, dev, torch.float64), device=dev)
+        u = model.unconstrainer()
+        wide = name in WIDE_MODELS or name == "pdwide"
+        X = item_states(dev, name, model.dim(), WIDE_B if wide else BATCH)
+        cf, loops, _ = fk._prep(u, X)
+        cf64, loops64, _ = fk._prep(m64.unconstrainer(), X.double())
+        runs, packed, _ = fk.run_table(cf)
+        print(f"run walk ({name}): {runs.shape[0]} runs, sets "
+              f"{sorted(set(runs[:, 2].tolist()))}, {packed.numel() * 4} bytes of "
+              f"coefficients", flush=True)
+        if name == "wide-general":
+            expect("run walk (wide-general): its tables exceed a block's shared memory",
+                   runs.numel() * 4 + packed.numel() * 4 > optin)
+        for B in RUN_BS[:-1] + (X.shape[1],):
+            x = X[:, :B].contiguous()
+            lp64, _, la, _ = item_allowances(name, x, cf, loops, cf64, loops64)
+            lp = fk.slab_value(x, cf, loops)
+            tag = f"run walk ({name}, B = {B})"
+            err = max(err, check(f"{tag} lp vs plain", lp, fb.slab_value_plain(x, cf, loops),
+                                 1.0, 2 * la))
+            check(f"{tag} lp vs float64", lp, lp64, 1.0, la)
+            expect(f"{tag}: a second launch gives lp bit for bit",
+                   torch.equal(lp, fk.slab_value(x, cf, loops)))
+        if name in ("families", "generic-traced"):
+            vx = (families_extremes(X, cf) if name == "families" else traced_extremes(X, u))
+            _, _, lpx_allow, _, _ = (families_allowances if name == "families"
+                                     else traced_allowances)(vx, cf64, loops64)
+            check_extremes(f"run walk ({name}) extremes: lp", fk.slab_value(vx, cf, loops),
+                           fb.slab_value_plain(vx, cf, loops), 2 * lpx_allow)
+        if name == "families":
+            sets = [t for _, _, t, _ in fk.run_rows(cf)[0]]
+            general = [r for r in fk.run_rows(cf)[0] if r[2] not in fk.RUN_SETS]
+            expect("run walk (families): runs of both specialised sets and of the general "
+                   f"row function ({len(general)} of {len(sets)})",
+                   set(fk.RUN_SETS) <= set(sets) and len(general) > 0)
+            x = X[:, :RUN_BS[1]].contiguous()
+            for row0, n, t, _ in general:
+                keep = torch.zeros(cf.shape[0], dtype=torch.bool, device=dev)
+                keep[row0: row0 + n] = True
+                sub = torch.where(keep[:, None], cf, torch.zeros_like(cf))
+                _, _, la, _ = slab_allowances(x, sub)
+                check(f"run walk (families): the general run of rows {row0}-{row0 + n - 1}, "
+                      f"set {t}, alone vs plain", fk.slab_value(x, sub),
+                      fb.slab_value_plain(x, sub), 1.0, 2 * la)
+    return err
+
+
 def small_design_variants(preps):
     """`time_kernels` variants: #2 at the samplers' 64 chains on each
     sampler cell's model in both designs, with their bytes, bound and
@@ -3910,6 +4055,7 @@ def main():
     # --- the Wishart families: the PD kernels and the PD entry ---------------
     err.update(check_pd_kernels(dev, vT, vxT))
     err["pd_trace_grad"] = max(err["pd_trace_grad"], check_pd_trace_grad(dev, vT))
+    err["pd_logdensity"] = max(err["pd_logdensity"], check_pd_logdensity(dev, vT))
     for fam in PD_MODES:
         for S in (None, random_spd(3)):
             check_pd_entry(dev, vT, fam, S)
@@ -3996,6 +4142,8 @@ def main():
     err[SMALL], small_preps = check_small_design(dev)
     launches[SMALL] = sampler_launches[SMALL]  # cell 2's leapfrogs
     lap("small-design checks")
+    err["slab_value"] = max(err["slab_value"], check_run_walk(dev))
+    lap("run-walk checks")
 
     # --- timing ----------------------------------------------------------------
     # the variants the paths also run: the LKJ inverse writing W for the
@@ -4045,6 +4193,12 @@ def main():
             lambda m=mode: kp.pd_trace_grad(yp64b, PD_K, eye, m),
             n * 4 * (136 + 136) + eye.numel() * 4, n * PD_OPS[f"{mode}_grad"],
             lambda m=mode: kp.pd_trace_grad_plain(yp64b, PD_K, eye, m))
+        # #11 at a sampler's batch, in the batch-major slice and the swapped view
+        for lay, y in (("batch-major slice", yp64b), ("swapped", yp64)):
+            variants[f"pd_logdensity {mode} ({lay}, B = 64)"] = (
+                lambda m=mode, y=y: kp.pd_logdensity(y, PD_K, eye, m),
+                n * 4 * (136 + 3) + eye.numel() * 4, n * PD_OPS[mode],
+                lambda m=mode, y=y: kp.pd_logdensity_plain(y, PD_K, eye, m))
     # #2 at the samplers' 64 chains in both designs on every sampler cell's
     # model (the traced kind: cell 17's generic-traced), and the launch floor
     variants.update(small_design_variants(small_preps))

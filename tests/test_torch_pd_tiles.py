@@ -11,8 +11,19 @@ L_rr on the diagonal) is held against the JAX Pallas kernel in interpret
 mode, in both of its layouts (`pre_t`), and against the port's plain
 version, float64 at VAL_TOL (the same algebra in another order). And the
 wrapper still refuses K > MAX_K off the CPU.
+
+The JAX kernel in interpret mode costs minutes at K = 16 (tracing and
+compiling its unrolled body, whatever the batch: jitting it saves
+nothing, and no two cases share a kernel), so the module computes every
+case's reference once, before the cases run, the two costliest in worker
+processes beside the rest (`references`).
 """
 
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor
+from concurrent.futures.process import BrokenProcessPool
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +34,9 @@ from test_torch_pd import _C, _layout, _y
 from tpu_bijectors.kernels.pd import pd_trace_grad_pallas
 
 from tpu_bijectors_torch.kernels import pd as kpd
+
+KS = (1, 2, 5, 16)
+LAYOUTS = (("batch", False), ("swapped", True))
 
 
 def _unpack(y, K):
@@ -81,16 +95,52 @@ def half_warp_trace_grad(y, K, C, mode):
     return g
 
 
-@pytest.mark.parametrize("layout, pre_t", [("batch", False), ("swapped", True)])
-@pytest.mark.parametrize("mode", kpd.MODES)
-@pytest.mark.parametrize("K", [1, 2, 5, 16])
-def test_half_warp_order_matches_jax_kernel_and_plain(K, mode, layout, pre_t):
+def _inputs(K, mode):
+    """The case's y (8, P) and C, from numpy seed K."""
     rng = np.random.default_rng(K)
-    y, C = _y(rng, K)[:8], _C(rng, K, mode)
-    got = half_warp_trace_grad(y, K, C, mode)
+    return _y(rng, K)[:8], _C(rng, K, mode)
+
+
+def _reference(K, mode, pre_t):
+    """The JAX kernel's d tr / d y on the case's inputs, in interpret mode,
+    in the layout of pre_t. In a worker process it first sets what
+    conftest.py sets."""
+    if not jax.config.jax_enable_x64:  # a worker process: conftest.py's settings
+        jax.config.update("jax_platforms", "cpu")
+        jax.config.update("jax_enable_x64", True)
+    y, C = _inputs(K, mode)
     yj = jnp.asarray(y.T if pre_t else y)
-    ref = np.asarray(pd_trace_grad_pallas(yj, K, jnp.asarray(C), mode, pre_t=pre_t,
-                                          interpret=True))
+    return np.asarray(pd_trace_grad_pallas(yj, K, jnp.asarray(C), mode, pre_t=pre_t,
+                                           interpret=True))
+
+
+@pytest.fixture(scope="module")
+def references():
+    """(K, mode, pre_t) -> the JAX kernel's output, for every case: the two
+    costliest (K = 16, solve mode: minutes each) in two worker processes,
+    the rest here meanwhile (where no process can be started, here as
+    well)."""
+    cases = [(K, m, p) for K in KS for m in kpd.MODES for _, p in LAYOUTS]
+    heavy = [c for c in cases if c[0] == 16 and c[1] == "solve"]
+    out = {}
+    try:
+        ctx = multiprocessing.get_context("spawn")
+        with ProcessPoolExecutor(len(heavy), mp_context=ctx) as pool:
+            futures = {c: pool.submit(_reference, *c) for c in heavy}
+            out.update({c: _reference(*c) for c in cases if c not in futures})
+            out.update({c: f.result() for c, f in futures.items()})
+    except (OSError, BrokenProcessPool):
+        out.update({c: _reference(*c) for c in cases if c not in out})
+    return out
+
+
+@pytest.mark.parametrize("layout, pre_t", LAYOUTS)
+@pytest.mark.parametrize("mode", kpd.MODES)
+@pytest.mark.parametrize("K", KS)
+def test_half_warp_order_matches_jax_kernel_and_plain(references, K, mode, layout, pre_t):
+    y, C = _inputs(K, mode)
+    got = half_warp_trace_grad(y, K, C, mode)
+    ref = references[K, mode, pre_t]
     np.testing.assert_allclose(got, ref.T if pre_t else ref, **VAL_TOL)
     plain = kpd.pd_trace_grad_plain(_layout(y, layout), K, torch.as_tensor(C), mode)
     np.testing.assert_allclose(got, plain.numpy(), **VAL_TOL)

@@ -16,6 +16,9 @@ with the launch replaced), and a CPU tensor still runs the plain version
 and launches nothing.
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,6 +34,10 @@ from tpu_bijectors_torch import kernels
 from tpu_bijectors_torch.kernels import simplex as ks
 
 EPS = np.finfo(np.float64).eps
+# the JAX kernels in interpret mode, jitted once: each shape compiles once,
+# and the two scales of a K share it
+_JAX_INVERSE = jax.jit(functools.partial(simplex_inverse_logdet_pallas, interpret=True))
+_JAX_INVERSE_WLOG = jax.jit(functools.partial(simplex_inverse_logdet_wlog_pallas, interpret=True))
 
 
 def group_lanes(Km1):
@@ -93,9 +100,8 @@ def test_group_order_matches_jax_kernels_and_plain(rng, K, scale):
     am1 = rng.uniform(0.0, 3.0, K)
     with np.errstate(over="ignore", divide="ignore"):
         x, ld, wlog = group_inverse(y, am1)
-    xj, ldj = simplex_inverse_logdet_pallas(jnp.asarray(y), interpret=True)
-    xw, ldw, wlj = simplex_inverse_logdet_wlog_pallas(jnp.asarray(y), jnp.asarray(am1),
-                                                      interpret=True)
+    xj, ldj = _JAX_INVERSE(jnp.asarray(y))
+    xw, ldw, wlj = _JAX_INVERSE_WLOG(jnp.asarray(y), jnp.asarray(am1))
     for got, ref in ((x, xj), (ld, ldj), (x, xw), (ld, ldw), (wlog, wlj)):
         np.testing.assert_allclose(got, np.asarray(ref), **VAL_TOL)
     xp, ldp, wlp = ks.simplex_inverse_logdet_plain(torch.as_tensor(y), torch.as_tensor(am1))

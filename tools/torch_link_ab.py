@@ -10,11 +10,12 @@ swapped view with and without them, and #8 (`simplex_inverse`, x alone) at B = 6
 batch-major slice; the PD trace gradient #12 (`pd_trace_grad`, K = 16,
 C = I) in both modes at B = 64 and 131072 in the batch-major slice and at
 131072 in the swapped view, and the PD log-density #11 in both modes at
-131072. Each in the design its wrapper picks for the batch. Prints one
-JSON line: the card times (CUDA events, median of 25 timings of 10
-calls), each with its byte bound's share, the largest difference from the
-plain version and, for #7, #8, #11 and #12, a digest of the outputs' bits
-(equal digests: the same outputs bit for bit).
+B = 64 and 131072 in the batch-major slice and the swapped view. Each in
+the design its wrapper picks for the batch. Prints one JSON line: the card
+times (CUDA events, median of 25 timings of 10 calls), each with its byte
+bound's share, the largest difference from the plain version and, for
+#7, #8, #11 and #12, a digest of the outputs' bits (equal digests: the
+same outputs bit for bit; for #11 also of logJ and sum y_rr alone).
 
     python3 tools/torch_link_ab.py CHECKOUT
 
@@ -105,15 +106,20 @@ def main(checkout):
         y = vb[:B, W_ROWS]
         row(f"simplex_inverse (batch-major slice, B = {B})", lambda y=y: ks.simplex_inverse(y),
             lambda y=y: ks.simplex_inverse_plain(y), B * 4 * (15 + 16), True)
-    # the PD trace gradient: y (B, 136) and C = I, g (B, 136); and the PD
-    # log-density #11 beside it (its digest: the same outputs as before)
+    # the PD log-density #11: y (B, 136) and C = I, logJ, sum y_rr and the
+    # trace (B,); and the PD trace gradient #12, g (B, 136)
     eye = torch.eye(PD_K, device=dev)
     for mode in ("dot", "solve"):
-        y = vb[:, PD_ROWS]
-        row(f"pd_logdensity {mode} (batch-major slice, B = 131072)",
-            lambda y=y, m=mode: kp.pd_logdensity(y, PD_K, eye, m),
-            lambda y=y, m=mode: kp.pd_logdensity_plain(y, PD_K, eye, m),
-            131072 * 4 * (136 + 3) + eye.numel() * 4, True)
+        for B, lay, y in ((64, "batch-major slice", vb[:64, PD_ROWS]),
+                          (64, "swapped", vT[PD_ROWS, :64].T),
+                          (131072, "batch-major slice", vb[:, PD_ROWS]),
+                          (131072, "swapped", vT[PD_ROWS].T)):
+            row(f"pd_logdensity {mode} ({lay}, B = {B})",
+                lambda y=y, m=mode: kp.pd_logdensity(y, PD_K, eye, m),
+                lambda y=y, m=mode: kp.pd_logdensity_plain(y, PD_K, eye, m),
+                B * 4 * (136 + 3) + eye.numel() * 4, True)
+            out[f"pd_logdensity {mode} ({lay}, B = {B})"]["digest_logJ_sumd"] = digest(
+                kp.pd_logdensity(y, PD_K, eye, mode)[:2])
         for B, lay, y in ((64, "batch-major slice", vb[:64, PD_ROWS]),
                           (131072, "batch-major slice", vb[:, PD_ROWS]),
                           (131072, "swapped", vT[PD_ROWS].T)):

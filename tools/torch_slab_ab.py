@@ -1,13 +1,16 @@
 """Time the whole-model kernels of the PyTorch port with the
-`tpu_bijectors_torch` of the checkout given as the argument: the bench
-model's four modes (slab value, value-and-gradient, vector-Jacobian and
-forward-mode products) at B = 131072, and the value-and-gradient mode
-(#2) at the samplers' 64 chains on each sampler cell's model (bench,
-pdonly, mvdense, eight schools, generic-traced; `chip_smoke.SAMPLER_MODELS`),
-float32, and on the InverseWishart twin of pdonly (the PD entry's solve
-mode). Prints one JSON line with the card times (CUDA events, median of
-25 timings of 10 calls), checksums of lp and g, and at 64 chains a digest
-of their bits (equal digests: the same lp and g bit for bit).
+`tpu_bijectors_torch` of the checkout given as the argument, float32 on the
+card: the four modes (#1 slab value, #2 value-and-gradient, #3
+vector-Jacobian and #4 forward-mode products) at B = 131072 on every model
+`chip_smoke.py` drives through them (`AB_MODELS`: the bench model, pdonly
+and its InverseWishart twin, mvdense, families, eight schools and the
+three traced models), and at B = 16384 on `wide` and `wide-general` (4000
+slab rows, the value mode's tables in shared and in global memory); and
+#2 at the samplers' 64 chains on each sampler cell's model
+(`chip_smoke.SAMPLER_MODELS`) and on the InverseWishart twin of pdonly
+(the PD entry's solve mode). Prints one JSON line with the card times
+(CUDA events, median of 25 timings of 10 calls) and a digest of each
+output's bits (equal digests: the same outputs bit for bit).
 
     python3 tools/torch_slab_ab.py CHECKOUT
 
@@ -29,11 +32,15 @@ from chip_smoke import (  # noqa: E402
     CHAINS,
     ITEM_MODELS,
     SAMPLER_MODELS,
+    WIDE_MODELS,
     bench_model,
     digest,
     item_states,
     time_ms,
 )
+
+AB_MODELS = ("bench", "pdonly", "pdonly-invwishart", "mvdense", "families", "eight-schools",
+             "generic-traced", "truncated-leaves", "vector-leaves")
 
 
 def main(checkout):
@@ -45,23 +52,35 @@ def main(checkout):
     from tpu_bijectors_torch.vectorize import fused_kernel as fk
 
     dev = torch.device("cuda")
-    u = tbt.Model(bench_model(dists, dev, torch.float32), device=dev).unconstrainer()
-    v = 0.5 * np.random.default_rng(0).standard_normal((131072, 151))
-    vT = torch.as_tensor(np.ascontiguousarray(v.T), dtype=torch.float32, device=dev)
-    dvT = torch.as_tensor(np.random.default_rng(3).standard_normal((151, 131072)),
-                          dtype=torch.float32, device=dev)
-    cf = fk._prep(u, vT)[0]
-    ones = torch.ones(131072, device=dev)
-    out = {
-        "checkout": checkout,
-        "slab_value": time_ms(lambda: fk.slab_value(vT, cf)),
-        "slab_value_and_grad": time_ms(lambda: fk.slab_value_and_grad(vT, cf)),
-        "slab_vjp": time_ms(lambda: fk.slab_vjp(vT, cf, ones)),
-        "slab_jvp": time_ms(lambda: fk.slab_jvp(vT, cf, dvT)),
-    }
-    lp, g = fk.slab_value_and_grad(vT, cf)
-    out["lp_sum"] = float(lp.double().sum())
-    out["g_sum"] = float(g.double().sum())
+    out = {"checkout": checkout}
+    builds = [(name, 131072) for name in AB_MODELS] + [(name, 16384) for name in WIDE_MODELS]
+    for name, B in builds:
+        if name == "bench":  # the bench model's states of every earlier A/B
+            d = bench_model(dists, dev, torch.float32)
+            v = 0.5 * np.random.default_rng(0).standard_normal((B, 151))
+            x = torch.as_tensor(np.ascontiguousarray(v.T), dtype=torch.float32, device=dev)
+        else:
+            build = ITEM_MODELS.get(name) or WIDE_MODELS[name]
+            d = build(dists, tbt, dev, torch.float32)
+            x = None
+        model = tbt.Model(d, device=dev)
+        if x is None:
+            x = item_states(dev, name, model.dim(), B)
+        dx = torch.as_tensor(np.random.default_rng(3).standard_normal(tuple(x.shape)),
+                             dtype=torch.float32, device=dev)
+        ones = torch.ones(B, device=dev)
+        cf, loops, _ = fk._prep(model.unconstrainer(), x)
+        calls = {
+            "slab_value": lambda: fk.slab_value(x, cf, loops),
+            "slab_value_and_grad": lambda: fk.slab_value_and_grad(x, cf, loops, design="wide"),
+            "slab_vjp": lambda: fk.slab_vjp(x, cf, ones, loops),
+            "slab_jvp": lambda: fk.slab_jvp(x, cf, dx, loops),
+        }
+        for mode, call in calls.items():
+            got = call()
+            out[f"{mode} ({name}, B = {B})"] = {
+                "ms": time_ms(call), "digest": digest(got if isinstance(got, tuple) else (got,))}
+        del x, dx, cf, loops
     cells = [(f"cell {cell}", name) for cell, name in SAMPLER_MODELS.items()]
     for tag, name in cells + [("solve mode", "pdonly-invwishart")]:
         model = tbt.Model(ITEM_MODELS[name](dists, tbt, dev, torch.float32), device=dev)

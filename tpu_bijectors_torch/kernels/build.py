@@ -107,10 +107,13 @@ def load():
         lib = ctypes.CDLL(str(build()))
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         sigs = {
+            # vT, run table, runs, the first block's row and rows, packed
+            # coefficients, their count, entry table, entries, loop
+            # parameters, their count, largest PD K, tapes, lp, B, stream
+            "tbt_slab_value": [p, p, i, i, i, p, i, p, i, p, i, i, p, p, ll, p],
             # vT, cf, entry table, entries, loop parameters, their count,
             # largest PD K, the traced entries' tapes, then ct or dvT and
             # the outputs, dim, B, stream
-            "tbt_slab_value": [p, p, p, i, p, i, i, p, p, i, ll, p],
             "tbt_slab_value_and_grad": [p, p, p, i, p, i, i, p, p, p, i, ll, p],
             "tbt_slab_vjp": [p, p, p, i, p, i, i, p, p, p, i, ll, p],
             "tbt_slab_jvp": [p, p, p, i, p, i, i, p, p, p, i, ll, p],

@@ -83,6 +83,22 @@
 // their two K-vectors (r = v - mu, w) in registers, fixed arrays of 16
 // unrolled with K guards.
 //
+// THE VALUE MODE walks RUNS, not rows (`walk::run_kernel`): maximal runs
+// of consecutive slab rows that share one term set (row_flags), built once
+// per model on the host (vectorize/fused_kernel.py::run_rows), each with
+// its rows' coefficients packed into whole float4s. The set is uniform over
+// a run, so the group branches are decided once a run, and the sets the
+// driven models have, {quad} (16 bytes a row) and {absv, sp} (the
+// telescoped Dirichlet and the LKJ, 32 bytes), have row functions of their
+// own; every other set runs slab_row on cf's whole row. A row's
+// coefficients come as one or two float4 broadcasts. The next block of
+// eight rows is loaded before the current one is computed, and the first
+// block before the tables are staged; only the runs and the packed
+// coefficients are staged (the bench model's 4.6 KB, against 9.7 KB of
+// table and flags). Rows are summed in order and a row's groups in
+// slab_row's order, so lp keeps the bits of the thread-a-column kernel,
+// which the other three modes still run.
+//
 // A traced entry is bound by the interpreter's operations, not its bytes:
 // each tape instruction costs a dispatch (five uniform loads, a switch,
 // local-memory slot reads and writes) around its one or few float
@@ -357,6 +373,42 @@ __device__ __forceinline__ void traced_entry(const float* __restrict__ vT,
   }
 }
 
+// The loop entries' values of batch column b, in entry order, into acc, as
+// slab_kernel's value mode adds them: the value kernel's (walk::run_kernel)
+// loop entries. slab_kernel keeps its own walk over the entries for the
+// other three modes: calling this function from it, which computes the
+// same bits, moved their times on the H100 by -35% to +40% from model to
+// model (an A/B of tools/torch_slab_ab.py), where those modes are to keep
+// their code.
+template <bool GTAB, bool TRACED>
+__device__ __forceinline__ void loop_values(const int* tent, int n_ent, const float* tprm,
+                                            const int* __restrict__ tapes, float* scratch,
+                                            const float* __restrict__ vT, long long b,
+                                            long long B, float& acc) {
+  for (int e = 0; e < n_ent; ++e) {
+    const int* en = tent + e * kEntCols;
+    const int kind = rd<GTAB>(en), row0 = rd<GTAB>(en + 1), K = rd<GTAB>(en + 2);
+    const float* P = tprm + rd<GTAB>(en + 3);
+    if (kind == kGaussLower) {
+      quad_entry<kValue, kGaussLower, GTAB>(vT, nullptr, nullptr, P, row0, K, b, B, 1.0f, acc);
+    } else if (kind == kGaussUpper) {
+      quad_entry<kValue, kGaussUpper, GTAB>(vT, nullptr, nullptr, P, row0, K, b, B, 1.0f, acc);
+    } else if (kind == kMvt) {
+      quad_entry<kValue, kMvt, GTAB>(vT, nullptr, nullptr, P, row0, K, b, B, 1.0f, acc);
+    } else if (TRACED && kind == kTraced) {
+      traced_entry<kValue, GTAB>(vT, nullptr, nullptr, P, tapes + __ldg(tapes + e), row0, K, b,
+                                 B, 1.0f, acc);
+    } else {  // PD: C is P's first K*K floats, then w and const
+      const float w = rd<GTAB>(P + K * K);
+      const pd::Scratch s{scratch + threadIdx.x, (int)blockDim.x, K};
+      float lj, sumd;
+      pd::unpack([&](int q) { return vT[(size_t)(row0 + q) * B + b]; }, s, lj, sumd);
+      const float tr = kind == kPdSolve ? pd::solve_trace(s, P) : pd::dot_trace(s, P);
+      acc += lj + w * sumd - 0.5f * tr + rd<GTAB>(P + K * K + 1);
+    }
+  }
+}
+
 // LOOPS: the model has loop entries. Without them the kernel is the slab
 // pass alone, every row slab-owned, and carries none of the loop code.
 // GTAB: the table, the entry table and the parameters are read from global
@@ -517,6 +569,263 @@ int spread_threads(long long B, int max_nt) {
   const long long per_sm = (B + limits().sms - 1) / limits().sms;
   const long long nt = (per_sm + 31) / 32 * 32;
   return nt < 32 ? 32 : (nt > max_nt ? max_nt : (int)nt);
+}
+
+// ---------------------------------------------------------------------------
+// the value mode: a walk over runs of rows
+// ---------------------------------------------------------------------------
+
+namespace walk {
+
+constexpr int kRunCols = 4;  // a run: {first row, rows, term set, offset of its coefficients}
+constexpr int kBlock = 8;  // rows loaded at a time (vectorize/fused_kernel.py::WALK_BLOCK)
+// the term sets with a row function of their own (row_flags without
+// kOwned): {quad}, and {absv, sp} (the telescoped Dirichlet's and the LKJ's
+// rows); every other set takes slab_row
+constexpr unsigned kQuadSet = kQuad;
+constexpr unsigned kAbsvSpSet = kAbsv | kSp;
+// floats a row of a run's packed coefficients: {m, cq, 0, 0}; {m, c3p,
+// c3n, c4}, {sa, sb, 0, 0}; else cf's row (kNcf columns, in Col order) and
+// a 0 (vectorize/fused_kernel.py::run_width)
+__host__ __device__ constexpr int width(unsigned set) {
+  return set == kQuadSet ? 4 : (set == kAbsvSpSet ? 8 : 16);
+}
+
+template <bool G>
+__device__ __forceinline__ float4 ld4(const float* p) {
+  if constexpr (G) return __ldg(reinterpret_cast<const float4*>(p));
+  return *reinterpret_cast<const float4*>(p);
+}
+
+template <bool G>
+__device__ __forceinline__ int4 run_at(const int* runs, int j) {
+  if constexpr (G) return __ldg(reinterpret_cast<const int4*>(runs) + j);
+  return reinterpret_cast<const int4*>(runs)[j];
+}
+
+// Rows r0 .. r0 + n - 1 (n <= kBlock: a block of one run) of batch column
+// b into v, 0 past n or where `in` is false
+__device__ __forceinline__ void load_rows(const float* __restrict__ vT, int r0, int n,
+                                          long long b, long long B, bool in,
+                                          float (&v)[kBlock]) {
+  const float* p = vT + (size_t)r0 * B + b;
+#pragma unroll
+  for (int k = 0; k < kBlock; ++k) v[k] = in && k < n ? p[(size_t)k * B] : 0.0f;
+}
+
+// slab_row's value on a {quad} row, c = {m, cq}: cq != 0 on the run, so its
+// zguard is the term itself, and the product stays unfused (__fmul_rn) as
+// the select kept it, so the sum's bits are slab_row's
+__device__ __forceinline__ float quad_value(float4 c, float v) {
+  const float d = v - c.x;
+  const float t = c.y * d;
+  return __fmul_rn(t, d);
+}
+
+// slab_row's value on an {absv, sp} row, c0 = {m, c3p, c3n, c4}, c1 =
+// {sa, sb}: c4 != 0 on the run; c3p or c3n may be 0, so sel3 keeps its
+// zguard
+__device__ __forceinline__ float absv_sp_value(float4 c0, float4 c1, float v) {
+  const float d = v - c0.x;
+  const float sel3 = d >= 0.0f ? c0.y : c0.z;
+  const float val = zguard(sel3, __fmul_rn(sel3, fabsf(d)));
+  // sa <= 0, so the argument is <= 0 and e lies in (0, 1]
+  const float e = expf(c1.x * fabsf(d) + c1.y);
+  return val + __fmul_rn(c0.w, log1pf(e));
+}
+
+// row(k, c0, c1) for the block's rows k = 0 .. n - 1 in order, with their
+// W = 4 or 8 floats of coefficients from c on (row k at c + W k) as c0 (and
+// c1): for a whole block unrolled without guards, each row's coefficients
+// loaded while the row before it computes; else guarded
+template <int W, bool G, class Row>
+__device__ __forceinline__ void rows_of(const float* c, int n, Row row) {
+  if (n == kBlock) {
+    float4 a0 = ld4<G>(c), a1 = W > 4 ? ld4<G>(c + 4) : a0;
+#pragma unroll
+    for (int k = 0; k < kBlock; ++k) {
+      float4 n0 = a0, n1 = a1;
+      if (k + 1 < kBlock) {
+        n0 = ld4<G>(c + W * (k + 1));
+        if (W > 4) n1 = ld4<G>(c + W * (k + 1) + 4);
+      }
+      row(k, a0, a1);
+      a0 = n0;
+      a1 = n1;
+    }
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < kBlock; ++k) {
+    if (k < n) {
+      const float4 a0 = ld4<G>(c + W * k);
+      row(k, a0, W > 4 ? ld4<G>(c + W * k + 4) : a0);
+    }
+  }
+}
+
+// The value of the n rows of run `run` from its row o on (v: their state),
+// added to acc in row order. G: the packed coefficients pk in global
+// memory.
+template <bool G>
+__device__ __forceinline__ void rows_value(const float* pk, int4 run, int o, int n,
+                                           const float (&v)[kBlock], float& acc) {
+  const unsigned set = (unsigned)run.z;
+  const float* c = pk + run.w + (size_t)o * width(set);
+  if (set == kQuadSet) {
+    rows_of<4, G>(c, n, [&](int k, float4 a, float4) { acc += quad_value(a, v[k]); });
+  } else if (set == kAbsvSpSet) {
+    rows_of<8, G>(c, n,
+                  [&](int k, float4 a, float4 a1) { acc += absv_sp_value(a, a1, v[k]); });
+  } else {
+    auto row = [&](int k) {
+      const float* r = c + 16 * k;
+      float cr[16];
+      if constexpr (G) {
+#pragma unroll
+        for (int q = 0; q < 16; q += 4) {
+          const float4 x = ld4<true>(r + q);
+          cr[q] = x.x;
+          cr[q + 1] = x.y;
+          cr[q + 2] = x.z;
+          cr[q + 3] = x.w;
+        }
+        r = cr;
+      }
+      float val, par;
+      slab_row<true, false>(r, set | kOwned, v[k], val, par);
+      acc += val;
+    };
+#pragma unroll
+    for (int k = 0; k < kBlock; ++k)
+      if (k < n) row(k);
+  }
+}
+
+// The value mode (lp of each batch column): the slab rows as a walk over
+// the model's runs (`runs`: n_runs rows of kRunCols ints, in row order;
+// `pk`: their packed coefficients, n_pk floats), kBlock rows of a run at a
+// time, the next block's loads in flight while a block computes, then the
+// loop entries. The first block (rows head_row .. head_row + head_n - 1,
+// run 0's first) is loaded before the tables are staged. Sums: rows in
+// order, a row's groups in slab_row's order; lp is slab_kernel's bit for
+// bit.
+template <bool LOOPS, bool GTAB, bool TRACED>
+__global__ void __launch_bounds__(kThreads)
+run_kernel(const float* __restrict__ vT, const int* __restrict__ runs, int n_runs, int head_row,
+           int head_n, const float* __restrict__ pk, int n_pk, const int* __restrict__ ent,
+           int n_ent, const float* __restrict__ prm, int n_prm, const int* __restrict__ tapes,
+           float* __restrict__ lp, long long B) {
+  extern __shared__ __align__(16) float smem[];
+  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  float cur[kBlock], nxt[kBlock];
+  load_rows(vT, head_row, head_n, b, B, b < B, cur);
+  const int* trun = runs;
+  const float* tpk = pk;
+  const int* tent = ent;
+  const float* tprm = prm;
+  float* scratch = smem;
+  if (!GTAB) {
+    int* srun = reinterpret_cast<int*>(smem);
+    float* spk = smem + n_runs * kRunCols;
+    int* sent = reinterpret_cast<int*>(spk + n_pk);
+    float* sprm = reinterpret_cast<float*>(sent + n_ent * kEntCols);
+    scratch = sprm + n_prm;
+    for (int i = threadIdx.x; i < n_runs * kRunCols; i += blockDim.x) srun[i] = runs[i];
+    for (int i = threadIdx.x; i < n_pk / 4; i += blockDim.x)
+      reinterpret_cast<float4*>(spk)[i] = reinterpret_cast<const float4*>(pk)[i];
+    for (int i = threadIdx.x; i < n_ent * kEntCols; i += blockDim.x) sent[i] = ent[i];
+    for (int i = threadIdx.x; i < n_prm; i += blockDim.x) sprm[i] = prm[i];
+    __syncthreads();
+    trun = srun;
+    tpk = spk;
+    tent = sent;
+    tprm = sprm;
+  }
+  if (b >= B) return;
+  float acc = 0.0f;
+  if (n_runs > 0) {
+    int4 run = run_at<GTAB>(trun, 0);
+    for (int j = 0, o = 0;;) {
+      const int n = min(kBlock, run.y - o);
+      // the next block: the rest of this run, else the next run's first rows
+      int jn = j, on = o + kBlock;
+      int4 next = run;
+      if (on >= run.y) {
+        ++jn;
+        on = 0;
+        if (jn < n_runs) next = run_at<GTAB>(trun, jn);
+      }
+      const bool more = jn < n_runs;
+      if (more) load_rows(vT, next.x + on, min(kBlock, next.y - on), b, B, true, nxt);
+      rows_value<GTAB>(tpk, run, o, n, cur, acc);
+      if (!more) break;
+#pragma unroll
+      for (int k = 0; k < kBlock; ++k) cur[k] = nxt[k];
+      j = jn;
+      o = on;
+      run = next;
+    }
+  }
+  if constexpr (LOOPS) loop_values<GTAB, TRACED>(tent, n_ent, tprm, tapes, scratch, vT, b, B, acc);
+  lp[b] = acc;
+}
+
+size_t smem_bytes(int n_runs, int n_pk, int n_ent, int n_prm) {
+  return (size_t)n_runs * kRunCols * sizeof(int) + (size_t)n_pk * sizeof(float) +
+         (size_t)n_ent * kEntCols * sizeof(int) + (size_t)n_prm * sizeof(float);
+}
+
+template <bool LOOPS, bool GTAB>
+cudaError_t launch_with(const float* vT, const int* runs, int n_runs, int head_row, int head_n,
+                        const float* pk, int n_pk, const int* ent, int n_ent, const float* prm,
+                        int n_prm, const int* tapes, float* lp, long long B, int nt, size_t smem,
+                        cudaStream_t stream) {
+  auto kernel = (LOOPS && tapes != nullptr) ? run_kernel<LOOPS, GTAB, LOOPS>
+                                            : run_kernel<LOOPS, GTAB, false>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const long long blocks = (B + nt - 1) / nt;
+  kernel<<<(unsigned)blocks, nt, smem, stream>>>(vT, runs, n_runs, head_row, head_n, pk, n_pk,
+                                                 ent, n_ent, prm, n_prm, tapes, lp, B);
+  return cudaGetLastError();
+}
+
+}  // namespace walk
+
+// The value mode on the model's runs: the tables in shared memory where
+// they fit (a model of slab rows alone: up to the block's opt-in limit;
+// with loop entries: within kLoopBudget together with the PD scratch of the
+// block's threads), else read through the read-only path (GTAB), as
+// `launch` places the other modes' table.
+cudaError_t launch_runs(const float* vT, const int* runs, int n_runs, int head_row, int head_n,
+                        const float* pk, int n_pk, const int* ent, int n_ent, const float* prm,
+                        int n_prm, int pd_kmax, const int* tapes, float* lp, long long B,
+                        cudaStream_t stream) {
+  using namespace walk;
+  if (B == 0) return cudaSuccess;
+  if (n_runs < 0 || n_pk % 4 != 0 || head_n < 0 || head_n > kBlock)
+    return cudaErrorInvalidValue;
+  const size_t table = smem_bytes(n_runs, n_pk, n_ent, n_prm);
+  auto go = [&](auto kernel_with, int nt, size_t smem) {
+    return kernel_with(vT, runs, n_runs, head_row, head_n, pk, n_pk, ent, n_ent, prm, n_prm, tapes,
+                       lp, B, nt, smem, stream);
+  };
+  if (n_ent == 0) {
+    if (table <= limits().smem_optin) return go(launch_with<false, false>, kThreads, table);
+    return go(launch_with<false, true>, spread_threads(B, kThreads), 0);
+  }
+  if (pd_kmax < 0 || pd_kmax > pd::kMaxK) return cudaErrorInvalidValue;
+  const int slots = pd_kmax > 0 ? pd::scratch_slots(pd_kmax, false) : 0;
+  int nt = pd::threads_for(slots, table, kThreads, kLoopBudget);
+  if (nt > 0)
+    return go(launch_with<true, false>, nt, table + (size_t)slots * sizeof(float) * nt);
+  nt = pd::threads_for(slots, 0, spread_threads(B, kThreads), kLoopBudget);
+  if (nt == 0) return cudaErrorInvalidValue;
+  return go(launch_with<true, true>, nt, (size_t)slots * sizeof(float) * nt);
 }
 
 template <int MODE, bool LOOPS, bool GTAB>
@@ -884,9 +1193,6 @@ cudaError_t launch_slab(int mode, const float* vT, const float* cf, const int* e
                         const float* ct, const float* dv, float* lp, float* g, int dim,
                         long long B, cudaStream_t stream) {
   switch (mode) {
-    case kValue:
-      return launch<kValue>(vT, cf, ent, n_ent, prm, n_prm, pd_kmax, tapes, ct, dv, lp, g, dim,
-                            B, stream);
     case kValueAndGrad:
       return launch<kValueAndGrad>(vT, cf, ent, n_ent, prm, n_prm, pd_kmax, tapes, ct, dv, lp,
                                    g, dim, B, stream);

@@ -1,7 +1,11 @@
-// Device functions of the positive-definite (Wishart-family) links, shared by
-// pd_logdensity.cu and the PD loop entry of fused_slab.cu. One thread
-// handles one batch element. (The trace-gradient kernel pd_trace_grad.cu and
-// #2's PD items run pd_tiles.cuh's half-warp design instead.)
+// Device functions of the positive-definite (Wishart-family) links. One
+// thread handles one batch element. Scratch, unpack, dot_trace,
+// solve_trace and trace_grad serve only the PD loop entry of fused_slab.cu
+// (#1, #3, #4 and #2's kernel of a thread a column). The trace gradient
+// pd_trace_grad.cu (#12) and #2's PD items run pd_tiles.cuh's half-warp
+// tiles instead, and the log-density pd_logdensity.cu (#11) a half-warp an
+// element with the rows of L in registers; they share tri, kMaxK, kLog2
+// and the modes below.
 //
 // y packs the lower triangle of the factor row by row: slot r(r+1)/2 + c for
 // c <= r (the reference's pd.jl:36-43 order). L has y off the diagonal and

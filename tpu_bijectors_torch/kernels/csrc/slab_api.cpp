@@ -20,17 +20,25 @@ cudaError_t launch_slab(int mode, const float* vT, const float* cf, const int* e
 cudaError_t launch_items(const float* vT, const float* cf, const int* item_tab, int n_items,
                          const float* prm, const int* tapes, int wscr, int loops, float* lp,
                          float* g, int dim, long long B, cudaStream_t stream);
+cudaError_t launch_runs(const float* vT, const int* runs, int n_runs, int head_row, int head_n,
+                        const float* pk, int n_pk, const int* ent, int n_ent, const float* prm,
+                        int n_prm, int pd_kmax, const int* tapes, float* lp, long long B,
+                        cudaStream_t stream);
 cudaError_t launch_empty(cudaStream_t stream);
 }  // namespace tbt
 
 extern "C" {
 
-// lp (B,) = sum over rows and loop entries; vT (dim, B), cf (dim, 15)
-int tbt_slab_value(const float* vT, const float* cf, const int* ent, int n_ent,
-                   const float* prm, int n_prm, int kmax, const int* tape, float* lp, int dim,
-                   long long B, void* stream) {
-  return (int)tbt::launch_slab(0, vT, cf, ent, n_ent, prm, n_prm, kmax, tape, nullptr,
-                               nullptr, lp, nullptr, dim, B, (cudaStream_t)stream);
+// lp (B,) = sum over rows and loop entries; vT (dim, B). The slab rows
+// come as runs: `runs` (n_runs, 4) int32 rows {first row, rows, term set,
+// offset into pk}, in row order, `pk` their packed coefficients (n_pk
+// floats, a multiple of 4), rows head_row .. head_row + head_n - 1 the
+// first run's first block (head_n = 0 where there is no run)
+int tbt_slab_value(const float* vT, const int* runs, int n_runs, int head_row, int head_n,
+                   const float* pk, int n_pk, const int* ent, int n_ent, const float* prm,
+                   int n_prm, int kmax, const int* tape, float* lp, long long B, void* stream) {
+  return (int)tbt::launch_runs(vT, runs, n_runs, head_row, head_n, pk, n_pk, ent, n_ent, prm,
+                               n_prm, kmax, tape, lp, B, (cudaStream_t)stream);
 }
 
 // lp (B,) and g = d lp / d vT (dim, B) in one pass

@@ -17,8 +17,10 @@ logJ = sum_r (K+1-r) y_rr + K log 2 (0-based r).
       solve mode (A = L^-1 C, At = L^-T A), each times L_rr on the
       diagonal slots.
 
-In dot mode C is symmetrised first, so the kernel's sum over a <= b (each
-off-diagonal pair twice) is tr(C X) and its gradient 2 (C L) for any C.
+In dot mode C is taken as (C + C') / 2 (the log-density kernel weighs
+each pair of rows by C_ab + C_ba itself; the trace gradient's wrapper
+symmetrises C), so the trace is tr(C X) and its gradient 2 (C L) for any
+C.
 The inverse diagonal is exp(-y_rr), as the TPU kernels take it. For a CUDA
 tensor each wrapper launches its kernel (`csrc/pd_inverse.cu`,
 `csrc/pd_logdensity.cu`, `csrc/pd_trace_grad.cu`) or raises; for a CPU
@@ -40,7 +42,7 @@ from .. import kernels
 from ..utils import pd_from_lower, set_diag, tril_to_vec, vec_to_tril
 
 LOG2 = math.log(2.0)
-MAX_K = 16  # the kernels' per-thread factor lives in shared memory
+MAX_K = 16  # the kernels' half-warp (16-lane) rows and tiles; the loop entry's scratch
 MODES = ("dot", "solve")
 
 
@@ -172,7 +174,7 @@ def pd_logdensity(y, K: int, C, mode: str):
     if y.device.type == "cpu":
         return pd_logdensity_plain(y, K, C, mode)
     _check_cuda(y, K, C)
-    C = _sym(C.to(torch.float32), mode).contiguous()
+    C = C.to(torch.float32).contiguous()  # the kernel takes (C + C') / 2 in dot mode
     B = y.shape[0]
     logJ, sumd, tr = (torch.empty(B, dtype=y.dtype, device=y.device) for _ in range(3))
     kernels.launch(

@@ -18,7 +18,13 @@ loop parameters in shared memory where they fit: a model of slab rows
 only up to the block's 227 KB (some 3600 rows), a model with loop entries
 within 100 KB together with its PD entries' per-thread scratch. Beyond
 that it reads them from global memory through the read-only path, so a
-model of any size launches.
+model of any size launches. The value mode walks the model's RUNS instead
+of its rows (`run_rows`, built once per model): maximal runs of
+consecutive slab rows that share one term set, each with its rows'
+coefficients packed into whole float4s (16 bytes a row for {quad}, 32
+for {absv, sp}, cf's whole row for any other set), so that the term
+groups are decided once a run; it stages only the runs and the packed
+coefficients.
 `mega_logdensity_t` is differentiable in the state: its backward is the
 vector-Jacobian mode, its forward-mode derivative (`torch.func.jvp`,
 `torch.autograd.forward_ad`) the jvp mode.
@@ -40,8 +46,10 @@ from .. import kernels
 from .fused_base import (
     _CI,
     _MASK_COL,
+    _WEIGHT_OF,
     LOOP_CODES,
     NCF,
+    NK,
     PARAM_FLOATS,
     PD_MODES,
     TRACED,
@@ -124,6 +132,7 @@ def _prep(u, vT):
         c0sum = cf[:, _CI["c0"]].sum()
         cache[key] = (cf, loops, c0sum)
         item_table(cf, loops)  # the small design's items, built once per model
+        run_table(cf)  # the value mode's runs, likewise
     if vT.shape[0] != cf.shape[0]:
         raise ValueError(
             f"the state has {vT.shape[0]} rows; the model has {cf.shape[0]}"
@@ -215,24 +224,117 @@ def item_rows(owned, loops):
     return out, scratch
 
 
-# id(cf) -> (weak reference to cf, id(loops), items (n, ITEM_COLS) int32 on
-# cf's device, scratch floats a warp); an entry leaves with its cf
-_ITEMS: dict = {}
+# id(cf) -> (weak reference to cf, {key: table}): the tables built from a
+# model's cf (`item_table`, `run_table`), kept while cf lives
+_TABLES: dict = {}
+
+
+def _of_cf(cf, key, build):
+    """`build()`, once for cf and key, kept while cf lives."""
+    hit = _TABLES.get(id(cf))
+    if hit is None or hit[0]() is not cf:
+        hit = (weakref.ref(cf), {})
+        _TABLES[id(cf)] = hit
+        weakref.finalize(cf, _TABLES.pop, id(cf), None)
+    if key not in hit[1]:
+        hit[1][key] = build()
+    return hit[1][key]
 
 
 def item_table(cf, loops):
     """(items, scratch) of the model whose table is cf: `item_rows` as an
     int32 tensor on cf's device, built at the first call for this cf (by
     `_prep`, when it builds cf) and kept while cf lives."""
-    hit = _ITEMS.get(id(cf))
-    if hit is not None and hit[0]() is cf and hit[1] == id(loops):
-        return hit[2], hit[3]
+    def build():
+        rows, scratch = item_rows((cf[:, _MASK_COL] > 0).tolist(), loops)
+        items = torch.tensor(rows, dtype=torch.int32, device=cf.device).reshape(-1, ITEM_COLS)
+        return items, scratch
+
+    return _of_cf(cf, ("items", id(loops)), build)
+
+
+# ---------------------------------------------------------------------------
+# the value mode's run table
+# ---------------------------------------------------------------------------
+
+RUN_COLS = 4  # {first row, rows, term set, offset of its packed coefficients}
+WALK_BLOCK = 8  # rows of a run the value kernel loads at a time (walk::kBlock)
+# a row's term set: the bits of csrc/fused_slab.cu::row_flags, a group's
+# bit set where one of its weights is nonzero
+GROUP_FLAGS = {"lin": 1, "quad": 2, "absv": 4, "sp": 8, "exp": 16, "l1p": 32}
+# the term sets with a row function of their own (walk::kQuadSet,
+# ::kAbsvSpSet) and the columns a row of each packs, in order; every other
+# set packs cf's whole row (NCF columns in cf's order) and runs slab_row
+RUN_SETS = {
+    GROUP_FLAGS["quad"]: ("m", "cq"),
+    GROUP_FLAGS["absv"] | GROUP_FLAGS["sp"]: ("m", "c3p", "c3n", "c4", "sa", "sb"),
+}
+
+
+def run_width(term_set):
+    """Floats a row of a run with this term set packs (walk::width): its
+    columns padded to whole float4s, 16 for a set without a row function
+    of its own."""
+    cols = RUN_SETS.get(term_set)
+    return 16 if cols is None else -(-len(cols) // 4) * 4
+
+
+def row_sets(cf):
+    """Each row's term set (GROUP_FLAGS bits), None on a row the slab does
+    not own."""
+    nz = cf[:, :NK] != 0
+    sets = sum(GROUP_FLAGS[g] * torch.stack([nz[:, _CI[k]] for k in sorted(ks)]).any(0).long()
+               for g, ks in _WEIGHT_OF.items())
     owned = (cf[:, _MASK_COL] > 0).tolist()
-    rows, scratch = item_rows(owned, loops)
-    items = torch.tensor(rows, dtype=torch.int32, device=cf.device).reshape(-1, ITEM_COLS)
-    _ITEMS[id(cf)] = (weakref.ref(cf), id(loops), items, scratch)
-    weakref.finalize(cf, _ITEMS.pop, id(cf), None)
-    return items, scratch
+    return [int(t) if o else None for t, o in zip(sets.tolist(), owned)]
+
+
+def run_rows(cf):
+    """The value kernel's runs, as tuples {first row, rows, term set, offset
+    of its packed coefficients}, and the packed coefficients (a 1-D tensor
+    of cf's dtype on its device). A run is a maximal run of consecutive
+    slab-owned rows with one term set, in row order (a loop entry's rows,
+    which the slab does not own, end a run); its rows' coefficients follow
+    one another, `run_width` floats a row: the set's RUN_SETS columns, or
+    cf's whole row, then zeros."""
+    runs, r, sets = [], 0, row_sets(cf)
+    while r < len(sets):
+        if sets[r] is None:
+            r += 1
+            continue
+        n = 1
+        while r + n < len(sets) and sets[r + n] == sets[r]:
+            n += 1
+        runs.append((r, n, sets[r]))
+        r += n
+    blocks, out, off = [], [], 0
+    for row0, n, t in runs:
+        w = run_width(t)
+        cols = RUN_SETS.get(t)
+        idx = list(range(NCF)) if cols is None else [_CI[k] for k in cols]
+        block = torch.zeros((n, w), dtype=cf.dtype, device=cf.device)
+        block[:, :len(idx)] = cf[row0: row0 + n, idx]
+        blocks.append(block.reshape(-1))
+        out.append((row0, n, t, off))
+        off += n * w
+    packed = torch.cat(blocks) if blocks else torch.zeros(0, dtype=cf.dtype, device=cf.device)
+    return out, packed
+
+
+def run_table(cf):
+    """(runs, packed, head) of the model whose table is cf: `run_rows` as an
+    int32 (n, RUN_COLS) tensor and the packed coefficients on cf's device,
+    and the first run's first block (its first row and rows, (0, 0) where
+    the model has no slab row), which the kernel loads before it stages
+    the tables; built at the first call for this cf (by `_prep`) and kept
+    while cf lives."""
+    def build():
+        rows, packed = run_rows(cf)
+        runs = torch.tensor(rows, dtype=torch.int32, device=cf.device).reshape(-1, RUN_COLS)
+        head = (rows[0][0], min(WALK_BLOCK, rows[0][1])) if rows else (0, 0)
+        return runs, packed, head
+
+    return _of_cf(cf, "runs", build)
 
 
 # ---------------------------------------------------------------------------
@@ -271,29 +373,32 @@ def _check_cuda(vT, cf, loops, ct=None, dvT=None):
         raise ValueError(f"dvT must be {tuple(vT.shape)}; got {tuple(dvT.shape)}")
 
 
-def _launch(fn, name, vT, cf, loops, *ptrs):
-    dim, B = vT.shape
+def _launch(fn, name, vT, head, loops, *tail):
+    """Launch `fn` on vT, the slab's arguments `head`, the loop table of
+    `loops` and `tail`."""
     if loops is None:
         table = (None, 0, None, 0, 0, None)
     else:
         tape = None if loops.tape is None else loops.tape.data_ptr()
         table = (loops.ent.data_ptr(), len(loops.entries), loops.prm.data_ptr(),
                  loops.prm.numel(), loops.kmax, tape)
-    kernels.launch(
-        fn, name, vT.device, vT.data_ptr(), cf.data_ptr(), *table, *ptrs, dim, B
-    )
+    kernels.launch(fn, name, vT.device, vT.data_ptr(), *head, *table, *tail)
     if loops is not None and loops.tapes:
         kernels.LAUNCHES["slab_traced"] += 1  # a launch that ran the traced loop kind
 
 
 def slab_value(vT, cf, loops=None):
     """lp (B,) of the slab form (without c0) and the loop entries over vT
-    (dim, B)."""
+    (dim, B). On the card the slab rows are walked as the model's runs
+    (`run_table`)."""
     if vT.device.type == "cpu":
         return slab_value_plain(vT, cf, loops)
     _check_cuda(vT, cf, loops)
+    runs, packed, head = run_table(cf)
     lp = torch.empty(vT.shape[1], dtype=vT.dtype, device=vT.device)
-    _launch("tbt_slab_value", "slab_value", vT, cf, loops, lp.data_ptr())
+    _launch("tbt_slab_value", "slab_value", vT,
+            (runs.data_ptr(), runs.shape[0], *head, packed.data_ptr(), packed.numel()), loops,
+            lp.data_ptr(), vT.shape[1])
     return lp
 
 
@@ -308,10 +413,8 @@ def slab_value_and_grad(vT, cf, loops=None, design=None):
     lp = torch.empty(vT.shape[1], dtype=vT.dtype, device=vT.device)
     g = torch.empty_like(vT)
     if design == "wide":
-        _launch(
-            "tbt_slab_value_and_grad", "slab_value_and_grad", vT, cf, loops,
-            lp.data_ptr(), g.data_ptr(),
-        )
+        _launch("tbt_slab_value_and_grad", "slab_value_and_grad", vT, (cf.data_ptr(),), loops,
+                lp.data_ptr(), g.data_ptr(), *vT.shape)
         return lp, g
     if design != "small":
         raise ValueError(f"design must be 'small' or 'wide'; got {design!r}")
@@ -343,7 +446,8 @@ def slab_vjp(vT, cf, ct, loops=None):
         return slab_vjp_plain(vT, cf, ct, loops)
     _check_cuda(vT, cf, loops, ct)
     g = torch.empty_like(vT)
-    _launch("tbt_slab_vjp", "slab_vjp", vT, cf, loops, ct.data_ptr(), g.data_ptr())
+    _launch("tbt_slab_vjp", "slab_vjp", vT, (cf.data_ptr(),), loops, ct.data_ptr(),
+            g.data_ptr(), *vT.shape)
     return g
 
 
@@ -354,7 +458,8 @@ def slab_jvp(vT, cf, dvT, loops=None):
         return slab_jvp_plain(vT, cf, dvT, loops)
     _check_cuda(vT, cf, loops, dvT=dvT)
     dlp = torch.empty(vT.shape[1], dtype=vT.dtype, device=vT.device)
-    _launch("tbt_slab_jvp", "slab_jvp", vT, cf, loops, dvT.data_ptr(), dlp.data_ptr())
+    _launch("tbt_slab_jvp", "slab_jvp", vT, (cf.data_ptr(),), loops, dvT.data_ptr(),
+            dlp.data_ptr(), *vT.shape)
     return dlp
 
 
