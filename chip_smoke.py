@@ -129,7 +129,12 @@ exp} rows, whose packed coefficients lie beyond shared memory: the walk's
 read-only-path instantiation) at B = 1, 65 and the paths' batch, bit for
 bit on a repeat, on the extremes blocks of families and generic-traced,
 and on each run of families that takes the general row function, alone
-(`check_run_walk`).
+(`check_run_walk`). The LKJ log-det #5 (both variants) and the simplex
+forward link #9 choose their design by K and batch (`csrc/lkj_logdet.cu`,
+`csrc/simplex_fwd.cu`): each is held to its plain version at B = 1, 31, 64,
+65, 1000 and 131072 in the three layouts, #5 at K = 2 ... 400 (past every
+design's shared memory), #9 at K = 2 ... 700, bit for bit on a repeat, at
+1e10 and on the simplex's faces (`check_link_logdets`).
 
 The launch counters are set to 0 just before each path and read just after
 it; each kernel of the path must have launched. Each kernel is held against
@@ -159,8 +164,8 @@ families variants with their bounds (`pd_variants`, `model_variants`).
 Prints the card's name and power limit, one JSON line per kernel, a
 `kernel_variants` line (every layout's time; #2 at 64 chains in both
 designs on each sampler cell's model; #7 in both designs at 64 and
-131072; #11 and #12 in both modes at 64; a kernel that does nothing, the
-launch floor), a `slab_small_b_sweep` line (#2 in both designs at
+131072; #11 and #12 in both modes at 64; #5 (both variants) and #9 in each
+layout at 64; a kernel that does nothing, the launch floor), a `slab_small_b_sweep` line (#2 in both designs at
 B = 64 to 131072 on the bench, mvdense and pdonly models: the crossover
 that sets SMALL_B), a `simplex_small_b_sweep` line (#7 in both designs
 at B = 64 to 131072 in the swapped view and the batch-major slice: the
@@ -838,6 +843,146 @@ def check_batch_major_kernels(dev, vT, xT, vxT, xfaces):
     g = vjp(SimplexBijector().forward_and_log_det, xf,
             (torch.ones((xf.shape[0], 15), device=dev), torch.ones(xf.shape[0], device=dev)))
     expect("faces: simplex_forward backward finite", bool(torch.isfinite(g).all()))
+    return err
+
+
+LOGDET_BS = (1, 31, 64, 65, 1000, BATCH)
+LKJ_LOGDET_KS = (2, 3, 5, 16, 17, 64, 200, 400)
+# beyond every design's shared memory at one element: the direct design
+# (and #9's above K = 606)
+FWD_LOGDET_KS = SIMPLEX_KS + (700,)
+
+
+def logdet_rtol(P):
+    """#5's tolerance against its plain version at P slots an element:
+    RTOL_SUM holds at the paths' K = 16 (120 slots); the rounding of the
+    float32 running sums, the kernel's and the plain version's alike, grows
+    as the square root of their terms (logJ sums P of them; 1.5e-5 at
+    K = 400 on the H100 against RTOL_SUM's 1e-5)."""
+    return RTOL_SUM * max(1.0, math.sqrt(P / 120))
+
+
+def logdet_bs(P):
+    """The batches #5 and #9 are checked at for P slots an element: all of
+    LOGDET_BS while the plain version's (B, K, K) intermediates stay small,
+    up to 1000 beyond (K = 200 and 400)."""
+    return tuple(b for b in LOGDET_BS if b <= 1000 or P <= 2016)
+
+
+def simplex_points_state(dev, K, B, seed):
+    """A transposed (K + 9, B) state whose rows 4 .. 4 + K hold simplex
+    points: the plain inverse of 0.5 N(0, 1) states (numpy seed), as
+    `simplex_points_T` makes them for K = 16."""
+    from tpu_bijectors_torch.kernels import simplex as ks
+
+    y = torch.as_tensor(0.5 * np.random.default_rng(seed).standard_normal((B, K - 1)),
+                        dtype=torch.float32, device=dev)
+    st = torch.zeros((K + 9, B), device=dev)
+    st[4 : 4 + K] = ks.simplex_inverse_plain(y).T
+    return st
+
+
+def fwd_y_scale(x):
+    """Per entry of y, the conditioning of y_k = logit(z_k) + log(K-1-k) in
+    the prefix sum s_k: 1 / max(1 - s_k, eps) (float64), at least 1. The
+    kernel's running sum and the plain version's cumsum round s_k apart, and
+    y carries that difference times this factor; ATOL_LOGIT of it is held."""
+    x = x.double()
+    s = torch.cumsum(x, dim=1) - x
+    return 1.0 / torch.clamp(1.0 - s[:, :-1], min=float(np.finfo(np.float32).eps))
+
+
+def check_link_logdets(dev, vT, xT, vxT, xfaces):
+    """#5 (both variants) and #9 in the designs their C entries pick
+    (`csrc/lkj_logdet.cu`: the direct design unrolled for K <= 8, the
+    staged design below 32768 elements, the direct design with its loads
+    ahead above; `csrc/simplex_fwd.cu`: the staged design from 1024
+    elements, the direct one below) against their plain versions: #5 at
+    LKJ_LOGDET_KS, #9 at FWD_LOGDET_KS, each at `logdet_bs` in the three
+    `layouts`, logJ and log diag W within `logdet_rtol` and ld within
+    RTOL_SUM of their magnitude,
+    y within ATOL_LOGIT of `fwd_y_scale`, every output bit for bit on a
+    second launch; and at 1e10 (#5 at every K, B = 1000) and the faces of
+    the simplex (#9 at K = 16), finite and within RTOL_SUM. The states: vT's
+    LKJ rows and xT's simplex points at K = 16, else 0.5 N(0, 1) states
+    made on the card from their own generator (and simplex points from
+    numpy seed K). Returns the max absolute error of each kernel at the
+    paths' K (16; LKJCholesky's 5 for lkj_logdet_chol)."""
+    from tpu_bijectors_torch.kernels import lkj as kl
+    from tpu_bijectors_torch.kernels import simplex as ks
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    err = {"lkj_logdet": 0.0, "lkj_logdet_chol": 0.0, "simplex_forward_logdet": 0.0}
+
+    def rel(t):
+        return t.abs() + 1e-3 * t.abs().max()
+
+    for K in LKJ_LOGDET_KS:
+        P = K * (K - 1) // 2
+        bs = logdet_bs(P)
+        if K == 16:
+            state, rows = vT, C_ROWS
+        else:
+            state = 0.5 * torch.randn((P + 9, max(bs)), generator=gen, device=dev)
+            rows = slice(4, 4 + P)
+        for B in bs:
+            for lay, y in layouts(state, rows, B, "batch-major slice").items():
+                for chol in (False, True):
+                    tag = f"lkj_logdet chol={chol}, K = {K} ({lay}, B = {B})"
+                    got = kl.lkj_logdet(y, K, chol)
+                    ref = kl.lkj_logdet_plain(y, K, chol)
+                    e = max(check(f"{tag} logJ vs plain", got[0], ref[0], logdet_rtol(P),
+                                  rel(ref[0])),
+                            check(f"{tag} log diag W vs plain", got[1], ref[1], logdet_rtol(P),
+                                  rel(ref[1])))
+                    again = kl.lkj_logdet(y, K, chol)
+                    expect(f"{tag}: a second launch gives logJ and log diag W bit for bit",
+                           torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]))
+                    key = "lkj_logdet_chol" if chol else "lkj_logdet"
+                    if K == (5 if chol else 16):
+                        err[key] = max(err[key], e)
+                    del got, ref, again
+            del y
+        # 1e10 states: every slot's logcosh is |y| - log 2
+        yx = 1e10 * torch.randn((1000, P), generator=gen, device=dev) if K != 16 else vxT[C_ROWS].T
+        for chol in (False, True):
+            outs = kl.lkj_logdet(yx, K, chol)
+            expect(f"1e10: lkj_logdet chol={chol}, K = {K} finite",
+                   all(bool(torch.isfinite(t).all()) for t in outs))
+            for got, r, nm in zip(outs, kl.lkj_logdet_plain(yx, K, chol), ("logJ", "ldw")):
+                check(f"1e10: lkj_logdet chol={chol}, K = {K} {nm} vs plain", got, r,
+                      logdet_rtol(P), rel(r) + 1e-6)
+        del state, yx
+
+    for K in FWD_LOGDET_KS:
+        bs = logdet_bs(K)
+        if K == 16:
+            state, rows = xT, X_ROWS
+        else:
+            state, rows = simplex_points_state(dev, K, max(bs), K), slice(4, 4 + K)
+        for B in bs:
+            for lay, x in layouts(state, rows, B, "contiguous").items():
+                tag = f"simplex_forward K = {K} ({lay}, B = {B})"
+                y, ld = ks.simplex_forward_logdet(x)
+                yp, ldp = ks.simplex_forward_logdet_plain(x)
+                e = max(check(f"{tag} y vs plain", y, yp, ATOL_LOGIT, fwd_y_scale(x)),
+                        check(f"{tag} ld vs plain", ld, ldp, RTOL_SUM, rel(ldp)))
+                y2, ld2 = ks.simplex_forward_logdet(x)
+                expect(f"{tag}: a second launch gives y and ld bit for bit",
+                       torch.equal(y, y2) and torch.equal(ld, ld2))
+                if K == 16:
+                    err["simplex_forward_logdet"] = max(err["simplex_forward_logdet"], e)
+        del state
+    xf = torch.as_tensor(xfaces, dtype=torch.float32, device=dev)
+    for B in LOGDET_BS[:-1] + (4096,):
+        outs = ks.simplex_forward_logdet(xf[:B])
+        expect(f"faces: simplex_forward finite (B = {B})",
+               all(bool(torch.isfinite(t).all()) for t in outs))
+        ref = ks.simplex_forward_logdet_plain(xf[:B])
+        check(f"faces: simplex_forward y vs plain (B = {B})", outs[0], ref[0], ATOL_LOGIT,
+              torch.ones_like(ref[0]))
+        check(f"faces: simplex_forward ld vs plain (B = {B})", outs[1], ref[1], RTOL_SUM,
+              rel(ref[1]) + 1e-6)
     return err
 
 
@@ -4041,8 +4186,13 @@ def main():
 
     # --- the third: the batch-major entry points -------------------------------
     xT = simplex_points_T(vT)
-    err.update(check_batch_major_kernels(dev, vT, xT, vxT, face_points(rng, 4096)))
+    xfaces = face_points(rng, 4096)
+    err.update(check_batch_major_kernels(dev, vT, xT, vxT, xfaces))
     lap("batch-major kernel checks")
+    logdet_err = check_link_logdets(dev, vT, xT, vxT, xfaces)
+    for k in ("lkj_logdet", "simplex_forward_logdet"):
+        err[k] = max(err[k], logdet_err[k])
+    lap("link log-det checks")
     bm_launches, bm_e2e = run_batch_major_serving(dev, vT, scale, loglik)
     launches.update({k: bm_launches[k] for k in BATCH_MAJOR_KERNELS})
     launches["simplex_inverse_logdet"] = bm_launches["simplex_inverse_logdet"]  # B = 131072
@@ -4112,6 +4262,7 @@ def main():
     # --- the thirteenth: batch-major serving of families ---------------------
     fam_bm_launches, fam_bm_e2e, err["lkj_logdet_chol"] = run_families_batch_major_serving(
         dev, fam_vT, lp_fam, g_fam)
+    err["lkj_logdet_chol"] = max(err["lkj_logdet_chol"], logdet_err["lkj_logdet_chol"])
     launches["lkj_logdet_chol"] = fam_bm_launches["lkj_logdet_chol"]
     fam_e2e.update(fam_bm_e2e)
     del lp_fam, g_fam
@@ -4199,6 +4350,21 @@ def main():
                 lambda m=mode, y=y: kp.pd_logdensity(y, PD_K, eye, m),
                 n * 4 * (136 + 3) + eye.numel() * 4, n * PD_OPS[mode],
                 lambda m=mode, y=y: kp.pd_logdensity_plain(y, PD_K, eye, m))
+    # #5 (both variants) and #9 at 64 elements in each layout (at B = 131072:
+    # their kernel_table rows)
+    lc_rows = slice(FAM_LC_ROW0, FAM_LC_ROW0 + 10)
+    for lay, y in layouts(vT, C_ROWS, n, "batch-major slice").items():
+        variants[f"lkj_logdet ({lay}, B = 64)"] = (
+            lambda y=y: kl.lkj_logdet(y, 16), n * 4 * (120 + 1 + 16),
+            n * 120 * OPS_LKJ_LOGDET_SLOT, lambda y=y: kl.lkj_logdet_plain(y, 16))
+    for lay, y in layouts(fam_vT, lc_rows, n, "batch-major slice").items():
+        variants[f"lkj_logdet_chol ({lay}, B = 64)"] = (
+            lambda y=y: kl.lkj_logdet(y, 5, True), n * 4 * (10 + 1 + 5),
+            n * 10 * OPS_LKJ_LOGDET_SLOT, lambda y=y: kl.lkj_logdet_plain(y, 5, True))
+    for lay, x in layouts(xT, X_ROWS, n, "contiguous").items():
+        variants[f"simplex_forward_logdet ({lay}, B = 64)"] = (
+            lambda x=x: ks.simplex_forward_logdet(x), n * 4 * (15 + 15 + 1),
+            n * 15 * OPS_SIMPLEX_FWD_COORD, lambda x=x: ks.simplex_forward_logdet_plain(x))
     # #2 at the samplers' 64 chains in both designs on every sampler cell's
     # model (the traced kind: cell 17's generic-traced), and the launch floor
     variants.update(small_design_variants(small_preps))

@@ -10,12 +10,17 @@ swapped view with and without them, and #8 (`simplex_inverse`, x alone) at B = 6
 batch-major slice; the PD trace gradient #12 (`pd_trace_grad`, K = 16,
 C = I) in both modes at B = 64 and 131072 in the batch-major slice and at
 131072 in the swapped view, and the PD log-density #11 in both modes at
-B = 64 and 131072 in the batch-major slice and the swapped view. Each in
-the design its wrapper picks for the batch. Prints one JSON line: the card
-times (CUDA events, median of 25 timings of 10 calls), each with its byte
+B = 64 and 131072 in the batch-major slice and the swapped view; the LKJ
+log-det #5 (`lkj_logdet`: K = 16 on the bench state's LKJ rows, and the
+Cholesky variant at K = 5 on its rows 31-40) and the simplex forward link
+#9 (`simplex_forward_logdet`, K = 16 on `chip_smoke.simplex_points_T`) in
+the batch-major slice, a contiguous tensor and the swapped view at
+B = 64 to 131072 (LOGDET_BS). Each in the design its wrapper picks for
+the batch. Prints one JSON line: the card times (CUDA events, median of 25 timings of 10 calls), each with its byte
 bound's share, the largest difference from the plain version and, for
-#7, #8, #11 and #12, a digest of the outputs' bits (equal digests: the
-same outputs bit for bit; for #11 also of logJ and sum y_rr alone).
+#5, #7, #8, #9, #11 and #12, a digest of the outputs' bits (equal
+digests: the same outputs bit for bit; `digest_x` of the first output
+alone: x, logJ or y; for #11 also of logJ and sum y_rr alone).
 
     python3 tools/torch_link_ab.py CHECKOUT
 
@@ -24,7 +29,10 @@ checkout that .gitignore lists (`git archive`) and run the two in turns in
 one call: A, B, B, A. The other way of writing the output tiles is timed
 the same way from a copy of `tpu_bijectors_torch` with each kernel's
 `kBulkStore` flipped (`csrc/lkj_inv.cu`, `csrc/pd_inverse.cu`: TMA bulk
-stores or 16-byte stores from shared memory).
+stores or 16-byte stores from shared memory). #5's and #9's designs are
+timed alone the same way, from copies with the batch that chooses them
+moved (`kDirectMinB` in `csrc/lkj_logdet.cu`, `kStagedMinB` in
+`csrc/simplex_fwd.cu`).
 """
 
 import json
@@ -42,10 +50,18 @@ from chip_smoke import (  # noqa: E402
     PD_ROWS,
     PEAK_BYTES_PER_S,
     W_ROWS,
+    X_ROWS,
     digest,
+    layouts,
+    simplex_points_T,
     time_ms,
     time_slow_ms,
 )
+
+
+# #5 and #9 at the batches that place their designs' crossovers
+# (csrc/lkj_logdet.cu's kDirectMinB, csrc/simplex_fwd.cu's kStagedMinB)
+LOGDET_BS = (131072, 65536, 32768, 16384, 1024, 64)
 
 
 def main(checkout):
@@ -127,6 +143,21 @@ def main(checkout):
                 lambda y=y, m=mode: kp.pd_trace_grad(y, PD_K, eye, m),
                 lambda y=y, m=mode: kp.pd_trace_grad_plain(y, PD_K, eye, m),
                 B * 4 * (136 + 136) + eye.numel() * 4, True)
+    # the LKJ log-det #5: y (B, 120), logJ (B,), log diag W (B, 16); its
+    # Cholesky variant at K = 5: y (B, 10), logJ, log diag W (B, 5); the
+    # simplex forward link #9: x_0..x_14 of (B, 16), y (B, 15), ld (B,)
+    xT = simplex_points_T(vT)
+    for B in LOGDET_BS:
+        for lay, y in layouts(vT, C_ROWS, B, "batch-major slice").items():
+            row(f"lkj_logdet ({lay}, B = {B})", lambda y=y: kl.lkj_logdet(y, 16),
+                lambda y=y: kl.lkj_logdet_plain(y, 16), B * 4 * (120 + 1 + 16), True)
+        for lay, y in layouts(vT, slice(31, 41), B, "batch-major slice").items():
+            row(f"lkj_logdet_chol K = 5 ({lay}, B = {B})", lambda y=y: kl.lkj_logdet(y, 5, True),
+                lambda y=y: kl.lkj_logdet_plain(y, 5, True), B * 4 * (10 + 1 + 5), True)
+        for lay, x in layouts(xT, X_ROWS, B, "batch-major slice").items():
+            row(f"simplex_forward_logdet ({lay}, B = {B})",
+                lambda x=x: ks.simplex_forward_logdet(x),
+                lambda x=x: ks.simplex_forward_logdet_plain(x), B * 4 * (15 + 15 + 1), True)
     print(json.dumps(out), flush=True)
 
 

@@ -104,6 +104,29 @@ __device__ __forceinline__ void prefetch_y(const float* __restrict__ y, long lon
   }
 }
 
+// prefetch_y for a y whose slots are contiguous (sp = 1), along the
+// flattened (element, slot) index: every lane loads, whatever P, and each
+// warp's loads are neighbouring addresses within and across elements (a
+// warp an element leaves lanes idle where P is not a multiple of 32: 17
+// of 32 at P = 15). Two divisions a thread; then (e, q) steps by nt.
+__device__ __forceinline__ void prefetch_rows(const float* __restrict__ y, long long sb,
+                                              long long b0, int n, const Shape& s, float* ys) {
+  const int tid = threadIdx.x, nt = blockDim.x, P = s.P, total = n * P;
+  if (tid >= total) return;
+  int e = tid / P, q = tid - e * P;
+  const int de = nt / P, dq = nt - de * P;
+  const float* base = y + b0 * sb;
+  for (int i = tid; i < total; i += nt) {
+    cp_async4(ys + e * s.Pp + q, base + e * sb + q);
+    e += de;
+    q += dq;
+    if (q >= P) {
+      q -= P;
+      ++e;
+    }
+  }
+}
+
 // wait until this thread's bulk stores have read their shared memory
 template <bool BULK>
 __device__ __forceinline__ void bulk_wait_read() {
@@ -115,21 +138,27 @@ __device__ __forceinline__ void bulk_wait_read() {
 // calling body(ys, t E, n) with the tile's y staged at ys (element e at
 // e Pp). The next tile's y is loaded into the other buffer while body runs,
 // and before body writes the K x K tiles again the last tile's bulk stores
-// have read them (BULK: the tiles leave by bulk stores).
-template <bool BULK, class Body>
+// have read them (BULK: the tiles leave by bulk stores). FLAT: a y whose
+// slots are contiguous (sp = 1, sb != 1) is loaded by prefetch_rows.
+template <bool BULK, bool FLAT = false, class Body>
 __device__ __forceinline__ void for_each_tile(const float* __restrict__ y, long long sb,
                                               long long sp, long long B, const Shape& s,
                                               float* ybuf, Body body) {
   const long long ntiles = (B + s.E - 1) / s.E;
   const int half = s.E * s.Pp;
   auto count = [&](long long t) { return (int)min((long long)s.E, B - t * s.E); };
+  auto prefetch = [&](long long b0, int n, float* ys) {
+    if (FLAT && sp == 1 && sb != 1)
+      prefetch_rows(y, sb, b0, n, s, ys);
+    else
+      prefetch_y(y, sb, sp, b0, n, s, ys);
+  };
   long long t = blockIdx.x;
-  if (t < ntiles) prefetch_y(y, sb, sp, t * s.E, count(t), s, ybuf);
+  if (t < ntiles) prefetch(t * s.E, count(t), ybuf);
   asm volatile("cp.async.commit_group;" ::: "memory");
   for (int it = 0; t < ntiles; t += gridDim.x, ++it) {
     const long long next = t + gridDim.x;
-    if (next < ntiles)
-      prefetch_y(y, sb, sp, next * s.E, count(next), s, ybuf + ((it + 1) & 1) * half);
+    if (next < ntiles) prefetch(next * s.E, count(next), ybuf + ((it + 1) & 1) * half);
     asm volatile("cp.async.commit_group;" ::: "memory");
     asm volatile("cp.async.wait_group 1;" ::: "memory");
     bulk_wait_read<BULK>();
