@@ -18,7 +18,8 @@ traced models (`generic-traced` of tools/tpu_sweep.py: two truncated
 priors, Kumaraswamy, BetaPrime, InverseGaussian, JohnsonSU,
 TriangularDist, a Normal mixture and four joint order statistics, linked
 dim 12; the JAX tests' truncated-leaves and vector-leaves models) on two,
-and the #14 probe:
+the #14 probe, and the engines of the thirteenth slice (ChEES with the
+dense metric, dense NUTS through a checkpoint, SMC, ADVI) on four:
 
 1. transposed serving at B = 131072: `Model.batched_logdensity_t_fn()`
    (the slab value kernel), its `value_and_grad_fn` (the one-pass
@@ -101,9 +102,32 @@ and the #14 probe:
 18. the #14 probe: every opcode of the traced entries' admission set as a
    one-instruction tape on the interpreter, against its plain version,
    the torch op and torch.autograd in float64 at its edge points, timed;
-   then `_prep`'s first call on the generic-traced and bench models.
+   then `_prep`'s first call on the generic-traced and bench models;
+19. chees_dense: `Model(pdonly, loglik).sample(kernel='chees',
+   metric='dense')`'s steps on cell 7's data and starts, batch-major:
+   every lockstep leapfrog runs the PD log-density kernel (#11) and its
+   trace-gradient kernel (#12) for the prior, the PD inverse (#10) and
+   its backward for the likelihood; the trajectory length read to the
+   host once a transition; gated as cell 7;
+20. eight_schools_dense: cell 14 with metric='dense' on `nuts_batched_t`
+   (#2's item kernel), the warmup's state through `save_sampler_state`
+   and `load_sampler_state` (every field bit for bit) before
+   `resume_sampling`; gated as cell 14;
+21. smc_eight_schools: `run_smc(transposed=True, mutation='hmc')` on
+   SMC_N = 32768 particles from eight schools' prior draws, the prior
+   `Model(priors).batched_logdensity_t_fn()` (#1 for the value, #3 in the
+   mutation's backward); gated on the final temperature, the means of mu
+   and tau against the exact posterior means (`eight_schools_exact_means`)
+   and the log evidence against the JAX package's float64 run
+   (SMC_LOGEV_JAX);
+22. advi_mv_conjugate: `fit_advi(Model(mvdense,
+   loglik).batched_logdensity_t_fn(), q=FullRankGaussian, estimator='stl',
+   transposed=True)` with n_mc 1024 (#1 and #3 with the Gaussian and t
+   entries), gated on the fit's means and the likelihood block's
+   variances against the known posterior.
 
-After them, #2's small-batch design (the item kernel, which the
+The dense paths also check that TF32 is off and the float32 matmul
+precision 'highest'. After them, #2's small-batch design (the item kernel, which the
 value-and-gradient wrapper launches at B <= SMALL_B: every sampler's
 leapfrog) is held to its plain version on every model the paths drive
 (`ITEM_MODELS`) at B = 1, 31, 64, 65, 200 and SMALL_B, at the allowances
@@ -2826,6 +2850,28 @@ ES_JAX = {"mu": (4.3613426994105104, 0.012813402441898816),
           "tau": (3.6889598000248975, 0.014590762749884878)}
 
 
+def eight_schools_exact_means():
+    """The posterior means of mu and tau by quadrature (float64 numpy): mu
+    and theta integrate out in closed form (y_j ~ N(mu, sigma_j^2 + tau^2),
+    mu ~ N(0, 25)), leaving a one-dimensional density of tau, summed on
+    20000 points of log tau in [-12, 12]. They are 4.39682 and 3.59771.
+    ES_JAX's tau lies 6 of its MCSE above them and its mu 2.8 below: the
+    NUTS run that made ES_JAX is biased there (it diverges in the funnel
+    at target 0.8, as the port's cells 14 and 20 do, which are held to
+    it), so the SMC cell is held to these."""
+    y, sigma = np.asarray(ES_Y), np.asarray(ES_SIGMA)
+    log_tau = np.linspace(-12.0, 12.0, 20000)
+    tau = np.exp(log_tau)
+    V = sigma[None, :] ** 2 + tau[:, None] ** 2
+    prec = np.sum(1.0 / V, axis=1) + 1.0 / 25.0
+    b = np.sum(y[None, :] / V, axis=1)
+    log_w = (-0.5 * np.sum(np.log(V), axis=1) - 0.5 * np.sum(y[None, :] ** 2 / V, axis=1)
+             + 0.5 * b**2 / prec - 0.5 * np.log(prec) - np.log1p((tau / 5.0) ** 2) + log_tau)
+    w = np.exp(log_w - log_w.max())
+    w /= w.sum()
+    return {"mu": float(np.sum(w * b / prec)), "tau": float(np.sum(w * tau))}
+
+
 def eight_schools_model(dists, device, dtype):
     """The example's priors: mu ~ Normal(0, 5), tau ~ HalfCauchy(5),
     theta_raw ~ IIDProduct(Normal(0, 1), 8); linked dim 10."""
@@ -4054,6 +4100,428 @@ def time_kernels(table, launches, err, variants):
     return rows
 
 
+# --- the thirteenth slice: the dense metric, ChEES, SMC, ADVI, checkpoints -
+
+# path 21: run_smc's settings. n_mutations and the leapfrogs an HMC move are
+# the slice's; the step and the ESS target (12 stages) were chosen on the
+# JAX package's float64 runs of the same model on the CPU
+SMC_N, SMC_MUTATIONS, SMC_LEAPFROG, SMC_EPS, SMC_TARGET_ESS = 32768, 10, 8, 1.0, 0.97
+# the JAX package's float64 run_smc on the CPU at those settings, seeds 0-3
+# (python tests/test_torch_smc_advi.py --engine jax --seeds 0 1 2 3): the
+# mean log evidence and the standard deviation of the four
+SMC_LOGEV_JAX = (-3.9899568849669835, 0.006636568041743165)
+# path 22: fit_advi's settings: the slice's n_mc; 1000 Adam steps at the
+# JAX package's default rate
+ADVI_MC, ADVI_STEPS, ADVI_LR = 1024, 1000, 1e-2
+
+
+def dense_precision_ok():
+    """The dense metric's products stay at float32's full precision: TF32
+    off for matmuls, the float32 matmul precision 'highest'."""
+    return (not torch.backends.cuda.matmul.allow_tf32
+            and torch.get_float32_matmul_precision() == "highest")
+
+
+def run_chees_dense(dev):
+    """Path 19, chees_dense: the steps of `Model(pdonly,
+    loglik).sample(kernel='chees', metric='dense')` on cell 7's
+    pd_conjugate data, with its starts at PD_INIT_SCALE * N(0, 1):
+    `sample_with_kernel` routes 'chees' to `run_chees` on
+    `batched_logdensity_fn()`, batch-major, as the JAX package does. Every
+    lockstep leapfrog runs the PD log-density kernel (#11) and its
+    trace-gradient kernel (#12) for the prior, the PD inverse kernel (#10)
+    and its backward for the likelihood's W. 64 chains, 300 warmup and 200
+    kept transitions, torch seed 0; the trajectory length is read to the
+    host once a transition. Gates as cell 7's: max R-hat <= 1.05,
+    divergences <= 1%, W's diagonal within 5 MCSE of the Wishart
+    posterior's 218 diag((I + Z'Z)^-1)."""
+    import tpu_bijectors_torch as tbt
+    from tpu_bijectors_torch import diagnostics, dists, kernels
+    from tpu_bijectors_torch.infer import chees, hmc_batched, sample_with_kernel
+
+    expect("chees_dense: TF32 off and float32 matmul precision 'highest'",
+           dense_precision_ok())
+    loglik, post = pd_conjugate_data(dev)
+    model = tbt.Model(pd_model(dists, dev, torch.float32, "wishart"), loglik=loglik, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    # the warmup ends where the first sampling transition starts
+    mark, step = {}, chees._sample_step
+
+    def first_sampling_step(*args, **kw):
+        if not mark:
+            torch.cuda.synchronize()
+            mark.update(t=time.perf_counter(), launches=dict(kernels.LAUNCHES),
+                        syncs=hmc_batched.SYNCS["trajectory"])
+        return step(*args, **kw)
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    hmc_batched.reset_sync_count()
+    t0 = time.perf_counter()
+    chees._sample_step = first_sampling_step
+    try:
+        raw, state, stats = sample_with_kernel(
+            model.batched_logdensity_fn(), gen, model.init_positions(gen, CHAINS, PD_INIT_SCALE),
+            n_warmup=WARMUP, n_samples=KEPT, kernel="chees", metric="dense",
+        )
+    finally:
+        chees._sample_step = step
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(kernels.LAUNCHES)
+    syncs = hmc_batched.SYNCS["trajectory"] - mark["syncs"]
+    samples = model.constrain(raw)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    print(f"launches on the chees_dense path: {launches}", flush=True)
+    during = {k: launches[k] - mark["launches"][k] for k in launches}
+    leapfrogs = int(stats.n_steps.sum())
+    for k in ("pd_logdensity", "pd_trace_grad", "pd_inverse"):
+        expect(f"chees_dense: {k} launched every sampling leapfrog ({during[k]} for "
+               f"{leapfrogs})", during[k] >= leapfrogs > 0)
+    expect("chees_dense: a dense (151, 151) inverse mass",
+           tuple(state.inv_mass.shape) == (151, 151))
+    expect(f"chees_dense: raw draws ({KEPT}, {CHAINS}, 151) and finite",
+           tuple(raw.shape) == (KEPT, CHAINS, 151) and bool(torch.isfinite(raw).all()))
+    r_hat = diagnostics.rhat(raw)
+    ess = diagnostics.ess_bulk(raw)
+    Wd = torch.diagonal(samples["W"], dim1=-2, dim2=-1)
+    dev_w = np.abs(Wd.double().mean(dim=(0, 1)).cpu().numpy() - post) / diagnostics.mcse_mean(Wd)
+    n_div = int(stats.diverging.sum())
+    sampling_s = t2 - mark["t"]
+    line = {
+        "kernel": "chees", "cell": "chees_dense", "metric": "dense",
+        "chains": CHAINS, "warmup": WARMUP, "kept": KEPT, "init_scale": PD_INIT_SCALE,
+        "warmup_s": mark["t"] - t0,
+        "sampling_s": sampling_s,
+        "constrain_s": t3 - t2,
+        "draws_per_s": CHAINS * KEPT / sampling_s,
+        "leapfrogs_per_transition": leapfrogs / KEPT,
+        "batched_leapfrogs": leapfrogs,
+        "ms_per_leapfrog": 1e3 * sampling_s / max(leapfrogs, 1),
+        "host_syncs_per_transition": syncs / KEPT,
+        "step_size": float(state.eps),
+        "trajectory_length": float(torch.exp(state.log_t)),
+        "mean_accept": float(stats.accept_prob.mean()),
+        "divergences": n_div,
+        "transitions": CHAINS * KEPT,
+        "launches_during_sampling": during,
+        "max_rhat": float(np.max(r_hat)),
+        "min_ess_bulk": float(np.min(ess)),
+        "max_W_diag_dev_in_mcse": float(np.max(dev_w)),
+    }
+    expect(f"chees_dense: one host read a transition ({syncs} for {KEPT})", syncs == KEPT)
+    expect(f"chees_dense: max R-hat {line['max_rhat']:.4f} <= 1.05", line["max_rhat"] <= 1.05)
+    expect(f"chees_dense: divergences {n_div} <= 1% of {CHAINS * KEPT}",
+           n_div <= 0.01 * CHAINS * KEPT)
+    expect(f"chees_dense: W diagonal means within 5 MCSE of Wishart(218, (I + Z'Z)^-1) "
+           f"(max {np.max(dev_w):.2f})", bool(np.all(dev_w <= 5.0)))
+    return line, {k: launches[k] for k in ("pd_logdensity", "pd_trace_grad", "pd_inverse")}
+
+
+def same_bits(a, b):
+    """Two sampler states' leaves equal bit for bit (tensors in dtype and
+    device too, generators in their state)."""
+    if isinstance(a, tuple):
+        return type(a) is type(b) and all(same_bits(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Generator):
+        return a.device == b.device and torch.equal(a.get_state(), b.get_state())
+    if isinstance(a, torch.Tensor):
+        return (a.dtype == b.dtype and a.device == b.device and a.shape == b.shape
+                and a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes())
+    return type(a) is type(b) and a == b
+
+
+def run_eight_schools_dense(dev):
+    """Path 20, eight_schools_dense: cell 14's model and settings (64
+    chains, max_depth 8, 300 warmup and 200 kept transitions, target 0.8,
+    starts 0.5 N(0, 1), torch seed 0) with metric='dense' on
+    `nuts_batched_t`: each leapfrog runs #2's item kernel, and the dense
+    metric's products run in the transposed layout. Between the warmup and
+    `resume_sampling` the state goes through `save_sampler_state` and
+    `load_sampler_state` (a temporary directory); every field must come
+    back bit for bit. Gates: cell 14's."""
+    import tempfile
+
+    import tpu_bijectors_torch as tbt
+    from tpu_bijectors_torch import diagnostics, dists, kernels
+    from tpu_bijectors_torch.infer import hmc_batched, resume_sampling, warmup_and_sample
+    from tpu_bijectors_torch.shard import load_sampler_state, save_sampler_state
+
+    expect("eight_schools_dense: TF32 off and float32 matmul precision 'highest'",
+           dense_precision_ok())
+    model = tbt.Model(eight_schools_model(dists, dev, torch.float32),
+                      loglik=eight_schools_loglik(dev, torch.float32), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    hmc_batched.reset_sync_count()
+    t0 = time.perf_counter()
+    density = model.batched_logdensity_t_fn()
+    kw = dict(kernel="nuts_batched_t", max_depth=MAX_DEPTH)
+    _, state, _ = warmup_and_sample(
+        density, gen, model.init_positions(gen, CHAINS, ES_INIT_SCALE), n_warmup=WARMUP,
+        n_samples=0, target_accept=ES_TARGET, metric="dense", **kw,
+    )
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/eight_schools_dense.npz"
+        save_sampler_state(path, state)
+        loaded = load_sampler_state(path, state)
+    torch.cuda.synchronize()
+    t_ck = time.perf_counter()
+    expect("eight_schools_dense: every field of the loaded state bit for bit the saved one's",
+           same_bits(loaded, state))
+    expect("eight_schools_dense: a dense (10, 10) inverse mass",
+           tuple(loaded.inv_mass.shape) == (10, 10))
+    l1, s1 = dict(kernels.LAUNCHES), hmc_batched.SYNCS["any_active"]
+    raw, state, stats = resume_sampling(density, loaded, KEPT, **kw)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    l2, s2 = dict(kernels.LAUNCHES), hmc_batched.SYNCS["any_active"]
+    x = model.constrain(raw)
+    launches = dict(kernels.LAUNCHES)
+    print(f"launches on the eight_schools_dense path: {launches}", flush=True)
+    during = {k: l2[k] - l1[k] for k in l2}
+    leapfrogs = during[SMALL]
+    expect(f"{SMALL} launched on the eight_schools_dense path", leapfrogs > 0)
+    expect("eight_schools_dense: raw draws (200, 64, 10) and finite",
+           tuple(raw.shape) == (KEPT, CHAINS, 10) and bool(torch.isfinite(raw).all()))
+    sampling_s = t2 - t_ck
+    r_hat = diagnostics.rhat(raw)
+    ess = diagnostics.ess_bulk(raw)
+    n_div = int(stats.diverging.sum())
+    dev_in_mcse = {}
+    for k in ("mu", "tau"):
+        draws = x[k].double()
+        mean, mcse = float(draws.mean()), float(diagnostics.mcse_mean(draws))
+        ref_mean, ref_mcse = ES_JAX[k]
+        dev_in_mcse[k] = abs(mean - ref_mean) / math.hypot(mcse, ref_mcse)
+    line = {
+        "kernel": "nuts_batched_t", "cell": "eight_schools_dense", "metric": "dense",
+        "chains": CHAINS, "warmup": WARMUP, "kept": KEPT, "max_depth": MAX_DEPTH,
+        "target_accept": ES_TARGET, "init_scale": ES_INIT_SCALE,
+        "warmup_s": t1 - t0,
+        "checkpoint_s": t_ck - t1,
+        "sampling_s": sampling_s,
+        "draws_per_s": CHAINS * KEPT / sampling_s,
+        "leapfrogs_per_transition": float(stats.n_steps.float().mean()),
+        "batched_leapfrogs": leapfrogs,
+        "ms_per_leapfrog": 1e3 * sampling_s / max(leapfrogs, 1),
+        "host_syncs_per_leapfrog": (s2 - s1) / max(leapfrogs, 1),
+        "step_size": float(state.eps),
+        "mean_accept": float(stats.accept_prob.mean()),
+        "divergences": n_div,
+        "transitions": CHAINS * KEPT,
+        "launches_during_sampling": during,
+        "max_rhat": float(np.max(r_hat)),
+        "min_ess_bulk": float(np.min(ess)),
+        "mu_dev_in_mcse": dev_in_mcse["mu"],
+        "tau_dev_in_mcse": dev_in_mcse["tau"],
+    }
+    expect(f"eight_schools_dense: max R-hat {line['max_rhat']:.4f} <= 1.05",
+           line["max_rhat"] <= 1.05)
+    expect(f"eight_schools_dense: divergences {n_div} <= 1% of {CHAINS * KEPT}",
+           n_div <= 0.01 * CHAINS * KEPT)
+    for k, d in dev_in_mcse.items():
+        expect(f"eight_schools_dense: the mean of {k} within 5 combined MCSE of the JAX "
+               f"package's ({d:.2f})", d <= 5.0)
+    return line, {SMALL: launches[SMALL]}
+
+
+def eight_schools_loglik_t(u, device, dtype):
+    """Cell 14's likelihood on the transposed (dim, N) block, batch-capable
+    (SMC's likelihood): x from the swapped view, the same sum over the
+    schools a column."""
+    y = torch.as_tensor(ES_Y, dtype=dtype, device=device)
+    sigma = torch.as_tensor(ES_SIGMA, dtype=dtype, device=device)
+
+    def loglik_t(vT):
+        x = u.from_linked_vec(vT.transpose(0, 1))[0]
+        theta = x["mu"][:, None] + x["tau"][:, None] * x["theta_raw"]
+        return torch.sum(-0.5 * ((y - theta) / sigma) ** 2, dim=-1)
+
+    loglik_t.batch_capable = True
+    return loglik_t
+
+
+def run_smc_eight_schools(dev):
+    """Path 21, smc_eight_schools: `run_smc(prior, loglik, ...,
+    transposed=True, mutation='hmc')` on SMC_N particles with the SMC_*
+    settings, torch seed 0. The prior is `Model(priors).batched_logdensity_
+    t_fn()`: its value is the whole-model value kernel (#1), and its
+    gradient in the HMC mutation's leapfrogs the vector-Jacobian kernel
+    (#3); the likelihood is cell 14's on the (10, N) block
+    (`eight_schools_loglik_t`). The particles start from the prior's draws
+    (mu ~ N(0, 5), tau ~ HalfCauchy(5), theta_raw ~ N(0, 1)) mapped to linked
+    space by `to_linked_vec`. Gates: final beta 1; the means of mu and tau
+    within 5 standard errors (the particles' sd / sqrt(N)) of the exact
+    posterior means (`eight_schools_exact_means`; their distance from
+    the JAX package's NUTS means ES_JAX, in combined standard errors, is
+    printed too); the log evidence within 4 spreads of the JAX package's
+    float64 run_smc at the same settings (SMC_LOGEV_JAX)."""
+    import tpu_bijectors_torch as tbt
+    from tpu_bijectors_torch import dists, kernels
+    from tpu_bijectors_torch.infer import hmc_batched, run_smc
+
+    prior_model = tbt.Model(eight_schools_model(dists, dev, torch.float32), device=dev)
+    u = prior_model.unconstrainer()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    f32 = dict(generator=gen, dtype=torch.float32, device=dev)
+    n = SMC_N
+    x0 = {"mu": 5.0 * torch.randn(n, **f32),
+          "tau": 5.0 * torch.abs(torch.tan(math.pi * (torch.rand(n, **f32) - 0.5))),
+          "theta_raw": torch.randn((n, 8), **f32)}
+    p0 = u.to_linked_vec(x0)[0].T.contiguous()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    hmc_batched.reset_sync_count()
+    t0 = time.perf_counter()
+    res = run_smc(
+        prior_model.batched_logdensity_t_fn(), eight_schools_loglik_t(u, dev, torch.float32),
+        gen, p0, n_mutations=SMC_MUTATIONS, target_ess=SMC_TARGET_ESS, mutation="hmc",
+        hmc_eps=SMC_EPS, hmc_leapfrog=SMC_LEAPFROG, transposed=True,
+    )
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = dict(kernels.LAUNCHES)
+    syncs = hmc_batched.SYNCS["stage"]
+    print(f"launches on the smc_eight_schools path: {launches}", flush=True)
+    for k in ("slab_value", "slab_vjp"):
+        expect(f"smc_eight_schools: {k} launched ({launches[k]})", launches[k] > 0)
+    expect(f"smc_eight_schools: particles (10, {n}) and finite",
+           tuple(res.particles.shape) == (10, n) and bool(torch.isfinite(res.particles).all()))
+    x = u.from_linked_vec(res.particles.T)[0]
+    exact = eight_schools_exact_means()
+    dev_in_se, dev_jax, stats = {}, {}, {}
+    for k in ("mu", "tau"):
+        d = x[k].double()
+        mean, se = float(d.mean()), float(d.std()) / math.sqrt(n)
+        dev_in_se[k] = abs(mean - exact[k]) / se
+        ref_mean, ref_mcse = ES_JAX[k]
+        dev_jax[k] = abs(mean - ref_mean) / math.hypot(se, ref_mcse)
+        stats[k] = (mean, se)
+    logev = float(res.log_evidence)
+    ref_ev, spread = SMC_LOGEV_JAX
+    leapfrogs = res.n_stages * SMC_MUTATIONS * SMC_LEAPFROG
+    line = {
+        "engine": "run_smc", "cell": "smc_eight_schools", "mutation": "hmc",
+        "transposed": True, "particles": n, "n_mutations": SMC_MUTATIONS,
+        "hmc_leapfrog": SMC_LEAPFROG, "hmc_eps": SMC_EPS, "target_ess": SMC_TARGET_ESS,
+        "seconds": t1 - t0,
+        "stages": res.n_stages,
+        "ms_per_stage": 1e3 * (t1 - t0) / max(res.n_stages, 1),
+        "batched_leapfrogs": leapfrogs,
+        "ms_per_leapfrog": 1e3 * (t1 - t0) / max(leapfrogs, 1),
+        "host_syncs_per_stage": syncs / max(res.n_stages, 1),
+        "final_beta": float(res.final_beta),
+        "log_evidence": logev,
+        "log_evidence_jax": ref_ev,
+        "log_evidence_dev_in_spreads": abs(logev - ref_ev) / spread,
+        "launches": {k: launches[k] for k in ("slab_value", "slab_vjp")},
+        "mu_mean": stats["mu"][0], "mu_se": stats["mu"][1],
+        "tau_mean": stats["tau"][0], "tau_se": stats["tau"][1],
+        "mu_exact": exact["mu"], "tau_exact": exact["tau"],
+        "mu_dev_in_se": dev_in_se["mu"],
+        "tau_dev_in_se": dev_in_se["tau"],
+        "mu_dev_from_nuts_jax_in_se": dev_jax["mu"],
+        "tau_dev_from_nuts_jax_in_se": dev_jax["tau"],
+    }
+    print(f"smc_eight_schools: log evidence {logev:.5f}; the JAX package's float64 "
+          f"{ref_ev:.5f} (spread {spread:.5f})", flush=True)
+    expect(f"smc_eight_schools: final beta {line['final_beta']} == 1", line["final_beta"] == 1.0)
+    for k, d in dev_in_se.items():
+        expect(f"smc_eight_schools: the mean of {k} within 5 standard errors of the exact "
+               f"posterior mean ({d:.2f}; from the JAX package's NUTS mean {dev_jax[k]:.2f} "
+               f"combined)", d <= 5.0)
+    expect(f"smc_eight_schools: log evidence within 4 spreads of the JAX package's "
+           f"({line['log_evidence_dev_in_spreads']:.2f})",
+           line["log_evidence_dev_in_spreads"] <= 4.0)
+    return line, {k: launches[k] for k in ("slab_value", "slab_vjp")}
+
+
+def mv_posterior_sd(p):
+    """The posterior sd of each of mv_conjugate's 151 linked coordinates:
+    the likelihood's copy sqrt(diag(L_A L_A') / 201), the other Gaussian
+    copies sqrt(diag(L_A L_A')), the canonical block sqrt(diag(J^-1)), the
+    t(5) copies sqrt(5/3 diag(L_B L_B')), the log-normal's and the diagonal
+    normal's scales."""
+    sa = np.sqrt(np.diag(p["LA"] @ p["LA"].T))
+    sb = np.sqrt(p["df"] / (p["df"] - 2.0) * np.diag(p["LB"] @ p["LB"].T))
+    return np.concatenate([sa / math.sqrt(MV_N_OBS + 1), np.tile(sa, 3),
+                           np.sqrt(np.diag(np.linalg.inv(p["J"]))), np.tile(sb, 4),
+                           p["ln_scale"], p["diag_scale"]])
+
+
+def run_advi_mv(dev):
+    """Path 22, advi_mv_conjugate: `fit_advi(Model(mvdense,
+    loglik).batched_logdensity_t_fn(), ..., q=FullRankGaussian,
+    estimator='stl', transposed=True)` with n_mc ADVI_MC on cell 10's
+    mv_conjugate model: every step's density is the whole-model value kernel
+    (#1) with the Gaussian and t loop entries plus the likelihood, and its
+    backward the vector-Jacobian kernel (#3) with the cotangent of the
+    mean. ADVI_STEPS Adam steps at ADVI_LR, torch seed 0. Every block of
+    this posterior is Gaussian in linked space or symmetric, so the fit's
+    mean is the posterior's. Gates: every fitted mean within 0.25
+    posterior sd of the known one; the likelihood block's fitted variances
+    within 15% of diag(Sigma / 201); the mean loss of the last 100 steps
+    below that of the first 100."""
+    import tpu_bijectors_torch as tbt
+    from tpu_bijectors_torch import dists, kernels
+    from tpu_bijectors_torch.infer import FullRankGaussian, fit_advi
+
+    d, p, post = mvdense_model(dists, dev, torch.float32)
+    loglik, post0 = mv_conjugate_data(dev, p["LA"], p["muA"])
+    post[:MV_K] = post0
+    sd = mv_posterior_sd(p)
+    model = tbt.Model(d, loglik=loglik, device=dev)
+    dim = model.dim()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = fit_advi(model.batched_logdensity_t_fn(), gen, dim,
+                   q=FullRankGaussian.init(dim, torch.float32, dev), n_steps=ADVI_STEPS,
+                   n_mc=ADVI_MC, learning_rate=ADVI_LR, estimator="stl", transposed=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = dict(kernels.LAUNCHES)
+    print(f"launches on the advi_mv_conjugate path: {launches}", flush=True)
+    for k in ("slab_value", "slab_vjp"):
+        expect(f"advi_mv_conjugate: {k} launched every step ({launches[k]} for {ADVI_STEPS})",
+               launches[k] >= ADVI_STEPS)
+    loc = res.q.loc.double().cpu().numpy()
+    L = res.q._L().double()
+    var = torch.sum(L * L, dim=1).cpu().numpy()
+    mean_dev = np.abs(loc - post) / sd
+    var_ref = np.diag(p["LA"] @ p["LA"].T) / (MV_N_OBS + 1)
+    var_dev = np.abs(var[:MV_K] / var_ref - 1.0)
+    losses = res.losses.double().cpu().numpy()
+    line = {
+        "engine": "fit_advi", "cell": "advi_mv_conjugate", "q": "FullRankGaussian",
+        "estimator": "stl", "transposed": True, "n_mc": ADVI_MC, "n_steps": ADVI_STEPS,
+        "learning_rate": ADVI_LR,
+        "seconds": t1 - t0,
+        "steps_per_s": ADVI_STEPS / (t1 - t0),
+        "ms_per_step": 1e3 * (t1 - t0) / ADVI_STEPS,
+        "launches": {k: launches[k] for k in ("slab_value", "slab_vjp")},
+        "max_mean_dev_in_sd": float(np.max(mean_dev)),
+        "max_theta_var_rel_dev": float(np.max(var_dev)),
+        "loss_first_100": float(np.mean(losses[:100])),
+        "loss_last_100": float(np.mean(losses[-100:])),
+    }
+    expect("advi_mv_conjugate: losses finite", bool(np.all(np.isfinite(losses))))
+    expect(f"advi_mv_conjugate: every fitted mean within 0.25 posterior sd of the known one "
+           f"(max {line['max_mean_dev_in_sd']:.3f})", line["max_mean_dev_in_sd"] <= 0.25)
+    expect(f"advi_mv_conjugate: theta's fitted variances within 15% of diag(Sigma / 201) "
+           f"(max {line['max_theta_var_rel_dev']:.3f})", line["max_theta_var_rel_dev"] <= 0.15)
+    expect(f"advi_mv_conjugate: mean loss of the last 100 steps {line['loss_last_100']:.3f} "
+           f"below the first 100's {line['loss_first_100']:.3f}",
+           line["loss_last_100"] < line["loss_first_100"])
+    return line, {k: launches[k] for k in ("slab_value", "slab_vjp")}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4287,11 +4755,25 @@ def main():
     pp_launches, _, err["prim_probe"] = run_prim_probe(dev)
     launches["prim_probe"] = pp_launches["prim_probe"]
     lap("prim probe")
+    # --- the nineteenth to twenty-second: ChEES with the dense metric, dense --
+    # NUTS through a checkpoint, SMC and ADVI (each path's own launches)
+    new_lines, new_launches = [], {}
+    for run, phase in ((run_chees_dense, "chees_dense"),
+                       (run_eight_schools_dense, "eight_schools_dense"),
+                       (run_smc_eight_schools, "smc_eight_schools"),
+                       (run_advi_mv, "advi_mv_conjugate")):
+        line, ls = run(dev)
+        new_lines.append(line)
+        for k, n in ls.items():
+            new_launches[k] = new_launches.get(k, 0) + n
+        lap(phase)
     prep_s = time_prep(dev)
     lap("_prep first calls")
     # --- #2's small design on every model the paths drive ---------------------
     err[SMALL], small_preps = check_small_design(dev)
     launches[SMALL] = sampler_launches[SMALL]  # cell 2's leapfrogs
+    for k, n in new_launches.items():  # and paths 19-22's
+        launches[k] += n
     lap("small-design checks")
     err["slab_value"] = max(err["slab_value"], check_run_walk(dev))
     lap("run-walk checks")
@@ -4418,6 +4900,8 @@ def main():
     print(json.dumps({"sampler": mv_sampler_line}), flush=True)
     print(json.dumps({"sampler": es_line}), flush=True)
     print(json.dumps({"sampler": tr_sampler_line}), flush=True)
+    for line in new_lines:
+        print(json.dumps({"sampler": line}), flush=True)
 
     if failures:
         print("FAILED: " + "; ".join(failures), file=sys.stderr)

@@ -282,7 +282,10 @@ def test_family_densities_match_jax(rng, name, K):
     b = tbt.bijector(tdist)
     _, got = tdist.fused_linked_logdensity(b, torch.as_tensor(y), want_x=False)
     _close(got, ref, VAL_TOL)
-    assert tdist.fused_linked_logdensity(b, torch.as_tensor(y)) is None  # x wanted
+    # with x wanted, x comes from the inverse link beside the fused density
+    x_h, lp_h = tdist.fused_linked_logdensity(b, torch.as_tensor(y))
+    _close(x_h, uj.from_linked_vec(jnp.asarray(y))[0], VAL_TOL)
+    _close(lp_h, ref, VAL_TOL)
     _close(tdist.fused_linked_logdensity_t(b, torch.as_tensor(np.ascontiguousarray(y.T))),
            ref, VAL_TOL)
     ut = tbt.unconstrain(tdist, device="cpu")

@@ -209,12 +209,15 @@ class _PDFamily(LeafDistribution):
         return w * sumd - 0.5 * tr + const + logJ
 
     def fused_linked_logdensity(self, bijector, y, want_x: bool = True):
-        """The linked density without x (vectorize.core hook): the PD
-        log-density kernel, X and L never formed. Declines (None) when x is
-        wanted or the kernel does not serve the leaf."""
-        if want_x or not self._fusable(bijector):
+        """(x, the linked density) by the PD log-density kernel (the
+        vectorize.core hook), its gradient by the trace-gradient kernel;
+        x, where wanted (a likelihood's), by the PD inverse link beside it,
+        else X and L are never formed. Declines (None) where the kernel
+        does not serve the leaf."""
+        if not self._fusable(bijector):
             return None
-        return None, self._fused(y)
+        x = bijector.inverse_and_log_det(y)[0] if want_x else None
+        return x, self._fused(y)
 
     def fused_linked_logdensity_t(self, bijector, yT):
         """The same on the transposed (P, B) block, read in place."""

@@ -1,6 +1,6 @@
 """Warmup adaptation, PyTorch counterpart of `tpu_bijectors/infer/adapt.py`:
-dual-averaging step size, the diagonal Welford mass estimate and the
-Stan-style window schedule. Statistics are averaged over the chain axis of
+dual-averaging step size, the diagonal and dense Welford mass estimates
+and the Stan-style window schedule. Statistics are averaged over the chain axis of
 the one process (the JAX package's `axis_name` sharing across devices is
 not ported).
 """
@@ -100,6 +100,43 @@ def welford_variance(s: WelfordState, regularize: bool = True):
         w = s.count / (s.count + 5.0)
         var = w * var + (1.0 - w) * 1e-3 * torch.ones_like(var)
     return var
+
+
+# ---------------------------------------------------------------------------
+# Welford accumulator for the dense mass matrix (Stan's dense_e metric)
+# ---------------------------------------------------------------------------
+
+
+def welford_cov_init(dim: int, dtype=torch.float64, device="cpu") -> WelfordState:
+    """The WelfordState with a (dim, dim) m2 (sums of outer products)."""
+    return WelfordState(
+        torch.tensor(0.0, dtype=dtype, device=device),
+        torch.zeros(dim, dtype=dtype, device=device),
+        torch.zeros((dim, dim), dtype=dtype, device=device),
+    )
+
+
+def welford_cov_update_batch(s: WelfordState, xs) -> WelfordState:
+    """Fold a (chains, dim) batch into the covariance accumulator (Chan et
+    al. pairwise combine)."""
+    mean_b = torch.mean(xs, dim=0)
+    c = xs - mean_b
+    m2_b = c.T @ c
+    n = float(xs.shape[0])
+    count = s.count + n
+    delta = mean_b - s.mean
+    mean = s.mean + delta * (n / count)
+    m2 = s.m2 + m2_b + torch.outer(delta, delta) * (s.count * n / count)
+    return WelfordState(count, mean, m2)
+
+
+def welford_covariance(s: WelfordState, regularize: bool = True):
+    cov = s.m2 / torch.clamp_min(s.count - 1.0, 1.0)
+    if regularize:
+        w = s.count / (s.count + 5.0)
+        eye = torch.eye(s.mean.shape[-1], dtype=cov.dtype, device=cov.device)
+        cov = w * cov + (1.0 - w) * 1e-3 * eye
+    return cov
 
 
 # ---------------------------------------------------------------------------

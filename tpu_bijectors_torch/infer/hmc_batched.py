@@ -16,21 +16,29 @@ in distribution.
 
 The JAX package's two `lax.while_loop`s are host loops here. The tree
 counter and depth are host ints; each iteration's condition reads one
-`any(active)` from the device, and `SYNCS` counts those reads.
+`any(active)` from the device, and `SYNCS` counts those reads (and the
+reads of the other engines' host loops: ChEES's trajectory length, SMC's
+stage condition).
+
+`hmc_kernel_batched` is the fixed-trajectory transition in the same two
+layouts (SMC's HMC mutation runs it on whole particle blocks).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .hmc import MAX_ENERGY_DELTA, NutsInfo, _trailing_zeros, apply_inv_mass, sample_momentum
+from .hmc import MAX_ENERGY_DELTA, NutsInfo, _trailing_zeros, apply_inv_mass, momentum_from_z
 
-# device -> host reads made by the tree loops' conditions
-SYNCS = {"any_active": 0}
+# device -> host reads: the NUTS tree loops' conditions (`any_active`),
+# ChEES's trajectory length a transition (`trajectory`), SMC's stage
+# condition (`stage`)
+SYNCS = {"any_active": 0, "trajectory": 0, "stage": 0}
 
 
 def reset_sync_count():
-    SYNCS["any_active"] = 0
+    for k in SYNCS:
+        SYNCS[k] = 0
 
 
 def _any(mask) -> bool:
@@ -44,7 +52,8 @@ class _Layout:
     batch-major: state (C, dim); checkpoints (C, S, dim); dim is axis -1.
     transposed:  state (dim, C); checkpoints (S, dim, C); dim is axis -2,
     so a diagonal metric broadcasts as inv_mass[:, None] against the state
-    and the checkpoint stack alike."""
+    and the checkpoint stack alike, and a dense one multiplies from the
+    left."""
 
     def __init__(self, transposed: bool):
         self.transposed = transposed
@@ -60,10 +69,28 @@ class _Layout:
         """Inner product over the dim axis of states or checkpoint stacks."""
         return torch.sum(a * b, dim=-2 if self.transposed else -1)
 
-    def metric(self, inv_mass):
-        """The diagonal inverse mass, broadcastable against states and
-        checkpoint stacks."""
-        return inv_mass[:, None] if self.transposed else inv_mass
+    def aim(self, inv_mass, p):
+        """M^{-1} p in this layout for a diagonal (dim,) or dense (dim, dim)
+        metric."""
+        if not self.transposed:
+            return apply_inv_mass(inv_mass, p)
+        if inv_mass.ndim == 1:
+            return p * inv_mass[:, None]
+        return torch.matmul(inv_mass, p)
+
+    def momentum_from_z(self, z, inv_mass):
+        """p ~ N(0, M) from a standard normal z of the state's shape."""
+        if not self.transposed:
+            return momentum_from_z(z, inv_mass)
+        if inv_mass.ndim == 1:
+            return z / torch.sqrt(inv_mass)[:, None]
+        # p = L^{-T} z columnwise, inv_mass = L L' (hmc.momentum_from_z)
+        L = torch.linalg.cholesky(inv_mass.to(z.dtype))
+        return torch.linalg.solve_triangular(L.T, z, upper=True)
+
+    def momentum(self, generator, q, inv_mass):
+        z = torch.randn(q.shape, generator=generator, dtype=q.dtype, device=q.device)
+        return self.momentum_from_z(z, inv_mass)
 
     def ck_zeros(self, q, S):
         C = self.chains(q)
@@ -103,12 +130,13 @@ def _batched_logp_and_grad(logp_batched):
     return f
 
 
-def _leapfrog(lg, q, p, grad, eps_dir, inv_mass):
+def _leapfrog(lg, q, p, grad, eps_dir, inv_mass, aim=apply_inv_mass):
     """One leapfrog step; eps_dir is the signed step size, broadcastable
-    against the state ((1, C) or (C, 1)); inv_mass is the diagonal metric
-    broadcastable against it (`_Layout.metric`)."""
+    against the state ((1, C) or (C, 1)); `aim(inv_mass, p)` is M^{-1} p
+    (`_Layout.aim`; by default `apply_inv_mass`, whose diagonal broadcasts
+    as given)."""
     p_half = p + 0.5 * eps_dir * grad
-    q_new = q + eps_dir * apply_inv_mass(inv_mass, p_half)
+    q_new = q + eps_dir * aim(inv_mass, p_half)
     lp_new, g_new = lg(q_new)
     p_new = p_half + 0.5 * eps_dir * g_new
     return q_new, p_new, lp_new, g_new
@@ -121,13 +149,12 @@ def nuts_kernel_batched(logp_batched, max_depth: int = 10, transposed: bool = Fa
     Model.batched_logdensity_fn). transposed=True: q and grad are (dim, C)
     and `logp_batched` maps (dim, C) -> (C,) (e.g.
     Model.batched_logdensity_t_fn). `eps` is a scalar (0-d tensor),
-    `inv_mass` a diagonal (dim,)."""
+    `inv_mass` a diagonal (dim,) or dense (dim, dim) metric. The velocity
+    M^{-1} p is what the checkpoints keep, so a dense metric costs one
+    (dim, dim) product a leapfrog."""
     lg = _batched_logp_and_grad(logp_batched)
     L = _Layout(transposed)
-
-    def _aim(inv_mass, p):
-        # M^{-1} p for a state or a checkpoint stack
-        return apply_inv_mass(L.metric(inv_mass), p)
+    _aim = L.aim
 
     def _pick(mask, a, b):
         # where(mask, a, b) with a (C,) chain mask against (C,) or a state
@@ -156,7 +183,7 @@ def nuts_kernel_batched(logp_batched, max_depth: int = 10, transposed: bool = Fa
         while n < n_leaves and _any(~(turning | diverging)):
             active = ~(turning | diverging)
             am = L.bexp(active)
-            nq, np_, nlp, ng = _leapfrog(lg, sq, sp, sg, eps_dir, L.metric(inv_mass))
+            nq, np_, nlp, ng = _leapfrog(lg, sq, sp, sg, eps_dir, inv_mass, _aim)
             # inactive chains keep their old state
             nq = torch.where(am, nq, sq)
             np_ = torch.where(am, np_, sp)
@@ -205,7 +232,7 @@ def nuts_kernel_batched(logp_batched, max_depth: int = 10, transposed: bool = Fa
     def kernel(generator, q, logp, grad, eps, inv_mass):
         C = L.chains(q)
         dtype, dev = q.dtype, q.device
-        p0 = sample_momentum(generator, q, L.metric(inv_mass))
+        p0 = L.momentum(generator, q, inv_mass)
         energy0 = -logp + 0.5 * L.vdot(p0, _aim(inv_mass, p0))
         neg_inf = torch.full((C,), -torch.inf, dtype=dtype, device=dev)
 
@@ -262,5 +289,58 @@ def nuts_kernel_batched(logp_batched, max_depth: int = 10, transposed: bool = Fa
             tree_depth=depth_pc,
         )
         return prop_q, prop_logp, prop_grad, info
+
+    return kernel
+
+
+def _hmc_transition(lg, L, q, logp, grad, eps, inv_mass, z, u_jit, u_acc, n_leapfrog, jitter):
+    """One fixed-trajectory transition of every chain, given its draws: the
+    standard normal z of the state's shape, the jitter and accept
+    uniforms u_jit and u_acc (C,)."""
+    eps_c = eps * (1.0 + jitter * (2.0 * u_jit - 1.0))
+    eb = L.bexp(eps_c)
+    p0 = L.momentum_from_z(z, inv_mass)
+
+    def kin(p):
+        return 0.5 * L.vdot(p, L.aim(inv_mass, p))
+
+    energy0 = -logp + kin(p0)
+    sq, sp, slp, sg = q, p0, logp, grad
+    for _ in range(n_leapfrog):
+        sq, sp, slp, sg = _leapfrog(lg, sq, sp, sg, eb, inv_mass, L.aim)
+    delta = (-slp + kin(sp)) - energy0
+    accept_prob = torch.clamp_max(torch.exp(torch.clamp_max(-delta, 0.0)), 1.0)
+    accept_prob = torch.where(torch.isfinite(delta), accept_prob, 0.0)
+    accept = u_acc < accept_prob
+    am = L.bexp(accept)
+    C = L.chains(q)
+    info = NutsInfo(
+        accept_prob=accept_prob,
+        diverging=delta > MAX_ENERGY_DELTA,
+        n_steps=torch.full((C,), n_leapfrog, dtype=torch.int32, device=q.device),
+        energy=energy0,
+        tree_depth=torch.zeros(C, dtype=torch.int32, device=q.device),
+    )
+    return torch.where(am, sq, q), torch.where(accept, slp, logp), torch.where(am, sg, grad), info
+
+
+def hmc_kernel_batched(logp_batched, n_leapfrog: int = 32, jitter: float = 0.2,
+                       transposed: bool = False):
+    """Natively multi-chain fixed-trajectory HMC: per-chain step-size jitter
+    (uniform in [1 - jitter, 1 + jitter]), momentum refresh and Metropolis
+    accept, with the density and its gradient evaluated on the whole block
+    a leapfrog. (generator, q, logp (C,), grad, eps, inv_mass) -> (q',
+    logp', grad', NutsInfo with (C,) fields); the layouts as in
+    nuts_kernel_batched. The leapfrogs run without a read to the host."""
+    lg = _batched_logp_and_grad(logp_batched)
+    L = _Layout(transposed)
+
+    def kernel(generator, q, logp, grad, eps, inv_mass):
+        C = L.chains(q)
+        z = torch.randn(q.shape, generator=generator, dtype=q.dtype, device=q.device)
+        u_jit = torch.rand(C, generator=generator, dtype=q.dtype, device=q.device)
+        u_acc = torch.rand(C, generator=generator, dtype=q.dtype, device=q.device)
+        return _hmc_transition(lg, L, q, logp, grad, eps, inv_mass, z, u_jit, u_acc,
+                               n_leapfrog, jitter)
 
     return kernel

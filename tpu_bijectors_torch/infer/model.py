@@ -14,7 +14,9 @@ kernels on the card) and autograd; the batch-major sampler
 (`batched_logdensity_t_fn`) runs on the (dim, B) state: the prior term as
 one fused kernel for the value and one for the value and gradient, the
 likelihood term through the inverse link and autograd; `nuts_batched_t`
-evaluates it.
+evaluates it. Both declare `batch_capable`, which `as_batched` (the
+engines' lift of a density to whole blocks) reads. The per-example form
+(`logdensity_fn`) evaluates the batch-major one on a block of one.
 """
 
 from __future__ import annotations
@@ -54,6 +56,22 @@ class Model:
         leading axes."""
         return self._u.from_linked_vec(v)[0]
 
+    def logdensity_fn(self):
+        """logp(v) on one flat unconstrained vector (dim,) -> (), the JAX
+        package's per-example density (the `nuts` and `hmc` kernels take
+        it). It evaluates `batched_logdensity_fn` on the (1, dim) view of v
+        (the link kernels' autograd Functions do not vmap), so its value
+        and gradient are the batch-major density's; leading batch axes
+        are evaluated as a block. `as_batched` lifts it to that batch-major
+        density (its `batched_form`)."""
+        batched = self.batched_logdensity_fn()
+
+        def logdensity(v):
+            return batched(v.reshape(-1, v.shape[-1])).reshape(v.shape[:-1])
+
+        logdensity.batched_form = batched
+        return logdensity
+
     def batched_logdensity_fn(self):
         """logp on batch-major (B, dim) states, (B,) out. Prior-only it is
         `linked_logdensity` (the LKJ leaf through its log-det kernel, X
@@ -83,6 +101,7 @@ class Model:
             return lp.detach(), g
 
         logdensity.value_and_grad_fn = value_and_grad_fn
+        logdensity.batch_capable = True
         return logdensity
 
     def batched_logdensity_t_fn(self):
@@ -113,6 +132,7 @@ class Model:
                 return u.linked_logdensity_t(vT)
 
             prior_logdensity_t.value_and_grad_fn = _prior_vg
+            prior_logdensity_t.batch_capable = True
             return prior_logdensity_t
 
         def lik_t(vT):
@@ -131,6 +151,7 @@ class Model:
             return lp_p + lp_l.detach(), g_p + g_l
 
         logdensity_t.value_and_grad_fn = _full_vg
+        logdensity_t.batch_capable = True
         return logdensity_t
 
     def init_positions(self, generator, n_chains: int, scale: float = 1.0):
@@ -168,7 +189,8 @@ class Model:
         init: str = "random",
         **kwargs,
     ):
-        """One-call NUTS: windowed-adaptation warmup + sampling.
+        """One-call sampling: warmup, then draws, with the density each
+        kernel takes.
 
         kernel='auto' picks the transposed-layout multi-chain kernel
         (`nuts_batched_t`) whenever the kernels are enabled and the model
@@ -177,27 +199,39 @@ class Model:
         inverse-link kernels). Otherwise it picks the batch-major
         multi-chain kernel (`nuts_batched`, on `batched_logdensity_fn`), as
         the JAX package does; on the card with the kernels disabled its
-        launches raise. Either name may be passed explicitly. Returns
-        (samples, state, stats): samples is the constrained dict with
-        leading (n_kept, n_chains) axes when `constrained=True`, else the
-        raw (n_kept, n_chains, dim) linked tensor. Every random draw comes
-        from `generator` (on the model's device).
+        launches raise. Any `warmup_and_sample` kernel name may be passed:
+        'nuts' and 'hmc' (on the per-example `logdensity_fn`),
+        'nuts_batched', 'nuts_batched_t', and 'chees' (`run_chees` on the
+        batch-major density); `metric='dense'` and the other keywords go
+        to the engine. Returns (samples, state, stats): samples is the
+        constrained dict with leading (n_kept, n_chains) axes when
+        `constrained=True`, else the raw (n_kept, n_chains, dim) linked
+        tensor. Every random draw comes from `generator` (on the model's
+        device).
 
         init='random' draws N(0, 1) starting positions; 'laplace' and
-        'pathfinder' are not ported yet and raise."""
+        'pathfinder' are not ported yet (ROADMAP.md Queue 1: they wait for
+        the port of optax's L-BFGS) and raise."""
         from .sampler import sample_with_kernel
 
         if kernel == "auto":
             kernel = self._auto_kernel()
         if init in ("laplace", "pathfinder"):
-            raise NotImplementedError(f"init={init!r} is not ported yet")
+            raise NotImplementedError(
+                f"init={init!r} is not ported yet (ROADMAP.md Queue 1: the L-BFGS slice)"
+            )
         if init != "random":
             raise ValueError(f"unknown init {init!r}")
-        fn = (
-            self.batched_logdensity_t_fn()
-            if kernel == "nuts_batched_t"
-            else self.batched_logdensity_fn()
-        )
+        densities = {
+            "nuts": self.logdensity_fn,
+            "hmc": self.logdensity_fn,
+            "nuts_batched": self.batched_logdensity_fn,
+            "nuts_batched_t": self.batched_logdensity_t_fn,
+            "chees": self.batched_logdensity_fn,
+        }
+        if kernel not in densities:
+            raise ValueError(f"unknown kernel {kernel!r}")
+        fn = densities[kernel]()
         q0 = self.init_positions(generator, n_chains)
         samples, state, stats = sample_with_kernel(
             fn, generator, q0, n_warmup=n_warmup, n_samples=n_samples,
@@ -206,3 +240,27 @@ class Model:
         if constrained:
             samples = self.constrain(samples)
         return samples, state, stats
+
+
+def as_batched(logdensity_fn):
+    """A log-density lifted to whole (batch, dim) blocks: the function itself
+    when it declares batch support (`fn.batch_capable = True`, as
+    Model.batched_logdensity_fn does), the batch-major form it carries
+    (`fn.batched_form`: Model.logdensity_fn), else `torch.func.vmap` of it.
+
+    Opt-in by attribute rather than a shape probe: a per-example density
+    whose reductions happen to broadcast back to (batch,) would pass a
+    shape check while silently mixing samples' likelihoods. Used by the
+    ADVI, SMC and ChEES engines and the per-chain kernels."""
+    if getattr(logdensity_fn, "batch_capable", False):
+        return logdensity_fn
+    batched = getattr(logdensity_fn, "batched_form", None)
+    if batched is not None:
+        return batched
+
+    def vmapped(v):
+        if v.ndim == 1:
+            return logdensity_fn(v)
+        return torch.func.vmap(logdensity_fn)(v)
+
+    return vmapped

@@ -1,13 +1,17 @@
-"""NUTS sampling driver, PyTorch counterpart of
-`tpu_bijectors/infer/sampler.py`: windowed-adaptation warmup, then
-sampling, with the multi-chain kernels (`nuts_batched` on batch-major
-densities, `nuts_batched_t` on transposed ones) and a diagonal metric.
+"""NUTS/HMC sampling driver, PyTorch counterpart of
+`tpu_bijectors/infer/sampler.py`: windowed-adaptation warmup with a
+diagonal or dense metric, then sampling, with the multi-chain kernels
+(`nuts_batched` on batch-major densities, `nuts_batched_t` on transposed
+ones) and the per-chain ones (`nuts`, `hmc` on per-example densities,
+lifted to the chain block by `model.as_batched`); `sample_with_kernel`
+also routes 'chees' to chees.run_chees.
 
 The JAX package runs the whole run as one `lax.scan`; here the transitions
 are a host loop, and every random draw comes from one `torch.Generator` on
 the state's device (JAX's `key` arguments are `generator` arguments).
 Adaptation statistics stay on the device: a transition reads nothing back
-to the host beyond the tree loops' conditions (hmc_batched.SYNCS).
+to the host beyond the tree loops' conditions (hmc_batched.SYNCS). The
+state checkpoints through shard/checkpoint.py.
 """
 
 from __future__ import annotations
@@ -23,11 +27,15 @@ from .adapt import (
     stepsize_init,
     stepsize_init_like,
     stepsize_update,
+    welford_cov_init,
+    welford_cov_update_batch,
+    welford_covariance,
     welford_init,
     welford_update_batch,
     welford_variance,
 )
-from .hmc_batched import nuts_kernel_batched
+from .hmc_batched import _batched_logp_and_grad, hmc_kernel_batched, nuts_kernel_batched
+from .model import as_batched
 
 
 class SamplerState(NamedTuple):
@@ -38,7 +46,7 @@ class SamplerState(NamedTuple):
     logp: torch.Tensor  # (chains,)
     grad: torch.Tensor  # (chains, dim)
     eps: torch.Tensor  # scalar step size (shared across chains)
-    inv_mass: torch.Tensor  # (dim,) diagonal inverse mass
+    inv_mass: torch.Tensor  # (dim,) diagonal or (dim, dim) dense inverse mass
     ss: StepSizeAdaptState
     welford: WelfordState
     iteration: int
@@ -55,39 +63,35 @@ def init_sampler(
     logdensity_fn, generator, q0, eps0: float = 0.1, metric: str = "diag",
     batched: bool = False, inv_mass0=None,
 ) -> SamplerState:
-    """q0: (chains, dim) initial positions. batched: `logdensity_fn` maps
-    (chains, dim) -> (chains,) directly; the port has only such densities,
-    so it must be True (the JAX package's per-chain form, its default
-    batched=False, is not ported and raises). Its `value_and_grad_fn`,
-    where it has one, gives the initial logp and gradient, so they come
-    from the same density definition as every leapfrog's. inv_mass0 seeds
-    the initial inverse mass (dim,) instead of the identity."""
-    if metric != "diag":
-        raise NotImplementedError(f"the {metric!r} metric is not ported yet; use 'diag'")
-    if not batched:
-        raise NotImplementedError(
-            "per-chain densities (batched=False) are not ported; pass a batched one"
-        )
-    vg = getattr(logdensity_fn, "value_and_grad_fn", None)
-    if vg is not None:
-        logp, grad = vg(q0)
-    else:
-        with torch.enable_grad():
-            v = q0.detach().requires_grad_(True)
-            lp = logdensity_fn(v)
-            (grad,) = torch.autograd.grad(lp.sum(), v)
-        logp = lp.detach()
+    """q0: (chains, dim) initial positions. metric: 'diag' (Welford
+    variance) or 'dense' (full covariance, Stan's dense_e). batched:
+    `logdensity_fn` maps (chains, dim) -> (chains,) directly; otherwise it
+    is a per-example density, lifted by `as_batched`. The density's
+    `value_and_grad_fn`, where it has one, gives the initial logp and
+    gradient, so they come from the same density definition as every
+    leapfrog's. inv_mass0 seeds the initial inverse mass ((dim,) for diag,
+    (dim, dim) for dense) instead of the identity."""
     dtype, dev = q0.dtype, q0.device
     dim = q0.shape[-1]
-    inv_mass = torch.ones(dim, dtype=dtype, device=dev)
+    if metric == "diag":
+        inv_mass = torch.ones(dim, dtype=dtype, device=dev)
+        wf = welford_init(dim, dtype, dev)
+    elif metric == "dense":
+        inv_mass = torch.eye(dim, dtype=dtype, device=dev)
+        wf = welford_cov_init(dim, dtype, dev)
+    else:
+        raise ValueError(f"unknown metric {metric!r}")
     if inv_mass0 is not None:
         inv_mass0 = torch.as_tensor(inv_mass0, dtype=dtype, device=dev)
         if inv_mass0.shape != inv_mass.shape:
             raise ValueError(
                 f"inv_mass0 shape {tuple(inv_mass0.shape)} does not match the "
-                f"'diag' metric shape {tuple(inv_mass.shape)}"
+                f"{metric!r} metric shape {tuple(inv_mass.shape)}"
             )
         inv_mass = inv_mass0
+    if not batched:
+        logdensity_fn = as_batched(logdensity_fn)
+    logp, grad = _batched_logp_and_grad(logdensity_fn)(q0)
     return SamplerState(
         generator=generator,
         q=q0,
@@ -96,26 +100,31 @@ def init_sampler(
         eps=torch.tensor(eps0, dtype=dtype, device=dev),
         inv_mass=inv_mass,
         ss=stepsize_init(eps0, dtype, dev),
-        welford=welford_init(dim, dtype, dev),
+        welford=wf,
         iteration=0,
     )
 
 
-def _build_vkernel(logdensity_fn, kernel: str, max_depth: int):
+def _build_vkernel(logdensity_fn, kernel: str, max_depth: int, n_leapfrog: int = 32):
     """(vkernel, init_logdensity) for a kernel name, shared by
     warmup_and_sample and resume_sampling (same settings give the same
-    transitions). 'nuts_batched': `logdensity_fn` maps (chains, dim) ->
-    (chains,) (Model.batched_logdensity_fn) and the state stays
-    batch-major. 'nuts_batched_t': `logdensity_fn` maps (dim, chains) ->
-    (chains,) (Model.batched_logdensity_t_fn), and the state is transposed
-    at the transition boundary."""
+    transitions). 'nuts' and 'hmc': `logdensity_fn` is per-example, and
+    the chains run as one block of the batched kernels on its
+    `as_batched` lift (the JAX package vmaps its C = 1 kernels: the same
+    transition in distribution). 'nuts_batched': `logdensity_fn` maps
+    (chains, dim) -> (chains,) (Model.batched_logdensity_fn) and the state
+    stays batch-major. 'nuts_batched_t': `logdensity_fn` maps (dim, chains)
+    -> (chains,) (Model.batched_logdensity_t_fn), and the state is
+    transposed at the transition boundary."""
+    if kernel == "nuts":
+        return nuts_kernel_batched(as_batched(logdensity_fn), max_depth=max_depth), logdensity_fn
+    if kernel == "hmc":
+        return (hmc_kernel_batched(as_batched(logdensity_fn), n_leapfrog=n_leapfrog),
+                logdensity_fn)
     if kernel == "nuts_batched":
         return nuts_kernel_batched(logdensity_fn, max_depth=max_depth), logdensity_fn
     if kernel != "nuts_batched_t":
-        raise NotImplementedError(
-            f"kernel {kernel!r} is not ported yet; the port has 'nuts_batched' "
-            "and 'nuts_batched_t'"
-        )
+        raise ValueError(f"unknown kernel {kernel!r}")
     step_kernel = nuts_kernel_batched(logdensity_fn, max_depth=max_depth, transposed=True)
 
     def vkernel(generator, q, lp, g, eps, im):
@@ -194,15 +203,15 @@ def _run_sampling(vkernel, state: SamplerState, n_samples: int, thin: int):
 
 def resume_sampling(
     logdensity_fn, state: SamplerState, n_samples: int, kernel: str = "nuts_batched_t",
-    max_depth: int = 10, thin: int = 1,
+    max_depth: int = 10, n_leapfrog: int = 32, thin: int = 1,
 ):
     """Continue post-warmup sampling from a SamplerState, e.g. the state a
     warmup_and_sample run with n_samples=0 returns. With the same density
     and kernel settings, the continuation repeats the tail of an
     uninterrupted warmup_and_sample run draw for draw (the state carries
-    its generator). Returns (samples, state, stats) like
-    warmup_and_sample."""
-    vkernel, _ = _build_vkernel(logdensity_fn, kernel, max_depth)
+    its generator; shard/checkpoint.py's `load_sampler_state` restores
+    one). Returns (samples, state, stats) like warmup_and_sample."""
+    vkernel, _ = _build_vkernel(logdensity_fn, kernel, max_depth, n_leapfrog)
     return _run_sampling(vkernel, state, n_samples, thin)
 
 
@@ -214,6 +223,7 @@ def warmup_and_sample(
     n_samples: int = 500,
     kernel: str = "nuts_batched_t",
     max_depth: int = 10,
+    n_leapfrog: int = 32,
     target_accept: float = 0.8,
     eps0: float = 0.1,
     thin: int = 1,
@@ -223,17 +233,23 @@ def warmup_and_sample(
     """Windowed-adaptation warmup (dual-averaged step size on the
     cross-chain mean acceptance, Welford variance in the mass windows, the
     step-size adaptation restarted after each metric refresh), then
-    sampling at the dual-averaged step size.
+    sampling at the dual-averaged step size. metric='dense' adapts the
+    full covariance instead of the variance (the leapfrog's products at
+    float32's full precision on the card: hmc.py).
 
     Returns (samples (n_samples // thin, chains, dim), SamplerState,
     RunStats)."""
-    vkernel, init_logdensity = _build_vkernel(logdensity_fn, kernel, max_depth)
+    vkernel, init_logdensity = _build_vkernel(logdensity_fn, kernel, max_depth, n_leapfrog)
     state = init_sampler(
         init_logdensity, generator, q0, eps0, metric=metric,
-        batched=True, inv_mass0=inv_mass0,
+        batched=kernel.startswith("nuts_batched"), inv_mass0=inv_mass0,
     )
     window_id, window_end = build_schedule(n_warmup)
     dim, dtype, dev = q0.shape[-1], q0.dtype, q0.device
+    dense = metric == "dense"
+    wf_update = welford_cov_update_batch if dense else welford_update_batch
+    wf_estimate = welford_covariance if dense else welford_variance
+    wf_fresh = welford_cov_init if dense else welford_init
     for wid, wend in zip(window_id, window_end):
         q, logp, grad, info = vkernel(
             state.generator, state.q, state.logp, state.grad, state.eps, state.inv_mass
@@ -242,12 +258,12 @@ def warmup_and_sample(
         ss = stepsize_update(state.ss, torch.mean(info.accept_prob), target=target_accept)
         eps = torch.exp(ss.log_eps)
         # mass: Welford inside mass windows; refresh + reset at window ends
-        wf = welford_update_batch(state.welford, q) if wid >= 0 else state.welford
+        wf = wf_update(state.welford, q) if wid >= 0 else state.welford
         inv_mass = state.inv_mass
         if wend:
             refresh = wf.count > 2
-            inv_mass = torch.where(refresh, welford_variance(wf), inv_mass)
-            fresh = welford_init(dim, dtype, dev)
+            inv_mass = torch.where(refresh, wf_estimate(wf), inv_mass)
+            fresh = wf_fresh(dim, dtype, dev)
             wf = WelfordState(*(torch.where(refresh, a, b) for a, b in zip(fresh, wf)))
             # restart step-size adaptation after a metric refresh (Stan)
             ss = StepSizeAdaptState(
@@ -266,10 +282,18 @@ def sample_with_kernel(
     **kwargs,
 ):
     """The one place engine names are routed (Model.sample dispatches
-    through here). The port has `warmup_and_sample`'s 'nuts_batched' and
-    'nuts_batched_t'; 'chees' and the other engines are not ported yet."""
+    through here): any warmup_and_sample kernel name, plus 'chees' ->
+    chees.run_chees. ChEES adapts its own mass matrix from scratch, so a
+    warm-start `inv_mass0` (a warmup_and_sample keyword) is dropped for
+    it."""
     if kernel == "chees":
-        raise NotImplementedError("ChEES ('chees') is not ported yet")
+        from .chees import run_chees
+
+        kwargs.pop("inv_mass0", None)
+        return run_chees(
+            logdensity_fn, generator, q0, n_warmup=n_warmup, n_samples=n_samples,
+            **kwargs,
+        )
     return warmup_and_sample(
         logdensity_fn, generator, q0, n_warmup=n_warmup, n_samples=n_samples,
         kernel=kernel, **kwargs,
