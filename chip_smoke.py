@@ -18,8 +18,10 @@ traced models (`generic-traced` of tools/tpu_sweep.py: two truncated
 priors, Kumaraswamy, BetaPrime, InverseGaussian, JohnsonSU,
 TriangularDist, a Normal mixture and four joint order statistics, linked
 dim 12; the JAX tests' truncated-leaves and vector-leaves models) on two,
-the #14 probe, and the engines of the thirteenth slice (ChEES with the
-dense metric, dense NUTS through a checkpoint, SMC, ADVI) on four:
+the #14 probe, the engines of the thirteenth slice (ChEES with the
+dense metric, dense NUTS through a checkpoint, SMC, ADVI) on four, and
+those of the fourteenth (MAP + Laplace with the evidence estimators,
+Pathfinder and NUTS from its starts) on two:
 
 1. transposed serving at B = 131072: `Model.batched_logdensity_t_fn()`
    (the slab value kernel), its `value_and_grad_fn` (the one-pass
@@ -124,7 +126,23 @@ dense metric, dense NUTS through a checkpoint, SMC, ADVI) on four:
    loglik).batched_logdensity_t_fn(), q=FullRankGaussian, estimator='stl',
    transposed=True)` with n_mc 1024 (#1 and #3 with the Gaussian and t
    entries), gated on the fit's means and the likelihood block's
-   variances against the known posterior.
+   variances against the known posterior;
+23. map_laplace: `map_laplace(Model(bench, hier_loglik))` from zeros,
+   MAP_STEPS L-BFGS steps (every line-search trial one evaluation at
+   B = 1: #6 with W, #7's small design; one host read a trial), its
+   Hessian one double backward at B = 151; lp and the MAP against the JAX
+   package's float64 run (LAPLACE_JAX), the Laplace sd and evidence
+   against the port's float64 Hessian at the card's MAP; `map_laplace` on
+   cell 7's pd_conjugate model (#10-#12, #12 under the double backward)
+   with its Hessian against float64; `importance_sampling_evidence` and
+   `bridge_sampling_evidence` (path 2's draws) with the Laplace proposal
+   at n = 4096 against the JAX package's IS evidence;
+24. pathfinder: `fit_pathfinder` from zeros and `multipath_pathfinder`
+   from 8 starts at 0.3 N(0, 1) on the same model (the candidates' ELBO
+   draws in one density call at B = 1800 and 14400), gated on the best
+   ELBO and the `w` block's means against the JAX package's float64 runs
+   (PATHFINDER_JAX); then `Model.sample(init='pathfinder', kernel='auto')`
+   at path 2's settings and gates.
 
 The dense paths also check that TF32 is off and the float32 matmul
 precision 'highest'. After them, #2's small-batch design (the item kernel, which the
@@ -189,7 +207,9 @@ Prints the card's name and power limit, one JSON line per kernel, a
 `kernel_variants` line (every layout's time; #2 at 64 chains in both
 designs on each sampler cell's model; #7 in both designs at 64 and
 131072; #11 and #12 in both modes at 64; #5 (both variants) and #9 in each
-layout at 64; a kernel that does nothing, the launch floor), a `slab_small_b_sweep` line (#2 in both designs at
+layout at 64; #6, #7 and #10-#12 at the batches paths 23-24 launch them,
+#1 and #3 at paths 21-22's; a kernel that does nothing, the launch
+floor), a `slab_small_b_sweep` line (#2 in both designs at
 B = 64 to 131072 on the bench, mvdense and pdonly models: the crossover
 that sets SMALL_B), a `simplex_small_b_sweep` line (#7 in both designs
 at B = 64 to 131072 in the swapped view and the batch-major slice: the
@@ -197,7 +217,8 @@ crossover that sets simplex.SMALL_B), a `transcend_probe` line
 (every probe variant's time), a `prim_probe` line per opcode, a `prep_s`
 line, an `end_to_end` line (the
 entry points with host dispatch), a `phases_s` line (each phase's wall
-time), a `sampler` line per cell, a `{"kernels": [...]}` line, and as
+time), a `sampler` line per cell, a `map_laplace` and a `pathfinder`
+line (paths 23-24), a `{"kernels": [...]}` line, and as
 the last line `{"ok": true, "device": {...}}`. Exits non-zero, with no
 result, when CUDA is absent or any check fails.
 """
@@ -1121,27 +1142,34 @@ def run_batch_major_serving(dev, vT, scale, loglik):
     return launches, e2e
 
 
-def run_sampler(dev, loglik, counts, kernel):
+def run_sampler(dev, loglik, counts, kernel, init="random"):
     """A sampler path: NUTS on the bench model with the likelihood, with
     the transposed (`nuts_batched_t`) or the batch-major (`nuts_batched`)
-    kernel, driven through public entry points in two calls so that
-    warmup and sampling are timed apart (each between
-    torch.cuda.synchronize() calls): `Model.sample` with n_samples=0 runs
-    the warmup, and `resume_sampling` continues from its state (the draws
-    an uninterrupted `Model.sample` would give); `Model.constrain` maps the
-    linked draws. The launch counters are zeroed just before the first
-    call and read after the last."""
+    kernel, or the one kernel='auto' picks, driven through public entry
+    points in two calls so that warmup and sampling are timed apart (each
+    between torch.cuda.synchronize() calls): `Model.sample` with
+    n_samples=0 runs the warmup (from `init`'s starts: its time includes
+    the init's fit), and `resume_sampling` continues from its state (the
+    draws an uninterrupted `Model.sample` would give); `Model.constrain`
+    maps the linked draws. The launch counters are zeroed just before the
+    first call and read after the last. Returns (the `sampler` line, the
+    launches, the raw draws (KEPT, CHAINS, 151))."""
     import tpu_bijectors_torch as tbt
     from tpu_bijectors_torch import diagnostics, dists, kernels
     from tpu_bijectors_torch.infer import hmc_batched, resume_sampling
 
+    model = tbt.Model(bench_model(dists, dev, torch.float32), loglik=loglik, device=dev)
+    asked = kernel
+    if kernel == "auto":
+        kernel = model._auto_kernel()
+        expect(f"kernel='auto' takes nuts_batched_t on the bench model (took {kernel})",
+               kernel == "nuts_batched_t")
     transposed = kernel == "nuts_batched_t"
     # one launch per batched leapfrog: the fused value-and-gradient kernel
     # of the transposed density (its small design at 64 chains), the LKJ
     # inverse link of the batch-major one
     per_leapfrog = SMALL if transposed else "lkj_inverse"
     path = ((SMALL,) if transposed else ()) + (SIMPLEX_SMALL, "lkj_inverse")
-    model = tbt.Model(bench_model(dists, dev, torch.float32), loglik=loglik, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -1149,7 +1177,7 @@ def run_sampler(dev, loglik, counts, kernel):
     t0 = time.perf_counter()
     _, state, _ = model.sample(
         gen, n_chains=CHAINS, n_warmup=WARMUP, n_samples=0, max_depth=MAX_DEPTH,
-        target_accept=TARGET_ACCEPT, constrained=False, kernel=kernel,
+        target_accept=TARGET_ACCEPT, constrained=False, kernel=asked, init=init,
     )
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -1165,6 +1193,8 @@ def run_sampler(dev, loglik, counts, kernel):
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     launches = dict(kernels.LAUNCHES)
+    if init != "random":
+        kernel = f"{kernel} (init={init})"
     print(f"launches on the {kernel} sampler path: {launches}", flush=True)
     for k in path:
         expect(f"{k} launched on the {kernel} sampler path", launches[k] > 0)
@@ -1188,7 +1218,7 @@ def run_sampler(dev, loglik, counts, kernel):
     dev_w = np.abs(w.double().mean(dim=(0, 1)).cpu().numpy() - post) / mcse
     n_div = int(stats.diverging.sum())
     line = {
-        "kernel": kernel,
+        "kernel": kernel, "init": init,
         "chains": CHAINS, "warmup": WARMUP, "kept": KEPT, "max_depth": MAX_DEPTH,
         "target_accept": TARGET_ACCEPT,
         "warmup_s": t1 - t0,
@@ -1219,7 +1249,7 @@ def run_sampler(dev, loglik, counts, kernel):
            f"(max {np.max(dev_w):.2f})", bool(np.all(dev_w <= 5.0)))
     expect(f"{kernel}: constrained draws finite",
            all(bool(torch.isfinite(t).all()) for t in samples.values()))
-    return line, launches
+    return line, launches, raw
 
 
 # --- the Wishart families (the fourth slice) -----------------------------------
@@ -4025,7 +4055,8 @@ def model_variants(tag, vT, dvT, cf, loops, loop_ops):
     slab = {k: B * sum(2 + sum(OPS[k][g] for g in fb._groups_and_used(cf[r:r + 1])[0])
                        for r in range(dim) if cf[r, fb._MASK_COL] > 0)
             for k in OPS}
-    nbytes = vT.numel() * 4 + B * 4 + cf.numel() * 4 + loops.prm.numel() * 4
+    nbytes = vT.numel() * 4 + B * 4 + cf.numel() * 4 + (0 if loops is None else
+                                                          loops.prm.numel() * 4)
     calls = {
         "value": (lambda: fk.slab_value(vT, cf, loops), nbytes,
                   lambda: fb.slab_value_plain(vT, cf, loops)),
@@ -4522,6 +4553,543 @@ def run_advi_mv(dev):
     return line, {k: launches[k] for k in ("slab_value", "slab_vjp")}
 
 
+# --- the fourteenth slice: L-BFGS, MAP + Laplace, Pathfinder, evidence ------
+
+# the JAX package's float64 references on the bench model with
+# hier_loglik, made on the CPU by `python tests/test_torch_pathfinder_
+# evidence.py --engine jax --seeds 0 1 2 3 4 5 6 7`: map_laplace (200 steps
+# from zeros: lp at the MAP, the MAP, the Laplace evidence), the mean and
+# spread (standard deviation over the eight seeds) of
+# importance_sampling_evidence with that Laplace proposal at n = 4096;
+# fit_pathfinder from zeros and multipath_pathfinder from 8 starts at
+# 0.3 N(0, 1), at their defaults: the best ELBO's mean and spread, and the
+# `w` block's means over the seeds with each coordinate's posterior sd and
+# the seeds' spread of the means in units of it, pooled over the 16, and
+# multi-path's importance ESS a seed
+LAPLACE_JAX = {
+    "lp": -541.7529341276614,
+    "log_evidence": -580.0157091706055,
+    "is_log_evidence": (-577.2319442508477, 0.09263625361683892),
+    "position": (
+        0.2762798137850521, 0.6553678685046792, 0.2641812011475677,
+        -1.035018748796461, 0.7217315919185009, 0.3567428422939823,
+        -0.4289790850465376, 0.46417021649552376, 0.0011955197189806091,
+        0.006802981833936891, 0.0010928815757635197, 0.017328782296834194,
+        0.008274826169715291, 0.0019964786880779313, 0.0028920397390438065,
+        0.003389366505624764, 0.0388398378855569, -0.6880322007480535,
+        0.15015229242563868, 0.018018507580046507, -0.14763602000041823,
+        0.2231435786030607, -0.13815035840673498, -0.06513931143687691,
+        -0.36662533007420106, -0.12062800414096678, -0.23638881046596563,
+        -0.19189103287056367, 0.18232157772666782, -0.20763939159044337,
+        -3.832913682113081e-15, -0.01404705907634054, -0.01673724858350589,
+        0.0014232460974109545, -0.002653212769254749, -0.005632241104210629,
+        -0.0032571872223275274, -0.002348232802403511, -0.003125571233334454,
+        0.0009187010995043803, 0.011953100788913226, 0.00475105948870497,
+        0.006738406552563189, 0.003143674294496194, -0.008648591931072301,
+        -0.01130851891774085, 0.0049571220242808365, 0.009560814083136427,
+        -0.00779408101357595, -0.026444878026630574, 0.0023645575131051116,
+        0.018625499465129935, 0.007247837108795667, -0.001778477500505649,
+        -0.011970428488529744, -0.00042602692339103906, -0.00020387652706853454,
+        -0.013393585850593772, 0.001720128947798661, -0.009155686201825292,
+        -0.008922205521487208, -0.012310999009900963, -0.005891496167861919,
+        -0.004416644854800526, -0.007664529093673567, 0.005887484539137368,
+        -0.020244497622673305, -0.0010444805811205124, -0.0002861409867186443,
+        0.0003509665162340188, 0.004859448309800823, -0.00023653991514549575,
+        -0.0018326386544600423, -0.005117084222645007, -0.010817740875105727,
+        0.01639429975106252, 0.027092711037826168, 0.010508975730339992,
+        -0.010239317574395937, -0.0036967069022122733, 0.0008019407057367841,
+        -0.005514080580831215, -0.0031975579966222367, -0.008116363132780881,
+        0.01057293135873829, -0.003970669731588208, -0.0027763403001825377,
+        0.012704188333493722, 0.014128952587849821, -0.017831314750039177,
+        -0.007537416379334966, -0.004837991536407817, -0.003138472865187916,
+        -0.013771072847960312, 0.012076025368045763, -0.003469961002563297,
+        -0.003002455087998945, -0.0029786758634970448, -0.007564462452869094,
+        0.0037420902869542204, -0.010223263406309102, 0.0029236948763846204,
+        -0.0015191088278271804, 0.010758375277632336, 0.0013671263100247884,
+        0.00061448679759379, 0.0074252906330047035, -0.027280036435193444,
+        -0.02716697530858049, -0.00011414042237855459, 0.0020404687358771562,
+        -0.023059127328193645, 0.008906868272319585, -0.0027045408761122215,
+        -0.01627724059845504, 0.0028092015503046307, -0.0038278626243234345,
+        -0.0042503818903692715, 0.006658827596596544, 0.01211343165566555,
+        0.0006743270611245776, -0.045213591645067976, -0.005635357431621507,
+        -0.005080180585907139, 0.0038462035835077186, 0.0023782186959902677,
+        0.005690082637745607, 0.005684401452505218, -0.0038584705888433926,
+        -0.004320329225882515, 0.0014781001281892055, -0.007303208458391064,
+        0.002153276695208433, -0.00102758568545037, -0.014941368896873666,
+        -0.02874070572103079, -0.004331225708877146, 0.005452346208541269,
+        -0.0012482844128370958, -0.004118687733517181, -0.0013613363132675754,
+        -0.0014132477451023343, -0.008861228056729085, 0.0017123034844724362,
+        0.022677444904768012, -0.037560984760388896, 0.045418407572190296,
+        -0.011676706920131405, -0.005193064298921072, -0.012466724514285295,
+        -0.044814912783384675,
+    ),
+}
+PATHFINDER_JAX = {
+    "single_elbo": (-581.2112012816106, 0.2804685299234746),
+    "multi_elbo": (-580.1824857553731, 0.24172724150365357),
+    "single_w": {
+        "mean": (
+            0.06702804672892206, 0.03448911977220098, 0.07578421668203586,
+            0.0670973217410491, 0.05746643201980971, 0.08063968377166425,
+            0.05682605406204773, 0.06115963176326703, 0.046575464303172914,
+            0.060146773945494114, 0.054963323002509945, 0.058479053296175705,
+            0.08117560512631028, 0.057689239650047595, 0.0703853541693749,
+            0.07009467996591787,
+        ),
+        "sd": (
+            0.016484722907495836, 0.011589112894321041, 0.018864232583619342,
+            0.016282313769369214, 0.016185729852275045, 0.01777783636039689,
+            0.014386383150912027, 0.015714574565136648, 0.012651534392960422,
+            0.015195033832477707, 0.015199946293311003, 0.01620116125330674,
+            0.01885655771672653, 0.0162930468926547, 0.01786145035559724,
+            0.016564970023364472,
+        ),
+        "spread_in_sd": 0.10371786738004947,
+    },
+    "multi_w": {
+        "mean": (
+            0.06384098063465918, 0.03291391069053067, 0.073335530978321,
+            0.06641714269445924, 0.05692593155380935, 0.07925210483899414,
+            0.05452825407943829, 0.06104189188470219, 0.04745325114688166,
+            0.06002107198224482, 0.05515197248805641, 0.05925833126818536,
+            0.0834458234898949, 0.0602083329832971, 0.07237555763126195,
+            0.0738299116552635,
+        ),
+        "sd": (
+            0.016484722907495836, 0.011589112894321041, 0.018864232583619342,
+            0.016282313769369214, 0.016185729852275045, 0.01777783636039689,
+            0.014386383150912027, 0.015714574565136648, 0.012651534392960422,
+            0.015195033832477707, 0.015199946293311003, 0.01620116125330674,
+            0.01885655771672653, 0.0162930468926547, 0.01786145035559724,
+            0.016564970023364472,
+        ),
+        "spread_in_sd": 0.17998323521329374,
+        "ess": (
+            75.5631504856155, 41.160309665800305, 91.7250831419852,
+            47.113048155273525, 6.732225318417794, 58.154804512103986,
+            73.02150999973657, 52.04085040369641,
+        ),
+    },
+}
+# Pathfinder in float32 (the same script with --dtype float32, x64 off):
+# float32's L-BFGS reaches its noise floor after about 20 steps and the
+# curvature pairs after it spoil the later candidates, so the best
+# candidate is an earlier one and its ELBO about 2 below float64's, in
+# both packages (the port in float64 on the CPU lands on the float64
+# runs). The card's float32 ELBO is held to these. Its `w` means are held
+# to the float64 runs': over nine seeds on the H100 multi-path's sit
+# within 1.2-3.5 standard errors of them, but up to 4.9 of the CPU's
+# float32 runs, whose stall points (and so candidates) round otherwise
+PATHFINDER_JAX_F32 = {
+    "single_elbo": (-583.0403289794922, 0.3631095784581007),
+    "multi_elbo": (-582.1523513793945, 0.41792230951287646),
+    "single_w": {
+        "mean": (
+            0.06851355452090502, 0.03349690558388829, 0.07467193529009819,
+            0.06794025842100382, 0.05610552150756121, 0.07930335681885481,
+            0.05690996674820781, 0.06081037176772952, 0.047309876419603825,
+            0.05953854601830244, 0.054959146305918694, 0.06031942553818226,
+            0.08118962310254574, 0.05720015475526452, 0.07100790739059448,
+            0.07072343956679106,
+        ),
+        "sd": (
+            0.01779570069629699, 0.010997508419677615, 0.017649871530011296,
+            0.018090519472025335, 0.016238814569078386, 0.017846019356511533,
+            0.015710475738160312, 0.01579852739814669, 0.013468382880091667,
+            0.01548329635988921, 0.014485266176052392, 0.014970923424698412,
+            0.01974970498122275, 0.015075526665896177, 0.017923515988513827,
+            0.016041336697526276,
+        ),
+        "spread_in_sd": 0.09461529744810722,
+    },
+    "multi_w": {
+        "mean": (
+            0.06753637176007032, 0.03334905533120036, 0.07332155480980873,
+            0.06571750249713659, 0.057850418612360954, 0.07792789023369551,
+            0.0560185331851244, 0.061172544956207275, 0.047070985194295645,
+            0.05970709025859833, 0.055353786796331406, 0.060065486934036016,
+            0.08177562523633242, 0.058881440199911594, 0.07389799132943153,
+            0.07035358669236302,
+        ),
+        "sd": (
+            0.01779570069629699, 0.010997508419677615, 0.017649871530011296,
+            0.018090519472025335, 0.016238814569078386, 0.017846019356511533,
+            0.015710475738160312, 0.01579852739814669, 0.013468382880091667,
+            0.01548329635988921, 0.014485266176052392, 0.014970923424698412,
+            0.01974970498122275, 0.015075526665896177, 0.017923515988513827,
+            0.016041336697526276,
+        ),
+        "spread_in_sd": 0.19652159313602777,
+        "ess": (
+            60.536552296712344, 54.77024205992333, 64.082787766537,
+            59.43234975865161, 66.85568911798059, 14.985808497069842,
+            26.377221277549957, 35.11163231098356,
+        ),
+    },
+}
+# the steps of every map_laplace run, and the evidence estimators' n
+MAP_STEPS = 200
+EVIDENCE_N = 4096
+# path 23's bounds, float32 on the card against float64. lp at the MAP:
+# RTOL_LP of its magnitude, as path 1's lp (the float32 sums of 151 rows;
+# the MAP's suboptimality is second order and far inside it). The MAP:
+# float32 resolves lp only to eps32 |lp|, so along a direction scaled by
+# the Laplace sd the mode is located to sqrt(2 eps32 |lp|) (0.011 sd at
+# |lp| = 542); each coordinate is held to 4 times that. The Laplace sd and
+# evidence against the port's float64 Hessian at the card's own MAP: the
+# float32 Hessian's entries carry eps32 times the magnitudes they sum, and
+# its factor amplifies that by the condition number kappa(H): each sd is
+# held to 4 dim eps32 kappa relative, the evidence (half log|H|, a sum of
+# dim logs of the factor's diagonal) to 4 dim eps32 kappa plus lp's bound.
+# The pd_conjugate Hessian entries: 4 eps32 times the sum over the K^2
+# products the trace and log-det terms form, K^2 max|H| (the same float32
+# sums; a dropped trace curvature moves entries by O(max|H|)).
+MAP_SD_SPREADS = 4.0
+EPS32_ = float(np.finfo(np.float32).eps)
+# the evidence estimators against the JAX package's IS mean: 4 spreads;
+# Pathfinder's best ELBO and the `w` means: 4 spreads
+EVIDENCE_SPREADS = PF_SPREADS = 4.0
+
+
+def laplace_reference(model64, v):
+    """The port's float64 Laplace approximation at v on the CPU (its plain
+    versions), its Hessian's condition number and the Hessian."""
+    from tpu_bijectors_torch.infer import laplace_approximation
+
+    lap = laplace_approximation(model64.logdensity_fn(), v.detach().double().cpu())
+    prec = lap.chol_precision @ lap.chol_precision.T
+    ev = torch.linalg.eigvalsh(prec)
+    return lap, float(ev.max() / ev.min()), -prec
+
+
+def run_map_laplace(dev, loglik, posterior):
+    """Path 23, map_laplace: (a) `map_laplace(Model(bench, hier_loglik))`
+    from zeros, MAP_STEPS L-BFGS steps, float32 on the card: every
+    line-search trial evaluates the batch-major density and its gradient
+    at B = 1 (#6 with W and #7 in its small design), the Hessian is one
+    double backward at B = dim = 151 through the same kernels. (b) lp and
+    the MAP against the JAX package's float64 map_laplace (LAPLACE_JAX),
+    the Laplace sd and evidence against the port's float64 Hessian at the
+    card's MAP on the CPU. (c) `map_laplace` on path 7's pd_conjugate
+    model (#10, #11 and #12, #12 under the double backward) and its
+    Hessian at the card's MAP against the float64 Hessian at the same
+    point. (d) `importance_sampling_evidence` and
+    `bridge_sampling_evidence` with the Laplace proposal at n =
+    EVIDENCE_N (the bridge's posterior draws: path 2's last 64 kept
+    transitions of its 64 chains), each one batched density call at
+    4096, against the JAX package's IS mean. Returns (the `map_laplace`
+    line, the launches)."""
+    import tpu_bijectors_torch as tbt
+    from tpu_bijectors_torch import dists, kernels
+    from tpu_bijectors_torch.infer import (
+        bridge_sampling_evidence,
+        hmc_batched,
+        importance_sampling_evidence,
+        map_laplace,
+    )
+    from tpu_bijectors_torch.infer.map_laplace import hessian
+
+    model = tbt.Model(bench_model(dists, dev, torch.float32), loglik=loglik, device=dev)
+    cpu_loglik, _ = hier_loglik_and_counts("cpu")
+    model64 = tbt.Model(bench_model(dists, "cpu", torch.float64), loglik=cpu_loglik,
+                        device="cpu")
+    line = {"engine": "map_laplace", "cell": "map_laplace", "n_steps": MAP_STEPS}
+    # (a) MAP and Laplace on the bench model
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    hmc_batched.reset_sync_count()
+    t0 = time.perf_counter()
+    res, lap = map_laplace(model, n_steps=MAP_STEPS)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = dict(kernels.LAUNCHES)
+    reads = hmc_batched.SYNCS["linesearch"]
+    print(f"launches on the map_laplace path: {launches}", flush=True)
+    # evaluations: one a trial, the first step's value, the final gradient
+    # (each launches #6 once at B = 1), then the Hessian's and the mode's lp
+    evals = launches["lkj_inverse"] - 2
+    expect(f"map_laplace: #6 once an evaluation ({launches['lkj_inverse']} launches for "
+           f"{reads} line-search reads + 2 + the Hessian's and the mode's)",
+           launches["lkj_inverse"] == reads + 4)
+    expect(f"map_laplace: #7's small design once an evaluation "
+           f"({launches[SIMPLEX_SMALL]})", launches[SIMPLEX_SMALL] == launches["lkj_inverse"])
+    lp, gnorm = float(res.logdensity), float(res.grad_norm)
+    ref64, kappa, _ = laplace_reference(model64, res.position)
+    sd, sd64 = lap.marginal_sd().double().cpu(), ref64.marginal_sd()
+    pos_dev = ((res.position.double().cpu() - torch.tensor(LAPLACE_JAX["position"], dtype=
+                                                           torch.float64)).abs() / sd64)
+    pos_bound = MAP_SD_SPREADS * math.sqrt(2.0 * EPS32_ * abs(LAPLACE_JAX["lp"]))
+    h_rtol = MAP_SD_SPREADS * 151 * EPS32_ * kappa
+    sd_dev = float(((sd - sd64).abs() / sd64).max())
+    ev, ev64 = float(lap.log_evidence()), float(ref64.log_evidence())
+    lp_bound = RTOL_LP * abs(LAPLACE_JAX["lp"])
+    line.update({
+        "seconds": t1 - t0, "steps": MAP_STEPS, "evaluations": evals,
+        "linesearch_reads": reads, "ms_per_evaluation": 1e3 * (t1 - t0) / max(evals, 1),
+        "grad_norm": gnorm, "lp": lp, "lp_jax": LAPLACE_JAX["lp"],
+        "max_map_dev_in_sd": float(pos_dev.max()), "map_bound_in_sd": pos_bound,
+        "hessian_kappa": kappa, "max_sd_rel_dev": sd_dev, "sd_rtol": h_rtol,
+        "log_evidence": ev, "log_evidence_f64": ev64,
+        "log_evidence_jax": LAPLACE_JAX["log_evidence"],
+        "launches": {k: launches[k] for k in (SIMPLEX_SMALL, "lkj_inverse")},
+    })
+    print(f"map_laplace: {MAP_STEPS} steps, {evals} evaluations, {reads} line-search reads "
+          f"in {t1 - t0:.2f} s; |grad| {gnorm:.3e}", flush=True)
+    expect(f"map_laplace: lp at the MAP {lp:.5f} within {lp_bound:.4f} of the JAX package's "
+           f"{LAPLACE_JAX['lp']:.5f}", abs(lp - LAPLACE_JAX["lp"]) <= lp_bound)
+    expect(f"map_laplace: the MAP within {pos_bound:.4f} Laplace sd of the JAX package's "
+           f"(max {float(pos_dev.max()):.4f})", float(pos_dev.max()) <= pos_bound)
+    expect(f"map_laplace: marginal sd within {h_rtol:.2e} of the float64 Hessian's at the "
+           f"card's MAP (kappa {kappa:.1f}; max {sd_dev:.2e})", sd_dev <= h_rtol)
+    ev_bound = h_rtol + lp_bound
+    expect(f"map_laplace: log evidence {ev:.4f} within {ev_bound:.4f} of the float64 "
+           f"Hessian's {ev64:.4f}", abs(ev - ev64) <= ev_bound)
+    # (c) the Wishart leg: pd_conjugate's Hessian through #10-#12
+    pd_loglik, _ = pd_conjugate_data(dev)
+    pd_model64_ll, _ = pd_conjugate_data("cpu")
+    pdm = tbt.Model(pd_model(dists, dev, torch.float32, "wishart"), loglik=pd_loglik, device=dev)
+    pdm64 = tbt.Model(pd_model(dists, "cpu", torch.float64, "wishart"), loglik=pd_model64_ll,
+                      device="cpu")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t2 = time.perf_counter()
+    pres, plap = map_laplace(pdm, n_steps=MAP_STEPS)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    pd_launches = dict(kernels.LAUNCHES)
+    print(f"launches on the map_laplace pd_conjugate leg: {pd_launches}", flush=True)
+    for k in ("pd_inverse", "pd_logdensity", "pd_trace_grad"):
+        expect(f"map_laplace pd_conjugate: {k} launched ({pd_launches[k]})", pd_launches[k] > 0)
+    H = hessian(pdm.logdensity_fn(), pres.position).double().cpu()
+    _, pd_kappa, H64 = laplace_reference(pdm64, pres.position)
+    h_dev = float((H - H64).abs().max())
+    h_bound = 4.0 * EPS32_ * PD_K * PD_K * float(H64.abs().max())
+    line.update({
+        "pd_seconds": t3 - t2, "pd_grad_norm": float(pres.grad_norm),
+        "pd_lp": float(pres.logdensity), "pd_hessian_max_abs_dev": h_dev,
+        "pd_hessian_bound": h_bound, "pd_hessian_max_abs": float(H64.abs().max()),
+        "pd_hessian_kappa": pd_kappa,
+        "pd_launches": {k: pd_launches[k] for k in
+                        ("pd_inverse", "pd_logdensity", "pd_trace_grad")},
+    })
+    expect(f"map_laplace pd_conjugate: the Hessian at the card's MAP within {h_bound:.3e} of "
+           f"the float64 Hessian (max |H| {float(H64.abs().max()):.1f}; max dev {h_dev:.3e})",
+           h_dev <= h_bound)
+    expect("map_laplace pd_conjugate: the Laplace factor finite",
+           bool(torch.isfinite(plap.chol_precision).all()))
+    # (d) the evidence estimators with the Laplace proposal
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    post = posterior[-(EVIDENCE_N // CHAINS):].reshape(-1, posterior.shape[-1])
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t4 = time.perf_counter()
+    isr = importance_sampling_evidence(model.logdensity_fn(), lap, gen, n=EVIDENCE_N)
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    br = bridge_sampling_evidence(model.logdensity_fn(), post, lap, gen)
+    torch.cuda.synchronize()
+    t6 = time.perf_counter()
+    ev_launches = dict(kernels.LAUNCHES)
+    ref_ev, spread = LAPLACE_JAX["is_log_evidence"]
+    line.update({
+        "evidence_n": EVIDENCE_N, "is_seconds": t5 - t4, "bridge_seconds": t6 - t5,
+        "is_log_evidence": float(isr.log_evidence), "is_ess": float(isr.ess),
+        "is_pareto_k": float(isr.pareto_k), "bridge_log_evidence": float(br.log_evidence),
+        "bridge_rel_mc_error": float(br.rel_mc_error),
+        "is_log_evidence_jax": ref_ev, "is_spread_jax": spread,
+        "is_dev_in_spreads": abs(float(isr.log_evidence) - ref_ev) / spread,
+        "bridge_dev_in_spreads": abs(float(br.log_evidence) - ref_ev) / spread,
+        "evidence_launches": {k: ev_launches[k] for k in (SIMPLEX_SMALL, "lkj_inverse")},
+    })
+    expect(f"evidence: 3 density calls at B = {EVIDENCE_N}, each one launch of #6 and #7 "
+           f"({ev_launches['lkj_inverse']}, {ev_launches[SIMPLEX_SMALL]})",
+           ev_launches["lkj_inverse"] == ev_launches[SIMPLEX_SMALL] == 3)
+    expect(f"evidence: IS log Z {float(isr.log_evidence):.4f} within {EVIDENCE_SPREADS:g} "
+           f"spreads of the JAX package's {ref_ev:.4f} ({line['is_dev_in_spreads']:.2f})",
+           line["is_dev_in_spreads"] <= EVIDENCE_SPREADS)
+    expect(f"evidence: bridge log Z {float(br.log_evidence):.4f} within {EVIDENCE_SPREADS:g} "
+           f"spreads of the JAX package's IS {ref_ev:.4f} ({line['bridge_dev_in_spreads']:.2f})",
+           line["bridge_dev_in_spreads"] <= EVIDENCE_SPREADS)
+    for k in ("pd_inverse", "pd_logdensity", "pd_trace_grad"):
+        launches[k] = pd_launches[k]
+    for k in (SIMPLEX_SMALL, "lkj_inverse"):
+        launches[k] += ev_launches[k]
+    return line, launches
+
+
+def pf_w_means(model, draws):
+    return model.constrain(draws)["w"].double().cpu().reshape(-1, 16).mean(0).numpy()
+
+
+def pf_w_dev(model, draws, ref):
+    """Single-path: max_j |mean(w_j) - ref mean_j| / sd_j over the `w`
+    block's 16 coordinates, in units of the JAX runs' pooled spread."""
+    dev = np.abs(pf_w_means(model, draws) - np.asarray(ref["mean"])) / np.asarray(ref["sd"])
+    return float(dev.max() / ref["spread_in_sd"])
+
+
+def pool_ess(res):
+    """Multi-path's pooled draws' effective size under the truncated
+    importance weights it resamples with."""
+    from tpu_bijectors_torch.infer import pathfinder as tpf
+
+    p = torch.softmax(tpf._truncated_log_weights((res.logp - res.logq).reshape(-1).double()), 0)
+    return float(1.0 / torch.sum(p * p))
+
+
+def pf_multi_w_dev(model, draws, res, ref):
+    """Multi-path: max_j |mean(w_j) - ref mean_j| in standard errors. A
+    resampled mean's variance is sd_j^2 (1/ESS + 1/n) with the run's own
+    importance ESS (from under 10 to about 90 between the JAX package's
+    runs, so one spread over runs misstates every run's); the reference
+    mean's is that over its runs' ESS, divided by their number."""
+    n = draws.shape[0]
+    sd2, ess = np.asarray(ref["sd"]) ** 2, np.asarray(ref["ess"])
+    ref_var = np.mean(sd2[None, :] * (1.0 / ess[:, None] + 1.0 / n), axis=0) / ess.size
+    se = np.sqrt(sd2 * (1.0 / pool_ess(res) + 1.0 / n) + ref_var)
+    return float(np.max(np.abs(pf_w_means(model, draws) - np.asarray(ref["mean"])) / se))
+
+
+def run_pathfinder(dev, loglik):
+    """Path 24, pathfinder: (a) `fit_pathfinder(Model(bench,
+    hier_loglik).logdensity_fn(), ...)` from zeros at its defaults (60
+    L-BFGS steps at B = 1, the 60 x 30 candidates' ELBO draws in one
+    density call at B = 1800, 100 draws); (b) `multipath_pathfinder` with
+    8 paths from `init_positions(gen, 8, 0.3)` (every path's ELBO draws in
+    one call at B = 14400, #7's wide design); gated within PF_SPREADS
+    spreads on the best ELBO against the JAX package's float32 runs over
+    eight seeds (PATHFINDER_JAX_F32) and on the `w` block's means against
+    its float64 runs (PATHFINDER_JAX), multi-path's in standard errors
+    from its importance ESS (`pf_multi_w_dev`); each distance from the
+    other precision's runs is printed beside. Returns (the `pathfinder`
+    line, the launches)."""
+    import tpu_bijectors_torch as tbt
+    from tpu_bijectors_torch import dists, kernels
+    from tpu_bijectors_torch.infer import fit_pathfinder, hmc_batched, multipath_pathfinder
+
+    model = tbt.Model(bench_model(dists, dev, torch.float32), loglik=loglik, device=dev)
+    fn = model.logdensity_fn()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    hmc_batched.reset_sync_count()
+    t0 = time.perf_counter()
+    res = fit_pathfinder(fn, gen, torch.zeros(model.dim(), device=dev))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    l1, r1 = dict(kernels.LAUNCHES), hmc_batched.SYNCS["linesearch"]
+    draws, res8 = multipath_pathfinder(fn, gen, model.init_positions(gen, 8, 0.3))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(kernels.LAUNCHES)
+    print(f"launches on the pathfinder path: {launches}", flush=True)
+    ref, ref32 = PATHFINDER_JAX, PATHFINDER_JAX_F32
+    elbo1 = float(res.elbo[res.best])
+    elbo8 = float(torch.max(torch.gather(res8.elbo, 1, res8.best[:, None])))
+    line = {
+        "engine": "pathfinder", "cell": "pathfinder",
+        "single_seconds": t1 - t0, "multi_seconds": t2 - t1,
+        "single_linesearch_reads": r1,
+        "multi_linesearch_reads": hmc_batched.SYNCS["linesearch"] - r1,
+        "single_best": int(res.best), "single_elbo": elbo1, "multi_elbo": elbo8,
+        "single_elbo_dev_in_spreads": abs(elbo1 - ref32["single_elbo"][0]) / ref32["single_elbo"][1],
+        "multi_elbo_dev_in_spreads": abs(elbo8 - ref32["multi_elbo"][0]) / ref32["multi_elbo"][1],
+        "single_elbo_minus_f64": elbo1 - ref["single_elbo"][0],
+        "multi_elbo_minus_f64": elbo8 - ref["multi_elbo"][0],
+        "multi_ess": pool_ess(res8),
+        "single_w_dev_in_spreads": pf_w_dev(model, res.draws, ref["single_w"]),
+        "multi_w_dev_in_se": pf_multi_w_dev(model, draws, res8, ref["multi_w"]),
+        "single_w_dev_in_f32_spreads": pf_w_dev(model, res.draws, ref32["single_w"]),
+        "multi_w_dev_in_f32_se": pf_multi_w_dev(model, draws, res8, ref32["multi_w"]),
+        "single_launches": {k: l1[k] for k in (SIMPLEX_SMALL, "simplex_inverse_logdet",
+                                                "lkj_inverse")},
+        "launches": {k: launches[k] for k in (SIMPLEX_SMALL, "simplex_inverse_logdet",
+                                              "lkj_inverse")},
+    }
+    expect(f"pathfinder: draws (100, 151), (1000, 151) finite",
+           tuple(res.draws.shape) == (100, 151) and tuple(draws.shape) == (1000, 151)
+           and bool(torch.isfinite(res.draws).all()) and bool(torch.isfinite(draws).all()))
+    expect(f"pathfinder: multipath's ELBO draws in one call at B = 14400 (#7's wide design: "
+           f"{launches['simplex_inverse_logdet']} launch)",
+           launches["simplex_inverse_logdet"] == 1)
+    for k, of in (("single_elbo", "float32"), ("multi_elbo", "float32"), ("single_w", "float64")):
+        d = line[f"{k}_dev_in_spreads"]
+        expect(f"pathfinder: {k} within {PF_SPREADS:g} spreads of the JAX package's {of} "
+               f"runs ({d:.2f})", d <= PF_SPREADS)
+    d = line["multi_w_dev_in_se"]
+    expect(f"pathfinder: multi-path's w means within {PF_SPREADS:g} standard errors of the JAX "
+           f"package's float64 runs (ESS {line['multi_ess']:.1f}; {d:.2f})", d <= PF_SPREADS)
+    return line, launches
+
+
+def engine_variants(dev, vT):
+    """The kernels paths 23 and 24 launch, at their batches and in the
+    layout they read (the slice of the batch-major (B, 151) state), name ->
+    (call, bytes, operations, plain call): #6 with W (the gradient's
+    evaluations at B = 1 and the Hessian's at 151) and without (the ELBO
+    and evidence calls at 1800 and 4096), #7 with wlog in the design its
+    wrapper picks at B = 1, 151, 1800, 4096 and 14400 (multipath's), #10,
+    #11 and #12 (dot) at the Wishart leg's B = 1 and 151; and #1 and #3 at
+    the batches paths 21 and 22 launch them: eight schools at SMC_N, the
+    mvdense prior of mv_conjugate at ADVI_MC (its loop entries' operations
+    as `mv_variants`)."""
+    import tpu_bijectors_torch as tbt
+    from tpu_bijectors_torch import dists
+    from tpu_bijectors_torch.kernels import lkj as kl
+    from tpu_bijectors_torch.kernels import pd as kp
+    from tpu_bijectors_torch.kernels import simplex as ks
+    from tpu_bijectors_torch.vectorize import fused_kernel as fk
+
+    out = {}
+    am1 = torch.zeros(16, device=dev)
+    eye = torch.eye(PD_K, device=dev)
+    for n in (1, 151, 1800, 4096, 14400):
+        yw = layouts(vT, W_ROWS, n, "batch-major slice")["batch-major slice"]
+        out[f"simplex_inverse_logdet with wlog, {ks.simplex_design(n)} design "
+            f"(batch-major slice, B = {n})"] = (
+            lambda y=yw: ks.simplex_inverse_logdet(y, am1), n * 4 * (15 + 16 + 2) + 64,
+            n * 15 * OPS_SIMPLEX_COORD, lambda y=yw: ks.simplex_inverse_logdet_plain(y, am1))
+        yc = layouts(vT, C_ROWS, n, "batch-major slice")["batch-major slice"]
+        w = n in (1, 151)
+        out[f"lkj_inverse{' with W' if w else ''} (batch-major slice, B = {n})"] = (
+            lambda y=yc, w=w: kl.lkj_inverse(y, 16, want_w=w),
+            n * 4 * (120 + 256 + 1 + 16 + (256 if w else 0)), n * (120 * OPS_LKJ_SLOT + 2 * 816),
+            lambda y=yc, w=w: kl.lkj_inverse_plain(y, 16, want_w=w))
+        if n > 151:
+            continue
+        yp = layouts(vT, PD_ROWS, n, "batch-major slice")["batch-major slice"]
+        out[f"pd_inverse (batch-major slice, B = {n})"] = (
+            lambda y=yp: kp.pd_inverse(y, PD_K), n * 4 * (136 + 256 + 1 + 256),
+            n * PD_OPS["inverse"], lambda y=yp: kp.pd_inverse_plain(y, PD_K))
+        out[f"pd_logdensity dot (batch-major slice, B = {n})"] = (
+            lambda y=yp: kp.pd_logdensity(y, PD_K, eye, "dot"),
+            n * 4 * (136 + 3) + eye.numel() * 4, n * PD_OPS["dot"],
+            lambda y=yp: kp.pd_logdensity_plain(y, PD_K, eye, "dot"))
+        out[f"pd_trace_grad dot (batch-major slice, B = {n})"] = (
+            lambda y=yp: kp.pd_trace_grad(y, PD_K, eye, "dot"),
+            n * 4 * (136 + 136) + eye.numel() * 4, n * PD_OPS["dot_grad"],
+            lambda y=yp: kp.pd_trace_grad_plain(y, PD_K, eye, "dot"))
+    rng = np.random.default_rng(SEED)
+    es_u = tbt.Model(eight_schools_model(dists, dev, torch.float32), device=dev).unconstrainer()
+    es_vT = torch.as_tensor(0.5 * rng.standard_normal((10, SMC_N)), dtype=torch.float32,
+                            device=dev)
+    none = dict.fromkeys(OPS, 0)
+    es = model_variants(f"(eight schools, B = {SMC_N})", es_vT, torch.zeros_like(es_vT),
+                        *fk._prep(es_u, es_vT)[:2], none)
+    mv_u = tbt.Model(mvdense_model(dists, dev, torch.float32)[0], device=dev).unconstrainer()
+    mv_vT = vT[:, :ADVI_MC].contiguous()
+    cf, loops = fk._prep(mv_u, mv_vT)[:2]
+    n_ent = len(loops.entries)
+    form, val, grad = (ADVI_MC * n_ent * QUAD_OPS[k] for k in ("form", "value", "grad"))
+    mv = model_variants(f"with the Gaussian and t entries (mvdense, B = {ADVI_MC})", mv_vT,
+                        torch.zeros_like(mv_vT), cf, loops,
+                        {"value": form + val, "value_and_grad": form + val + grad,
+                         "vjp": form + grad, "jvp": form + grad})
+    out.update({k: v for k, v in {**es, **mv}.items()
+                if k.startswith(("slab_value ", "slab_vjp "))})
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4648,7 +5216,8 @@ def main():
     lap("simplex design checks")
 
     # --- the second main path: NUTS with the likelihood ----------------------
-    sampler_line, sampler_launches = run_sampler(dev, loglik, counts, "nuts_batched_t")
+    sampler_line, sampler_launches, sampler_raw = run_sampler(dev, loglik, counts,
+                                                              "nuts_batched_t")
     launches.update({k: sampler_launches[k] for k in (SIMPLEX_SMALL, "lkj_inverse")})
     lap("nuts_batched_t sampler")
 
@@ -4667,7 +5236,7 @@ def main():
     lap("batch-major serving and its checks")
 
     # --- the fourth: batch-major NUTS with the likelihood ----------------------
-    bm_sampler_line, _ = run_sampler(dev, loglik, counts, "nuts_batched")
+    bm_sampler_line, _, _ = run_sampler(dev, loglik, counts, "nuts_batched")
     lap("nuts_batched sampler")
 
     # --- the Wishart families: the PD kernels and the PD entry ---------------
@@ -4767,6 +5336,23 @@ def main():
         for k, n in ls.items():
             new_launches[k] = new_launches.get(k, 0) + n
         lap(phase)
+    # --- the twenty-third and twenty-fourth: MAP + Laplace with the ----------
+    # evidence estimators, Pathfinder, and NUTS from Pathfinder's starts
+    ml_line, ls = run_map_laplace(dev, loglik, sampler_raw)
+    del sampler_raw
+    lap("map_laplace")
+    pf_line, ls2 = run_pathfinder(dev, loglik)
+    lap("pathfinder")
+    pf_sampler_line, ls3, _ = run_sampler(dev, loglik, counts, "auto", init="pathfinder")
+    lap("nuts_batched_t from pathfinder")
+    print(f"nuts from pathfinder's starts: warmup {pf_sampler_line['warmup_s']:.1f} s (the fit "
+          f"included), step {pf_sampler_line['step_size']:.4f}, "
+          f"{pf_sampler_line['leapfrogs_per_transition']:.2f} leapfrogs a transition; path 2: "
+          f"{sampler_line['warmup_s']:.1f} s, {sampler_line['step_size']:.4f}, "
+          f"{sampler_line['leapfrogs_per_transition']:.2f}", flush=True)
+    for k in (SMALL, SIMPLEX_SMALL, "simplex_inverse_logdet", "lkj_inverse", "pd_inverse",
+              "pd_logdensity", "pd_trace_grad"):
+        new_launches[k] = new_launches.get(k, 0) + sum(d.get(k, 0) for d in (ls, ls2, ls3))
     prep_s = time_prep(dev)
     lap("_prep first calls")
     # --- #2's small design on every model the paths drive ---------------------
@@ -4865,6 +5451,7 @@ def main():
     variants.update(repair_variants)
     variants.update(families_variants(fam_vT, fam_dvT, *fam_prep))
     variants.update(traced_variants(tr_preps))
+    variants.update(engine_variants(dev, vT))
     rows = time_kernels(kernel_table(vT, xT, cf, ones, dvT, fam_vT, probe_in,
                                      tr_preps["generic-traced"]), launches, err, variants)
     lap("kernel timing")
@@ -4902,6 +5489,9 @@ def main():
     print(json.dumps({"sampler": tr_sampler_line}), flush=True)
     for line in new_lines:
         print(json.dumps({"sampler": line}), flush=True)
+    print(json.dumps({"map_laplace": ml_line}), flush=True)
+    print(json.dumps({"pathfinder": pf_line}), flush=True)
+    print(json.dumps({"sampler": pf_sampler_line}), flush=True)
 
     if failures:
         print("FAILED: " + "; ".join(failures), file=sys.stderr)

@@ -106,13 +106,13 @@ def _logdet_vjp(y, K, chol, glogJ, glog_diag):
     return gy
 
 
-def _vec_corr_vjp(y, W, gX, glogJ, glog_diag):
+def _vec_corr_vjp(y, W, gX, glogJ, glog_diag, gW=None):
     """Closed-form vector-Jacobian product of y (N, P) -> (X = W'W, logJ,
-    log diag W) given the factor W (N, K, K) and the cotangents (each may
-    be None). With t = tanh(y), lc = logcosh(y) and lr_excl the running sum
-    before row k of column j:
+    log diag W, W) given the factor W (N, K, K) and the cotangents (each
+    may be None). With t = tanh(y), lc = logcosh(y) and lr_excl the running
+    sum before row k of column j:
 
-      gW    = W (gX + gX'), kept to the upper triangle
+      gW    = W (gX + gX') + gW, kept to the upper triangle
       gy_kj = gW_kj sech^2(y_kj) exp(lr_excl_kj)
               - t_kj sum_{k<i<=j} gW_ij W_ij
       gy   -= (K - k) t_kj glogJ + t_kj glog_diag_j
@@ -124,11 +124,13 @@ def _vec_corr_vjp(y, W, gX, glogJ, glog_diag):
     K = W.shape[-1]
     gy = _logdet_vjp(y, K, False, glogJ, glog_diag)
     if gX is not None:
+        gW = W @ (gX + gX.transpose(-1, -2)) + (0.0 if gW is None else gW)
+    if gW is not None:
         t = torch.tanh(y)
         lc = logcosh(y)
         LC = vec_to_triu(lc, 1, K)
         lr_excl = LC - torch.cumsum(LC, dim=-2)
-        gW = (W @ (gX + gX.transpose(-1, -2))) * _tri_masks(K, y.device)[1]
+        gW = gW * _tri_masks(K, y.device)[1]
         P = gW * W
         # sum over i > k of P_ij within column j (P is upper triangular)
         below = torch.flip(torch.cumsum(torch.flip(P, (-2,)), dim=-2), (-2,)) - P
@@ -138,22 +140,25 @@ def _vec_corr_vjp(y, W, gX, glogJ, glog_diag):
 
 
 class _VecCorrInverse(torch.autograd.Function):
-    """(X, logJ, log diag W) of y (N, K(K-1)/2). Forward: the kernel on the
-    card, the plain masked cumulative sums on the CPU; backward: the closed
-    form of `_vec_corr_vjp` on both, from the factor W that the forward
-    writes when a gradient is needed."""
+    """(X, logJ, log diag W, W or None) of y (N, K(K-1)/2). Forward: the
+    kernel on the card, the plain masked cumulative sums on the CPU;
+    backward: the closed form of `_vec_corr_vjp` on both, from the factor
+    W that the forward writes when a gradient is needed. W is an output
+    (the callers drop it) so that, saved as one, it carries its own
+    derivative into a second backward pass: the Hessian through this
+    Function is exact on both devices."""
 
     @staticmethod
     def forward(ctx, y, K):
         X, logJ, log_diag, W = lkj_inverse(y, K, want_w=ctx.needs_input_grad[0])
         ctx.save_for_backward(y, W)
         ctx.set_materialize_grads(False)  # an unused output's cotangent is None
-        return X, logJ, log_diag
+        return X, logJ, log_diag, W
 
     @staticmethod
-    def backward(ctx, gX, glogJ, glog_diag):
+    def backward(ctx, gX, glogJ, glog_diag, gW):
         y, W = ctx.saved_tensors
-        return _vec_corr_vjp(y, W, gX, glogJ, glog_diag), None
+        return _vec_corr_vjp(y, W, gX, glogJ, glog_diag, gW), None
 
 
 class _LkjLogdet(torch.autograd.Function):
@@ -190,7 +195,7 @@ def _vec_corr_inverse_all(y):
     """(X, logJ, log diag W) over any leading axes of y (..., K(K-1)/2)."""
     K = triu1_dim_from_length(y.shape[-1])
     lead = y.shape[:-1]
-    X, logJ, log_diag = _VecCorrInverse.apply(y.reshape(-1, y.shape[-1]), K)
+    X, logJ, log_diag, _ = _VecCorrInverse.apply(y.reshape(-1, y.shape[-1]), K)
     return X.reshape(lead + (K, K)), logJ.reshape(lead), log_diag.reshape(lead + (K,))
 
 

@@ -19,10 +19,11 @@ plus the factor's own cotangent, kept to the lower triangle, the diagonal
 times exp(y). `_pd_logdensity` is a Function over `pd_logdensity` (logJ,
 sum y_rr and the Wishart-family trace, X and L never formed), its backward
 the affine slopes of logJ and sum y_rr plus the trace's cotangent times
-`pd_trace_grad`, in both modes. Leading batch axes are flattened into the
-kernel's batch. Beyond the kernels' K (kernels/pd.py MAX_K) a CPU tensor
-takes the plain version, as the JAX package takes its jnp path there, and
-any other raises.
+`pd_trace_grad` (a Function whose own backward differentiates the plain
+closed form, so a Hessian through the density is exact), in both modes.
+Leading batch axes are flattened into the kernel's batch. Beyond the
+kernels' K (kernels/pd.py MAX_K) a CPU tensor takes the plain version, as
+the JAX package takes its jnp path there, and any other raises.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import math
 from dataclasses import dataclass
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..kernels.pd import (
     MAX_K,
@@ -38,6 +40,7 @@ from ..kernels.pd import (
     pd_inverse,
     pd_logdensity,
     pd_trace_grad,
+    pd_trace_grad_plain,
 )
 from ..utils import (
     cholesky_lower,
@@ -104,6 +107,31 @@ class _PDInverse(torch.autograd.Function):
         return _pd_inverse_vjp(y, L, gX, glogJ, gL), None
 
 
+class _PDTraceGrad(torch.autograd.Function):
+    """d trace / d y (N, K(K+1)/2): `pd_trace_grad` forward (the kernel on
+    the card, the closed form on the CPU); backward the vector-Jacobian
+    product of `pd_trace_grad_plain`, the torch composition, as the JAX
+    package takes the tangent of its kernel from the jnp composition
+    (`tpu_bijectors/bijectors/pd.py::_pd_tr_grad_jvp`). So a second
+    derivative through a Wishart-family density is exact on both devices;
+    a third raises."""
+
+    @staticmethod
+    def forward(ctx, y, K, C, mode):
+        ctx.save_for_backward(y, C)
+        ctx.K, ctx.mode = K, mode
+        return pd_trace_grad(y, K, C, mode)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gg):
+        y, C = ctx.saved_tensors
+        with torch.enable_grad():
+            yy = y.detach().requires_grad_(True)
+            (gy,) = torch.autograd.grad(pd_trace_grad_plain(yy, ctx.K, C, ctx.mode), yy, gg)
+        return gy, None, None, None
+
+
 class _PDLogdensity(torch.autograd.Function):
     """(logJ, sum y_rr, trace) of y (N, K(K+1)/2) and C (K, K):
     `pd_logdensity` forward; backward the affine slopes plus the trace's
@@ -131,7 +159,7 @@ class _PDLogdensity(torch.autograd.Function):
         if gsumd is not None:
             gy = gy + diag * gsumd[:, None]
         if gtr is not None:
-            gy = gy + gtr[:, None] * pd_trace_grad(y, ctx.K, C, ctx.mode)
+            gy = gy + gtr[:, None] * _PDTraceGrad.apply(y, ctx.K, C, ctx.mode)
         return gy, None, None, None
 
 

@@ -215,21 +215,24 @@ class _SimplexInverseX(torch.autograd.Function):
 class _SimplexInverse(torch.autograd.Function):
     """(x or None, ld, wlog or None) of y (N, K-1) and the optional weights
     am1 (K,). Forward: the kernel on the card, the plain recurrence on the
-    CPU; backward: the closed forms above, on both."""
+    CPU; backward: the closed forms above, on both. x is an output whenever
+    it was formed (the wrapper drops it where the caller did not ask for
+    it), so that, saved as one, it carries its own derivative into a
+    second backward pass: the Hessian through this Function is exact on
+    both devices."""
 
     @staticmethod
     def forward(ctx, y, am1, want_x):
         need_x = want_x or any(ctx.needs_input_grad[:2])
         x, ld, wlog = simplex_inverse_logdet(y, am1, want_x=need_x)
         ctx.save_for_backward(y, x, am1)
-        ctx.want_x = want_x
         ctx.set_materialize_grads(False)  # an unused output's cotangent is None
-        return (x if want_x else None), ld, wlog
+        return x, ld, wlog
 
     @staticmethod
     def backward(ctx, gx, gld, gwlog):
         y, x, am1 = ctx.saved_tensors
-        g = gx if (ctx.want_x and gx is not None) else torch.zeros_like(x)
+        g = gx if gx is not None else torch.zeros_like(x)
         s = _exclusive_prefix(x, x.shape[-1])
         if gld is not None:
             g = g + _ld_vjp(x, s, gld)
@@ -250,6 +253,5 @@ def _simplex_inverse_logdet_wlog(y, am1, want_x: bool = True):
     (src/Bijectors.jl:253): finite when the clamps saturate x to 0."""
     lead = y.shape[:-1]
     x, ld, wlog = _SimplexInverse.apply(y.reshape(-1, y.shape[-1]), am1, want_x)
-    if x is not None:
-        x = x.reshape(lead + (x.shape[-1],))
+    x = x.reshape(lead + (x.shape[-1],)) if want_x else None
     return x, ld.reshape(lead), (None if wlog is None else wlog.reshape(lead))

@@ -1,5 +1,6 @@
 """Inference layer of the port (counterpart of `tpu_bijectors.infer`):
-NUTS and HMC, ChEES, ADVI and SMC."""
+NUTS and HMC, ChEES, ADVI, SMC, MAP + Laplace, Pathfinder, the evidence
+estimators and PSIS-LOO / WAIC."""
 
 from .adapt import (
     StepSizeAdaptState,
@@ -16,9 +17,13 @@ from .adapt import (
 )
 from .advi import ADVIResult, FlowPosterior, FullRankGaussian, MeanFieldGaussian, fit_advi
 from .chees import CheesState, CheesStats, run_chees
+from .evidence import BridgeResult, ISResult, bridge_sampling_evidence, importance_sampling_evidence
 from .hmc import IntegratorState, NutsInfo, hmc_kernel, leapfrog, nuts_kernel
 from .hmc_batched import hmc_kernel_batched, nuts_kernel_batched
+from .loo import LOOResult, WAICResult, fit_gpd, psis_loo, waic
+from .map_laplace import LaplaceApprox, MAPResult, fit_map, laplace_approximation, map_laplace
 from .model import Model, as_batched
+from .pathfinder import PathfinderResult, fit_pathfinder, multipath_pathfinder
 from .sampler import (
     RunStats,
     SamplerState,
@@ -56,6 +61,23 @@ __all__ = [
     "run_chees",
     "CheesState",
     "CheesStats",
+    "fit_map",
+    "laplace_approximation",
+    "map_laplace",
+    "MAPResult",
+    "LaplaceApprox",
+    "fit_pathfinder",
+    "multipath_pathfinder",
+    "PathfinderResult",
+    "bridge_sampling_evidence",
+    "importance_sampling_evidence",
+    "BridgeResult",
+    "ISResult",
+    "psis_loo",
+    "waic",
+    "fit_gpd",
+    "LOOResult",
+    "WAICResult",
     # adaptation
     "stepsize_init",
     "stepsize_update",

@@ -18,7 +18,7 @@ The JAX package's two `lax.while_loop`s are host loops here. The tree
 counter and depth are host ints; each iteration's condition reads one
 `any(active)` from the device, and `SYNCS` counts those reads (and the
 reads of the other engines' host loops: ChEES's trajectory length, SMC's
-stage condition).
+stage condition, L-BFGS's line-search trials).
 
 `hmc_kernel_batched` is the fixed-trajectory transition in the same two
 layouts (SMC's HMC mutation runs it on whole particle blocks).
@@ -32,8 +32,8 @@ from .hmc import MAX_ENERGY_DELTA, NutsInfo, _trailing_zeros, apply_inv_mass, mo
 
 # device -> host reads: the NUTS tree loops' conditions (`any_active`),
 # ChEES's trajectory length a transition (`trajectory`), SMC's stage
-# condition (`stage`)
-SYNCS = {"any_active": 0, "trajectory": 0, "stage": 0}
+# condition (`stage`), L-BFGS's line-search trials (`linesearch`)
+SYNCS = {"any_active": 0, "trajectory": 0, "stage": 0, "linesearch": 0}
 
 
 def reset_sync_count():

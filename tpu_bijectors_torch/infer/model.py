@@ -178,6 +178,34 @@ class Model:
         )
         return "nuts_batched_t" if eligible else "nuts_batched"
 
+    def _init(self, generator, n_chains, init, kwargs):
+        """The starts (n_chains, dim) of `sample(init=...)`, seeding
+        kwargs['inv_mass0'] where the init gives one and the caller did
+        not."""
+        if init == "laplace":
+            from .map_laplace import map_laplace
+
+            _, lap = map_laplace(self)
+            q0 = lap.sample(generator, n_chains)
+            if "inv_mass0" not in kwargs:
+                kwargs["inv_mass0"] = (lap.covariance() if kwargs.get("metric") == "dense"
+                                       else lap.marginal_sd() ** 2)
+            return q0
+        if init == "pathfinder":
+            from .pathfinder import fit_pathfinder
+
+            res = fit_pathfinder(
+                self.logdensity_fn(), generator,
+                torch.zeros(self.dim(), dtype=self.dtype, device=self.device),
+                n_draws=n_chains,
+            )
+            if "inv_mass0" not in kwargs and kwargs.get("metric") != "dense":
+                # diag(Sigma) = alpha + rowsum(beta * (beta gamma)): gamma is symmetric
+                diag = res.alpha + torch.sum(res.beta * (res.beta @ res.gamma), dim=1)
+                kwargs["inv_mass0"] = torch.clamp(diag, min=1e-10)
+            return res.draws
+        return self.init_positions(generator, n_chains)
+
     def sample(
         self,
         generator,
@@ -209,18 +237,18 @@ class Model:
         tensor. Every random draw comes from `generator` (on the model's
         device).
 
-        init='random' draws N(0, 1) starting positions; 'laplace' and
-        'pathfinder' are not ported yet (ROADMAP.md Queue 1: they wait for
-        the port of optax's L-BFGS) and raise."""
+        init='random' draws N(0, 1) starting positions; 'laplace' runs
+        map_laplace and starts the chains from the Laplace Gaussian's
+        draws, the inverse mass seeded from its covariance (dense metric)
+        or its marginal variances (diagonal); 'pathfinder' runs
+        fit_pathfinder from zeros and starts the chains from its
+        best-candidate draws, the diagonal metric seeded with diag(Sigma).
+        Warmup still adapts; a user-passed `inv_mass0` wins."""
         from .sampler import sample_with_kernel
 
         if kernel == "auto":
             kernel = self._auto_kernel()
-        if init in ("laplace", "pathfinder"):
-            raise NotImplementedError(
-                f"init={init!r} is not ported yet (ROADMAP.md Queue 1: the L-BFGS slice)"
-            )
-        if init != "random":
+        if init not in ("random", "laplace", "pathfinder"):
             raise ValueError(f"unknown init {init!r}")
         densities = {
             "nuts": self.logdensity_fn,
@@ -232,7 +260,7 @@ class Model:
         if kernel not in densities:
             raise ValueError(f"unknown kernel {kernel!r}")
         fn = densities[kernel]()
-        q0 = self.init_positions(generator, n_chains)
+        q0 = self._init(generator, n_chains, init, kwargs)
         samples, state, stats = sample_with_kernel(
             fn, generator, q0, n_warmup=n_warmup, n_samples=n_samples,
             kernel=kernel, **kwargs,
