@@ -19,9 +19,11 @@ priors, Kumaraswamy, BetaPrime, InverseGaussian, JohnsonSU,
 TriangularDist, a Normal mixture and four joint order statistics, linked
 dim 12; the JAX tests' truncated-leaves and vector-leaves models) on two,
 the #14 probe, the engines of the thirteenth slice (ChEES with the
-dense metric, dense NUTS through a checkpoint, SMC, ADVI) on four, and
+dense metric, dense NUTS through a checkpoint, SMC, ADVI) on four,
 those of the fourteenth (MAP + Laplace with the evidence estimators,
-Pathfinder and NUTS from its starts) on two:
+Pathfinder and NUTS from its starts) on two, and those of the fifteenth
+(the flat-vector API, forward mode, parameter tangents, the samplers and
+the property sweep) on one:
 
 1. transposed serving at B = 131072: `Model.batched_logdensity_t_fn()`
    (the slab value kernel), its `value_and_grad_fn` (the one-pass
@@ -142,7 +144,20 @@ Pathfinder and NUTS from its starts) on two:
    draws in one density call at B = 1800 and 14400), gated on the best
    ELBO and the `w` block's means against the JAX package's float64 runs
    (PATHFINDER_JAX); then `Model.sample(init='pathfinder', kernel='auto')`
-   at path 2's settings and gates.
+   at path 2's settings and gates;
+25. the flat-vector API, forward mode, parameter tangents, the samplers
+   and the property sweep (`run_flat_api_and_tangents`, under
+   PATH25_LIMIT_S): the bench model's `sample` at B = 131072 (the means
+   and the LKJ off-diagonal variance within 5 MCSE), `to_vec`/`from_vec`
+   and `UnconstrainerBijector` bit for bit, the round trip v -> x -> v to
+   path 3's bounds; the forward-mode tangents of `from_linked_vec`'s
+   log-det and `linked_logdensity` (the link Functions' jvps: #5-#12) on
+   the bench and Wishart(3) models against reverse mode and float64; the
+   transposed density's gradient in the Dirichlet's alpha and the LKJ's
+   eta at B = 64 against float64 (the composed path: link kernels, none of
+   #1-#4); `testing.test_all` in float32 on the bench model's four leaves
+   and the Wishart families at K = 3; #7 at K = 256 and 1024 against the
+   sequential and scan plain versions.
 
 The dense paths also check that TF32 is off and the float32 matmul
 precision 'highest'. After them, #2's small-batch design (the item kernel, which the
@@ -226,9 +241,11 @@ result, when CUDA is absent or any check fails.
 import hashlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -700,7 +717,9 @@ def check_simplex_designs(dev, vT, vxT):
     """#7 and #8 in the design their wrappers pick (`simplex_design`) at
     `simplex_bs()` and K in SIMPLEX_KS (y: the first K-1 rows of vT), in the
     three `layouts`, with Dirichlet weights am1 (numpy seed K): x within
-    ATOL_UNIT of the plain version, ld and wlog within RTOL_SUM of their
+    ATOL_UNIT of the sequential plain version (the kernels' recurrence; from
+    K = 128 on the plain version's default is the scan, which path 25
+    holds #7 to), ld and wlog within RTOL_SUM of their
     magnitude; x, ld and wlog bit for bit on a second launch; x the same
     bit for bit as #8's and as the other design's, and ld the same without
     x or wlog. Then both designs at K = 600 and 29100, past each design's
@@ -724,7 +743,7 @@ def check_simplex_designs(dev, vT, vxT):
             for lay, y in layouts(vT, slice(0, K - 1), B, "swapped").items():
                 tag = f"simplex {design} design, K = {K} ({lay}, B = {B})"
                 x, ld, wl = ks.simplex_inverse_logdet(y, am1)
-                xp, ldp, wlp = ks.simplex_inverse_logdet_plain(y, am1)
+                xp, ldp, wlp = ks.simplex_inverse_logdet_plain(y, am1, method="sequential")
                 e = max(check(f"{tag} x vs plain", x, xp, ATOL_UNIT, torch.ones_like(xp)),
                         check(f"{tag} ld vs plain", ld, ldp, RTOL_SUM, rel(ldp)),
                         check(f"{tag} wlog vs plain", wl, wlp, RTOL_SUM, rel(wlp)))
@@ -751,7 +770,7 @@ def check_simplex_designs(dev, vT, vxT):
     for K, B in ((600, 65), (600, ks.SMALL_B + 1), (29100, 65)):
         y = 0.5 * torch.randn((B, K - 1), generator=gen, device=dev)
         am1 = torch.ones(K, device=dev)
-        xp, ldp, wlp = ks.simplex_inverse_logdet_plain(y, am1)
+        xp, ldp, wlp = ks.simplex_inverse_logdet_plain(y, am1, method="sequential")
         for design in ks.DESIGNS:
             tag = f"simplex {design} design, K = {K} (contiguous, B = {B})"
             x, ld, wl = ks.simplex_inverse_logdet(y, am1, design=design)
@@ -916,14 +935,14 @@ def logdet_bs(P):
 
 def simplex_points_state(dev, K, B, seed):
     """A transposed (K + 9, B) state whose rows 4 .. 4 + K hold simplex
-    points: the plain inverse of 0.5 N(0, 1) states (numpy seed), as
-    `simplex_points_T` makes them for K = 16."""
+    points: the sequential plain inverse of 0.5 N(0, 1) states (numpy
+    seed), as `simplex_points_T` makes them for K = 16."""
     from tpu_bijectors_torch.kernels import simplex as ks
 
     y = torch.as_tensor(0.5 * np.random.default_rng(seed).standard_normal((B, K - 1)),
                         dtype=torch.float32, device=dev)
     st = torch.zeros((K + 9, B), device=dev)
-    st[4 : 4 + K] = ks.simplex_inverse_plain(y).T
+    st[4 : 4 + K] = ks.simplex_inverse_plain(y, method="sequential").T
     return st
 
 
@@ -5090,10 +5109,282 @@ def engine_variants(dev, vT):
     return out
 
 
+# --- path 25: forward mode, parameter tangents, the flat-vector API, the ---
+# families' samplers and the property sweep
+
+# the link kernels path 25 launches (its (c) part must launch none of #1-#4)
+PATH25_LINK_KERNELS = ("simplex_inverse_logdet", SIMPLEX_SMALL, "simplex_inverse",
+                       "simplex_forward_logdet", "lkj_inverse", "lkj_logdet", "pd_inverse",
+                       "pd_logdensity", "pd_trace_grad")
+# a parameter gradient is a sum over the batch of per-column terms, each
+# held to RTOL_G: over B = 64 columns with cancellation between them, ten
+# times that against the sum's own magnitude
+RTOL_PARAM_G = 1e-4
+PATH25_LIMIT_S = 30.0
+PATH25_CPU_COLS = 1024  # the columns held to the float64 plain version on the CPU
+WISHART3_S = ((2.0, 0.3, 0.1), (0.3, 1.5, 0.2), (0.1, 0.2, 1.0))
+
+
+def wishart3_model(dists, device, dtype):
+    """The Wishart families at K = 3 (the sweep's Wishart(6, S)) beside
+    three N(0, 1): linked dim 6 + 6 + 3."""
+    kw = dict(device=device, dtype=dtype)
+    S = np.asarray(WISHART3_S)
+    return dists.NamedProduct.of(W=dists.Wishart(6.0, S, **kw),
+                                 V=dists.InverseWishart(6.0, S, **kw),
+                                 m=dists.IIDProduct(dists.Normal(0.0, 1.0, **kw), 3))
+
+
+def within_mcse(name, draws, exact):
+    """Each column's mean of `draws` (n, k) within 5 Monte Carlo standard
+    errors of `exact`; returns the worst ratio to that bound."""
+    d = draws.double()
+    se = d.std(0) / math.sqrt(d.shape[0])
+    ratio = float(((d.mean(0) - exact).abs() / (5 * se)).max())
+    print(f"{name}: worst |mean - exact| / 5 MCSE {ratio:.3f}", flush=True)
+    expect(f"{name} within 5 MCSE", ratio <= 1.0)
+    return ratio
+
+
+def tangent_checks(tag, u, u64, v, dv):
+    """The forward-mode tangents of from_linked_vec's log-det and of
+    linked_logdensity on (B, dim) states v along dv, against reverse
+    mode's gradient dotted with dv (RTOL_G against sum |g dv|) and, on the
+    first PATH25_CPU_COLS states, against the float64 plain versions on
+    the CPU. Returns the worst ratios."""
+    import torch.autograd.forward_ad as fwAD
+
+    worst = {}
+    for what, f, f64 in (("log-det", lambda a: u.from_linked_vec(a)[1],
+                          lambda a: u64.from_linked_vec(a)[1]),
+                         ("linked_logdensity", u.linked_logdensity, u64.linked_logdensity)):
+        with fwAD.dual_level():
+            t = fwAD.unpack_dual(f(fwAD.make_dual(v, dv))).tangent
+        vv = v.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(f(vv).sum(), vv)
+        scale = (g * dv).abs().sum(-1)
+        check(f"{tag}: forward-mode tangent of {what} vs reverse mode", t, (g * dv).sum(-1),
+              RTOL_G, scale + 1e-3 * scale.max())
+        worst[what] = float(((t - (g * dv).sum(-1)).abs() / (scale + 1e-3 * scale.max())).max())
+        rows = slice(0, PATH25_CPU_COLS)
+        v64, dv64 = v[rows].double().cpu(), dv[rows].double().cpu()
+        with fwAD.dual_level():
+            t64 = fwAD.unpack_dual(f64(fwAD.make_dual(v64, dv64))).tangent
+        vv = v64.clone().requires_grad_(True)
+        (g64,) = torch.autograd.grad(f64(vv).sum(), vv)
+        s64 = (g64 * dv64).abs().sum(-1)
+        check(f"{tag}: forward-mode tangent of {what} vs float64 plain (CPU)", t[rows].cpu(), t64,
+              RTOL_G, s64 + 1e-3 * s64.max())
+    return worst
+
+
+def run_flat_api_and_tangents(dev):
+    """Path 25 (float32): (a) the bench model's `sample` at B = 131072, the
+    flat-vector API on the draws (to_vec / from_vec bit for bit, the round
+    trip v -> x -> v, UnconstrainerBijector bit for bit) and the draws'
+    moments; (b) forward mode through from_linked_vec's log-det and
+    linked_logdensity (the link Functions' jvps) on the bench model and on
+    the Wishart(3) model; (c) the transposed density's gradient in the
+    Dirichlet's alpha and the LKJ's eta at B = 64 (the composed path: link
+    kernels, none of #1-#4); (d) the port's `test_all` on the bench
+    model's four leaves and on Wishart(3), in float32 on the card; (e) #7
+    at K = 256 and 1024 against both plain versions. Returns (line,
+    launches, err)."""
+    import tpu_bijectors_torch as tbt
+    from tpu_bijectors_torch import dists, kernels
+    from tpu_bijectors_torch import vectorize as tv
+    from tpu_bijectors_torch.kernels import simplex as ks
+    from tpu_bijectors_torch.testing import test_all
+
+    t0 = time.perf_counter()
+    f32 = torch.float32
+    d = bench_model(dists, dev, f32)
+    u = tbt.unconstrain(d, device=dev)
+    u64 = tbt.unconstrain(bench_model(dists, "cpu", torch.float64), device="cpu")
+    kernels.reset_launch_counts()
+    line, err = {}, {}
+
+    # (a) draws and the flat-vector API
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    x = d.sample(gen, (BATCH,))
+    expect("path 25: the draws' shapes",
+           {k: tuple(t.shape) for k, t in x.items()} == {
+               "mu": (BATCH, 8), "sigma": (BATCH, 8), "w": (BATCH, 16), "corr": (BATCH, 16, 16)}
+           and all(t.device.type == "cuda" for t in x.values()))
+    v = u.to_vec(x)
+    expect("path 25: vec length 8 + 8 + 16 + 256", v.shape == (BATCH, u.vec_length) and
+           u.vec_length == 288)
+    expect("path 25: from_vec(to_vec(x)) is x bit for bit",
+           all(torch.equal(a, x[k]) for k, a in u.from_vec(v).items()))
+    line["mcse_ratio"] = max(
+        within_mcse("path 25: Normal(0, 2) means", x["mu"], 0.0),
+        within_mcse("path 25: LogNormal(0, 0.5) means", x["sigma"], math.exp(0.125)),
+        within_mcse("path 25: Dirichlet(1_16) means", x["w"], 1.0 / 16),
+        within_mcse("path 25: LKJ(16, 2) off-diagonal variance 1/19",
+                    x["corr"][:, *torch.triu_indices(16, 16, 1, device=dev)] ** 2, 1.0 / 19))
+    lv, ld = u.to_linked_vec(x)
+    b = tv.UnconstrainerBijector(u)
+    yb, ldb = b.forward_and_log_det(x)
+    expect("path 25: UnconstrainerBijector forward is to_linked_vec bit for bit",
+           torch.equal(yb, lv) and torch.equal(ldb, ld))
+    rng = np.random.default_rng(SEED + 25)
+    vs = torch.as_tensor(0.5 * rng.standard_normal((BATCH, 151)), dtype=f32, device=dev)
+    xs, lds = u.from_linked_vec(vs)
+    xb, ldsb = b.inverse_and_log_det(vs)
+    expect("path 25: UnconstrainerBijector inverse is from_linked_vec bit for bit",
+           all(torch.equal(xb[k], xs[k]) for k in xs) and torch.equal(ldsb, lds))
+    vs2, lds2 = u.to_linked_vec(xs)
+    check("path 25: round trip v -> x -> v, scalar and simplex rows", vs2[:, :31], vs[:, :31],
+          ATOL_ROUNDTRIP, torch.ones_like(vs[:, :31]))
+    # the LKJ rows as path 3 holds them (kappa(X) eps32 + ATOL_ROUNDTRIP), on
+    # the first 4096 states
+    ev = torch.linalg.eigvalsh(xs["corr"][:4096].double().cpu())
+    row_err = (vs2[:4096, C_ROWS] - vs[:4096, C_ROWS]).abs().amax(dim=1).double().cpu()
+    ratio = float((row_err / (ev[:, -1] / ev[:, 0] * np.finfo(np.float32).eps
+                              + ATOL_ROUNDTRIP)).max())
+    print(f"path 25: round trip, LKJ rows: max error / (kappa eps32 + {ATOL_ROUNDTRIP:g}) "
+          f"{ratio:.3e}", flush=True)
+    expect("path 25: round trip v -> x -> v, LKJ rows within kappa(X) eps32", ratio <= 1.0)
+    check("path 25: round trip log-dets", lds2, -lds, RTOL_ROUNDTRIP_LD,
+          lds.abs() + 1e-3 * lds.abs().max())
+    line["roundtrip_lkj_ratio"] = ratio
+    del x, v, lv, ld, yb, ldb, xs, xb, vs2, ev
+
+    # (b) forward mode on the bench model and on the Wishart(3) model
+    dv = torch.as_tensor(np.random.default_rng(SEED + 26).standard_normal((BATCH, 151)),
+                         dtype=f32, device=dev)
+    line["tangent_ratio_bench"] = tangent_checks("path 25 bench", u, u64, vs, dv)
+    uw = tbt.unconstrain(wishart3_model(dists, dev, f32), device=dev)
+    uw64 = tbt.unconstrain(wishart3_model(dists, "cpu", torch.float64), device="cpu")
+    vw = 0.5 * vs[:, :15].contiguous()
+    line["tangent_ratio_wishart3"] = tangent_checks("path 25 Wishart(3)", uw, uw64, vw, dv[:, :15])
+    del dv, vw
+
+    # (c) parameter gradients of the transposed density at B = 64
+    before = dict(kernels.LAUNCHES)
+    grads = []
+    for device, dtype in ((dev, f32), ("cpu", torch.float64)):
+        alpha = torch.linspace(0.8, 2.3, 16, dtype=dtype, device=device).requires_grad_(True)
+        eta = torch.tensor(2.0, dtype=dtype, device=device, requires_grad=True)
+        kw = dict(device=device, dtype=dtype)
+        dp = dists.NamedProduct.of(mu=dists.IIDProduct(dists.Normal(0.0, 2.0, **kw), 8),
+                                   sigma=dists.IIDProduct(dists.LogNormal(0.0, 0.5, **kw), 8),
+                                   w=dists.Dirichlet(alpha, **kw), corr=dists.LKJ(16, eta, **kw))
+        up = tbt.unconstrain(dp, device=device)
+        lp = up.linked_logdensity_t(vs[:CHAINS].T.to(device=device, dtype=dtype))
+        grads.append(torch.autograd.grad(lp.sum(), (alpha, eta)))
+    added = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    print(f"path 25 (c): launches {added}", flush=True)
+    expect("path 25 (c): the parameter gradient launches the link kernels",
+           added[SIMPLEX_SMALL] > 0 and added["lkj_logdet"] > 0)
+    expect("path 25 (c): and none of #1-#4",
+           all(added[k] == 0 for k in SLAB_KERNELS + (SMALL, "slab_jvp")))
+    for name, g, g64 in zip(("alpha", "eta"), grads[0], grads[1]):
+        err[f"param_{name}"] = check(f"path 25 (c): d lp / d {name} vs float64", g.cpu(), g64,
+                                     RTOL_PARAM_G)
+
+    # (d) the property sweep in float32 on the card. LKJ(16)'s round trips
+    # pass through a float32 Cholesky whose error grows with kappa(X) (path
+    # 3's bound): its random states are the paths' 0.5 N(0, 1) and its
+    # round-trip tolerance 100 atol = 1e-3
+    kw = dict(device=dev, dtype=f32)
+    sweeps = {"Normal(0, 2)": (dists.Normal(0.0, 2.0, **kw), {}),
+              "LogNormal(0, 0.5)": (dists.LogNormal(0.0, 0.5, **kw), {}),
+              "Dirichlet(1_16)": (dists.Dirichlet(np.ones(16), **kw), {}),
+              "LKJ(16, 2)": (dists.LKJ(16, 2.0, **kw), dict(inverse_scale=0.5, atol=1e-5)),
+              "Wishart(6, S3)": (dists.Wishart(6.0, np.asarray(WISHART3_S), **kw), {}),
+              "InverseWishart(6, S3)": (dists.InverseWishart(6.0, np.asarray(WISHART3_S), **kw), {})}
+    for name, (dist, args) in sweeps.items():
+        try:
+            test_all(dist, **args)
+            expect(f"path 25 (d): test_all({name}) in float32 on the card", True)
+        except AssertionError as e:
+            expect(f"path 25 (d): test_all({name}) in float32 on the card: {str(e)[:400]}", False)
+    from tpu_bijectors_torch.testing.sweep import _KAPPA_CACHE
+    line["sweep_kappa"] = _KAPPA_CACHE.get(("cuda", str(f32)))
+
+    # (e) #7 at large K against both plain versions
+    for K in (256, 1024):
+        y = 0.5 * torch.randn((4096, K - 1), generator=gen, device=dev)
+        am1 = torch.as_tensor(np.random.default_rng(K).uniform(0.0, 3.0, K), dtype=f32, device=dev)
+        xk, ldk, wk = ks.simplex_inverse_logdet(y, am1)
+        for method in ks.METHODS:
+            xp, ldp, wp = ks.simplex_inverse_logdet_plain(y, am1, method=method)
+            tag = f"path 25 (e): #7 at K = {K} (B = 4096) vs the {method} plain version"
+            e = max(check(f"{tag}: x", xk, xp, ATOL_UNIT, torch.ones_like(xp)),
+                    check(f"{tag}: ld", ldk, ldp, RTOL_SUM, ldp.abs() + 1e-3 * ldp.abs().max()),
+                    check(f"{tag}: wlog", wk, wp, RTOL_SUM, wp.abs() + 1e-3 * wp.abs().max()))
+            err[f"simplex_K{K}_{method}"] = e
+    torch.cuda.synchronize()
+    launches = {k: kernels.LAUNCHES[k] for k in PATH25_LINK_KERNELS}
+    dt = time.perf_counter() - t0
+    line.update({"seconds": dt, "launches": launches})
+    print(f"path 25: {dt:.1f} s, launches {launches}", flush=True)
+    expect(f"path 25 within {PATH25_LIMIT_S:g} s", dt < PATH25_LIMIT_S)
+    return line, launches, err
+
+
+# The two longest host-bound samplers, cells 7 (pd_conjugate) and 10
+# (mv_conjugate), run in a second process beside the other paths: the card
+# is idle through most of their host loops, and the script's phases came
+# within 17 s of its 1200 s limit on a slow machine with every path in one
+# process (PERF.md section 5). Their draws do not change: each seeds its
+# own generator and resets its own launch counts. The kernel timing waits
+# for the second process to end.
+SAMPLERS_CHILD_FLAG = "--samplers-child"
+
+
+def samplers_child():
+    """The second process: cells 7 and 10 on the kernels the first built;
+    their check lines, then one JSON line with their sampler lines, cell
+    7's launches, their seconds and their failures."""
+    from tpu_bijectors_torch.kernels import build
+
+    build.load()
+    dev = torch.device("cuda")
+    t = time.perf_counter()
+    pd_line, pd_launches = run_pd_sampler(dev)
+    t_pd = time.perf_counter() - t
+    mv_line, _ = run_mv_sampler(dev)
+    print(json.dumps({"samplers_child": {
+        "pd": pd_line, "pd_launches": pd_launches, "mv": mv_line, "failures": failures,
+        "seconds": {"pd_conjugate": t_pd, "mv_conjugate": time.perf_counter() - t - t_pd}}}),
+        flush=True)
+    return 0
+
+
+def start_samplers_child():
+    """Start `samplers_child` in a new process, its output to a temporary
+    file."""
+    out = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), SAMPLERS_CHILD_FLAG],
+                            stdout=out, stderr=subprocess.STDOUT, text=True)
+    return proc, out
+
+
+def join_samplers_child(child):
+    """Wait for the second process, print its output and take over its
+    failures; returns its result. Raises when it did not end with one."""
+    proc, out = child
+    rc = proc.wait()
+    out.seek(0)
+    text = out.read()
+    out.close()
+    print(text, end="", flush=True)
+    last = text.strip().splitlines()[-1] if text.strip() else ""
+    if rc != 0 or not last.startswith('{"samplers_child"'):
+        raise RuntimeError(f"the samplers' process (cells 7 and 10) exited {rc} with no result")
+    res = json.loads(last)["samplers_child"]
+    failures.extend(f"cells 7/10: {f}" for f in res["failures"])
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    if sys.argv[1:] == [SAMPLERS_CHILD_FLAG]:
+        return samplers_child()
     import tpu_bijectors_torch as tbt
     from tpu_bijectors_torch import dists, kernels
     from tpu_bijectors_torch.kernels import build
@@ -5125,6 +5416,7 @@ def main():
     # registers, shared memory and spills of each kernel (-Xptxas=-v); a
     # library already built under build/ is loaded as it is, with no report
     print(json.dumps({"ptxas": ptxas or "not compiled in this run: no report"}), flush=True)
+    child = start_samplers_child()
 
     model = tbt.Model(bench_model(dists, dev, torch.float32), device=dev)
     u = model.unconstrainer()
@@ -5265,9 +5557,7 @@ def main():
     del pd_t
     lap("PD batch-major serving")
     # --- the seventh: NUTS on the conjugate Wishart model (pd_conjugate) -----
-    pd_sampler_line, pd_sampler_launches = run_pd_sampler(dev)
-    launches["pd_inverse"] = pd_sampler_launches["pd_inverse"]
-    lap("pd_conjugate sampler")
+    # runs in the second process (`samplers_child`)
 
     # --- the eighth: transposed serving of mvdense, all four modes ------------
     # the tangent of the forward-mode checks: N(0, 1), numpy seed 3
@@ -5282,8 +5572,7 @@ def main():
     del lp_mv, g_mv
     lap("mvdense batch-major serving")
     # --- the tenth: NUTS on mvdense with a conjugate likelihood (mv_conjugate) -
-    mv_sampler_line, _ = run_mv_sampler(dev)
-    lap("mv_conjugate sampler")
+    # runs in the second process (`samplers_child`)
     # --- the eleventh: the repairs (wide, pdwide, LKJ(64)); #4 on the models --
     # of the earlier slices
     repair_variants = {**check_wide(dev), **check_pdwide(dev), **check_lkj64(dev)}
@@ -5345,6 +5634,10 @@ def main():
     lap("pathfinder")
     pf_sampler_line, ls3, _ = run_sampler(dev, loglik, counts, "auto", init="pathfinder")
     lap("nuts_batched_t from pathfinder")
+    # --- the twenty-fifth: forward mode, parameter tangents, the flat-vector --
+    # API, the samplers and the property sweep
+    p25_line, p25_launches, p25_err = run_flat_api_and_tangents(dev)
+    lap("flat API, tangents, samplers, sweep")
     print(f"nuts from pathfinder's starts: warmup {pf_sampler_line['warmup_s']:.1f} s (the fit "
           f"included), step {pf_sampler_line['step_size']:.4f}, "
           f"{pf_sampler_line['leapfrogs_per_transition']:.2f} leapfrogs a transition; path 2: "
@@ -5353,6 +5646,8 @@ def main():
     for k in (SMALL, SIMPLEX_SMALL, "simplex_inverse_logdet", "lkj_inverse", "pd_inverse",
               "pd_logdensity", "pd_trace_grad"):
         new_launches[k] = new_launches.get(k, 0) + sum(d.get(k, 0) for d in (ls, ls2, ls3))
+    for k, n in p25_launches.items():
+        new_launches[k] = new_launches.get(k, 0) + n
     prep_s = time_prep(dev)
     lap("_prep first calls")
     # --- #2's small design on every model the paths drive ---------------------
@@ -5363,6 +5658,13 @@ def main():
     lap("small-design checks")
     err["slab_value"] = max(err["slab_value"], check_run_walk(dev))
     lap("run-walk checks")
+
+    # --- cells 7 and 10, from the second process ------------------------------
+    res = join_samplers_child(child)
+    pd_sampler_line, mv_sampler_line = res["pd"], res["mv"]
+    launches["pd_inverse"] += res["pd_launches"]["pd_inverse"]
+    lap("waiting for cells 7 and 10")
+    print(json.dumps({"second_process_s": res["seconds"]}), flush=True)
 
     # --- timing ----------------------------------------------------------------
     # the variants the paths also run: the LKJ inverse writing W for the
@@ -5492,6 +5794,7 @@ def main():
     print(json.dumps({"map_laplace": ml_line}), flush=True)
     print(json.dumps({"pathfinder": pf_line}), flush=True)
     print(json.dumps({"sampler": pf_sampler_line}), flush=True)
+    print(json.dumps({"path25": p25_line, "path25_err": p25_err}), flush=True)
 
     if failures:
         print("FAILED: " + "; ".join(failures), file=sys.stderr)

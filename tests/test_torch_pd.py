@@ -200,11 +200,22 @@ def test_pd_logdensity_backward_matches_jax_grad(rng, K, mode, off_scale):
 
 
 def test_parameter_gradients_raise():
+    """C's gradient through the PD log-density, which raised until the
+    Function passed it (the plain version's): against jax.grad of the JAX
+    package's jnp composition, in both modes. The test keeps its name."""
     K = 2
-    y = torch.zeros((1, 3), dtype=torch.float64)
-    C = torch.eye(K, dtype=torch.float64, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="Wishart"):
-        tpd._pd_logdensity(y, K, C, "dot")
+    y = np.asarray([[0.3, -0.2, 0.1], [0.5, 0.4, -0.3]])
+    C = np.asarray([[1.5, 0.2], [0.2, 0.8]])
+    w = np.asarray([[0.7, -1.1, 0.4], [0.2, 0.9, -0.5]])
+    for mode in ("dot", "solve"):
+        Cm = np.linalg.cholesky(C) if mode == "solve" else C
+        ref = jax.grad(lambda c: sum(jnp.sum(jnp.asarray(w[:, i]) * o) for i, o in enumerate(
+            jpd._pd_logdensity_jnp(jnp.asarray(y), c, mode))))(jnp.asarray(Cm))
+        Ct = torch.tensor(Cm, requires_grad=True)
+        outs = tpd._pd_logdensity(torch.as_tensor(y), K, Ct, mode)
+        (got,) = torch.autograd.grad(sum(torch.sum(torch.as_tensor(w[:, i]) * o)
+                                         for i, o in enumerate(outs)), Ct)
+        _close(got, np.asarray(ref), GRAD_TOL)
 
 
 # ---------------------------------------------------------------------------

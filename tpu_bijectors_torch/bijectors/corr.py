@@ -20,7 +20,10 @@ The inverse (X, logJ, log diag W) and the log-det alone (logJ, log diag
 W) are `torch.autograd.Function`s: their forwards are `kernels/lkj.py`'s
 wrappers `lkj_inverse` and `lkj_logdet` (the CUDA kernels for a CUDA
 tensor, the plain cumulative sums there for a CPU tensor), their backward
-the closed forms of `_vec_corr_vjp` and `_logdet_vjp` on both. The
+the closed forms of `_vec_corr_vjp` and `_logdet_vjp` on both; their
+forward-mode `jvp`s the tangent of the plain inverse (as the JAX package
+takes `jax.jvp` of its jnp composition) and the closed form
+`_logdet_tangent` (the JAX package's `_lkj_logdet_tangent`). The
 Cholesky link's log-det alone is `lkj_logdet`'s `chol=True` variant; its
 inverse is the factor W itself, formed by the torch cumulative sums (the
 JAX package forms it in jnp, outside any kernel).
@@ -39,6 +42,7 @@ from ..kernels.lkj import (
     _tri_masks,
     _up_mask,
     lkj_inverse,
+    lkj_inverse_plain,
     lkj_logdet,
 )
 from ..utils import (
@@ -46,6 +50,7 @@ from ..utils import (
     _triu_index_tensors,
     cholesky_upper,
     logcosh,
+    plain_jvp,
     triu1_dim_from_length,
     triu_to_vec,
     vec_to_triu,
@@ -106,6 +111,17 @@ def _logdet_vjp(y, K, chol, glogJ, glog_diag):
     return gy
 
 
+def _logdet_tangent(y, dy, K, chol):
+    """(dlogJ, dlog diag W) of y (N, P) along dy: with t = tanh(y) dy,
+    dlogJ = -sum_s coeff_s t_s and dlog diag W_j = -sum of t over column
+    j's slots (the JAX package's `_lkj_logdet_tangent`)."""
+    t = torch.tanh(y) * dy
+    dlogJ = -torch.sum(_row_coeff(K, y.dtype, y.device, chol) * t, dim=-1)
+    cols = _triu_index_tensors(K, 1, y.device)[1]
+    dlog_diag = -t.new_zeros(t.shape[:-1] + (K,)).index_add_(-1, cols, t)
+    return dlogJ, dlog_diag
+
+
 def _vec_corr_vjp(y, W, gX, glogJ, glog_diag, gW=None):
     """Closed-form vector-Jacobian product of y (N, P) -> (X = W'W, logJ,
     log diag W, W) given the factor W (N, K, K) and the cotangents (each
@@ -152,8 +168,17 @@ class _VecCorrInverse(torch.autograd.Function):
     def forward(ctx, y, K):
         X, logJ, log_diag, W = lkj_inverse(y, K, want_w=ctx.needs_input_grad[0])
         ctx.save_for_backward(y, W)
+        ctx.save_for_forward(y)
+        ctx.K = K
         ctx.set_materialize_grads(False)  # an unused output's cotangent is None
         return X, logJ, log_diag, W
+
+    @staticmethod
+    def jvp(ctx, dy, _):
+        (y,) = ctx.saved_tensors
+        dX, dlogJ, dlog_diag, dW = plain_jvp(
+            lambda v: lkj_inverse_plain(v, ctx.K, want_w=True), (y,), (dy,))
+        return dX, dlogJ, dlog_diag, (dW if ctx.needs_input_grad[0] else None)
 
     @staticmethod
     def backward(ctx, gX, glogJ, glog_diag, gW):
@@ -170,9 +195,15 @@ class _LkjLogdet(torch.autograd.Function):
     def forward(ctx, y, K, chol):
         logJ, log_diag = lkj_logdet(y, K, chol)
         ctx.save_for_backward(y)
+        ctx.save_for_forward(y)
         ctx.K, ctx.chol = K, chol
         ctx.set_materialize_grads(False)  # an unused output's cotangent is None
         return logJ, log_diag
+
+    @staticmethod
+    def jvp(ctx, dy, _K, _chol):
+        (y,) = ctx.saved_tensors
+        return _logdet_tangent(y, dy, ctx.K, ctx.chol)
 
     @staticmethod
     def backward(ctx, glogJ, glog_diag):

@@ -20,7 +20,14 @@ times exp(y). `_pd_logdensity` is a Function over `pd_logdensity` (logJ,
 sum y_rr and the Wishart-family trace, X and L never formed), its backward
 the affine slopes of logJ and sum y_rr plus the trace's cotangent times
 `pd_trace_grad` (a Function whose own backward differentiates the plain
-closed form, so a Hessian through the density is exact), in both modes.
+closed form, so a Hessian through the density is exact), in both modes;
+C's gradient, where C carries one, is the plain version's. Their
+forward-mode `jvp`s: dX = dL L' + L dL' for the inverse; the affine slopes
+and the trace gradient (the kernel on the card) dotted with dy, plus the
+plain version's tangent in C, for the log-density; the plain trace
+gradient's tangent for the trace gradient (the JAX package's jvp rules,
+bijectors/pd.py `_pd_inverse_all_pallas_jvp`, `_pd_logdensity_pallas_jvp`,
+`_pd_tr_grad_jvp`).
 Leading batch axes are flattened into the kernel's batch. Beyond the
 kernels' K (kernels/pd.py MAX_K) a CPU tensor takes the plain version, as
 the JAX package takes its jnp path there, and any other raises.
@@ -39,12 +46,14 @@ from ..kernels.pd import (
     affine_coeffs,
     pd_inverse,
     pd_logdensity,
+    pd_logdensity_plain,
     pd_trace_grad,
     pd_trace_grad_plain,
 )
 from ..utils import (
     cholesky_lower,
     pd_from_lower,
+    plain_jvp,
     set_diag,
     tril_to_vec,
     triu_dim_from_length,
@@ -98,8 +107,20 @@ class _PDInverse(torch.autograd.Function):
     def forward(ctx, y, K):
         X, logJ, L = pd_inverse(y, K)
         ctx.save_for_backward(y, L)
+        ctx.save_for_forward(y, L)
         ctx.set_materialize_grads(False)  # an unused output's cotangent is None
         return X, logJ, L
+
+    @staticmethod
+    def jvp(ctx, dy, _):
+        """dL: dy off the diagonal, L_rr dy_rr on it; dX = dL L' + L dL';
+        dlogJ = sum_r (K+1-r) dy_rr."""
+        y, L = ctx.saved_tensors
+        K = L.shape[-1]
+        dY = vec_to_tril(dy, 0, K)
+        dL = set_diag(dY, torch.diagonal(dY, dim1=-2, dim2=-1) * torch.diagonal(L, dim1=-2, dim2=-1))
+        dLLt = dL @ L.transpose(-1, -2)
+        return dLLt + dLLt.transpose(-1, -2), torch.sum(affine_coeffs(K, y)[0] * dy, -1), dL
 
     @staticmethod
     def backward(ctx, gX, glogJ, gL):
@@ -119,8 +140,16 @@ class _PDTraceGrad(torch.autograd.Function):
     @staticmethod
     def forward(ctx, y, K, C, mode):
         ctx.save_for_backward(y, C)
+        ctx.save_for_forward(y, C)
         ctx.K, ctx.mode = K, mode
         return pd_trace_grad(y, K, C, mode)
+
+    @staticmethod
+    def jvp(ctx, dy, _K, dC, _mode):
+        y, C = ctx.saved_tensors
+        (dg,) = plain_jvp(lambda v, c: (pd_trace_grad_plain(v, ctx.K, c, ctx.mode),),
+                          (y, C), (dy, dC))
+        return dg
 
     @staticmethod
     @once_differentiable
@@ -135,19 +164,28 @@ class _PDTraceGrad(torch.autograd.Function):
 class _PDLogdensity(torch.autograd.Function):
     """(logJ, sum y_rr, trace) of y (N, K(K+1)/2) and C (K, K):
     `pd_logdensity` forward; backward the affine slopes plus the trace's
-    cotangent times `pd_trace_grad`. Differentiable in y only."""
+    cotangent times `pd_trace_grad`; C's cotangent, where C carries a
+    gradient, that of the plain version's trace."""
 
     @staticmethod
     def forward(ctx, y, K, C, mode):
-        if ctx.needs_input_grad[2]:
-            raise NotImplementedError(
-                "gradients with respect to the Wishart-family parameters do not "
-                "pass through the PD log-density kernel"
-            )
         ctx.save_for_backward(y, C)
+        ctx.save_for_forward(y, C)
         ctx.K, ctx.mode = K, mode
         ctx.set_materialize_grads(False)
         return pd_logdensity(y, K, C, mode)
+
+    @staticmethod
+    def jvp(ctx, dy, _K, dC, _mode):
+        y, C = ctx.saved_tensors
+        coeff, diag = affine_coeffs(ctx.K, y)
+        dy = torch.zeros_like(y) if dy is None else dy
+        dtr = torch.sum(pd_trace_grad(y, ctx.K, C, ctx.mode) * dy, -1)
+        if dC is not None:
+            (dtr_c,) = plain_jvp(lambda c: (pd_logdensity_plain(y, ctx.K, c, ctx.mode)[2],),
+                                 (C,), (dC,))
+            dtr = dtr + dtr_c
+        return torch.sum(coeff * dy, -1), torch.sum(diag * dy, -1), dtr
 
     @staticmethod
     def backward(ctx, glogJ, gsumd, gtr):
@@ -158,9 +196,15 @@ class _PDLogdensity(torch.autograd.Function):
             gy = gy + coeff * glogJ[:, None]
         if gsumd is not None:
             gy = gy + diag * gsumd[:, None]
+        gC = None
         if gtr is not None:
             gy = gy + gtr[:, None] * _PDTraceGrad.apply(y, ctx.K, C, ctx.mode)
-        return gy, None, None, None
+            if ctx.needs_input_grad[2]:
+                with torch.enable_grad():
+                    c = C.detach().requires_grad_(True)
+                    (gC,) = torch.autograd.grad(
+                        pd_logdensity_plain(y.detach(), ctx.K, c, ctx.mode)[2], c, gtr)
+        return gy, None, gC, None
 
 
 def _pd_inverse_all(y):

@@ -14,13 +14,18 @@ src/bijectors/simplex.jl:28-138):
 Each direction is a `torch.autograd.Function` whose forward is a wrapper
 of `kernels/simplex.py` (the CUDA kernel for a CUDA tensor, the plain
 version there for a CPU tensor) and whose backward is a closed-form
-vector-Jacobian product in torch ops on either device:
+vector-Jacobian product in torch ops on either device, and whose `jvp`
+(forward mode) is the closed-form tangent of the JAX package's jvp rules:
 
   inverse with its log-det (and the Dirichlet data term wlog):
       `simplex_inverse_logdet`; backward `_simplex_vjp` + `_ld_vjp`
   inverse, x alone:            `simplex_inverse`; backward `_simplex_vjp`
   forward with its log-det:    `simplex_forward_logdet`; backward
       `_simplex_forward_vjp` + `_ld_vjp`
+
+The tangents: `_simplex_inverse_tangent` (the affine running-sum tangent,
+by `kernels/simplex.py::affine_scan`), `_simplex_forward_tangent`, and the
+log-det's as its gradient `_ld_vjp(x, s, 1)` dotted with dx.
 
 Any leading batch axes are flattened into the kernel's batch.
 """
@@ -34,6 +39,7 @@ import torch
 
 from ..kernels.simplex import (
     _exclusive_prefix,
+    affine_scan,
     _first,
     _log_km1_minus_k,
     simplex_forward_logdet,
@@ -174,6 +180,54 @@ def _simplex_forward_vjp(x, gy):
     return torch.cat([gxk, torch.zeros_like(x[..., :1])], dim=-1)
 
 
+def _simplex_inverse_tangent(y, x, dy):
+    """dx of x(y) along dy (rows of y (N, K-1)), given x: the JAX
+    package's `_simplex_inverse_tangent`. The running sum's tangent is
+    affine, ds_{k+1} = a_k ds_k + b_k with a_k = 1 - m_k z_k/(1-2eps) and
+    b_k = m_k ((1+eps) - s_k)/(1-2eps) dz_k (k = 0: a_0 = 1, b_0 = m_0
+    dz_0/(1-2eps)), m_k the clamp slopes, so one `affine_scan` solves it;
+    dx_k = ds_{k+1} - ds_k and dx_{K-1} = -m_last ds_{K-1}."""
+    K = x.shape[-1]
+    eps = _eps(x.dtype)
+    c12 = 1 - 2 * eps
+    z = logistic(y - _log_km1_minus_k(K, y))
+    dz = z * (1.0 - z) * dy
+    s = _exclusive_prefix(x, K)
+    k0 = _first(K - 1, x.device)
+    pre = torch.where(k0, (z - eps) / c12, ((1 + eps) - s) / c12 * z - eps)
+    m = clamp_slope(pre)
+    a = torch.where(k0, torch.ones_like(z), 1.0 - m * z / c12)
+    b = m * torch.where(k0, dz / c12, ((1 + eps) - s) / c12 * dz)
+    ds = affine_scan(a, b)  # ds[..., k] = ds_{k+1}
+    dxk = ds - torch.cat([torch.zeros_like(ds[..., :1]), ds[..., :-1]], dim=-1)
+    dx_last = -clamp_slope(1.0 - (s[..., -1] + x[..., K - 2])) * ds[..., -1]
+    return torch.cat([dxk, dx_last[..., None]], dim=-1)
+
+
+def _ld_tangent(x, s, dx):
+    """The inverse log-det's tangent along dx: its gradient `_ld_vjp(x, s,
+    1)` dotted with dx."""
+    return torch.sum(_ld_vjp(x, s, torch.ones_like(x[..., 0])) * dx, dim=-1)
+
+
+def _simplex_forward_tangent(x, dx):
+    """dy of the forward link y(x) along dx (rows of x (N, K)): dz_0 =
+    (1-2eps) dx_0, dz_k = ((1-2eps) dx_k + z_k ds_k) / den_k with ds the
+    exclusive prefix sum of dx, dy_k = (1/z_k + 1/(1 - z_k)) dz_k: the
+    tangent whose transpose is `_simplex_forward_vjp`."""
+    K = x.shape[-1]
+    eps = _eps(x.dtype)
+    c12 = 1 - 2 * eps
+    s = _exclusive_prefix(x, K)
+    k0 = _first(K - 1, x.device)
+    den = (1 + eps) - s
+    xk = x[..., : K - 1]
+    z = torch.where(k0, xk * c12 + eps, (xk + eps) * c12 / den)
+    ds = _exclusive_prefix(dx, K)
+    dz = torch.where(k0, c12 * dx[..., : K - 1], (c12 * dx[..., : K - 1] + z * ds) / den)
+    return (1.0 / z + 1.0 / (1.0 - z)) * dz
+
+
 class _SimplexForward(torch.autograd.Function):
     """(y, forward log-det) of x (N, K). Forward: the kernel on the card,
     the plain forward link on the CPU; backward: the closed forms above."""
@@ -182,8 +236,15 @@ class _SimplexForward(torch.autograd.Function):
     def forward(ctx, x):
         y, ld = simplex_forward_logdet(x)
         ctx.save_for_backward(x)
+        ctx.save_for_forward(x)
         ctx.set_materialize_grads(False)  # an unused output's cotangent is None
         return y, ld
+
+    @staticmethod
+    def jvp(ctx, dx):
+        (x,) = ctx.saved_tensors
+        s = _exclusive_prefix(x, x.shape[-1])
+        return _simplex_forward_tangent(x, dx), -_ld_tangent(x, s, dx)
 
     @staticmethod
     def backward(ctx, gy, gld):
@@ -204,7 +265,13 @@ class _SimplexInverseX(torch.autograd.Function):
     def forward(ctx, y):
         x = simplex_inverse(y)
         ctx.save_for_backward(y, x)
+        ctx.save_for_forward(y, x)
         return x
+
+    @staticmethod
+    def jvp(ctx, dy):
+        y, x = ctx.saved_tensors
+        return _simplex_inverse_tangent(y, x, dy)
 
     @staticmethod
     def backward(ctx, gx):
@@ -226,8 +293,28 @@ class _SimplexInverse(torch.autograd.Function):
         need_x = want_x or any(ctx.needs_input_grad[:2])
         x, ld, wlog = simplex_inverse_logdet(y, am1, want_x=need_x)
         ctx.save_for_backward(y, x, am1)
+        ctx.save_for_forward(y, x, am1)
         ctx.set_materialize_grads(False)  # an unused output's cotangent is None
         return x, ld, wlog
+
+    @staticmethod
+    def jvp(ctx, dy, dam1, _):
+        """(dx, dld, dwlog) along (dy, dam1): the JAX package's
+        `_wlog_tangents`. Where the forward formed no x (neither asked for
+        nor needed by a backward), the x-only wrapper forms it here."""
+        y, x, am1 = ctx.saved_tensors
+        x_out = x
+        if x is None:
+            x = simplex_inverse(y)
+        dx = _simplex_inverse_tangent(y, x, torch.zeros_like(y) if dy is None else dy)
+        dld = _ld_tangent(x, _exclusive_prefix(x, x.shape[-1]), dx)
+        dwlog = None
+        if am1 is not None:
+            eps = _eps(x.dtype)
+            dwlog = torch.sum(am1 * dx / (x + eps), dim=-1)
+            if dam1 is not None:
+                dwlog = dwlog + torch.sum(dam1 * torch.log(x + eps), dim=-1)
+        return (None if x_out is None else dx), dld, dwlog
 
     @staticmethod
     def backward(ctx, gx, gld, gwlog):

@@ -4,6 +4,7 @@ A spec is a nested dict of type names and numpy arrays, so that the same
 parameters can be handed to the JAX package and to the port:
 
   {"type": "NamedProduct", "children": {"mu": spec, ...}}
+  {"type": "Product", "children": [spec, ...]}   (a tuple sample)
   {"type": "IIDProduct", "inner": spec, "n": 8}
   {"type": "ElementwiseProduct", "inner": spec}   (arraydist of (n,) parameters)
   {"type": "TransformedDistribution", "inner": spec}   (transformed(d): the
@@ -67,6 +68,10 @@ def dist_from_spec(spec: dict, *, device, dtype):
                 name: dist_from_spec(c, device=device, dtype=dtype)
                 for name, c in spec["children"].items()
             }
+        )
+    if kind == "Product":
+        return dists.Product(
+            tuple(dist_from_spec(c, device=device, dtype=dtype) for c in spec["children"])
         )
     if kind == "IIDProduct":
         return dists.IIDProduct(

@@ -82,6 +82,41 @@ class Distribution:
     def logpdf(self, x):
         raise NotImplementedError(type(self).__name__)
 
+    def sample(self, generator, sample_shape: tuple = ()):
+        """Draws of shape sample_shape + batch_shape + event_shape, every
+        random number from `generator` (a `torch.Generator` on the
+        parameters' device)."""
+        raise NotImplementedError(type(self).__name__)
+
+    def sample_and_logpdf(self, generator, sample_shape: tuple = ()):
+        x = self.sample(generator, sample_shape)
+        return x, self.logpdf(x)
+
+    def in_support(self, x, atol: float = 1e-8):
+        """Whether x lies in the support, to within atol (the property
+        sweep's check, reference src/vector/test_utils.jl:325-374)."""
+        s = self.support
+        n = self.event_ndims
+        if s.kind == "interval":
+            ok = torch.ones_like(x, dtype=torch.bool)
+            if s.lower_finite:
+                ok = ok & (x >= s.lower - atol)
+            if s.upper_finite:
+                ok = ok & (x <= s.upper + atol)
+            return torch.all(ok, dim=tuple(range(-n, 0))) if n else ok
+        if s.kind == "simplex":
+            return (torch.abs(torch.sum(x, -1) - 1.0) < max(atol, 1e-6)) & torch.all(x >= -atol, -1)
+        if s.kind in ("pd", "corr"):
+            eig = torch.linalg.eigvalsh(0.5 * (x + x.transpose(-1, -2)))
+            ok = torch.all(eig > -atol, -1)
+            if s.kind == "corr":
+                d = torch.diagonal(x, dim1=-2, dim2=-1)
+                ok = ok & torch.all(torch.abs(d - 1.0) < max(atol, 1e-6), -1)
+            return ok
+        if s.kind == "chol_corr":
+            return torch.all(torch.diagonal(x, dim1=-2, dim2=-1) > -atol, -1)
+        return torch.ones(x.shape[: x.ndim - n], dtype=torch.bool, device=x.device)
+
     def to(self, device) -> "Distribution":
         """The same distribution with every parameter on `device`."""
         raise NotImplementedError(type(self).__name__)

@@ -11,8 +11,8 @@ The Wishart families fuse their linked density on the PD links' kernels
 (bijectors/pd.py): `fused_linked_logdensity` and its transposed form run
 the PD log-density kernel (logJ, sum y_rr and the trace, X and L never
 formed), `logpdf_from_factor` takes the factor L that the inverse link
-computes anyway. Sampling uses the Bartlett decomposition, every draw from
-an explicit `torch.Generator`.
+computes anyway. Sampling uses the Bartlett decomposition (the LKJ
+families the onion method), every draw from an explicit `torch.Generator`.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import torch
 
 from ..kernels.pd import MAX_K
 from ..utils import cholesky_lower
+from . import _random as R
 from .base import CHOLESKY_CORRELATION, CORRELATION, POSITIVE_DEFINITE, LeafDistribution
 
 LOG2 = math.log(2.0)
@@ -42,6 +43,24 @@ def _lkj_log_normalizer(K: int, eta):
     a = eta + (km - 1.0) / 2.0
     lbeta = 2.0 * torch.lgamma(a) - torch.lgamma(2.0 * a)
     return torch.sum((2.0 * eta - 2.0 + km) * km * LOG2 + km * lbeta)
+
+
+def _sample_lkj_chol_upper(generator, K: int, eta, shape):
+    """The onion method: the upper Cholesky factor U (unit-norm columns) of
+    LKJ(eta) correlation matrices, batched over `shape`: column j's
+    direction from normals, its squared length y_j ~ Beta(j/2, eta +
+    (K-1-j)/2) (0-based j >= 1)."""
+    shape = tuple(shape)
+    up = torch.triu(torch.ones(K, K, dtype=torch.bool, device=eta.device), 1)
+    g = torch.where(up, R.normal(generator, shape + (K, K), eta), 0.0)
+    norm = torch.sqrt(torch.sum(g * g, -2, keepdim=True))
+    u = torch.where(up, g / torch.where(norm == 0, 1.0, norm), 0.0)
+    j = torch.arange(1, K, dtype=eta.dtype, device=eta.device)
+    y = R.beta(generator, j / 2.0, eta[..., None] + (K - 1.0 - j) / 2.0, shape + (K - 1,))
+    zero = torch.zeros(shape + (1,), dtype=eta.dtype, device=eta.device)
+    sqrt_y = torch.cat([zero, torch.sqrt(y)], -1)
+    diag = torch.cat([zero + 1.0, torch.sqrt(1.0 - y)], -1)
+    return u * sqrt_y[..., None, :] + torch.diag_embed(diag)
 
 
 @dataclass(frozen=True)
@@ -69,6 +88,11 @@ class LKJ(LeafDistribution):
         2 sum log W_jj. No re-decomposition of X (x is not needed)."""
         logdet = 2.0 * torch.sum(log_diag_w, -1)
         return (self.eta - 1.0) * logdet - _lkj_log_normalizer(self.dim, self.eta)
+
+    def sample(self, generator, sample_shape=()):
+        U = _sample_lkj_chol_upper(generator, self.dim, self.eta,
+                                   tuple(sample_shape) + self.batch_shape)
+        return U.transpose(-1, -2) @ U
 
     @property
     def support(self):
@@ -116,6 +140,11 @@ class LKJCholesky(LeafDistribution):
         inverse link gives without forming the factor."""
         return torch.sum(self._coeff() * log_diag, -1) - _lkj_log_normalizer(self.dim, self.eta)
 
+    def sample(self, generator, sample_shape=()):
+        U = _sample_lkj_chol_upper(generator, self.dim, self.eta,
+                                   tuple(sample_shape) + self.batch_shape)
+        return U.transpose(-1, -2) if self.mode == "L" else U
+
     @property
     def support(self):
         return CHOLESKY_CORRELATION
@@ -127,28 +156,6 @@ def _mv_lgamma(a, p: int):
     return 0.25 * p * (p - 1) * LOGPI + torch.sum(torch.lgamma(a[..., None] + 0.5 * (1.0 - i)), -1)
 
 
-def _standard_gamma(generator, conc):
-    """Gamma(conc, 1) draws, one per element of `conc` (> 0), by Marsaglia
-    and Tsang's squeeze (shape conc + 1 below 1, then times U^(1/conc)),
-    every normal and uniform from `generator`."""
-    boost = conc < 1.0
-    a = torch.where(boost, conc + 1.0, conc)
-    d = a - 1.0 / 3.0
-    c = 1.0 / torch.sqrt(9.0 * d)
-    out = torch.empty_like(a)
-    todo = torch.ones_like(a, dtype=torch.bool)
-    while bool(todo.any()):
-        x = torch.randn(a.shape, generator=generator, dtype=a.dtype, device=a.device)
-        u = torch.rand(a.shape, generator=generator, dtype=a.dtype, device=a.device)
-        v = (1.0 + c * x) ** 3
-        ok = (v > 0) & (torch.log(u) < 0.5 * x * x + d - d * v + d * torch.log(v))
-        take = todo & ok
-        out = torch.where(take, d * v, out)
-        todo = todo & ~ok
-    u = torch.rand(a.shape, generator=generator, dtype=a.dtype, device=a.device)
-    return torch.where(boost, out * u ** (1.0 / conc), out)
-
-
 def _bartlett_chol(generator, df, S_chol, K: int, shape):
     """Cholesky factor of a Wishart(df, S) draw by the Bartlett
     decomposition: S_chol A with A lower, A_ii^2 ~ chi2(df - i) (0-based i)
@@ -156,8 +163,7 @@ def _bartlett_chol(generator, df, S_chol, K: int, shape):
     dtype, device = S_chol.dtype, S_chol.device
     i = torch.arange(K, dtype=dtype, device=device)
     chi_df = df[..., None] - i
-    conc = (0.5 * chi_df).expand(tuple(shape) + (K,))
-    c = torch.sqrt(2.0 * _standard_gamma(generator, conc))
+    c = torch.sqrt(2.0 * R.gamma(generator, 0.5 * chi_df, tuple(shape) + (K,)))
     n = torch.randn(tuple(shape) + (K, K), generator=generator, dtype=dtype, device=device)
     A = torch.tril(n, -1) + torch.diag_embed(c)
     return S_chol @ A

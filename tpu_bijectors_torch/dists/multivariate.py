@@ -20,6 +20,7 @@ import torch
 from ..bijectors.base import Block, Identity
 from ..bijectors.simplex import SimplexBijector, _simplex_inverse_logdet_wlog
 from ..utils import cholesky_lower
+from . import _random as R
 from .base import REAL_VECTOR, SIMPLEX, LeafDistribution, positive
 from .univariate import _is_log_link
 
@@ -60,6 +61,12 @@ class Dirichlet(LeafDistribution):
     @property
     def support(self):
         return SIMPLEX
+
+    def sample(self, generator, sample_shape=()):
+        """Normalised Gamma(alpha_k) draws."""
+        shape = tuple(sample_shape) + self.batch_shape + self.event_shape
+        g = R.gamma(generator, self.alpha, shape)
+        return g / torch.sum(g, -1, keepdim=True)
 
 
 def _is_vector_link(b, scalar_test) -> bool:
@@ -129,6 +136,10 @@ class MvNormalDiag(LeafDistribution):
     def support(self):
         return REAL_VECTOR
 
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape + self.event_shape
+        return self.loc + self.scale_diag * R.normal(generator, shape, self.loc)
+
 
 @dataclass(frozen=True)
 class MvNormalTril(LeafDistribution):
@@ -158,6 +169,11 @@ class MvNormalTril(LeafDistribution):
     @property
     def support(self):
         return REAL_VECTOR
+
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape + self.event_shape
+        eps = R.normal(generator, shape, self.loc)
+        return self.loc + torch.einsum("...ij,...j->...i", torch.tril(self.scale_tril), eps)
 
 
 def MvNormal(loc, cov=None, *, scale_tril=None, scale_diag=None, device=None, dtype=None):
@@ -215,6 +231,10 @@ class MvLogNormal(LeafDistribution):
     def support(self):
         return positive()
 
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape + self.event_shape
+        return torch.exp(self.loc + self.scale_diag * R.normal(generator, shape, self.loc))
+
 
 @dataclass(frozen=True)
 class MvStudentT(LeafDistribution):
@@ -255,6 +275,14 @@ class MvStudentT(LeafDistribution):
     def support(self):
         return REAL_VECTOR
 
+    def sample(self, generator, sample_shape=()):
+        """loc + sqrt(df / chi2(df)) L eps."""
+        shape = tuple(sample_shape) + self.batch_shape
+        eps = R.normal(generator, shape + self.event_shape, self.loc)
+        g = R.gamma(generator, 0.5 * self.df, shape)
+        w = torch.sqrt(0.5 * self.df / g)[..., None]
+        return self.loc + w * torch.einsum("...ij,...j->...i", torch.tril(self.scale_tril), eps)
+
 
 @dataclass(frozen=True)
 class MvNormalCanon(LeafDistribution):
@@ -291,3 +319,11 @@ class MvNormalCanon(LeafDistribution):
     @property
     def support(self):
         return REAL_VECTOR
+
+    def sample(self, generator, sample_shape=()):
+        """mu + L'^-1 eps, whose covariance is prec^-1 (prec = L L')."""
+        L, mu = self.chol_and_mean(self.h.dtype)
+        shape = tuple(sample_shape) + self.batch_shape + self.event_shape
+        eps = R.normal(generator, shape, self.h)
+        Lt = L.transpose(-1, -2).expand(shape[:-1] + L.shape[-2:])
+        return mu + torch.linalg.solve_triangular(Lt, eps[..., None], upper=True)[..., 0]

@@ -1,6 +1,8 @@
 """Product distributions, PyTorch counterpart of
 `tpu_bijectors/dists/product.py`: IIDProduct, ElementwiseProduct (the
-`arraydist` of a family with per-element parameters) and NamedProduct."""
+`arraydist` of a family with per-element parameters), Product (a tuple
+sample) and NamedProduct (a dict sample). A product's `sample` draws its
+components one after another from the one generator."""
 
 from __future__ import annotations
 
@@ -38,6 +40,12 @@ class IIDProduct(Distribution):
     def logpdf(self, x):
         return torch.sum(self.base.logpdf(x), dim=-1)
 
+    def sample(self, generator, sample_shape=()):
+        return self.base.sample(generator, tuple(sample_shape) + (self.n,))
+
+    def in_support(self, x, atol: float = 1e-8):
+        return torch.all(self.base.in_support(x, atol), dim=-1)
+
     def to(self, device):
         return IIDProduct(self.base.to(device), self.n)
 
@@ -70,6 +78,13 @@ class ElementwiseProduct(Distribution):
     def logpdf(self, x):
         return torch.sum(self.base.logpdf(x), dim=-1)
 
+    def sample(self, generator, sample_shape=()):
+        # the base's draw is sample_shape + batch_shape = (..., n)
+        return self.base.sample(generator, sample_shape)
+
+    def in_support(self, x, atol: float = 1e-8):
+        return torch.all(self.base.in_support(x, atol), dim=-1)
+
     def to(self, device):
         return ElementwiseProduct(self.base.to(device))
 
@@ -83,6 +98,34 @@ def arraydist(base: Distribution) -> ElementwiseProduct:
             f"parameters); got {tuple(base.batch_shape)}"
         )
     return ElementwiseProduct(base)
+
+
+@dataclass(frozen=True)
+class Product(Distribution):
+    """Heterogeneous product; a sample is the tuple of the components'."""
+
+    components: tuple
+
+    @property
+    def event_shape(self):
+        return tuple(c.event_shape for c in self.components)
+
+    @property
+    def support(self) -> Support:
+        return Support("product")
+
+    def logpdf(self, x):
+        out = None
+        for c, xi in zip(self.components, x):
+            lp = c.logpdf(xi)
+            out = lp if out is None else out + lp
+        return out
+
+    def sample(self, generator, sample_shape=()):
+        return tuple(c.sample(generator, sample_shape) for c in self.components)
+
+    def to(self, device):
+        return Product(tuple(c.to(device) for c in self.components))
 
 
 @dataclass(frozen=True)
@@ -112,6 +155,9 @@ class NamedProduct(Distribution):
             lp = c.logpdf(x[n])
             out = lp if out is None else out + lp
         return out
+
+    def sample(self, generator, sample_shape=()):
+        return {n: c.sample(generator, sample_shape) for n, c in zip(self.names, self.components)}
 
     def to(self, device):
         return NamedProduct(tuple(c.to(device) for c in self.components), self.names)

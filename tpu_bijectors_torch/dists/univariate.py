@@ -33,11 +33,13 @@ import torch
 
 from ..bijectors.scalar import Truncated as TruncatedLink
 from ..utils import clamp, log1pexp
+from . import _random as R
 from ._special import betainc
 from .base import (
     Distribution,
     LeafDistribution,
     Support,
+    first_param,
     interval,
     lower_bounded,
     positive,
@@ -116,6 +118,10 @@ class Normal(LeafDistribution):
     def cdf(self, x):
         return torch.special.ndtr((x - self.loc) / self.scale)
 
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        return self.loc + self.scale * R.normal(generator, shape, self.loc)
+
 
 @dataclass(frozen=True)
 class StudentT(LeafDistribution):
@@ -141,6 +147,10 @@ class StudentT(LeafDistribution):
         ib = betainc(0.5 * v, torch.full_like(v, 0.5), v / (v + z * z))
         return torch.where(z >= 0, 1.0 - 0.5 * ib, 0.5 * ib)
 
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        return self.loc + self.scale * R.student_t(generator, self.df, shape, self.loc)
+
 
 @dataclass(frozen=True)
 class Cauchy(LeafDistribution):
@@ -156,6 +166,10 @@ class Cauchy(LeafDistribution):
     def cdf(self, x):
         return torch.atan((x - self.loc) / self.scale) / math.pi + 0.5
 
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        return self.loc + self.scale * R.cauchy(generator, shape, self.loc)
+
 
 @dataclass(frozen=True)
 class Laplace(LeafDistribution):
@@ -167,6 +181,10 @@ class Laplace(LeafDistribution):
     def logpdf(self, x):
         z = torch.abs(x - self.loc) / self.scale
         return -z - LOG2 - torch.log(self.scale)
+
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        return self.loc + self.scale * R.laplace(generator, shape, self.loc)
 
 
 @dataclass(frozen=True)
@@ -183,6 +201,10 @@ class Logistic(LeafDistribution):
     def cdf(self, x):
         return torch.sigmoid((x - self.loc) / self.scale)
 
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        return self.loc + self.scale * R.logistic(generator, shape, self.loc)
+
 
 @dataclass(frozen=True)
 class Gumbel(LeafDistribution):
@@ -197,6 +219,10 @@ class Gumbel(LeafDistribution):
 
     def cdf(self, x):
         return torch.exp(-torch.exp(-(x - self.loc) / self.scale))
+
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        return self.loc + self.scale * R.gumbel(generator, shape, self.loc)
 
 
 @dataclass(frozen=True)
@@ -214,6 +240,14 @@ class SkewNormal(LeafDistribution):
         z = (x - self.loc) / self.scale
         return (LOG2 - 0.5 * (z * z + LOG2PI) + torch.special.log_ndtr(self.shape_ * z)
                 - torch.log(self.scale))
+
+    def sample(self, generator, sample_shape=()):
+        """Azzalini's representation: delta |Z0| + sqrt(1 - delta^2) Z1."""
+        shape = tuple(sample_shape) + self.batch_shape
+        delta = self.shape_ / torch.sqrt(1.0 + self.shape_ * self.shape_)
+        z0 = torch.abs(R.normal(generator, shape, self.loc))
+        z1 = R.normal(generator, shape, self.loc)
+        return self.loc + self.scale * (delta * z0 + torch.sqrt(1.0 - delta * delta) * z1)
 
 
 # ---------------------------------------------------------------------------
@@ -258,6 +292,10 @@ class LogNormal(_Positive):
         z = (y - self.mu) / self.sigma
         return -0.5 * (z * z + LOG2PI) - torch.log(self.sigma)
 
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        return torch.exp(self.mu + self.sigma * R.normal(generator, shape, self.mu))
+
 
 @dataclass(frozen=True)
 class Exponential(_Positive):
@@ -272,6 +310,10 @@ class Exponential(_Positive):
         """log r + v - r e^v: -inf, never NaN, where e^v overflows."""
         r = self.rate
         return torch.log(r) + y - r * torch.exp(y)
+
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        return R.exponential(generator, shape, self.rate) / self.rate
 
 
 @dataclass(frozen=True)
@@ -290,6 +332,10 @@ class Gamma(_Positive):
         a, r = self.concentration, self.rate
         return a * torch.log(r) + a * y - r * torch.exp(y) - torch.lgamma(a)
 
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        return R.gamma(generator, self.concentration, shape) / self.rate
+
 
 @dataclass(frozen=True)
 class InverseGamma(_Positive):
@@ -307,6 +353,10 @@ class InverseGamma(_Positive):
         a, b = self.concentration, self.scale
         return a * torch.log(b) - a * y - b * torch.exp(-y) - torch.lgamma(a)
 
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        return self.scale / R.gamma(generator, self.concentration, shape)
+
 
 @dataclass(frozen=True)
 class Chi(_Positive):
@@ -323,6 +373,10 @@ class Chi(_Positive):
         df = self.df
         k2 = 0.5 * df
         return df * y - 0.5 * torch.exp(2.0 * y) - (k2 - 1.0) * LOG2 - torch.lgamma(k2)
+
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        return torch.sqrt(2.0 * R.gamma(generator, 0.5 * self.df, shape))
 
 
 @dataclass(frozen=True)
@@ -343,6 +397,11 @@ class Weibull(_Positive):
         c1 = k * torch.log(self.scale)
         return torch.log(k) - c1 + k * y - torch.exp(k * y - c1)
 
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        return self.scale * (-torch.log(R.uniform(generator, shape, self.scale, tiny=True))) ** (
+            1.0 / self.concentration)
+
 
 @dataclass(frozen=True)
 class Rayleigh(_Positive):
@@ -358,6 +417,10 @@ class Rayleigh(_Positive):
         """2v - 2 log s - e^(2(v - log s)) / 2."""
         ls = torch.log(self.scale)
         return 2.0 * y - 2.0 * ls - 0.5 * torch.exp(2.0 * (y - ls))
+
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        return self.scale * torch.sqrt(-2.0 * torch.log(R.uniform(generator, shape, self.scale, tiny=True)))
 
 
 @dataclass(frozen=True)
@@ -378,6 +441,11 @@ class Frechet(_Positive):
         w = y - torch.log(self.scale)
         return torch.log(a) - a * w - torch.exp(-a * w)
 
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        return self.scale * (-torch.log(R.uniform(generator, shape, self.scale, tiny=True))) ** (
+            -1.0 / self.shape_)
+
 
 @dataclass(frozen=True)
 class HalfNormal(_Positive):
@@ -394,6 +462,10 @@ class HalfNormal(_Positive):
         ls = torch.log(self.scale)
         return (LOG2 - 0.5 * LOG2PI) - ls + y - 0.5 * torch.exp(2.0 * (y - ls))
 
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        return torch.abs(self.scale * R.normal(generator, shape, self.scale))
+
 
 @dataclass(frozen=True)
 class HalfCauchy(_Positive):
@@ -409,6 +481,10 @@ class HalfCauchy(_Positive):
         """log1p(z^2) with z = e^(v - log s) is softplus(2(v - log s))."""
         ls = torch.log(self.scale)
         return (LOG2 - LOGPI) - ls + y - log1pexp(2.0 * (y - ls))
+
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        return torch.abs(self.scale * R.cauchy(generator, shape, self.scale))
 
 
 # ---------------------------------------------------------------------------
@@ -441,6 +517,10 @@ class Beta(LeafDistribution):
     def support(self):
         return unit_interval()
 
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        return R.beta(generator, self.a, self.b, shape)
+
 
 @dataclass(frozen=True)
 class LogitNormal(LeafDistribution):
@@ -467,6 +547,10 @@ class LogitNormal(LeafDistribution):
     @property
     def support(self):
         return unit_interval()
+
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        return torch.sigmoid(self.mu + self.sigma * R.normal(generator, shape, self.mu))
 
 
 @dataclass(frozen=True)
@@ -496,6 +580,10 @@ class Uniform(LeafDistribution):
     def support(self):
         return interval(_static_bound(self.low, "Uniform", "low"),
                         _static_bound(self.high, "Uniform", "high"))
+
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        return self.low + (self.high - self.low) * R.uniform(generator, shape, self.low)
 
 
 # ---------------------------------------------------------------------------
@@ -529,6 +617,10 @@ class Pareto(LeafDistribution):
     def support(self):
         return lower_bounded(_static_bound(self.scale, "Pareto", "scale"))
 
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        return self.scale * R.uniform(generator, shape, self.scale, tiny=True) ** (-1.0 / self.alpha)
+
 
 @dataclass(frozen=True)
 class Levy(LeafDistribution):
@@ -556,6 +648,11 @@ class Levy(LeafDistribution):
     def support(self):
         return lower_bounded(_static_bound(self.mu, "Levy", "mu"))
 
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        z = R.normal(generator, shape, self.mu)
+        return self.mu + self.sigma / (z * z)
+
 
 # ---------------------------------------------------------------------------
 # no slab form (the traced entries of the fused evaluation serve them)
@@ -581,6 +678,10 @@ class Kumaraswamy(LeafDistribution):
     def support(self):
         return unit_interval()
 
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        return (1.0 - R.uniform(generator, shape, self.a, tiny=True) ** (1.0 / self.b)) ** (1.0 / self.a)
+
 
 @dataclass(frozen=True)
 class Arcsine(LeafDistribution):
@@ -602,6 +703,11 @@ class Arcsine(LeafDistribution):
     def support(self):
         return interval(_static_bound(self.a, "Arcsine", "a"),
                         _static_bound(self.b, "Arcsine", "b"))
+
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        s = torch.sin(0.5 * math.pi * R.uniform(generator, shape, self.a))
+        return self.a + (self.b - self.a) * s * s
 
 
 @dataclass(frozen=True)
@@ -652,3 +758,16 @@ class Truncated(Distribution):
 
     def to(self, device):
         return Truncated(self.base.to(device), self.lower, self.upper)
+
+    def sample(self, generator, sample_shape=()):
+        """The base's inverse cdf at cdf(lower) + (cdf(upper) - cdf(lower)) u:
+        its `quantile` where it has one, else bisection on its cdf."""
+        like = first_param(self.base)
+        shape = tuple(sample_shape) + tuple(self.batch_shape)
+        lo_c = self._bound_cdf(self.lower, like, 0.0)
+        hi_c = self._bound_cdf(self.upper, like, 1.0)
+        q = lo_c + (hi_c - lo_c) * R.uniform(generator, shape, like)
+        quantile = getattr(self.base, "quantile", None)
+        if quantile is not None:
+            return quantile(q)
+        return R.quantile_bisect(self.base.cdf, q, self.lower, self.upper)

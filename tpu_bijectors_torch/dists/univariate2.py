@@ -18,6 +18,7 @@ from dataclasses import dataclass
 import torch
 
 from ..utils import log1pexp
+from . import _random as R
 from ._special import betainc
 from .base import LeafDistribution, interval, positive
 from .univariate import _is_log_link, _static_bound
@@ -54,6 +55,11 @@ class BetaPrime(LeafDistribution):
     @property
     def support(self):
         return positive()
+
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        u = R.beta(generator, self.a, self.b, shape)
+        return u / (1.0 - u)
 
 
 @dataclass(frozen=True)
@@ -94,6 +100,17 @@ class InverseGaussian(LeafDistribution):
     def support(self):
         return positive()
 
+    def sample(self, generator, sample_shape=()):
+        """Michael, Schucany and Haas's transformation."""
+        shape = tuple(sample_shape) + self.batch_shape
+        mu, lam = self.mu, self.lam
+        nu = R.normal(generator, shape, mu)
+        y = nu * nu
+        x = mu + mu * mu * y / (2 * lam) - mu / (2 * lam) * torch.sqrt(
+            4 * mu * lam * y + mu * mu * y * y)
+        z = R.uniform(generator, shape, mu)
+        return torch.where(z <= mu / (mu + x), x, mu * mu / x)
+
 
 @dataclass(frozen=True)
 class TriangularDist(LeafDistribution):
@@ -124,3 +141,10 @@ class TriangularDist(LeafDistribution):
     def support(self):
         return interval(_static_bound(self.a, "TriangularDist", "a"),
                         _static_bound(self.b, "TriangularDist", "b"))
+
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        a, b, c = self.a, self.b, self.c
+        u = R.uniform(generator, shape, a)
+        return torch.where(u < (c - a) / (b - a), a + torch.sqrt(u * (b - a) * (c - a)),
+                           b - torch.sqrt((1.0 - u) * (b - a) * (b - c)))

@@ -9,6 +9,7 @@ from dataclasses import dataclass
 
 import torch
 
+from . import _random as R
 from .base import LeafDistribution
 
 LOG2PI = math.log(2.0 * math.pi)
@@ -35,3 +36,8 @@ class JohnsonSU(LeafDistribution):
     def cdf(self, x):
         z = (x - self.xi) / self.lam
         return torch.special.ndtr(self.gamma + self.delta * torch.asinh(z))
+
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        z = R.normal(generator, shape, self.xi)
+        return self.xi + self.lam * torch.sinh((z - self.gamma) / self.delta)

@@ -12,6 +12,7 @@ from dataclasses import InitVar, dataclass
 
 import torch
 
+from . import _random as R
 from .base import Distribution, Support, _as_param, first_param
 
 
@@ -46,6 +47,13 @@ class Mixture(Distribution):
     def cdf(self, x):
         w = torch.softmax(self.log_weights, -1)
         return torch.sum(w * self.components.cdf(x[..., None]), -1)
+
+    def sample(self, generator, sample_shape=()):
+        """A component index by the weights, then that component's draw."""
+        shape = tuple(sample_shape)
+        comp = R.categorical(generator, self.log_weights, shape)
+        draws = self.components.sample(generator, shape)  # shape + (K,)
+        return torch.take_along_dim(draws, comp[..., None], dim=-1)[..., 0]
 
     @property
     def support(self):
@@ -82,6 +90,10 @@ class JointOrderStatistics(Distribution):
         lp = lgn + torch.sum(self.base.logpdf(x), dim=-1)
         is_sorted = torch.all(x[..., 1:] >= x[..., :-1], dim=-1)
         return torch.where(is_sorted, lp, torch.full_like(lp, -math.inf))
+
+    def sample(self, generator, sample_shape=()):
+        draws = self.base.sample(generator, tuple(sample_shape) + (self.n,))
+        return torch.sort(draws, dim=-1).values
 
     @property
     def support(self):

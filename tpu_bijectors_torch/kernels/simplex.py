@@ -57,10 +57,10 @@ def _exclusive_prefix(x, K):
     return torch.cat([torch.zeros_like(x[..., :1]), s], dim=-1)
 
 
-def simplex_inverse_plain(y):
+def simplex_inverse_sequential(y):
     """Exact reference recurrence (simplex.jl:84-100) over K-1 steps; every
-    batch dim rides along in each step. The plain version of
-    `simplex_inverse`, and the x of `simplex_inverse_logdet`."""
+    batch dim rides along in each step. #7's and #8's own order of
+    operations, and the plain version below ASSOC_SCAN_MIN_K."""
     K = y.shape[-1] + 1
     eps = _eps(y.dtype)
     z = logistic(y - _log_km1_minus_k(K, y))
@@ -76,6 +76,66 @@ def simplex_inverse_plain(y):
         xs.append(xk)
     xs.append(clamp(1.0 - s, 0.0, 1.0))
     return torch.stack(xs, dim=-1)
+
+
+def affine_scan(a, b):
+    """Inclusive scan of the affine maps s -> a_k s + b_k along the last
+    axis, applied in order: B[..., k] is the image of 0 under maps 0..k.
+    Hillis-Steele doubling, log2(n) steps of elementwise ops (the
+    composition (fa, fb) then (ga, gb) is (fa ga, ga fb + gb), the
+    associative operator of `jax.lax.associative_scan` in the JAX
+    package's simplex inverse)."""
+    n, d = a.shape[-1], 1
+    while d < n:
+        b = torch.cat([b[..., :d], a[..., d:] * b[..., :-d] + b[..., d:]], dim=-1)
+        a = torch.cat([a[..., :d], a[..., :-d] * a[..., d:]], dim=-1)
+        d *= 2
+    return b
+
+
+def simplex_inverse_scan(y):
+    """The log-depth stick-breaking inverse (the JAX package's
+    `_simplex_inverse_parallel`): the running sum is affine in s,
+
+        s_1 = (z_0 - eps)/(1-2eps),
+        s_{k+1} = (1 - z_k/(1-2eps)) s_k + (1+eps) z_k/(1-2eps) - eps,
+
+    so every prefix comes out of one `affine_scan`, clipped to [0, 1]
+    (the sequential clamps keep it there), and x is recovered elementwise
+    with the sequential path's clamps. The plain version at K >=
+    ASSOC_SCAN_MIN_K, as in the JAX package."""
+    K = y.shape[-1] + 1
+    eps = _eps(y.dtype)
+    c12 = 1 - 2 * eps
+    z = logistic(y - _log_km1_minus_k(K, y))
+    k0 = _first(K - 1, y.device)
+    a = torch.where(k0, torch.ones_like(z), 1.0 - z / c12)
+    b = torch.where(k0, (z - eps) / c12, (1 + eps) * z / c12 - eps)
+    B = affine_scan(a, b)
+    s = clamp(torch.cat([torch.zeros_like(B[..., :1]), B[..., :-1]], dim=-1), 0.0, 1.0)
+    x_first = clamp((z - eps) / c12, 0.0, 1.0)
+    x_rest = clamp(((1 + eps) - s) / c12 * z - eps, 0.0, 1.0)
+    x_last = clamp(1.0 - clamp(B[..., -1], 0.0, 1.0), 0.0, 1.0)
+    return torch.cat([torch.where(k0, x_first, x_rest), x_last[..., None]], dim=-1)
+
+
+# above this K the plain version takes the log-depth scan, as the JAX
+# package's jnp path does (tpu_bijectors/bijectors/simplex.py
+# `_ASSOC_SCAN_MIN_K`); the kernels keep the sequential recurrence
+ASSOC_SCAN_MIN_K = 128
+METHODS = ("sequential", "scan")
+
+
+def simplex_inverse_plain(y, method=None):
+    """The plain version of `simplex_inverse`, and the x of
+    `simplex_inverse_logdet`: `simplex_inverse_sequential` below
+    ASSOC_SCAN_MIN_K, `simplex_inverse_scan` from it on; `method`
+    ("sequential" or "scan") overrides the choice."""
+    if method is None:
+        method = "scan" if y.shape[-1] + 1 >= ASSOC_SCAN_MIN_K else "sequential"
+    if method not in METHODS:
+        raise ValueError(f"method must be one of {METHODS}; got {method!r}")
+    return (simplex_inverse_scan if method == "scan" else simplex_inverse_sequential)(y)
 
 
 def _inverse_logdet_from_x(x):
@@ -94,10 +154,11 @@ def _inverse_logdet_from_x(x):
     return torch.sum(lp, dim=-1)
 
 
-def simplex_inverse_logdet_plain(y, am1=None, want_x: bool = True):
-    """The plain PyTorch version: the recurrence, the log-det from x, and
-    wlog with the reference's eps algebra and clamps."""
-    x = simplex_inverse_plain(y)
+def simplex_inverse_logdet_plain(y, am1=None, want_x: bool = True, method=None):
+    """The plain PyTorch version: the recurrence (`method` as in
+    `simplex_inverse_plain`), the log-det from x, and wlog with the
+    reference's eps algebra and clamps."""
+    x = simplex_inverse_plain(y, method)
     ld = _inverse_logdet_from_x(x)
     wlog = None if am1 is None else torch.sum(am1 * torch.log(x + _eps(x.dtype)), dim=-1)
     return (x if want_x else None), ld, wlog

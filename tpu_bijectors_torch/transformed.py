@@ -60,6 +60,17 @@ class TransformedDistribution(Distribution):
         extra = self.base.event_ndims - int(self.transform.event_ndims_in)
         return _logpdf_eps_safe(self.base, x) + _sum_extra(ld, extra)
 
+    def sample(self, generator, sample_shape=()):
+        return self.transform.forward(self.base.sample(generator, sample_shape))
+
+    def sample_and_logpdf(self, generator, sample_shape=()):
+        """(y, logpdf(y)) from the base's draw and the forward log-det, with
+        no inverse."""
+        x = self.base.sample(generator, sample_shape)
+        y, ld = self.transform.forward_and_log_det(x)
+        extra = self.base.event_ndims - int(self.transform.event_ndims_in)
+        return y, self.base.logpdf(x) - _sum_extra(ld, extra)
+
     def to(self, device):
         return TransformedDistribution(self.base.to(device), self.transform)
 

@@ -56,6 +56,15 @@ def clamp_slope(v, lo=0.0, hi=1.0):
     return inside + 0.5 * ((v == lo) | (v == hi)).to(v.dtype)
 
 
+def plain_jvp(fn, primals, tangents):
+    """The tangents of fn's tensor outputs at `primals` along `tangents`
+    (None: a zero tangent), by the double backward of
+    `torch.autograd.functional.jvp`. A Function's `jvp` takes the tangent
+    of its plain version so, since forward mode does not nest."""
+    tangents = tuple(torch.zeros_like(p) if t is None else t for p, t in zip(primals, tangents))
+    return torch.autograd.functional.jvp(fn, tuple(primals), tangents)[1]
+
+
 def logit(p):
     return torch.log(p) - torch.log1p(-p)
 

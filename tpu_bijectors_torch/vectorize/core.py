@@ -2,7 +2,8 @@
 (reference src/vector/): sample pytree <-> flat unconstrained vector.
 
   u = unconstrain(d, device=...)
-  u.linked_vec_length                     static int
+  u.vec_length / u.linked_vec_length      static ints (no sampling)
+  u.to_vec(x) / u.from_vec(v)             shape ravel, logJ == 0
   u.to_linked_vec(x) -> (v, logdet)       unconstrain + ravel
   u.from_linked_vec(v) -> (x, logdet)     the sampler's inverse
   u.from_linked_vec_with_logpdf(v)        (x, logpdf(d, x) + logdetJ): the
@@ -11,11 +12,18 @@
   u.linked_logdensity(v)                  logpdf(d, x) + logdetJ on (B, dim)
   u.linked_logdensity_t(vT)               the same on the transposed (dim, B)
                                           state; (B,) out
+  u.optic_vec() / u.linked_optic_vec()    each slot's element of the sample
+                                          (`Optic`; None for a linked slot
+                                          that several elements set: the
+                                          entangled links)
 
 Leaves (`LeafUnconstrainer`), IID blocks of one leaf (`IIDUnconstrainer`,
-also the per-element parameters of `arraydist`), named products
+also the per-element parameters of `arraydist`), tuple and named products
 (`TreeUnconstrainer`) and transformed distributions
 (`TransformedUnconstrainer`, whose linked density is its base's).
+`UnconstrainerBijector` exposes an Unconstrainer as a Bijector, and the
+module-level functions (`vec_length`, `to_vec`, ...) build the
+Unconstrainer of a distribution and hand back the one quantity.
 
 Offsets are static, so a batch of states is one (B, dim) array. On the
 batch-major layout each leaf runs its own link: on the card the simplex,
@@ -34,14 +42,15 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..bijectors.base import Bijector
 from ..dists.base import Distribution
-from ..dists.product import ElementwiseProduct, IIDProduct, NamedProduct
+from ..dists.product import ElementwiseProduct, IIDProduct, NamedProduct, Product
 from ..registry import bijector
 from ..transformed import TransformedDistribution
-from ..utils import resolve_device
+from ..utils import _triu_index_arrays, resolve_device, tril_to_vec, vec_to_tril
 
 
 def _shape_len(shape) -> int:
@@ -60,10 +69,61 @@ def _unravel_event(v, event_shape):
     return v.reshape(tuple(v.shape[:-1]) + tuple(int(s) for s in event_shape))
 
 
+@dataclass(frozen=True)
+class Optic:
+    """Where one slot of a flat vector lives in the sample (the reference's
+    optics, src/vector/interface.jl:105-184): `path` walks the product
+    structure (dict keys, tuple positions, IID indices), `index` is the
+    index into the leaf's array (() for a scalar-event leaf). `get(x)`
+    reads the element; equality is structural."""
+
+    path: tuple = ()
+    index: tuple = ()
+
+    def get(self, x):
+        for k in self.path:
+            x = x[k]
+        return x[self.index] if self.index != () else x
+
+    def prefix(self, key) -> "Optic":
+        return Optic((key,) + self.path, self.index)
+
+    def __repr__(self):
+        p = "".join(".%s" % k if isinstance(k, str) else "[%d]" % k for k in self.path)
+        i = "[%s]" % ", ".join(map(str, self.index)) if self.index else ""
+        return "Optic(_%s%s)" % (p, i)
+
+
+def _prefix_optics(optics, key):
+    return [None if o is None else o.prefix(key) for o in optics]
+
+
+def _ravel_optics(shape):
+    """The optics of a C-order ravel of an array of `shape`."""
+    shape = tuple(int(s) for s in shape)
+    if shape == ():
+        return [Optic((), ())]
+    return [Optic((), tuple(int(i) for i in np.unravel_index(k, shape)))
+            for k in range(_shape_len(shape))]
+
+
 class Unconstrainer:
     """Abstract; see the module docstring."""
 
+    vec_length: int
     linked_vec_length: int
+
+    def to_vec(self, x):
+        raise NotImplementedError
+
+    def from_vec(self, v):
+        raise NotImplementedError
+
+    def optic_vec(self):
+        raise NotImplementedError
+
+    def linked_optic_vec(self):
+        raise NotImplementedError
 
     def to_linked_vec(self, x):
         raise NotImplementedError
@@ -96,16 +156,63 @@ class Unconstrainer:
 
 @dataclass(frozen=True, eq=False)
 class LeafUnconstrainer(Unconstrainer):
-    """Any single distribution with a registry bijector."""
+    """Any single distribution with a registry bijector.
+
+    `chol_pack`: a Cholesky-factor event ravels as its packed triangle
+    (n(n+1)/2 slots, reference src/vector/cholesky/cholesky.jl:11-68), not
+    the full matrix. `entangled`: a linked slot depends on several
+    elements (simplex, PD, correlation, ordered links), so the linked
+    optics are None (interface.jl:168-184)."""
 
     dist: Distribution
     link: Bijector
     event_shape: tuple
     linked_shape: tuple
+    chol_pack: bool = False
+    entangled: bool = False
+
+    @property
+    def vec_length(self):  # type: ignore[override]
+        if self.chol_pack:
+            n = int(self.event_shape[-1])
+            return n * (n + 1) // 2
+        return _shape_len(self.event_shape)
 
     @property
     def linked_vec_length(self):  # type: ignore[override]
         return _shape_len(self.linked_shape)
+
+    def _lower(self, x):
+        return x if getattr(self.dist, "mode", "L") == "L" else x.transpose(-1, -2)
+
+    def to_vec(self, x):
+        if self.chol_pack:
+            return tril_to_vec(self._lower(x))
+        return _ravel_event(x, self.event_shape)
+
+    def from_vec(self, v):
+        if self.chol_pack:
+            return self._lower(vec_to_tril(v))
+        return _unravel_event(v, self.event_shape)
+
+    def optic_vec(self):
+        """C-order indices of a plain leaf's elements (matrix events
+        included), the packed triangle's of a Cholesky-factor leaf."""
+        if self.chol_pack:
+            rows, cols = _triu_index_arrays(int(self.event_shape[-1]), 0)
+            if getattr(self.dist, "mode", "L") == "L":
+                # tril_to_vec packs the transpose: slot k is x[cols[k], rows[k]]
+                return [Optic((), (int(c), int(r))) for r, c in zip(rows, cols)]
+            return [Optic((), (int(r), int(c))) for r, c in zip(rows, cols)]
+        return _ravel_optics(self.event_shape)
+
+    def linked_optic_vec(self):
+        """The optic of the element that alone sets each linked slot, or
+        None where the link entangles them. Every registry link that is
+        not entangled acts elementwise in the C-order ravel."""
+        if self.entangled or self.linked_vec_length != self.vec_length:
+            return [None] * self.linked_vec_length
+        return self.optic_vec()
 
     def _extra_dims(self):
         return len(self.event_shape) - int(self.link.event_ndims_in)
@@ -190,8 +297,28 @@ class IIDUnconstrainer(Unconstrainer):
     n: int
 
     @property
+    def vec_length(self):  # type: ignore[override]
+        return self.n * self.inner.vec_length
+
+    @property
     def linked_vec_length(self):  # type: ignore[override]
         return self.n * self.inner.linked_vec_length
+
+    def to_vec(self, x):
+        v = self.inner.to_vec(x)  # (..., n, inner length)
+        return v.reshape(tuple(v.shape[:-2]) + (self.vec_length,))
+
+    def from_vec(self, v):
+        return self.inner.from_vec(
+            v.reshape(tuple(v.shape[:-1]) + (self.n, self.inner.vec_length)))
+
+    def optic_vec(self):
+        inner = self.inner.optic_vec()
+        return [o for i in range(self.n) for o in _prefix_optics(inner, i)]
+
+    def linked_optic_vec(self):
+        inner = self.inner.linked_optic_vec()
+        return [o for i in range(self.n) for o in _prefix_optics(inner, i)]
 
     def _split(self, v):
         return v.reshape(tuple(v.shape[:-1]) + (self.n, self.inner.linked_vec_length))
@@ -226,48 +353,81 @@ class IIDUnconstrainer(Unconstrainer):
 
 @dataclass(frozen=True, eq=False)
 class TreeUnconstrainer(Unconstrainer):
-    """Named product with static offsets (reference ProductVecTransform,
-    src/vector/product/product.jl:20-320)."""
+    """Tuple or named product with static offsets (reference
+    ProductVecTransform, src/vector/product/product.jl:20-320): `names`
+    None makes a tuple-valued sample (`Product`), else a dict."""
 
     children: tuple
+    offsets: tuple  # (start, length) of each child in vec space
     linked_offsets: tuple
-    names: tuple
+    names: tuple = None
 
     @classmethod
-    def build(cls, children, names):
-        lofs, lo = [], 0
+    def build(cls, children, names=None):
+        ofs, lofs, o, lo = [], [], 0, 0
         for c in children:
+            ofs.append((o, c.vec_length))
             lofs.append((lo, c.linked_vec_length))
+            o += c.vec_length
             lo += c.linked_vec_length
-        return cls(tuple(children), tuple(lofs), tuple(names))
+        return cls(tuple(children), tuple(ofs), tuple(lofs),
+                   None if names is None else tuple(names))
+
+    @property
+    def vec_length(self):  # type: ignore[override]
+        return sum(n for _, n in self.offsets)
 
     @property
     def linked_vec_length(self):  # type: ignore[override]
         return sum(n for _, n in self.linked_offsets)
 
+    def _keys(self):
+        return range(len(self.children)) if self.names is None else self.names
+
+    def _parts(self, x):
+        return [x[k] for k in self._keys()]
+
+    def _rebuild(self, parts):
+        return tuple(parts) if self.names is None else dict(zip(self.names, parts))
+
+    def to_vec(self, x):
+        return torch.cat([c.to_vec(xi) for c, xi in zip(self.children, self._parts(x))], dim=-1)
+
+    def from_vec(self, v):
+        return self._rebuild(
+            [c.from_vec(v[..., s : s + n]) for c, (s, n) in zip(self.children, self.offsets)])
+
+    def optic_vec(self):
+        return [o for c, k in zip(self.children, self._keys())
+                for o in _prefix_optics(c.optic_vec(), k)]
+
+    def linked_optic_vec(self):
+        return [o for c, k in zip(self.children, self._keys())
+                for o in _prefix_optics(c.linked_optic_vec(), k)]
+
     def to_linked_vec(self, x):
         vs, ld = [], None
-        for c, name in zip(self.children, self.names):
-            vi, ldi = c.to_linked_vec(x[name])
+        for c, xi in zip(self.children, self._parts(x)):
+            vi, ldi = c.to_linked_vec(xi)
             vs.append(vi)
             ld = ldi if ld is None else ld + ldi
         return torch.cat(vs, dim=-1), ld
 
     def from_linked_vec(self, v):
-        parts, ld = {}, None
-        for c, name, (s, n) in zip(self.children, self.names, self.linked_offsets):
+        parts, ld = [], None
+        for c, (s, n) in zip(self.children, self.linked_offsets):
             xi, ldi = c.from_linked_vec(v[..., s : s + n])
-            parts[name] = xi
+            parts.append(xi)
             ld = ldi if ld is None else ld + ldi
-        return parts, ld
+        return self._rebuild(parts), ld
 
     def from_linked_vec_with_logpdf(self, v):
-        parts, acc = {}, None
-        for c, name, (s, n) in zip(self.children, self.names, self.linked_offsets):
+        parts, acc = [], None
+        for c, (s, n) in zip(self.children, self.linked_offsets):
             xi, a = c.from_linked_vec_with_logpdf(v[..., s : s + n])
-            parts[name] = xi
+            parts.append(xi)
             acc = a if acc is None else acc + a
-        return parts, acc
+        return self._rebuild(parts), acc
 
     def linked_logdensity(self, v):
         acc = None
@@ -296,8 +456,26 @@ class TransformedUnconstrainer(Unconstrainer):
     td: TransformedDistribution
 
     @property
+    def vec_length(self):  # type: ignore[override]
+        return _shape_len(self.td.event_shape)
+
+    @property
     def linked_vec_length(self):  # type: ignore[override]
         return self.base.linked_vec_length
+
+    def to_vec(self, y):
+        return _ravel_event(y, self.td.event_shape)
+
+    def from_vec(self, v):
+        return _unravel_event(v, self.td.event_shape)
+
+    def optic_vec(self):
+        return _ravel_optics(self.td.event_shape)
+
+    def linked_optic_vec(self):
+        # a user transform can entangle arbitrarily (reference
+        # src/vector/transformed.jl keeps no provenance either)
+        return [None] * self.linked_vec_length
 
     def _extra_dims(self):
         return self.td.base.event_ndims - int(self.td.transform.event_ndims_in)
@@ -329,6 +507,33 @@ class TransformedUnconstrainer(Unconstrainer):
         return self.base._linked_logdensity_t_children(vT)
 
 
+@dataclass(frozen=True, eq=False)
+class UnconstrainerBijector(Bijector):
+    """An Unconstrainer as a Bijector: the sample (a tensor, tuple or dict)
+    -> the flat unconstrained vector (the reference's NamedStacked
+    bijector, src/bijectors/named_stacked.jl, for any product)."""
+
+    u: Unconstrainer
+
+    event_ndims_in = 0  # the input is a sample structure, not one array
+    event_ndims_out = 1
+
+    def forward_and_log_det(self, x):
+        return self.u.to_linked_vec(x)
+
+    def inverse_and_log_det(self, v):
+        return self.u.from_linked_vec(v)
+
+    def forward_event_shape(self, shape):
+        return (self.u.linked_vec_length,)
+
+
+# kinds whose link couples elements (linked slot k depends on more than
+# x[k]), so their linked optics are None; the ordered link's slot k is
+# log(x_k - x_{k-1}), a bidiagonal Jacobian
+_ENTANGLED_KINDS = {"simplex", "pd", "corr", "chol_corr", "joint_order", "ordered"}
+
+
 def unconstrain(d: Distribution, *, device=None) -> Unconstrainer:
     """Build the Unconstrainer for `d` with every parameter on `device`
     (default `cuda`; raises when CUDA is absent and no device was given)."""
@@ -357,6 +562,8 @@ def _unconstrain(d: Distribution) -> Unconstrainer:
         # arraydist: the inner leaf's (n,) parameters broadcast along the
         # block axis of every IIDUnconstrainer method
         return IIDUnconstrainer(_leaf_unconstrain(d.base), d.n)
+    if isinstance(d, Product):
+        return TreeUnconstrainer.build(tuple(_unconstrain(c) for c in d.components))
     if isinstance(d, NamedProduct):
         return TreeUnconstrainer.build(
             tuple(_unconstrain(c) for c in d.components), d.names
@@ -374,4 +581,43 @@ def _leaf_unconstrain(d: Distribution) -> LeafUnconstrainer:
         linked = ev[: len(ev) - ne_in] + tuple(
             b.forward_event_shape(ev[len(ev) - ne_in :])
         )
-    return LeafUnconstrainer(d, b, ev, linked)
+    kind = d.support.kind
+    return LeafUnconstrainer(d, b, ev, linked, chol_pack=(kind == "chol_corr"),
+                             entangled=(kind in _ENTANGLED_KINDS))
+
+
+# the module-level API of the reference's eight generic functions; each
+# builds the Unconstrainer of `d` with its parameters on `device` (default
+# `cuda`, as `unconstrain`)
+
+
+def vec_length(d: Distribution, *, device=None) -> int:
+    return unconstrain(d, device=device).vec_length
+
+
+def linked_vec_length(d: Distribution, *, device=None) -> int:
+    return unconstrain(d, device=device).linked_vec_length
+
+
+def to_vec(d: Distribution, *, device=None):
+    return unconstrain(d, device=device).to_vec
+
+
+def from_vec(d: Distribution, *, device=None):
+    return unconstrain(d, device=device).from_vec
+
+
+def to_linked_vec(d: Distribution, *, device=None):
+    return unconstrain(d, device=device).to_linked_vec
+
+
+def from_linked_vec(d: Distribution, *, device=None):
+    return unconstrain(d, device=device).from_linked_vec
+
+
+def optic_vec(d: Distribution, *, device=None):
+    return unconstrain(d, device=device).optic_vec()
+
+
+def linked_optic_vec(d: Distribution, *, device=None):
+    return unconstrain(d, device=device).linked_optic_vec()

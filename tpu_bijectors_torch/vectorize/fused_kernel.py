@@ -27,7 +27,11 @@ groups are decided once a run; it stages only the runs and the packed
 coefficients.
 `mega_logdensity_t` is differentiable in the state: its backward is the
 vector-Jacobian mode, its forward-mode derivative (`torch.func.jvp`,
-`torch.autograd.forward_ad`) the jvp mode.
+`torch.autograd.forward_ad`) the jvp mode. Where a distribution parameter
+carries a gradient or a forward-mode tangent (`params_carry_derivatives`),
+the dispatch hooks decline and `linked_logdensity_t` takes the composed
+per-leaf path, as the JAX package routes parameter tangents through its
+composed path: the kernels serve the state alone.
 
 At a sampler's batch (B <= SMALL_B, `slab_design`) the value-and-gradient
 wrapper launches the item kernel instead: the model's work cut into items
@@ -38,9 +42,11 @@ warps, a block a tile of 32 batch columns (kernels/csrc/fused_slab.cu).
 
 from __future__ import annotations
 
+import dataclasses
 import weakref
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from .. import kernels
 from .fused_base import (
@@ -124,10 +130,11 @@ def _prep(u, vT):
             for k, v in e.slab(vT.dtype).items():
                 cf[rows, _CI[k]] = v.to(vT.device)
         loops = _loop_table(plan, vT.dtype, vT.device)
-        if cf.requires_grad or (loops is not None and loops.prm.requires_grad):
+        if params_carry_derivatives(u):
             raise NotImplementedError(
                 "gradients with respect to distribution parameters do not "
-                "pass through the fused log-density"
+                "pass through the fused log-density; linked_logdensity_t "
+                "takes the composed path for them"
             )
         c0sum = cf[:, _CI["c0"]].sum()
         cache[key] = (cf, loops, c0sum)
@@ -529,12 +536,40 @@ def mega_value_and_grad_t(u, vT):
     return lp + c0sum, g
 
 
+# unconstrainer -> the tensors it holds (its distributions' parameters and
+# any bijector's), found once
+_TENSORS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def _tensors_of(obj):
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        for f in dataclasses.fields(obj):
+            yield from _tensors_of(getattr(obj, f.name))
+    elif isinstance(obj, (tuple, list)):
+        for o in obj:
+            yield from _tensors_of(o)
+
+
+def params_carry_derivatives(u) -> bool:
+    """Whether a tensor of the model (a distribution's parameter) requires
+    a gradient or carries a forward-mode tangent."""
+    if u not in _TENSORS:
+        _TENSORS[u] = tuple(_tensors_of(u))
+    return any(t.requires_grad or fwAD.unpack_dual(t).tangent is not None for t in _TENSORS[u])
+
+
 def _fused_applies(u, vT) -> bool:
-    """Whether the fused evaluation serves vT. Always on the card, where
+    """Whether the fused evaluation serves vT: never where a parameter
+    carries a derivative (the composed path serves it, on either device).
+    Else always on the card, where
     the only alternative would be plain PyTorch standing in for kernels
     (so a leaf with neither a slab nor a loop form raises there, and
     disabled kernels raise at the launch); on the CPU, when the kernels are enabled and the model
     has a plan."""
+    if params_carry_derivatives(u):
+        return False
     if vT.device.type == "cuda":
         return True
     return kernels.enabled() and vT.ndim == 2 and _plan(u) is not None
