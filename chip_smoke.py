@@ -21,9 +21,10 @@ dim 12; the JAX tests' truncated-leaves and vector-leaves models) on two,
 the #14 probe, the engines of the thirteenth slice (ChEES with the
 dense metric, dense NUTS through a checkpoint, SMC, ADVI) on four,
 those of the fourteenth (MAP + Laplace with the evidence estimators,
-Pathfinder and NUTS from its starts) on two, and those of the fifteenth
+Pathfinder and NUTS from its starts) on two, those of the fifteenth
 (the flat-vector API, forward mode, parameter tangents, the samplers and
-the property sweep) on one:
+the property sweep) on one, and those of the sixteenth (the remaining
+bijectors, CDF/Quantile with implicit derivatives) on one:
 
 1. transposed serving at B = 131072: `Model.batched_logdensity_t_fn()`
    (the slab value kernel), its `value_and_grad_fn` (the one-pass
@@ -157,7 +158,22 @@ the property sweep) on one:
    eta at B = 64 against float64 (the composed path: link kernels, none of
    #1-#4); `testing.test_all` in float32 on the bench model's four leaves
    and the Wishart families at K = 3; #7 at K = 256 and 1024 against the
-   sequential and scan plain versions.
+   sequential and scan plain versions;
+26. the remaining bijectors and CDF/Quantile (`run_bijectors_and_quantiles`,
+   under PATH26_LIMIT_S): `Stacked.from_lengths` of the bench model's
+   links (Identity, Exp, inverse(SimplexBijector), inverse(VecCorrBijector)
+   then Reshape) at B = 131072 against `UnconstrainerBijector`, launching
+   the kernels its members launch alone (#7, #8, #6; #9 back) and none of
+   #1-#4, with no copy of the state beyond its output; the same on the
+   Wishart(3) model's PD links (#10); Coupling, Permute, LinearMap,
+   TriangularLinearMap, ProductBijector, CorrBijector (K = 16, #6) and
+   the seven scalar maps, round trips at B = 131072 and log-dets against
+   torch.func.jacrev at B = 64; QuantileBijector(Gamma(2, 3)) (the
+   generic quantile under `set_sync_debug_mode("error")`) and
+   CDFBijector(Beta(2, 5)) at B = 131072 against the float64 quantile
+   within the float32 cdf's error over the pdf; NUTS on a quantile-linked
+   prior with kernel='auto' (64 chains, 200 + 300 transitions) against
+   Gamma(2, rate 3)'s exact mean.
 
 The dense paths also check that TF32 is off and the float32 matmul
 precision 'highest'. After them, #2's small-batch design (the item kernel, which the
@@ -5324,6 +5340,411 @@ def run_flat_api_and_tangents(dev):
     return line, launches, err
 
 
+# path 26: the remaining bijectors, CDF/Quantile with implicit derivatives
+PATH26_LIMIT_S = 15.0
+PATH26_JAC_B = 64  # the states whose log-dets are held to the Jacobian's
+PATH26_CPU_COLS = 4096  # the states held to the float64 quantile on the CPU
+PATH26_BETA_COLS = 1024  # the same for Beta(2, 5), whose betainc iterates on the host
+PATH26_CORR_JAC = 2  # CorrBijector's states held to the Jacobian (120 backward passes each)
+# a float32 Jacobian's log|det| against the analytic log-det: relative to
+# |log-det| + 1 (a volume-preserving map's log-det is 0)
+RTOL_JAC = 1e-4
+# the Stacked's x and log-det against UnconstrainerBijector's on the same
+# state, as path 25 holds that bijector's round trip
+RTOL_STACKED_LD = RTOL_ROUNDTRIP_LD
+# the quantile's gates: the float32 x is held to the float64 quantile within
+# the float32 cdf's measured error over the pdf, plus 8 ulp of x (the
+# solve's bracket); d x / dq to 1 / pdf within |d log pdf / dx| times that
+# bound plus 8 eps32 (the inverse pdf's own rounding)
+ULPS_QUANTILE = 8
+P26_KERNELS = ("simplex_inverse_logdet", SIMPLEX_SMALL, "simplex_inverse",
+               "simplex_forward_logdet", "lkj_inverse", "lkj_logdet", "pd_inverse")
+QUANTILE_GAMMA = (2.0, 3.0)  # concentration, rate: mean 2/3, sd sqrt(2)/3
+QUANTILE_NUTS = dict(n_chains=CHAINS, n_warmup=200, n_samples=300)
+
+
+def launch_delta(fn):
+    """(fn's result, the kernels it launched)."""
+    from tpu_bijectors_torch import kernels
+
+    torch.cuda.synchronize()
+    before = dict(kernels.LAUNCHES)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: n - before[k] for k, n in kernels.LAUNCHES.items() if n != before[k]}
+
+
+def jac_check(name, f, x, ld):
+    """Each row's log-det against log|det| of torch.func.jacrev of f on
+    that row (vmapped), relative to |log-det| + 1."""
+    J = torch.func.vmap(torch.func.jacrev(f))(x)
+    return check(name, ld, torch.linalg.slogdet(J.double())[1], RTOL_JAC,
+                 ld.double().abs() + 1.0)
+
+
+def elementwise_jac_check(name, f, x, ld):
+    """An elementwise map's log-dets against log|dy/dx| of the diagonal of
+    torch.func.jacrev on each row."""
+    J = torch.func.vmap(torch.func.jacrev(f))(x)
+    diag = torch.diagonal(J, dim1=-2, dim2=-1).double()
+    return check(name, ld, torch.log(diag.abs()), RTOL_JAC, ld.double().abs() + 1.0)
+
+
+def stacked_vs_unconstrainer(tag, u, st, vs, row_blocks):
+    """Path 26 (a) and (b): the Stacked's forward on the linked state vs
+    UnconstrainerBijector(u)'s inverse (x in the to_vec layout and the
+    log-det), the same kernels as its members called alone and none of
+    #1-#4, no copy of the state beyond its concatenated output, the
+    forward (x alone) and the inverse direction back to the state, each
+    against the members alone. Returns (launches, errors, peak bytes)."""
+    from tpu_bijectors_torch import vectorize as tv
+
+    ub = tv.UnconstrainerBijector(u)
+    err = {}
+    members = [(b, vs[:, s:s + n]) for b, (s, n) in zip(st.bijectors, st.ranges_in)]
+
+    def alone(method):
+        return [getattr(b, method)(v) for b, v in members]
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    outs, l_alone = launch_delta(lambda: alone("forward_and_log_det"))
+    peak_alone = torch.cuda.max_memory_allocated() - base
+    del outs
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (x, ld), l_st = launch_delta(lambda: st.forward_and_log_det(vs))
+    peak_st = torch.cuda.max_memory_allocated() - base
+    out_bytes = x.numel() * x.element_size() + 4 * ld.numel() * ld.element_size()
+    print(f"{tag}: launches alone {l_alone}, through the Stacked {l_st}; peak bytes "
+          f"alone {peak_alone}, Stacked {peak_st} (its output and log-det sums "
+          f"{out_bytes})", flush=True)
+    expect(f"{tag}: the Stacked launches the kernels its members launch alone",
+           l_st == l_alone and len(l_st) > 0)
+    expect(f"{tag}: and none of #1-#4",
+           not any(k in l_st for k in SLAB_KERNELS + (SMALL, "slab_jvp", "slab_traced")))
+    expect(f"{tag}: no copy of the state beyond the members' and the output",
+           peak_st <= peak_alone + out_bytes + (2 << 20))
+    xs, lds = ub.inverse_and_log_det(vs)
+    ref = u.to_vec(xs)
+    err["x"] = check(f"{tag}: x vs UnconstrainerBijector", x, ref, ATOL_ROUNDTRIP,
+                     torch.ones_like(ref))
+    err["ld"] = check(f"{tag}: log-det vs UnconstrainerBijector", ld, lds, RTOL_STACKED_LD,
+                      lds.abs() + 1e-3 * lds.abs().max())
+    xf, l_fwd = launch_delta(lambda: st.forward(vs))
+    _, l_fwd_alone = launch_delta(lambda: alone("forward"))
+    expect(f"{tag}: forward (x alone) launches {l_fwd} as its members alone",
+           l_fwd == l_fwd_alone)
+    expect(f"{tag}: forward (x alone) is forward_and_log_det's x", torch.equal(xf, x))
+    xm = [x[:, s:s + n] for s, n in st.ranges_out]
+    (v2, ld2), l_inv = launch_delta(lambda: st.inverse_and_log_det(x))
+    _, l_inv_alone = launch_delta(lambda: [b.inverse_and_log_det(v) for b, v
+                                            in zip(st.bijectors, xm)])
+    expect(f"{tag}: the inverse launches {l_inv} as its members alone", l_inv == l_inv_alone)
+    for name, (rows, corr_of) in row_blocks.items():
+        if corr_of is None:
+            err[f"roundtrip_{name}"] = check(f"{tag}: round trip v -> x -> v, {name} rows",
+                                             v2[:, rows], vs[:, rows], ATOL_ROUNDTRIP,
+                                             torch.ones_like(vs[:, rows]))
+            continue
+        # a correlation block as path 3 holds it (kappa(X) eps32 +
+        # ATOL_ROUNDTRIP), on the first 4096 states
+        ev = torch.linalg.eigvalsh(corr_of(x[:4096]).double().cpu())
+        row_err = (v2[:4096, rows] - vs[:4096, rows]).abs().amax(dim=1).double().cpu()
+        ratio = float((row_err / (ev[:, -1] / ev[:, 0] * np.finfo(np.float32).eps
+                                  + ATOL_ROUNDTRIP)).max())
+        print(f"{tag}: round trip, {name} rows: max error / (kappa eps32 + "
+              f"{ATOL_ROUNDTRIP:g}) {ratio:.3e}", flush=True)
+        expect(f"{tag}: round trip v -> x -> v, {name} rows within kappa(X) eps32", ratio <= 1.0)
+        err[f"roundtrip_{name}_ratio"] = ratio
+    err["roundtrip_ld"] = check(f"{tag}: round trip log-dets", ld2, -ld, RTOL_ROUNDTRIP_LD,
+                                ld.abs() + 1e-3 * ld.abs().max())
+    launches = {k: l_st.get(k, 0) + l_fwd.get(k, 0) + l_inv.get(k, 0) for k in P26_KERNELS}
+    return launches, err, (peak_alone, peak_st), (x, v2)
+
+
+def quantile_gates(tag, d32, d64, q, x, g, cols):
+    """The float32 quantile x (and d x / dq, g) on the card against the
+    float64 quantile on the CPU of the first `cols` of q: the x bound is
+    the float32 cdf's error there (measured) over the pdf plus
+    ULPS_QUANTILE ulp of x; g's is |d log pdf / dx| times that, plus
+    ULPS_QUANTILE eps32, relative to 1 / pdf. Returns the errors and the
+    worst ratios to the bounds."""
+    eps32 = float(np.finfo(np.float32).eps)
+    q64 = q[:cols].double().cpu()
+    x64 = d64.quantile(q64)
+    xx = x64.clone().requires_grad_(True)
+    lp = d64.logpdf(xx)
+    (score,) = torch.autograd.grad(lp.sum(), xx)
+    pdf = torch.exp(lp.detach())
+    cdf_err = float((d32.cdf(x64.float().to(q.device)).double().cpu() - d64.cdf(x64.float().double())).abs().max())
+    bound_x = 2.0 * cdf_err / pdf + ULPS_QUANTILE * eps32 * x64.abs()
+    dx = (x[:cols].double().cpu() - x64).abs()
+    ratio_x = float((dx / bound_x).max())
+    g64 = 1.0 / pdf
+    bound_g = score.abs() * bound_x + ULPS_QUANTILE * eps32
+    ratio_g = float((((g[:cols].double().cpu() - g64) / g64).abs() / bound_g).max())
+    print(f"{tag}: float32 cdf error {cdf_err:.3e}; x vs float64 max error "
+          f"{float(dx.max()):.3e}, worst ratio to its bound {ratio_x:.3e}; d x / dq vs 1 / pdf "
+          f"worst ratio {ratio_g:.3e}", flush=True)
+    expect(f"{tag}: x within the float32 cdf error over the pdf + {ULPS_QUANTILE} ulp", ratio_x <= 1.0)
+    expect(f"{tag}: d x / dq within |score| x bound + {ULPS_QUANTILE} eps32 of 1 / pdf", ratio_g <= 1.0)
+    return {"cdf_err": cdf_err, "x_max_abs_err": float(dx.max()), "x_ratio": ratio_x,
+            "g_ratio": ratio_g}
+
+
+def run_bijectors_and_quantiles(dev, time_gate=True):
+    """Path 26 (float32): (a) Stacked over the bench model's links at
+    B = 131072 against UnconstrainerBijector (#7 and #6; the inverse
+    direction's #9), (b) the same on the Wishart(3) model's PD links (#10),
+    (c) the structural and scalar bijectors on the card (round trips at
+    B = 131072, log-dets against torch.func.jacrev at B = 64; CorrBijector
+    at K = 16 through #6), (d) QuantileBijector(Gamma(2, 3)) and
+    CDFBijector(Beta(2, 5)) at B = 131072 (the generic quantile under
+    set_sync_debug_mode('error') for Gamma), (e) NUTS on the
+    quantile-linked prior with kernel='auto'. `time_gate=False` leaves
+    out the PATH26_LIMIT_S gate, which holds the warm time (a first run
+    in a process also pays the card's first uses). Returns (line,
+    launches, err)."""
+    import copy
+
+    import tpu_bijectors_torch as tbt
+    from tpu_bijectors_torch import diagnostics, dists
+    from tpu_bijectors_torch.utils import triu_to_vec
+
+    t0 = time.perf_counter()
+    f32 = torch.float32
+    kw = dict(device=dev, dtype=f32)
+    line, err, launches = {"part_s": {}}, {}, {k: 0 for k in P26_KERNELS}
+    rng = np.random.default_rng(SEED + 260)
+
+    # (a) Stacked over the bench model's links
+    u = tbt.unconstrain(bench_model(dists, dev, f32), device=dev)
+    st = tbt.Stacked.from_lengths(
+        (tbt.Identity(), tbt.Exp(), tbt.inverse(tbt.SimplexBijector()),
+         tbt.Chain((tbt.Reshape((16, 16), (256,)), tbt.inverse(tbt.VecCorrBijector())))),
+        (8, 8, 15, 120))
+    expect("path 26 (a): the Stacked maps 151 linked slots to the 288 of to_vec",
+           (st.length_in, st.length_out) == (151, u.vec_length) == (151, 288))
+    vs = torch.as_tensor(0.5 * rng.standard_normal((BATCH, 151)), **kw)
+    la, err["stacked_bench"], line["stacked_peak_bytes"], (xa, va) = stacked_vs_unconstrainer(
+        "path 26 (a) bench", u, st, vs,
+        {"scalar and simplex": (slice(0, 31), None),
+         "LKJ": (C_ROWS, lambda x: x[:, 32:].reshape(-1, 16, 16))})
+    for k, n in la.items():
+        launches[k] += n
+    expect("path 26 (a): #7 and #6 launched, #9 in the inverse direction",
+           la["simplex_inverse_logdet"] > 0 and la["lkj_inverse"] > 0
+           and la["simplex_forward_logdet"] > 0)
+    del xa, va
+
+    torch.cuda.synchronize()
+    line["part_s"]["a"] = time.perf_counter() - t0 - sum(line["part_s"].values())
+    # (b) the PD form on the Wishart(3) model
+    uw = tbt.unconstrain(wishart3_model(dists, dev, f32), device=dev)
+    pd_link = tbt.Chain((tbt.Reshape((3, 3), (9,)), tbt.inverse(tbt.PDVecBijector())))
+    stw = tbt.Stacked.from_lengths((pd_link, pd_link, tbt.Identity()), (6, 6, 3))
+    vw = 0.5 * vs[:, :15].contiguous()
+    lb, err["stacked_wishart3"], _, _ = stacked_vs_unconstrainer(
+        "path 26 (b) Wishart(3)", uw, stw, vw, {"all": (slice(0, 15), None)})
+    for k, n in lb.items():
+        launches[k] += n
+    expect("path 26 (b): #10 launched", lb["pd_inverse"] > 0)
+
+    torch.cuda.synchronize()
+    line["part_s"]["b"] = time.perf_counter() - t0 - sum(line["part_s"].values())
+    # (c) the structural and scalar bijectors
+    jb = slice(0, PATH26_JAC_B)
+    x8 = torch.as_tensor(rng.standard_normal((BATCH, 8)), **kw)
+    w4 = torch.as_tensor(0.3 * rng.standard_normal((4, 4)), **kw)
+    c4 = torch.as_tensor(rng.standard_normal((4, 4)), **kw)
+    A = torch.as_tensor(rng.standard_normal((8, 8)) + 3.0 * np.eye(8), **kw)
+    shift8 = torch.as_tensor(rng.standard_normal(8), **kw)
+    scale8 = torch.as_tensor(rng.uniform(0.5, 2.0, 8) * np.sign(rng.standard_normal(8)), **kw)
+
+    def theta(p, x2):
+        w, c = p
+        return tbt.Block(tbt.Chain((tbt.Shift(x2 @ c), tbt.Scale(torch.exp(x2 @ w)))), 1)
+
+    vector_maps = {
+        "Coupling": tbt.Coupling(theta, tbt.PartitionMask(8, (0, 2, 4, 6), (1, 3, 5, 7)), (w4, c4)),
+        "Permute": tbt.Permute(tuple(int(i) for i in rng.permutation(8))),
+        "LinearMap": tbt.LinearMap(A),
+        "TriangularLinearMap": tbt.TriangularLinearMap(A, lower=True),
+        "ProductBijector": tbt.ProductBijector((tbt.Exp(), tbt.Identity(), tbt.Softplus(),
+                                                tbt.Shift(1.5), tbt.Scale(-2.0), tbt.LeakyReLU(0.3),
+                                                tbt.Log(), tbt.Logit(-4.0, 4.0))),
+    }
+    scalar_maps = {"Exp": tbt.Exp(), "Log": tbt.Log(), "Logit(-4, 4)": tbt.Logit(-4.0, 4.0),
+                   "Shift": tbt.Shift(shift8), "Scale": tbt.Scale(scale8),
+                   "LeakyReLU(0.3)": tbt.LeakyReLU(0.3), "Softplus": tbt.Softplus()}
+    # an input inside each map's domain: (0, inf) for Log, (-4, 4) for Logit
+    x8pos = torch.exp(x8)
+    x8int = 4.0 * torch.tanh(x8)
+    xprod = torch.cat([x8[:, :6], x8pos[:, 6:7], x8int[:, 7:]], dim=1)
+    domain = {"Log": x8pos, "Logit(-4, 4)": x8int, "ProductBijector": xprod}
+    worst = {}
+    for name, b in {**vector_maps, **scalar_maps}.items():
+        xin = domain.get(name, x8)
+        (y, ld), lc = launch_delta(lambda: b.forward_and_log_det(xin))
+        expect(f"path 26 (c) {name}: no kernel (plain torch, as the JAX package's jnp)", not lc)
+        xr, ldi = b.inverse_and_log_det(y)
+        worst[name] = check(f"path 26 (c) {name}: round trip at B = {BATCH}", xr, xin,
+                            ATOL_ROUNDTRIP, xin.abs() + 1.0)
+        check(f"path 26 (c) {name}: inverse log-det is minus the forward's", ldi, -ld,
+              RTOL_JAC, ld.abs() + 1.0)
+        jac = elementwise_jac_check if name in scalar_maps else jac_check
+        worst[f"{name}_logdet"] = jac(f"path 26 (c) {name}: log-det vs jacrev at B = {PATH26_JAC_B}",
+                                      b.forward, xin[jb], ld[jb])
+    # CorrBijector at K = 16: the inverse through #6
+    K = 16
+    Y = torch.triu(torch.as_tensor(0.5 * rng.standard_normal((BATCH, K, K)), **kw), 1)
+    cb = tbt.CorrBijector()
+    (X, logJ), lc = launch_delta(lambda: cb.inverse_and_log_det(Y))
+    launches["lkj_inverse"] += lc.get("lkj_inverse", 0)
+    expect(f"path 26 (c) CorrBijector: the inverse launches #6 ({lc})", lc.get("lkj_inverse", 0) == 1)
+    ref = tbt.VecCorrBijector().inverse_and_log_det(triu_to_vec(Y, 1))
+    expect("path 26 (c) CorrBijector: the inverse is VecCorrBijector's on the packed triangle",
+           torch.equal(X, ref[0]) and torch.equal(logJ, ref[1]))
+    Y2, ld2 = cb.forward_and_log_det(X)
+    ev = torch.linalg.eigvalsh(X[:4096].double().cpu())
+    row_err = (Y2[:4096] - Y[:4096]).abs().amax(dim=(1, 2)).double().cpu()
+    ratio = float((row_err / (ev[:, -1] / ev[:, 0] * np.finfo(np.float32).eps
+                              + ATOL_ROUNDTRIP)).max())
+    print(f"path 26 (c) CorrBijector: round trip max error / (kappa eps32 + "
+          f"{ATOL_ROUNDTRIP:g}) {ratio:.3e}", flush=True)
+    expect("path 26 (c) CorrBijector: round trip within kappa(X) eps32", ratio <= 1.0)
+    # the forward's log-det at X is the closed form at the round trip's Y2:
+    # it moves from -logJ(Y) by sum (K - i) |tanh Y| |Y2 - Y| to first order
+    coeff = (K - torch.arange(K, device=dev, dtype=f32))[:, None]
+    moved = (coeff * torch.tanh(Y).abs() * (Y2 - Y).abs()).sum((-2, -1))
+    check("path 26 (c) CorrBijector: forward log-det is minus the inverse's, within the "
+          "round trip's first-order move", ld2, -logJ, 1.0,
+          2.0 * moved.double() + RTOL_ROUNDTRIP_LD * (logJ.abs() + 1e-3 * logJ.abs().max()).double())
+    tri = torch.triu_indices(K, K, 1, device=dev)
+
+    def corr_free(v):
+        Yv = torch.zeros((K, K), dtype=v.dtype, device=v.device).index_put((tri[0], tri[1]), v)
+        return cb.inverse(Yv[None])[0][tri[0], tri[1]]
+
+    Jc = torch.stack([torch.autograd.functional.jacobian(corr_free, Y[i][tri[0], tri[1]])
+                      for i in range(PATH26_CORR_JAC)])
+    worst["CorrBijector_logdet"] = check(
+        f"path 26 (c) CorrBijector: log-det vs the Jacobian on {PATH26_CORR_JAC} states",
+        logJ[:PATH26_CORR_JAC], torch.linalg.slogdet(Jc.double())[1], RTOL_JAC,
+        logJ[:PATH26_CORR_JAC].double().abs() + 1.0)
+    # equality on the card: a deep copy compares and hashes equal
+    for name, b in vector_maps.items():
+        if name != "Coupling":
+            c = copy.deepcopy(b)
+            expect(f"path 26 (c) {name}: a deep copy on the card is equal and hashes equal",
+                   c == b and hash(c) == hash(b))
+    err["structural"] = worst
+    del X, Y, Y2, ev
+
+    torch.cuda.synchronize()
+    line["part_s"]["c"] = time.perf_counter() - t0 - sum(line["part_s"].values())
+    # (d) QuantileBijector(Gamma(2, 3)) and CDFBijector(Beta(2, 5))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    q = 0.001 + 0.998 * torch.rand(BATCH, generator=gen, device=dev, dtype=f32)
+    gam, gam64 = (dists.Gamma(*QUANTILE_GAMMA, **kw),
+                  dists.Gamma(*QUANTILE_GAMMA, device="cpu", dtype=torch.float64))
+    qb = tbt.QuantileBijector(gam)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ts = time.perf_counter()
+        xq = gam.quantile(q)
+        torch.cuda.synchronize()
+        line["gamma_quantile_ms"] = 1e3 * (time.perf_counter() - ts)
+        expect("path 26 (d): the generic quantile makes no host read", True)
+    except RuntimeError as e:
+        expect(f"path 26 (d): the generic quantile makes no host read: {str(e)[:200]}", False)
+        xq = gam.quantile(q)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    qg = q.clone().requires_grad_(True)
+    (yq, ldq), lq = launch_delta(lambda: qb.forward_and_log_det(qg))
+    expect("path 26 (d): QuantileBijector(Gamma) launches no kernel (plain torch)", not lq)
+    expect("path 26 (d): forward_and_log_det's x is quantile's", torch.equal(yq.detach(), xq))
+    (gq,) = torch.autograd.grad(yq.sum(), qg)
+    check("path 26 (d) Gamma: log-det is -logpdf", ldq.detach(), -gam.logpdf(xq), 1e-6)
+    qr = qb.inverse(xq)
+    err["gamma_roundtrip"] = check("path 26 (d) Gamma: round trip q -> x -> q", qr, q,
+                                   ATOL_ROUNDTRIP, torch.ones_like(q))
+    line["gamma"] = quantile_gates("path 26 (d) Gamma(2, 3)", gam, gam64, q, xq, gq.detach(),
+                                   PATH26_CPU_COLS)
+    beta, beta64 = dists.Beta(2.0, 5.0, **kw), dists.Beta(2.0, 5.0, device="cpu", dtype=torch.float64)
+    cb5 = tbt.CDFBijector(beta)
+    xb = beta.sample(gen, (BATCH,))
+    ub_, ldb = cb5.forward_and_log_det(xb)
+    check("path 26 (d) Beta: log-det is logpdf", ldb, beta.logpdf(xb), 1e-6)
+    ug = ub_.detach().clone().requires_grad_(True)
+    ts = time.perf_counter()
+    xr = cb5.inverse(ug)
+    torch.cuda.synchronize()
+    line["beta_quantile_ms"] = 1e3 * (time.perf_counter() - ts)
+    (gb,) = torch.autograd.grad(xr.sum(), ug)
+    # u = cdf(x) carries half an ulp of u, 1 - u near x = 1 a few: x comes
+    # back within 4 eps32 / pdf(x) plus the solve's ULPS_QUANTILE ulp of x
+    eps32 = float(np.finfo(np.float32).eps)
+    err["beta_roundtrip"] = check(
+        "path 26 (d) Beta: round trip x -> u -> x within 4 eps32 / pdf + 8 ulp", xr.detach(), xb,
+        1.0, 4.0 * eps32 / torch.exp(ldb.double()) + ULPS_QUANTILE * eps32 * xb.double().abs())
+    line["beta"] = quantile_gates("path 26 (d) Beta(2, 5)", beta, beta64, ub_.detach(),
+                                  xr.detach(), gb, PATH26_BETA_COLS)
+    del xq, yq, gq, qg, xb, ub_, ug, xr, gb
+
+    torch.cuda.synchronize()
+    line["part_s"]["d"] = time.perf_counter() - t0 - sum(line["part_s"].values())
+    # (e) NUTS on the quantile-linked prior
+    def prior(device, dtype):
+        k = dict(device=device, dtype=dtype)
+        return dists.NamedProduct.of(theta=tbt.transformed(
+            dists.Uniform(0.0, 1.0, **k), tbt.QuantileBijector(dists.Gamma(*QUANTILE_GAMMA, **k))))
+
+    cpu_pick = tbt.Model(prior("cpu", torch.float64), device="cpu")._auto_kernel()
+    model = tbt.Model(prior(dev, f32), device=dev)
+    card_pick = model._auto_kernel()
+    expect(f"path 26 (e): kernel='auto' takes {card_pick} on the card, {cpu_pick} on the CPU",
+           card_pick == cpu_pick == "nuts_batched_t")
+    ts = time.perf_counter()
+    (raw, _, stats), le = launch_delta(lambda: model.sample(
+        torch.Generator(device=dev).manual_seed(SEED), kernel="auto", constrained=False,
+        **QUANTILE_NUTS))
+    sample_s = time.perf_counter() - ts
+    th = model.constrain(raw)["theta"].double()
+    r_hat = float(np.max(diagnostics.rhat(raw)))
+    mean, mcse = float(th.mean()), float(diagnostics.mcse_mean(th))
+    exact_mean, exact_sd = QUANTILE_GAMMA[0] / QUANTILE_GAMMA[1], math.sqrt(QUANTILE_GAMMA[0]) / QUANTILE_GAMMA[1]
+    dev_mcse = abs(mean - exact_mean) / mcse
+    print(f"path 26 (e): theta mean {mean:.4f} (MCSE {mcse:.4f}, exact {exact_mean:.4f}), "
+          f"sd {float(th.std()):.4f} (exact {exact_sd:.4f}), R-hat {r_hat:.4f}, launches {le}, "
+          f"{sample_s:.1f} s", flush=True)
+    expect("path 26 (e): draws finite and positive", bool(torch.isfinite(th).all() & (th > 0).all()))
+    expect(f"path 26 (e): theta's mean within 5 MCSE of Gamma(2, rate 3)'s ({dev_mcse:.2f})",
+           dev_mcse <= 5.0)
+    expect(f"path 26 (e): R-hat {r_hat:.4f} <= 1.05", r_hat <= 1.05)
+    expect("path 26 (e): the sampler launched #2's small design, the kernel 'auto' picks",
+           le.get(SMALL, 0) > 0)
+    launches[SMALL] = le.get(SMALL, 0)
+    line["nuts"] = {"kernel": card_pick, "cpu_kernel": cpu_pick, "launches": le,
+                    "mean": mean, "mcse": mcse, "sd": float(th.std()), "rhat": r_hat,
+                    "divergences": int(stats.diverging.sum()), "seconds": sample_s}
+
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    line["part_s"]["e"] = dt - sum(line["part_s"].values())
+    line.update({"seconds": dt, "launches": launches})
+    print(f"path 26: {dt:.1f} s (parts {line['part_s']}), launches {launches}", flush=True)
+    if time_gate:
+        expect(f"path 26 within {PATH26_LIMIT_S:g} s", dt < PATH26_LIMIT_S)
+    return line, launches, err
+
+
+
 # The two longest host-bound samplers, cells 7 (pd_conjugate) and 10
 # (mv_conjugate), run in a second process beside the other paths: the card
 # is idle through most of their host loops, and the script's phases came
@@ -5638,6 +6059,9 @@ def main():
     # API, the samplers and the property sweep
     p25_line, p25_launches, p25_err = run_flat_api_and_tangents(dev)
     lap("flat API, tangents, samplers, sweep")
+    # --- the twenty-sixth: the remaining bijectors, CDF/Quantile ----------------
+    p26_line, p26_launches, p26_err = run_bijectors_and_quantiles(dev)
+    lap("bijectors and quantiles")
     print(f"nuts from pathfinder's starts: warmup {pf_sampler_line['warmup_s']:.1f} s (the fit "
           f"included), step {pf_sampler_line['step_size']:.4f}, "
           f"{pf_sampler_line['leapfrogs_per_transition']:.2f} leapfrogs a transition; path 2: "
@@ -5646,7 +6070,7 @@ def main():
     for k in (SMALL, SIMPLEX_SMALL, "simplex_inverse_logdet", "lkj_inverse", "pd_inverse",
               "pd_logdensity", "pd_trace_grad"):
         new_launches[k] = new_launches.get(k, 0) + sum(d.get(k, 0) for d in (ls, ls2, ls3))
-    for k, n in p25_launches.items():
+    for k, n in list(p25_launches.items()) + list(p26_launches.items()):
         new_launches[k] = new_launches.get(k, 0) + n
     prep_s = time_prep(dev)
     lap("_prep first calls")
@@ -5795,6 +6219,7 @@ def main():
     print(json.dumps({"pathfinder": pf_line}), flush=True)
     print(json.dumps({"sampler": pf_sampler_line}), flush=True)
     print(json.dumps({"path25": p25_line, "path25_err": p25_err}), flush=True)
+    print(json.dumps({"path26": p26_line, "path26_err": p26_err}), flush=True)
 
     if failures:
         print("FAILED: " + "; ".join(failures), file=sys.stderr)

@@ -9,24 +9,46 @@ CPU as their plain PyTorch versions.
 """
 
 from . import dists, kernels
-from .bijectors import Chain, Invert, inverse
-from .convert import dist_from_spec
+from .bijectors import *  # noqa: F403
+from .bijectors import __all__ as _bijectors_all
+from .compat import (
+    columnwise,
+    isclosedform,
+    isinvertible,
+    logabsdetjac,
+    logabsdetjacinv,
+    output_size,
+    transform,
+    with_logabsdet_jacobian,
+)
+from .convert import bijector_from_spec, dist_from_spec
 from .infer.model import Model
-from .registry import bijector, logpdf_with_trans
-from .transformed import TransformedDistribution, transformed
+from .registry import bijector, invlink, link, logpdf_with_trans, register_bijector
+from .transformed import OrderedDistribution, TransformedDistribution, ordered, transformed
 from .vectorize.core import unconstrain
 
-__all__ = [
-    "Chain",
-    "Invert",
+__all__ = _bijectors_all + [
+    "columnwise",
+    "isclosedform",
+    "isinvertible",
+    "logabsdetjac",
+    "logabsdetjacinv",
+    "output_size",
+    "transform",
+    "with_logabsdet_jacobian",
     "Model",
     "bijector",
+    "bijector_from_spec",
     "dist_from_spec",
     "dists",
-    "inverse",
+    "invlink",
     "kernels",
+    "link",
     "logpdf_with_trans",
+    "register_bijector",
+    "OrderedDistribution",
     "TransformedDistribution",
+    "ordered",
     "transformed",
     "unconstrain",
 ]

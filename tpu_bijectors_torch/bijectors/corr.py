@@ -58,9 +58,11 @@ from ..utils import (
 from .base import Bijector
 
 
-def _link_chol_lkj(W):
-    """Upper Cholesky factor W -> strict-upper unconstrained matrix y, with
-    the vector variant's atanh first row (corr.jl:293-335)."""
+def _link_chol_lkj(W, first_row_atanh: bool = True):
+    """Upper Cholesky factor W -> strict-upper unconstrained matrix y
+    (corr.jl:293-335): asinh(W / sqrt(remainder)) throughout, or with
+    `first_row_atanh` the vector variants' atanh(W) on the first row
+    (corr.jl:322; the same value in other floating steps)."""
     K = W.shape[-1]
     up = _up_mask(K, W)
     W = torch.triu(W)
@@ -69,8 +71,9 @@ def _link_chol_lkj(W):
     remainder_sq = rev_incl - W2
     safe_rem = torch.where(up, remainder_sq, torch.ones_like(remainder_sq))
     y = torch.asinh(W / torch.sqrt(safe_rem))
-    row0 = (torch.arange(K, device=W.device) == 0)[:, None]
-    y = torch.where(row0, torch.atanh(torch.clamp(W, -1.0, 1.0)), y)
+    if first_row_atanh:
+        row0 = (torch.arange(K, device=W.device) == 0)[:, None]
+        y = torch.where(row0, torch.atanh(torch.clamp(W, -1.0, 1.0)), y)
     return torch.where(up, y, torch.zeros_like(y))
 
 
@@ -228,6 +231,33 @@ def _vec_corr_inverse_all(y):
     lead = y.shape[:-1]
     X, logJ, log_diag, _ = _VecCorrInverse.apply(y.reshape(-1, y.shape[-1]), K)
     return X.reshape(lead + (K, K)), logJ.reshape(lead), log_diag.reshape(lead + (K,))
+
+
+@dataclass(frozen=True)
+class CorrBijector(Bijector):
+    """Correlation matrix -> strict-upper-triangular unconstrained matrix
+    (reference CorrBijector, corr.jl:64-92). The inverse packs Y's strict
+    upper triangle in `VecCorrBijector`'s order and runs its link Function
+    (#6 on the card, the plain cumulative sums on the CPU), with its
+    closed-form backward, `jvp` and second derivative. That logJ already
+    holds the sum_{j>=1} (K-1-j) log W_jj term of corr.jl:74-81."""
+
+    event_ndims_in = 2
+    event_ndims_out = 2
+
+    def forward(self, X):
+        return _link_chol_lkj(cholesky_upper(X), first_row_atanh=False)
+
+    def forward_and_log_det(self, X):
+        y = self.forward(X)
+        return y, -self.inverse_log_det_jacobian(y)
+
+    def inverse_and_log_det(self, Y):
+        return _vec_corr_inverse_all(triu_to_vec(Y, 1))[:2]
+
+    def inverse_log_det_jacobian(self, Y):
+        """-sum_{i<j} (K - i) logcosh(Y_ij), 0-based row i (corr.jl:464-472)."""
+        return _logabsdetjac_inv_corr_vec(triu_to_vec(Y, 1))
 
 
 @dataclass(frozen=True)

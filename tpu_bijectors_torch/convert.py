@@ -1,4 +1,4 @@
-"""Build the port's distributions from a plain description.
+"""Build the port's distributions and bijectors from a plain description.
 
 A spec is a nested dict of type names and numpy arrays, so that the same
 parameters can be handed to the JAX package and to the port:
@@ -29,11 +29,27 @@ spec under the field that holds a distribution:
 Any other key than "type", "params", "children" and "inner" is a static
 argument of the constructor (an int such as `n` or `dim`, a string such
 as `mode`, or a nested spec).
+
+A bijector's spec has the same form, from the fields of a JAX bijector:
+
+  {"type": "Shift", "params": {"a": np.ndarray}}   (a float stays a float:
+      Scale(2.0) keeps its static direction)
+  {"type": "Permute", "perm": (2, 0, 1)}
+  {"type": "TriangularLinearMap", "params": {"T": np.ndarray}, "lower": False}
+  {"type": "Chain", "children": [spec, ...]}   (outer first, as Chain's)
+  {"type": "Stacked", "children": [spec, ...], "ranges_in": ((0, 2), ...)}
+  {"type": "ProductBijector", "children": [spec, ...]}
+  {"type": "NamedTransform", "children": {"a": spec, ...}}
+  {"type": "Block", "inner": spec, "ndims": 1}
+  {"type": "Invert", "inner": spec}
 """
 
 from __future__ import annotations
 
-from . import dists
+import numpy as np
+import torch
+
+from . import bijectors, dists
 from .transformed import transformed
 
 _SCALAR = (
@@ -92,3 +108,29 @@ def dist_from_spec(spec: dict, *, device, dtype):
     if kind not in _LEAVES:
         raise NotImplementedError(f"no ported distribution named {kind!r}")
     return _LEAVES[kind](**static, **spec.get("params", {}), device=device, dtype=dtype)
+
+
+def bijector_from_spec(spec: dict, *, device, dtype):
+    """The port's bijector for `spec`, its array fields as `dtype` tensors
+    on `device`."""
+    kind = spec["type"]
+
+    def rec(s):
+        return bijector_from_spec(s, device=device, dtype=dtype)
+
+    if kind == "Chain":
+        return bijectors.Chain(tuple(rec(c) for c in spec["children"]))
+    if kind == "Stacked":
+        return bijectors.Stacked(tuple(rec(c) for c in spec["children"]),
+                                 tuple(tuple(r) for r in spec["ranges_in"]))
+    if kind == "ProductBijector":
+        return bijectors.ProductBijector(tuple(rec(c) for c in spec["children"]))
+    if kind == "NamedTransform":
+        return bijectors.NamedTransform.of(**{k: rec(c) for k, c in spec["children"].items()})
+    if kind in ("Block", "Invert"):
+        static = {k: v for k, v in spec.items() if k not in ("type", "inner")}
+        return getattr(bijectors, kind)(rec(spec["inner"]), **static)
+    params = {k: torch.as_tensor(v, dtype=dtype, device=device) if isinstance(v, np.ndarray)
+              else v for k, v in spec.get("params", {}).items()}
+    static = {k: v for k, v in spec.items() if k not in ("type", "params")}
+    return getattr(bijectors, kind)(**static, **params)

@@ -69,26 +69,3 @@ def categorical(g, logits, shape):
     idx = torch.multinomial(probs.expand(max(n, 1), -1), 1, replacement=True, generator=g)
     return idx[:n, 0].reshape(tuple(shape))
 
-
-def quantile_bisect(cdf, q, lo, hi, steps: int = 200):
-    """x with cdf(x) = q by bisection on [lo, hi] (infinite ends widened
-    by doubling until they bracket q): the inverse-cdf draw of a family
-    with no closed-form quantile."""
-    one = torch.ones_like(q)
-    a = one * lo if math.isfinite(lo) else -one
-    b = one * hi if math.isfinite(hi) else one
-    for _ in range(64):
-        if math.isfinite(lo) or not bool((cdf(a) > q).any()):
-            break
-        a = torch.where(cdf(a) > q, 2.0 * a - 1.0, a)
-    for _ in range(64):
-        if math.isfinite(hi) or not bool((cdf(b) < q).any()):
-            break
-        b = torch.where(cdf(b) < q, 2.0 * b + 1.0, b)
-    for _ in range(steps):
-        m = 0.5 * (a + b)
-        below = cdf(m) < q
-        a, b = torch.where(below, m, a), torch.where(below, b, m)
-        if bool((b - a <= 4 * torch.finfo(q.dtype).eps * (1.0 + torch.abs(m))).all()):
-            break
-    return 0.5 * (a + b)

@@ -118,6 +118,9 @@ class Normal(LeafDistribution):
     def cdf(self, x):
         return torch.special.ndtr((x - self.loc) / self.scale)
 
+    def quantile(self, q):
+        return self.loc + self.scale * torch.special.ndtri(q)
+
     def sample(self, generator, sample_shape=()):
         shape = tuple(sample_shape) + self.batch_shape
         return self.loc + self.scale * R.normal(generator, shape, self.loc)
@@ -132,6 +135,7 @@ class StudentT(LeafDistribution):
     scale: object = 1.0
 
     _params = ("df", "loc", "scale")
+    _cdf_fd = ("df",)  # betainc has no derivative in a or b
 
     def logpdf(self, x):
         v = self.df
@@ -166,6 +170,9 @@ class Cauchy(LeafDistribution):
     def cdf(self, x):
         return torch.atan((x - self.loc) / self.scale) / math.pi + 0.5
 
+    def quantile(self, q):
+        return self.loc + self.scale * torch.tan(math.pi * (q - 0.5))
+
     def sample(self, generator, sample_shape=()):
         shape = tuple(sample_shape) + self.batch_shape
         return self.loc + self.scale * R.cauchy(generator, shape, self.loc)
@@ -181,6 +188,16 @@ class Laplace(LeafDistribution):
     def logpdf(self, x):
         z = torch.abs(x - self.loc) / self.scale
         return -z - LOG2 - torch.log(self.scale)
+
+    def cdf(self, x):
+        z = (x - self.loc) / self.scale
+        return torch.where(z < 0, 0.5 * torch.exp(z), 1.0 - 0.5 * torch.exp(-z))
+
+    def quantile(self, q):
+        # both branches by where (not sign and abs): at q = 1/2 the
+        # derivative is the one-sided 2 scale, not a kink's zero
+        return self.loc + self.scale * torch.where(
+            q < 0.5, torch.log(2.0 * q), -torch.log(2.0 * (1.0 - q)))
 
     def sample(self, generator, sample_shape=()):
         shape = tuple(sample_shape) + self.batch_shape
@@ -201,6 +218,9 @@ class Logistic(LeafDistribution):
     def cdf(self, x):
         return torch.sigmoid((x - self.loc) / self.scale)
 
+    def quantile(self, q):
+        return self.loc + self.scale * (torch.log(q) - torch.log1p(-q))
+
     def sample(self, generator, sample_shape=()):
         shape = tuple(sample_shape) + self.batch_shape
         return self.loc + self.scale * R.logistic(generator, shape, self.loc)
@@ -219,6 +239,9 @@ class Gumbel(LeafDistribution):
 
     def cdf(self, x):
         return torch.exp(-torch.exp(-(x - self.loc) / self.scale))
+
+    def quantile(self, q):
+        return self.loc - self.scale * torch.log(-torch.log(q))
 
     def sample(self, generator, sample_shape=()):
         shape = tuple(sample_shape) + self.batch_shape
@@ -287,6 +310,9 @@ class LogNormal(_Positive):
     def cdf(self, x):
         return torch.special.ndtr((torch.log(x) - self.mu) / self.sigma)
 
+    def quantile(self, q):
+        return torch.exp(self.mu + self.sigma * torch.special.ndtri(q))
+
     def _linked(self, y):
         """logpdf(exp(v)) + v is the Normal density of v."""
         z = (y - self.mu) / self.sigma
@@ -306,6 +332,12 @@ class Exponential(_Positive):
     def logpdf(self, x):
         return torch.log(self.rate) - self.rate * x
 
+    def cdf(self, x):
+        return -torch.expm1(-self.rate * x)
+
+    def quantile(self, q):
+        return -torch.log1p(-q) / self.rate
+
     def _linked(self, y):
         """log r + v - r e^v: -inf, never NaN, where e^v overflows."""
         r = self.rate
@@ -322,10 +354,14 @@ class Gamma(_Positive):
     rate: object = 1.0
 
     _params = ("concentration", "rate")
+    _cdf_fd = ("concentration",)  # gammainc has no derivative in a
 
     def logpdf(self, x):
         a, r = self.concentration, self.rate
         return a * torch.log(r) + (a - 1.0) * torch.log(x) - r * x - torch.lgamma(a)
+
+    def cdf(self, x):
+        return torch.special.gammainc(self.concentration, self.rate * x)
 
     def _linked(self, y):
         """a log r + a v - r e^v - lgamma(a)."""
@@ -343,10 +379,16 @@ class InverseGamma(_Positive):
     scale: object = 1.0
 
     _params = ("concentration", "scale")
+    _cdf_fd = ("concentration",)  # gammaincc has no derivative in a
 
     def logpdf(self, x):
         a, b = self.concentration, self.scale
         return a * torch.log(b) - (a + 1.0) * torch.log(x) - b / x - torch.lgamma(a)
+
+    def cdf(self, x):
+        xs = torch.clamp_min(x, torch.finfo(x.dtype).tiny)
+        c = torch.special.gammaincc(self.concentration, self.scale / xs)
+        return torch.where(x > 0, c, torch.zeros_like(c))
 
     def _linked(self, y):
         """a log b - a v - b e^-v - lgamma(a)."""
@@ -363,10 +405,15 @@ class Chi(_Positive):
     df: object = 1.0
 
     _params = ("df",)
+    _cdf_fd = ("df",)  # gammainc has no derivative in a
 
     def logpdf(self, x):
         k2 = 0.5 * self.df
         return (2.0 * k2 - 1.0) * torch.log(x) - 0.5 * x * x - (k2 - 1.0) * LOG2 - torch.lgamma(k2)
+
+    def cdf(self, x):
+        xc = torch.clamp_min(x, 0.0)
+        return torch.special.gammainc(0.5 * self.df, 0.5 * xc * xc)
 
     def _linked(self, y):
         """df v - e^(2v) / 2 - (df/2 - 1) log 2 - lgamma(df/2)."""
@@ -391,6 +438,12 @@ class Weibull(_Positive):
         z = x / lam
         return torch.log(k / lam) + (k - 1.0) * torch.log(z) - z**k
 
+    def cdf(self, x):
+        return -torch.expm1(-((x / self.scale) ** self.concentration))
+
+    def quantile(self, q):
+        return self.scale * (-torch.log1p(-q)) ** (1.0 / self.concentration)
+
     def _linked(self, y):
         """log k - k log lam + k v - e^(k v - k log lam)."""
         k = self.concentration
@@ -412,6 +465,12 @@ class Rayleigh(_Positive):
     def logpdf(self, x):
         s2 = self.scale**2
         return torch.log(x) - torch.log(s2) - 0.5 * x * x / s2
+
+    def cdf(self, x):
+        return -torch.expm1(-0.5 * (torch.clamp_min(x, 0.0) / self.scale) ** 2)
+
+    def quantile(self, q):
+        return self.scale * torch.sqrt(-2.0 * torch.log1p(-q))
 
     def _linked(self, y):
         """2v - 2 log s - e^(2(v - log s)) / 2."""
@@ -435,6 +494,14 @@ class Frechet(_Positive):
         z = x / s
         return torch.log(a / s) - (1.0 + a) * torch.log(z) - z ** (-a)
 
+    def cdf(self, x):
+        xs = torch.clamp_min(x, torch.finfo(x.dtype).tiny)
+        c = torch.exp(-((xs / self.scale) ** -self.shape_))
+        return torch.where(x > 0, c, torch.zeros_like(c))
+
+    def quantile(self, q):
+        return self.scale * (-torch.log(q)) ** (-1.0 / self.shape_)
+
     def _linked(self, y):
         """With w = v - log s: log a - a w - e^(-a w), a Gumbel form."""
         a = self.shape_
@@ -457,6 +524,12 @@ class HalfNormal(_Positive):
         z = x / self.scale
         return LOG2 - 0.5 * (z * z + LOG2PI) - torch.log(self.scale)
 
+    def cdf(self, x):
+        return torch.special.erf(torch.clamp_min(x, 0.0) / (self.scale * math.sqrt(2.0)))
+
+    def quantile(self, q):
+        return self.scale * math.sqrt(2.0) * torch.special.erfinv(q)
+
     def _linked(self, y):
         """const + v - e^(2(v - log s)) / 2."""
         ls = torch.log(self.scale)
@@ -476,6 +549,12 @@ class HalfCauchy(_Positive):
     def logpdf(self, x):
         z = x / self.scale
         return LOG2 - LOGPI - torch.log(self.scale) - torch.log1p(z * z)
+
+    def cdf(self, x):
+        return (2.0 / math.pi) * torch.atan(torch.clamp_min(x, 0.0) / self.scale)
+
+    def quantile(self, q):
+        return self.scale * torch.tan(0.5 * math.pi * q)
 
     def _linked(self, y):
         """log1p(z^2) with z = e^(v - log s) is softplus(2(v - log s))."""
@@ -498,12 +577,16 @@ class Beta(LeafDistribution):
     b: object = 1.0
 
     _params = ("a", "b")
+    _cdf_fd = ("a", "b")  # betainc has no derivative in a or b
 
     def _lbeta(self):
         return torch.lgamma(self.a) + torch.lgamma(self.b) - torch.lgamma(self.a + self.b)
 
     def logpdf(self, x):
         return (self.a - 1.0) * torch.log(x) + (self.b - 1.0) * torch.log1p(-x) - self._lbeta()
+
+    def cdf(self, x):
+        return betainc(self.a, self.b, clamp(x, 0.0, 1.0))
 
     def fused_linked_logdensity(self, bijector, y, want_x: bool = True):
         """With the unit-interval logit link the linked density is
@@ -535,6 +618,14 @@ class LogitNormal(LeafDistribution):
         return (-0.5 * (z * z + LOG2PI) - torch.log(self.sigma) - torch.log(x)
                 - torch.log1p(-x))
 
+    def cdf(self, x):
+        fi = torch.finfo(x.dtype)
+        xc = clamp(x, fi.tiny, 1.0 - fi.eps / 2)  # 1 - epsneg
+        return torch.special.ndtr((torch.log(xc) - torch.log1p(-xc) - self.mu) / self.sigma)
+
+    def quantile(self, q):
+        return torch.sigmoid(self.mu + self.sigma * torch.special.ndtri(q))
+
     def fused_linked_logdensity(self, bijector, y, want_x: bool = True):
         """With the unit-interval logit link the density's -log x - log(1-x)
         cancels the link's log-det: the Normal density of v."""
@@ -564,6 +655,12 @@ class Uniform(LeafDistribution):
         lo, hi = self.low, self.high
         inside = (x >= lo) & (x <= hi)
         return torch.where(inside, -torch.log(hi - lo), torch.full_like(x, -math.inf))
+
+    def cdf(self, x):
+        return clamp((x - self.low) / (self.high - self.low), 0.0, 1.0)
+
+    def quantile(self, q):
+        return self.low + (self.high - self.low) * q
 
     def fused_linked_logdensity(self, bijector, y, want_x: bool = True):
         """The width log(hi - lo) of the link's log-det cancels the density:
@@ -604,6 +701,13 @@ class Pareto(LeafDistribution):
         a = self.alpha
         return torch.log(a) + a * torch.log(self.scale) - (a + 1.0) * torch.log(x)
 
+    def cdf(self, x):
+        xs = torch.maximum(x, self.scale)
+        return -torch.expm1(-self.alpha * torch.log(xs / self.scale))
+
+    def quantile(self, q):
+        return self.scale * torch.exp(-torch.log1p(-q) / self.alpha)
+
     def fused_linked_logdensity(self, bijector, y, want_x: bool = True):
         """y = log(x - x_m), so log x = logaddexp(log x_m, v)."""
         if not _is_shifted_log_link(bijector, self.scale):
@@ -635,6 +739,16 @@ class Levy(LeafDistribution):
         s = self.sigma
         d = x - self.mu
         return 0.5 * (torch.log(s) - LOG2PI) - 0.5 * s / d - 1.5 * torch.log(d)
+
+    def cdf(self, x):
+        d = torch.clamp_min(x - self.mu, torch.finfo(x.dtype).tiny)
+        c = torch.special.erfc(torch.sqrt(0.5 * self.sigma / d))
+        return torch.where(x > self.mu, c, torch.zeros_like(c))
+
+    def quantile(self, q):
+        # cdf = erfc(sqrt(s / 2d)) = q  =>  d = s / ndtri(q / 2)^2
+        z = torch.special.ndtri(0.5 * q)
+        return self.mu + self.sigma / (z * z)
 
     def fused_linked_logdensity(self, bijector, y, want_x: bool = True):
         """y = log(x - mu): 0.5 (log s - log 2pi) - s e^-v / 2 - v / 2."""
@@ -674,6 +788,9 @@ class Kumaraswamy(LeafDistribution):
     def cdf(self, x):
         return -torch.expm1(self.b * torch.log1p(-(x**self.a)))
 
+    def quantile(self, q):
+        return (-torch.expm1(torch.log1p(-q) / self.b)) ** (1.0 / self.a)
+
     @property
     def support(self):
         return unit_interval()
@@ -698,6 +815,10 @@ class Arcsine(LeafDistribution):
     def cdf(self, x):
         z = clamp((x - self.a) / (self.b - self.a), 0.0, 1.0)
         return (2.0 / math.pi) * torch.asin(torch.sqrt(z))
+
+    def quantile(self, q):
+        s = torch.sin(0.5 * math.pi * q)
+        return self.a + (self.b - self.a) * s * s
 
     @property
     def support(self):
@@ -760,14 +881,11 @@ class Truncated(Distribution):
         return Truncated(self.base.to(device), self.lower, self.upper)
 
     def sample(self, generator, sample_shape=()):
-        """The base's inverse cdf at cdf(lower) + (cdf(upper) - cdf(lower)) u:
-        its `quantile` where it has one, else bisection on its cdf."""
+        """The base's quantile at cdf(lower) + (cdf(upper) - cdf(lower)) u:
+        its closed form, or the generic solve on its cdf."""
         like = first_param(self.base)
         shape = tuple(sample_shape) + tuple(self.batch_shape)
         lo_c = self._bound_cdf(self.lower, like, 0.0)
         hi_c = self._bound_cdf(self.upper, like, 1.0)
         q = lo_c + (hi_c - lo_c) * R.uniform(generator, shape, like)
-        quantile = getattr(self.base, "quantile", None)
-        if quantile is not None:
-            return quantile(q)
-        return R.quantile_bisect(self.base.cdf, q, self.lower, self.upper)
+        return self.base.quantile(q)

@@ -32,6 +32,7 @@ class BetaPrime(LeafDistribution):
     b: object = 1.0
 
     _params = ("a", "b")
+    _cdf_fd = ("a", "b")  # betainc has no derivative in a or b
 
     def _lbeta(self):
         return torch.lgamma(self.a) + torch.lgamma(self.b) - torch.lgamma(self.a + self.b)
@@ -136,6 +137,12 @@ class TriangularDist(LeafDistribution):
         left = (xc - a) ** 2 / ((b - a) * (c - a))
         right = 1.0 - (b - xc) ** 2 / ((b - a) * (b - c))
         return torch.where(xc <= c, left, right)
+
+    def quantile(self, q):
+        a, b, c = self.a, self.b, self.c
+        return torch.where(q < (c - a) / (b - a),
+                           a + torch.sqrt(torch.clamp_min(q, 0.0) * (b - a) * (c - a)),
+                           b - torch.sqrt(torch.clamp_min(1.0 - q, 0.0) * (b - a) * (b - c)))
 
     @property
     def support(self):

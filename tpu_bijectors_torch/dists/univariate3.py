@@ -37,6 +37,9 @@ class JohnsonSU(LeafDistribution):
         z = (x - self.xi) / self.lam
         return torch.special.ndtr(self.gamma + self.delta * torch.asinh(z))
 
+    def quantile(self, q):
+        return self.xi + self.lam * torch.sinh((torch.special.ndtri(q) - self.gamma) / self.delta)
+
     def sample(self, generator, sample_shape=()):
         shape = tuple(sample_shape) + self.batch_shape
         z = R.normal(generator, shape, self.xi)

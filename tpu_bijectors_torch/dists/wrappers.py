@@ -23,6 +23,8 @@ class Mixture(Distribution):
     `log_weights` (K,), on the components' device unless `device` is
     given. logpdf = logsumexp_k [log softmax(w)_k + logpdf_k(x)]."""
 
+    _leafwise_cdf = False
+
     components: Distribution
     log_weights: object
     device: InitVar[object] = None

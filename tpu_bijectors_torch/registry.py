@@ -2,7 +2,9 @@
 `tpu_bijectors/registry.py` (reference src/transformed_distribution.jl:40-149
 and src/Bijectors.jl:249-262).
 
-`bijector(d)` resolves from the distribution's static `support`:
+`bijector(d)` takes a rule registered for d's type (`register_bijector`;
+`ordered(d)`'s OrderedDistribution registers its own link), else resolves
+from the distribution's static `support`:
 simplex -> SimplexBijector, corr -> VecCorrBijector, chol_corr ->
 VecCholeskyBijector in the family's triangle mode (`tpu_bijectors/
 registry.py:65-69`), pd -> PDVecBijector (`:61`), interval -> the
@@ -13,7 +15,8 @@ a decreasing base link (`:88-109`). A
 TransformedDistribution composes its wrapper away
 (`Chain((bijector(base), inverse(transform)))`,
 src/transformed_distribution.jl:45-48). Other support kinds are not
-ported yet and raise.
+ported yet and raise. `link(d, x)` and `invlink(d, y)` are its forward
+and inverse (src/Bijectors.jl:156, 183).
 """
 
 from __future__ import annotations
@@ -31,11 +34,27 @@ from .bijectors.simplex import SimplexBijector
 from .dists.base import Distribution
 from .utils import _eps
 
+_REGISTRY: dict = {}
+
+
+def register_bijector(dist_type: type):
+    """Register `fn(d) -> Bijector` for a distribution type (and its
+    subclasses)."""
+
+    def deco(fn):
+        _REGISTRY[dist_type] = fn
+        return fn
+
+    return deco
+
 
 def bijector(d: Distribution) -> Bijector:
     """The constrained -> unconstrained bijector for `d`."""
     from .transformed import TransformedDistribution
 
+    for t in type(d).__mro__:
+        if t in _REGISTRY:
+            return _REGISTRY[t](d)
     if isinstance(d, TransformedDistribution):
         return Chain((bijector(d.base), inverse(d.transform)))
     s = d.support
@@ -78,6 +97,16 @@ def bijector(d: Distribution) -> Bijector:
     raise NotImplementedError(
         f"no bijector ported for {type(d).__name__} ({s.kind})"
     )
+
+
+def link(d: Distribution, x):
+    """Constrained -> unconstrained (reference `link`, src/Bijectors.jl:156)."""
+    return bijector(d).forward(x)
+
+
+def invlink(d: Distribution, y):
+    """Unconstrained -> constrained (reference `invlink`, src/Bijectors.jl:183)."""
+    return bijector(d).inverse(y)
 
 
 def _logpdf_eps_safe(d: Distribution, x):

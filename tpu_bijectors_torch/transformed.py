@@ -10,6 +10,11 @@ The registry's bijector of a TransformedDistribution composes the wrapper
 away (`Chain((bijector(base), inverse(transform)))`,
 transformed_distribution.jl:45-48), and its linked density telescopes to
 the base's (`vectorize/core.py::TransformedUnconstrainer`).
+
+`ordered(d)` restricts a multivariate `d` to sorted vectors (reference
+src/bijectors/ordered.jl:83-168): its link is the inverse ordered
+bijector after `d`'s own, sandwiched between sign flips where `d`'s
+inverse link is decreasing.
 """
 
 from __future__ import annotations
@@ -18,9 +23,14 @@ from dataclasses import dataclass
 
 import torch
 
-from .bijectors.base import Bijector
+import math
+
+from .bijectors.base import Bijector, Block, Chain, inverse
+from .bijectors.ordered import OrderedBijector
+from .bijectors.scalar import SignFlip
 from .dists.base import Distribution, Support
-from .registry import _logpdf_eps_safe, bijector
+from .dists.product import IIDProduct
+from .registry import _logpdf_eps_safe, bijector, register_bijector
 
 
 def _sum_extra(ld, extra: int):
@@ -79,3 +89,79 @@ def transformed(d: Distribution, b: Bijector | None = None) -> TransformedDistri
     """`transformed(d) = transformed(d, bijector(d))`
     (reference src/transformed_distribution.jl:37-38)."""
     return TransformedDistribution(d, bijector(d) if b is None else b)
+
+
+# the rejection sampler's cap: acceptance is about 1/n! for a weakly
+# coupled base, so the cap binds only on misuse (a large n)
+MAX_REJECTION_ROUNDS = 100_000
+
+
+def _is_sorted(x):
+    return torch.all(x[..., 1:] >= x[..., :-1], dim=-1)
+
+
+@dataclass(frozen=True)
+class OrderedDistribution(Distribution):
+    """A multivariate distribution restricted to sorted vectors,
+    unnormalised (the caveats of ordered.jl:106-129)."""
+
+    dist: Distribution
+    transform: Bijector  # ordered -> unconstrained
+
+    event_ndims = 1
+
+    @property
+    def event_shape(self):
+        return tuple(self.dist.event_shape)
+
+    @property
+    def batch_shape(self):
+        return self.dist.batch_shape
+
+    @property
+    def support(self) -> Support:
+        return Support("ordered")
+
+    def logpdf(self, x):
+        lp = self.dist.logpdf(x)
+        return torch.where(_is_sorted(x), lp, torch.full_like(lp, -math.inf))
+
+    def sample(self, generator, sample_shape=()):
+        """A draw of an exchangeable (IID) base, sorted, is a draw of its
+        ordered restriction; any other base is sampled by rejection until
+        sorted (ordered.jl:160-168), a row not accepted within
+        MAX_REJECTION_ROUNDS rounds NaN."""
+        x = self.dist.sample(generator, sample_shape)
+        if isinstance(self.dist, IIDProduct):
+            return torch.sort(x, dim=-1).values
+        ok = _is_sorted(x)
+        for _ in range(MAX_REJECTION_ROUNDS):
+            if bool(ok.all()):
+                break
+            xn = self.dist.sample(generator, sample_shape)
+            okn = _is_sorted(xn)
+            x = torch.where((okn & ~ok)[..., None], xn, x)
+            ok = ok | okn
+        return torch.where(ok[..., None], x, torch.full_like(x, math.nan))
+
+    def to(self, device):
+        return ordered(self.dist.to(device))
+
+
+def ordered(d: Distribution) -> OrderedDistribution:
+    """The order-restricted `d` (reference `ordered`, ordered.jl:130-147)."""
+    b = bijector(d)
+    binv = inverse(b)
+    flip = Block(SignFlip(), 1)  # a batch-shaped log-det, as OrderedBijector's
+    if binv.monotonically_decreasing:
+        ob = Chain((flip, inverse(OrderedBijector()), flip, b))
+    elif binv.monotonically_increasing:
+        ob = Chain((inverse(OrderedBijector()), b))
+    else:
+        raise ValueError(f"ordered transform not supported for {type(d).__name__}")
+    return OrderedDistribution(d, ob)
+
+
+@register_bijector(OrderedDistribution)
+def _bijector_ordered(d: OrderedDistribution):
+    return d.transform

@@ -80,6 +80,11 @@ def log1pexp(x):
     return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
 
 
+def softplus_inv(y):
+    """The inverse of softplus: log(expm1(y)) = y + log(-expm1(-y))."""
+    return y + torch.log(-torch.expm1(-y))
+
+
 def logcosh(x):
     """log(cosh(x)) = |x| + log1p(exp(-2|x|)) - log 2, stable for every x."""
     a = torch.abs(x)
