@@ -23,8 +23,9 @@ dense metric, dense NUTS through a checkpoint, SMC, ADVI) on four,
 those of the fourteenth (MAP + Laplace with the evidence estimators,
 Pathfinder and NUTS from its starts) on two, those of the fifteenth
 (the flat-vector API, forward mode, parameter tangents, the samplers and
-the property sweep) on one, and those of the sixteenth (the remaining
-bijectors, CDF/Quantile with implicit derivatives) on one:
+the property sweep) on one, those of the sixteenth (the remaining
+bijectors, CDF/Quantile with implicit derivatives) on one, and the
+seventeenth's remaining distribution families on one:
 
 1. transposed serving at B = 131072: `Model.batched_logdensity_t_fn()`
    (the slab value kernel), its `value_and_grad_fn` (the one-pass
@@ -174,6 +175,24 @@ bijectors, CDF/Quantile with implicit derivatives) on one:
    within the float32 cdf's error over the pdf; NUTS on a quantile-linked
    prior with kernel='auto' (64 chains, 200 + 300 transitions) against
    Gamma(2, rate 3)'s exact mean.
+27. the remaining distribution families (`run_remaining_families`, under
+   PATH27_LIMIT_S): (a) the fused model of the new scalar families both
+   plans serve (`p27_served_model`: IID blocks of 4 of nineteen families,
+   VonMises and Cosine through the tape's cos opcode, an Affine and a
+   Censored leaf; dim 84) at B = 131072 in all four modes of #1-#4 with
+   the traced kind (launching #1-#4 alone) against their plain versions
+   and float64, and at +-1e10; (b) the composed model of the leaves the
+   plans decline (GeneralizedPareto, Rician, the four noncentral
+   families, NormalInverseGaussian, StudentizedRange, MvLogitNormal(4) on
+   #7/#9, MatrixBeta(3, 6, 7) on #10, MatrixTDist, MatrixNormal) at
+   B = 131072 from its draws: density and gradient per leaf against
+   float64, the round trip v -> x -> v; (c) NUTS (kernel='auto' ->
+   nuts_batched_t, #2's small design on every leapfrog) on VonMises(0.3,
+   2), Gompertz(1, 0.1), Lindley(1.5), Chisq(3) and Semicircle(1.5) against
+   their exact means; (d) the discrete families' pmfs, cdfs and draws at
+   B = 131072 against scipy.stats in float64; (e) the slab+structured
+   model of tools/tpu_sweep.py:79-90, fused against plain and composed;
+   (f) #14 on the cos and sin opcodes.
 
 The dense paths also check that TF32 is off and the float32 matmul
 precision 'highest'. After them, #2's small-batch design (the item kernel, which the
@@ -3307,7 +3326,7 @@ def tape_ops(loops, B):
     return out
 
 
-def run_traced_model(dev, tag, build, extremes=False):
+def run_traced_model(dev, tag, build, extremes=False, states=None, timing=True):
     """One traced model at B = 131072 (`traced_states`) through the public
     calls, in all four modes: `batched_logdensity_t_fn()`, its `value_and_grad_fn`, autograd's
     backward and `torch.func.jvp` of `linked_logdensity_t` (the four
@@ -3316,9 +3335,12 @@ def run_traced_model(dev, tag, build, extremes=False):
     float64 and the float64 composed path (its autograd gradient), and
     each kernel against its plain version on the card, at
     `traced_allowances`; with `extremes`, the extremes block
-    (`traced_extremes`) in every mode against the plain versions. Returns
-    (launches, (vT, dvT, cf, loops), the kernels' max errors, the entry
-    points' times)."""
+    (`traced_extremes`) in every mode against the plain versions. `states`
+    (model -> (vT, dvT)) replaces `traced_states`; `timing=False` leaves
+    out the entry points' times (`kernel_variants` times the kernels) and
+    returns in their place {"u": the unconstrainer, "cf64", "loops64": its
+    float64 tables}. Returns (launches, (vT, dvT, cf, loops), the kernels'
+    max errors, the entry points' times)."""
     import tpu_bijectors_torch as tbt
     from tpu_bijectors_torch import dists, kernels
     from tpu_bijectors_torch.vectorize import fused_base as fb
@@ -3327,7 +3349,7 @@ def run_traced_model(dev, tag, build, extremes=False):
     model = tbt.Model(build(dists, dev, torch.float32), device=dev)
     m64 = tbt.Model(build(dists, dev, torch.float64), device=dev)
     u, u64 = model.unconstrainer(), m64.unconstrainer()
-    vT, dvT = traced_states(dev, model.dim())
+    vT, dvT = traced_states(dev, model.dim()) if states is None else states(model)
     dim, B = vT.shape
     if tag == "generic-traced":
         expect(f"generic-traced: dim {dim} == {TRACED_DIM}", dim == TRACED_DIM)
@@ -3415,6 +3437,8 @@ def run_traced_model(dev, tag, build, extremes=False):
                0 < fin < n)
     v64 = vT[:, :CHAINS].contiguous()
     key = tag.replace("-", "_")
+    if not timing:
+        return launches, (vT, dvT, cf, loops), err, {"u": u, "cf64": cf64, "loops64": loops64}
     e2e = {
         f"{key}_value_ms_B{B}": time_ms(lambda: f(vT), device_only=False),
         f"{key}_value_and_grad_ms_B{B}": time_ms(lambda: f.value_and_grad_fn(vT),
@@ -5745,6 +5769,507 @@ def run_bijectors_and_quantiles(dev, time_gate=True):
 
 
 
+# path 27: the remaining distribution families. Its limit holds the warm
+# time: (c)'s NUTS at 64 chains, 300 + 200 transitions alone took 14.3 s
+# warm on the H100 (its host-bound leapfrog 1.9 ms, tools/torch_path27.py),
+# and (c) at 100 kept draws failed R-hat in three of three CPU seeds
+# (1.060-1.072), 32 chains saving 8% of its leapfrogs: the rest of the
+# path takes about 10 s beside it
+PATH27_LIMIT_S = 30.0
+P27_IID = 4  # each served scalar family an IID block of 4 rows
+P27_CHUNK = 16384  # the composed model's columns a call (StudentizedRange's (B, 96, 96) rule)
+# (c)'s settings: path 2's target 0.95. Gompertz takes b = 0.1: its
+# density's exp(-eta e^(b x)) is doubly exponential in the log link's v,
+# and at b = 1 NUTS strands chains there (R-hat 1.34-1.47 and 800-1443
+# divergences of 12800 on the CPU at either target; at b = 0.1 the
+# five-leaf prior gave R-hat 1.030 and 1.037, one divergence, seeds 0-1)
+P27_NUTS = dict(n_chains=CHAINS, n_warmup=300, n_samples=200, target_accept=TARGET_ACCEPT)
+P27_GOMPERTZ = (1.0, 0.1)
+P27_EXTREME_COLS = 64
+# the served leaves whose linked density the JAX package keeps free of NaN
+# at v = +-1e10 (float32 on the CPU; tests/test_torch_plan_decisions.py
+# holds the list to it): finite there, or -inf for the bounded kernels
+# (the others, Chisq's inf - inf among them, are NaN there in both packages)
+P27_FINITE_AT_EXTREMES = ("vm", "lu", "nc", "pgg", "sep", "cen")
+P27_NEG_INF_AT_EXTREMES = ("semi", "cos", "epa", "bw", "tw", "sym")
+# the composed model's float32 density and gradient against float64, each
+# leaf's largest |error| / (|float64| + 1) (the series and quadratures
+# measured at 4.4e-7 at most in float32 on the CPU at B = 4096, the
+# simplex link's MvLogitNormal 4.8e-5, MatrixBeta's Cholesky 1.1e-5;
+# tools/torch_path27.py prints the card's per leaf)
+P27_RTOL_SCALAR = 1e-5
+P27_RTOL_STRUCTURED = 1e-3
+# the discrete pmfs and cdfs in float32 against scipy in float64: a few
+# roundings of each lgamma-scale term the pmf sums, so 64 eps32 of
+# 1 + |log pmf| + lgamma(|x| + 2); the cdf 64 eps32 absolute
+P27_ULPS_DISCRETE = 64.0
+P27_KERNELS = SLAB_KERNELS + ("slab_jvp", "slab_traced", SMALL, "simplex_inverse_logdet",
+                              SIMPLEX_SMALL, "simplex_forward_logdet", "pd_inverse", "prim_probe")
+
+
+def p27_served_model(dists, device, dtype):
+    """Path 27 (a): the new scalar families both fused plans serve, an IID
+    block of P27_IID rows each (the JAX tests' parameters), with an Affine
+    of Gamma(2, 1) and a Censored Normal; linked dim 84."""
+    kw = dict(device=device, dtype=dtype)
+    d = dists
+    leaves = {
+        "chisq": d.Chisq(3.0, **kw), "fd": d.FDist(10.0, 4.0, **kw),
+        "vm": d.VonMises(0.5, 2.0, **kw), "semi": d.Semicircle(1.0, **kw),
+        "cos": d.Cosine(0.0, 1.0, **kw), "epa": d.Epanechnikov(0.0, 1.0, **kw),
+        "gev": d.GeneralizedExtremeValue(0.0, 1.0, 0.3, **kw), "gom": d.Gompertz(1.0, 1.0, **kw),
+        "erl": d.Erlang(7.0, 0.5, **kw), "lu": d.LogUniform(1.0, 10.0, **kw),
+        "nc": d.NormalCanon(0.5, 2.0, **kw), "bw": d.Biweight(1.0, 2.0, **kw),
+        "tw": d.Triweight(1.0, 1.0, **kw), "sym": d.SymTriangularDist(0.0, 1.0, **kw),
+        "pgg": d.PGeneralizedGaussian(1.5, 0.2, 1.3, **kw), "lin": d.Lindley(1.5, **kw),
+        "kol": d.Kolmogorov(**kw), "sep": d.SkewedExponentialPower(0.0, 1.0, 0.7, 0.7, **kw),
+        "kss": d.KSOneSided(10, **kw), "aff": d.affine(d.Gamma(2.0, 1.0, **kw), 1.0, 2.0),
+        "cen": d.Censored(d.Normal(0.0, 1.0, **kw), -1.0, 1.0),
+    }
+    return d.NamedProduct.of(**{k: d.IIDProduct(v, P27_IID) for k, v in leaves.items()})
+
+
+def p27_composed_model(dists, device, dtype):
+    """Path 27 (b): the leaves both plans decline, each once: their linked
+    densities compose (plain torch, as the JAX package's jnp), the
+    MvLogitNormal's simplex link on #7 (#9 forward), MatrixBeta's PD link
+    on #10; linked dim 34."""
+    kw = dict(device=device, dtype=dtype)
+    d = dists
+    return d.NamedProduct.of(
+        gp=d.GeneralizedPareto(0.0, 1.0, 0.3, **kw), ri=d.Rician(0.5, 1.0, **kw),
+        ncx=d.NoncentralChisq(2.0, 3.0, **kw), ncb=d.NoncentralBeta(2.0, 3.0, 1.0, **kw),
+        ncf=d.NoncentralF(2.0, 3.0, 1.0, **kw), nct=d.NoncentralT(2.0, 3.0, **kw),
+        nig=d.NormalInverseGaussian(0.0, 0.5, 0.2, 0.1, **kw),
+        sr=d.StudentizedRange(2.0, 2.0, **kw),
+        mln=d.MvLogitNormal(np.zeros(4), np.eye(4), **kw),
+        mb=d.MatrixBeta(3, 6.0, 7.0, **kw),
+        mt=d.MatrixTDist(5.0, np.array([[1.0, 2.0, 3.0], [4.0, 5.0, 6.0]]),
+                         np.array([[1.0, 0.5], [0.5, 1.0]]),
+                         np.array([[1.0, 0.3, 0.2], [0.3, 1.0, 0.4], [0.2, 0.4, 1.0]]), **kw),
+        mn=d.MatrixNormal(np.zeros((2, 3)), np.eye(2), np.eye(3), **kw),
+    )
+
+
+def p27_nuts_prior(dists, device, dtype):
+    """Path 27 (c): a prior of five served families with known means."""
+    kw = dict(device=device, dtype=dtype)
+    d = dists
+    return d.NamedProduct.of(vm=d.VonMises(0.3, 2.0, **kw), gom=d.Gompertz(*P27_GOMPERTZ, **kw),
+                             lin=d.Lindley(1.5, **kw), chisq=d.Chisq(3.0, **kw),
+                             semi=d.Semicircle(1.5, **kw))
+
+
+def p27_exact_means():
+    """(c)'s exact means: Lindley(1.5)'s (theta + 2) / (theta (theta + 1)),
+    Chisq(3)'s 3, Semicircle's 0, and by the trapezoid rule on 2e6 points
+    of the closed-form density the VonMises(0.3, 2) mean on (-pi, pi) and
+    Gompertz(eta, b)'s (e^eta E1(eta) / b) on [0, 400]."""
+    x = np.linspace(-math.pi, math.pi, 2_000_001)
+    f = np.exp(2.0 * np.cos(x - 0.3))
+    trap = getattr(np, "trapezoid", None) or np.trapz  # numpy 2 renamed it
+    vm = trap(x * f, x) / trap(f, x)
+    eta, b = P27_GOMPERTZ
+    y = np.linspace(0.0, 400.0, 2_000_001)
+    g = np.exp(b * y - eta * np.expm1(b * y))
+    gom = trap(y * g, y) / trap(g, y)
+    return {"vm": vm, "gom": gom, "lin": 3.5 / (1.5 * 2.5), "chisq": 3.0, "semi": 0.0}
+
+
+def p27_discrete(dev):
+    """Path 27 (d): the discrete families with a scipy counterpart at
+    B = 131072 on the card (float32): the log pmf and the cdf at the port's
+    own draws against scipy.stats in float64 (P27_ULPS_DISCRETE), the draws'
+    mean within 5 standard errors of scipy's. Returns the worst error
+    ratio per family."""
+    import scipy.stats as st
+
+    from tpu_bijectors_torch import dists as d
+
+    kw = dict(device=dev, dtype=torch.float32)
+    sig = 1.0 / (1.0 + math.exp(-0.4))
+    fams = {
+        "Poisson": (d.Poisson(3.0, **kw), st.poisson(3.0)),
+        "Bernoulli": (d.Bernoulli(0.3, **kw), st.bernoulli(0.3)),
+        "Binomial": (d.Binomial(5, 0.4, **kw), st.binom(5, 0.4)),
+        "Geometric": (d.Geometric(0.3, **kw), st.geom(0.3, loc=-1)),
+        "NegativeBinomial": (d.NegativeBinomial(5.0, 0.5, **kw), st.nbinom(5, 0.5)),
+        "BernoulliLogit": (d.BernoulliLogit(0.4, **kw), st.bernoulli(sig)),
+        "BetaBinomial": (d.BetaBinomial(5, 2.0, 2.0, **kw), st.betabinom(5, 2.0, 2.0)),
+        "DiscreteUniform": (d.DiscreteUniform(1, 10, **kw), st.randint(1, 11)),
+        "Hypergeometric": (d.Hypergeometric(20, 7, 12, **kw), st.hypergeom(27, 20, 12)),
+        "Skellam": (d.Skellam(2.0, 3.0, **kw), st.skellam(2.0, 3.0)),
+    }
+    no_cdf = ("Hypergeometric", "Skellam")
+    eps32 = float(np.finfo(np.float32).eps)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 270)
+    out = {}
+    for name, (fam, ref) in fams.items():
+        x = fam.sample(gen, (BATCH,))
+        xs = x.double().cpu().numpy()
+        lp = fam.logpdf(x).double().cpu().numpy()
+        # scipy's float64 values on the draws' distinct values, indexed back
+        uniq, inv = np.unique(xs, return_inverse=True)
+        lp64 = ref.logpmf(uniq)[inv]
+        mag = 1.0 + np.abs(lp64) + np.array([math.lgamma(abs(v) + 2.0) for v in uniq])[inv]
+        r_lp = float(np.max(np.abs(lp - lp64) / (P27_ULPS_DISCRETE * eps32 * mag)))
+        r_cdf = 0.0
+        if name not in no_cdf:
+            c = fam.cdf(x).double().cpu().numpy()
+            r_cdf = float(np.max(np.abs(c - ref.cdf(uniq)[inv]) / (P27_ULPS_DISCRETE * eps32)))
+        mean, sd = float(ref.mean()), float(ref.std())
+        dev_se = abs(float(xs.mean()) - mean) / (sd / math.sqrt(BATCH))
+        out[name] = {"lp": r_lp, "cdf": r_cdf, "mean_dev_se": dev_se}
+        expect(f"path 27 (d) {name}: log pmf within {P27_ULPS_DISCRETE:g} eps32 of scipy's "
+               f"float64 ({r_lp:.3f} of it), cdf ({r_cdf:.3f}), the draws' mean {dev_se:.2f} "
+               f"standard errors from scipy's", r_lp <= 1.0 and r_cdf <= 1.0 and dev_se <= 5.0)
+    # Multinomial(10, p), the vector event
+    p = np.array([0.2, 0.5, 0.3])
+    fam = d.Multinomial(10, p, **kw)
+    x = fam.sample(gen, (BATCH,))
+    xs = x.double().cpu().numpy()
+    uniq, inv = np.unique(xs, axis=0, return_inverse=True)
+    lp64 = st.multinomial(10, p).logpmf(uniq)[np.ravel(inv)]
+    lp = fam.logpdf(x).double().cpu().numpy()
+    r = float(np.max(np.abs(lp - lp64) / (P27_ULPS_DISCRETE * eps32 * (1.0 + np.abs(lp64)
+                                                                         + math.lgamma(12.0)))))
+    dev_se = np.abs(xs.mean(0) - 10 * p) / np.sqrt(10 * p * (1 - p) / BATCH)
+    out["Multinomial"] = {"lp": r, "mean_dev_se": float(dev_se.max())}
+    expect(f"path 27 (d) Multinomial: log pmf within {P27_ULPS_DISCRETE:g} eps32 of scipy's "
+           f"({r:.3f} of it), every count's mean within 5 standard errors "
+           f"({float(dev_se.max()):.2f}), each draw summing to 10",
+           r <= 1.0 and float(dev_se.max()) <= 5.0 and bool((x.sum(-1) == 10).all()))
+    return out
+
+
+def p27_extremes(dev, made, cf, loops, rows):
+    """Path 27 (a)'s extremes (`made`: `run_traced_model`'s unconstrainer,
+    float64 tables and states): every row at +-1e10 (signs from numpy seed
+    27) in all four modes against the plain version (its NaN/inf pattern,
+    within `traced_allowances` where finite), and a block with only the
+    rows of the leaves the JAX package keeps free of NaN at +-1e10 there:
+    no NaN in lp, none in g on the rows of those whose density stays
+    finite."""
+    from tpu_bijectors_torch.vectorize import fused_base as fb
+    from tpu_bijectors_torch.vectorize import fused_kernel as fk
+
+    n = P27_EXTREME_COLS
+    vT = made["vT"]
+    sign = torch.as_tensor(np.sign(np.random.default_rng(27).standard_normal((vT.shape[0], n))),
+                           dtype=vT.dtype, device=dev)
+    vx = (1e10 * sign).contiguous()
+    _, _, lpx_allow, gx_allow, _ = traced_allowances(vx, made["cf64"], made["loops64"])
+    ct, dv = torch.ones(n, device=dev), torch.ones_like(vx)
+    lpx_p, gx_p = fb.slab_value_and_grad_plain(vx, cf, loops)
+    check_pattern("path 27 (a) extremes: value kernel", fk.slab_value(vx, cf, loops), lpx_p,
+                  2 * lpx_allow)
+    lpx_k, gx_k = fk.slab_value_and_grad(vx, cf, loops)
+    check_pattern("path 27 (a) extremes: value-and-grad kernel lp", lpx_k, lpx_p, 2 * lpx_allow)
+    check_pattern("path 27 (a) extremes: value-and-grad kernel g", gx_k, gx_p, 2 * gx_allow)
+    check_pattern("path 27 (a) extremes: vjp kernel", fk.slab_vjp(vx, cf, ct, loops),
+                  fb.slab_vjp_plain(vx, cf, ct, loops), 2 * gx_allow)
+    check_pattern("path 27 (a) extremes: jvp kernel", fk.slab_jvp(vx, cf, dv, loops),
+                  fb.slab_jvp_plain(vx, cf, dv, loops),
+                  2 * jvp_allowance(torch.nan_to_num(gx_p.double()), gx_allow, dv))
+    vy = vT[:, :n].clone()
+    finite_rows = []
+    for k in P27_FINITE_AT_EXTREMES + P27_NEG_INF_AT_EXTREMES:
+        vy[rows[k]] = vx[rows[k]]
+        if k in P27_FINITE_AT_EXTREMES:
+            finite_rows += list(range(rows[k].start, rows[k].stop))
+    lpy, gy = fk.slab_value_and_grad(vy.contiguous(), cf, loops)
+    lpy_v = fk.slab_value(vy.contiguous(), cf, loops)
+    expect("path 27 (a) extremes: no NaN in lp with the NaN-free leaves at +-1e10 "
+           f"({', '.join(P27_FINITE_AT_EXTREMES + P27_NEG_INF_AT_EXTREMES)})",
+           not bool(torch.isnan(lpy).any() or torch.isnan(lpy_v).any()))
+    expect("path 27 (a) extremes: no NaN in g on the rows of the leaves finite at +-1e10",
+           not bool(torch.isnan(gy[finite_rows]).any()))
+    return int(torch.isnan(lpx_p).sum())
+
+
+def run_remaining_families(dev, time_gate=True):
+    """Path 27 (float32): the seventeenth slice's families. (a) the fused
+    model of the new served scalar families (`p27_served_model`, dim 84)
+    at B = 131072 in all four modes through `run_traced_model` (#1-#4
+    with the traced kind, against their plain versions on the card and
+    float64 at `traced_allowances`, the composed float64 path) at the
+    model's own draws, launching #1-#4 alone, and its extremes
+    (`p27_extremes`); (b) the composed model of the leaves the plans
+    decline (`p27_composed_model`) at B = 131072 from its own draws,
+    through `batched_logdensity_fn` (the entry point of a model with no
+    fused plan) in chunks of P27_CHUNK states: the linked density and its
+    gradient against float64 per leaf and for the model, the launches
+    (#7 and #10, #9 on the way back, none of #1-#4), the round trip
+    v -> x -> v; (c)
+    NUTS (kernel='auto' -> nuts_batched_t) on `p27_nuts_prior`, #2's small
+    design (the item kernel) on every leapfrog with VonMises' cos opcode
+    on its tape, against the exact means (R-hat, divergences, 5 MCSE);
+    (d) the discrete families against scipy (`p27_discrete`); (e) the
+    slab+structured model of tools/tpu_sweep.py:79-90 at B = 131072, fused
+    against plain and composed at tpu_sweep.py's tolerances; (f) #14 on
+    the cos and sin opcodes. `time_gate=False` leaves out the
+    PATH27_LIMIT_S gate, which holds the warm time. Returns (line,
+    launches, err, (a)'s (vT, dvT, cf, loops))."""
+    import tpu_bijectors_torch as tbt
+    from tpu_bijectors_torch import diagnostics, dists, kernels
+    from tpu_bijectors_torch.kernels import prim_probe as pp
+    from tpu_bijectors_torch.vectorize import fused_base as fb
+    from tpu_bijectors_torch.vectorize import fused_kernel as fk
+    from tpu_bijectors_torch.vectorize import fused_plan as fp
+
+    t0 = time.perf_counter()
+    f32 = torch.float32
+    line, err = {"part_s": {}}, {}
+    launches = dict.fromkeys(P27_KERNELS, 0)
+    eps32 = float(np.finfo(np.float32).eps)
+
+    def part(key):
+        torch.cuda.synchronize()
+        line["part_s"][key] = time.perf_counter() - t0 - sum(line["part_s"].values())
+
+    # (a) the served families, fused, at the model's own draws (0.6 N(0, 1)
+    # states put Kolmogorov's and KSOneSided's densities below float32's
+    # tiny, where the families clamp: float64 clamps elsewhere). The
+    # Censored leaf's atoms at its bounds link to +-inf: those entries take
+    # `traced_states`' 0.6 N(0, 1)
+    def draws_states(model):
+        gen_a = torch.Generator(device=dev).manual_seed(SEED + 273)
+        x = p27_served_model(dists, dev, f32).sample(gen_a, (BATCH,))
+        vT_a = model.unconstrainer().to_linked_vec(x)[0].T.contiguous()
+        fill, dvT_a = traced_states(dev, vT_a.shape[0], vT_a.shape[1])
+        return torch.where(torch.isfinite(vT_a), vT_a, fill).contiguous(), dvT_a
+
+    la, prep, ea, made = run_traced_model(dev, "remaining-served", p27_served_model,
+                                          states=draws_states, timing=False)
+    vT, dvT, cf, loops = prep
+    for k, n in la.items():
+        if k in launches:
+            launches[k] += n
+    others = {k: n for k, n in la.items() if n and k not in SLAB_KERNELS + ("slab_jvp",
+                                                                             "slab_traced")}
+    expect(f"path 27 (a): #1-#4 alone launched, through the traced kind ({others or 'no other'})",
+           not others and la["slab_traced"] >= 4)
+    err.update(ea)
+    u = made["u"]
+    made["vT"] = vT
+    tapes = {i: t for i, t in loops.tapes.items()}
+    has_cos = any(name == "cos" for t in tapes.values() for name, *_ in t.instructions())
+    expect("path 27 (a): a tape holds the cos opcode (VonMises, Cosine)", has_cos)
+    line["a"] = {"traced_entries": len(loops.entries), "tapes": {
+        str(o): [t.n_ins, t.n_slots, len(t.consts)] for o, t in tapes.items()},
+        "nan_columns_all_extreme": p27_extremes(dev, made, cf, loops, families_rows(u))}
+    part("a")
+
+    # (b) the declined leaves, composed
+    model = tbt.Model(p27_composed_model(dists, dev, f32), device=dev)
+    # float64 on the card for the plain-torch leaves, on the CPU for the two
+    # whose links run kernels (float32 only)
+    ub64 = tbt.Model(p27_composed_model(dists, dev, torch.float64), device=dev).unconstrainer()
+    ub64c = tbt.Model(p27_composed_model(dists, "cpu", torch.float64),
+                      device="cpu").unconstrainer()
+    ub = model.unconstrainer()
+    expect("path 27 (b): no fused plan (the composed path)", fp._plan(ub) is None)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 271)
+    x0 = p27_composed_model(dists, dev, f32).sample(gen, (BATCH,))
+    vb = ub.to_linked_vec(x0)[0]
+    vbT = vb.T.contiguous()
+    # the batch-major entry point: on the card the transposed one serves a
+    # fused plan alone
+    fbm = model.batched_logdensity_fn()
+    kernels.reset_launch_counts()
+    lp_chunks, lpg_chunks, g_chunks = [], [], []
+    for c in range(0, BATCH, P27_CHUNK):
+        lp_chunks.append(fbm(vb[c: c + P27_CHUNK]))
+        lpg_c, g_c = fbm.value_and_grad_fn(vb[c: c + P27_CHUNK])
+        lpg_chunks.append(lpg_c)
+        g_chunks.append(g_c)
+    torch.cuda.synchronize()
+    lb = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    lp_b, lpg_b, g_b = torch.cat(lp_chunks), torch.cat(lpg_chunks), torch.cat(g_chunks).T
+    del lp_chunks, lpg_chunks, g_chunks
+    print(f"launches on path 27 (b)'s density and gradient: {lb}", flush=True)
+    expect("path 27 (b): #7 (MvLogitNormal's link) and #10 (MatrixBeta's) launched, none of "
+           "#1-#4", lb.get("simplex_inverse_logdet", 0) > 0 and lb.get("pd_inverse", 0) > 0
+           and not any(lb.get(k, 0) for k in SLAB_KERNELS + ("slab_jvp", SMALL)))
+    for k in ("simplex_inverse_logdet", "pd_inverse"):
+        launches[k] += lb.get(k, 0)
+    rows_b = families_rows(ub)
+    worst = {}
+    lp64_b = torch.zeros(BATCH, dtype=torch.float64, device=dev)
+    g64_b = torch.zeros(vbT.shape, dtype=torch.float64, device=dev)
+    for name, r in rows_b.items():
+        c32 = ub.children[ub.names.index(name)]
+        on_cpu = name in ("mln", "mb")
+        c64 = (ub64c if on_cpu else ub64).children[ub64.names.index(name)]
+        e_lp = e_g = 0.0
+        for c in range(0, BATCH, P27_CHUNK):
+            cols = slice(c, c + P27_CHUNK)
+            v64 = vbT[r, cols].double()
+            v64 = (v64.cpu() if on_cpu else v64).requires_grad_(True)
+            lp64 = c64._linked_logdensity_t_children(v64)
+            (g64,) = torch.autograd.grad(lp64.sum(), v64)
+            lp64, g64 = lp64.detach().to(dev), g64.to(dev)
+            lp64_b[cols] += lp64
+            g64_b[r, cols] = g64
+            v32 = vbT[r, cols].clone().requires_grad_(True)
+            lp32 = c32._linked_logdensity_t_children(v32)
+            (g32,) = torch.autograd.grad(lp32.sum(), v32)
+            e_lp = max(e_lp, float(((lp32.double() - lp64).abs() / (lp64.abs() + 1.0)).max()))
+            e_g = max(e_g, float(((g32.double() - g64).abs() / (g64.abs() + 1.0)).max()))
+        tol = P27_RTOL_SCALAR if r.stop - r.start == 1 else P27_RTOL_STRUCTURED
+        worst[name] = (e_lp, e_g)
+        expect(f"path 27 (b) {name}: lp and g within {tol:g} of float64 (|err| / (|float64| + 1):"
+               f" {e_lp:.3e}, {e_g:.3e})", e_lp <= tol and e_g <= tol)
+    # the model's entry points against the float64 sums of its leaves
+    e_model = {
+        "lp": check("path 27 (b): batched_logdensity_fn lp vs float64", lp_b, lp64_b,
+                    P27_RTOL_STRUCTURED, lp64_b.abs() + 1.0),
+        "vg_lp": check("path 27 (b): value_and_grad_fn lp vs float64", lpg_b, lp64_b,
+                       P27_RTOL_STRUCTURED, lp64_b.abs() + 1.0),
+        "g": check("path 27 (b): value_and_grad_fn g vs float64", g_b, g64_b,
+                   P27_RTOL_STRUCTURED, g64_b.abs() + 1.0),
+    }
+    line["b"] = {"rel_err": worst, "model_max_abs_err": e_model, "launches": lb}
+    del lp64_b, g64_b, g_b, lpg_b
+    # the round trip v -> x -> v, its launches
+    (x1, ld1), l_inv = launch_delta(lambda: ub.from_linked_vec(vb))
+    (v2, ld2), l_fwd = launch_delta(lambda: ub.to_linked_vec(x1))
+    print(f"path 27 (b) round trip launches: inverse {l_inv}, forward {l_fwd}", flush=True)
+    expect("path 27 (b): from_linked_vec launches #7 and #10, to_linked_vec #9",
+           l_inv.get("simplex_inverse_logdet", 0) > 0 and l_inv.get("pd_inverse", 0) > 0
+           and l_fwd.get("simplex_forward_logdet", 0) > 0)
+    for k, n in list(l_inv.items()) + list(l_fwd.items()):
+        if k in launches:
+            launches[k] += n
+    mbr = rows_b["mb"]
+    other = [i for i in range(vb.shape[1]) if not mbr.start <= i < mbr.stop]
+    xa = torch.cat([vb[:, i: i + 1] for i in other], 1)
+    check("path 27 (b) round trip v -> x -> v, all but MatrixBeta's rows",
+          torch.cat([v2[:, i: i + 1] for i in other], 1), xa, ATOL_ROUNDTRIP,
+          xa.abs() + 1.0)
+    ev = torch.linalg.eigvalsh(x1["mb"].double().cpu())
+    kappa = ev[:, -1] / ev[:, 0]
+    row_err = (v2[:, mbr] - vb[:, mbr]).abs().amax(dim=1).double().cpu()
+    ratio = float((row_err / (kappa * eps32 + ATOL_ROUNDTRIP)).max())
+    print(f"path 27 (b) round trip, MatrixBeta rows: max error {float(row_err.max()):.3e}, max "
+          f"kappa {float(kappa.max()):.3e}, max error / (kappa eps32 + {ATOL_ROUNDTRIP:g}) "
+          f"{ratio:.3e}", flush=True)
+    expect("path 27 (b) round trip, MatrixBeta rows within kappa(U) eps32", ratio <= 1.0)
+    check("path 27 (b) round trip: to_linked_vec's log-det is minus from_linked_vec's", ld2, -ld1,
+          RTOL_ROUNDTRIP_LD, ld1.abs() + 1e-3 * ld1.abs().max())
+    line["b"]["roundtrip_mb_ratio"] = ratio
+    del x0, x1, v2, vb, vbT
+    part("b")
+
+    # (c) NUTS on the served prior
+    prior = tbt.Model(p27_nuts_prior(dists, dev, f32), device=dev)
+    kernel = prior._auto_kernel()
+    pu = prior.unconstrainer()
+    tape_ops_ = [name for e in fp._plan(pu) if e.loop == "traced" for name, *_ in
+                 e.tape.instructions()]
+    expect(f"path 27 (c): kernel='auto' takes nuts_batched_t ({kernel}), VonMises' tape with "
+           "the cos opcode", kernel == "nuts_batched_t" and "cos" in tape_ops_)
+    ts = time.perf_counter()
+    (raw, state, stats), lc = launch_delta(lambda: prior.sample(
+        torch.Generator(device=dev).manual_seed(SEED), kernel="auto", constrained=False,
+        **P27_NUTS))
+    sample_s = time.perf_counter() - ts
+    xs = prior.constrain(raw)
+    r_hat = float(np.max(diagnostics.rhat(raw)))
+    n_div = int(stats.diverging.sum())
+    exact = p27_exact_means()
+    dev_mcse = {}
+    for k, m in exact.items():
+        dr = xs[k].double()
+        dev_mcse[k] = abs(float(dr.mean()) - m) / float(diagnostics.mcse_mean(dr))
+    print(f"path 27 (c): R-hat {r_hat:.4f}, divergences {n_div}, launches {lc}, means' "
+          f"deviations in MCSE {dev_mcse}, {sample_s:.1f} s", flush=True)
+    expect("path 27 (c): #2's small design (the item kernel) on every leapfrog, its large "
+           f"design on none ({lc})", lc.get(SMALL, 0) > 0
+           and lc.get("slab_value_and_grad", 0) == 0 and lc.get("slab_traced", 0) > 0)
+    expect(f"path 27 (c): R-hat {r_hat:.4f} <= 1.05", r_hat <= 1.05)
+    n_tr = P27_NUTS["n_chains"] * P27_NUTS["n_samples"]
+    expect(f"path 27 (c): divergences {n_div} <= 1% of {n_tr}", n_div <= 0.01 * n_tr)
+    for k, dm in dev_mcse.items():
+        expect(f"path 27 (c): the mean of {k} within 5 MCSE of its exact mean ({dm:.2f})",
+               dm <= 5.0)
+    launches[SMALL] += lc.get(SMALL, 0)
+    launches["slab_traced"] += lc.get("slab_traced", 0)
+    line["c"] = {"kernel": kernel, "rhat": r_hat, "divergences": n_div, "dev_in_mcse": dev_mcse,
+                 "launches": lc, "seconds": sample_s, "step_size": float(state.eps),
+                 "leapfrogs_per_transition": float(stats.n_steps.float().mean())}
+    part("c")
+
+    # (d) the discrete families against scipy
+    line["d"] = p27_discrete(dev)
+    part("d")
+
+    # (e) the mixed slab+structured model of tools/tpu_sweep.py:79-90
+    kw = dict(device=dev, dtype=f32)
+    d = dists
+    mixed = tbt.Model(d.NamedProduct.of(
+        mu=d.IIDProduct(d.Normal(0.5, 2.0, **kw), 4), sig=d.LogNormal(0.1, 0.5, **kw),
+        w=d.Dirichlet(np.ones(5) * 1.3, **kw), c=d.LKJ(4, 2.0, **kw),
+        wi=d.Wishart(6.0, np.eye(3), **kw), mvd=d.MvNormalDiag(np.zeros(3), np.ones(3), **kw),
+        mvt=d.MvNormalTril(np.zeros(3), np.array([[1.3, 0.0, 0.0], [0.4, 0.9, 0.0],
+                                                  [-0.2, 0.3, 1.6]]), **kw)), device=dev)
+    um = mixed.unconstrainer()
+    ve = torch.as_tensor(0.6 * np.random.default_rng(SEED + 272).standard_normal(
+        (mixed.dim(), BATCH)), dtype=f32, device=dev)
+    fm = mixed.batched_logdensity_t_fn()
+    (lp_e, (lpv_e, g_e)), le = launch_delta(lambda: (fm(ve), fm.value_and_grad_fn(ve)))
+    cfm, loopsm, c0m = fk._prep(um, ve)
+    lp_pe, g_pe = fb.slab_value_and_grad_plain(ve, cfm, loopsm)
+    v_r = ve.detach().requires_grad_(True)
+    comp = um._linked_logdensity_t_children(v_r)
+    (g_ce,) = torch.autograd.grad(comp.sum(), v_r)
+    comp = comp.detach()
+    print(f"path 27 (e) launches: {le}", flush=True)
+    expect("path 27 (e): the fused #1 and #2 launched", le.get("slab_value", 0) > 0
+           and le.get("slab_value_and_grad", 0) > 0)
+    for k in ("slab_value", "slab_value_and_grad"):
+        launches[k] += le.get(k, 0)
+
+    def close(tag, got, ref, rtol, atol):
+        # tpu_sweep.py's assert_allclose: |got - ref| <= atol + rtol |ref|
+        return check(f"{tag} (rtol {rtol:g}, atol {atol:g})", got, ref, 1.0,
+                     atol + rtol * ref.double().abs())
+
+    line["e"] = {
+        "lp_vs_plain": close("path 27 (e): fused lp vs plain", lp_e, lp_pe + c0m, 1e-4, 5e-4),
+        "lp_vs_composed": close("path 27 (e): fused lp vs composed", lp_e, comp, 1e-4, 5e-4),
+        "vg_lp_vs_composed": close("path 27 (e): value_and_grad lp vs composed", lpv_e, comp,
+                                   1e-4, 5e-4),
+        "g_vs_plain": close("path 27 (e): fused g vs plain", g_e, g_pe, 2e-4, 1e-3),
+        "g_vs_composed": close("path 27 (e): fused g vs composed", g_e, g_ce, 2e-4, 1e-3),
+    }
+    del ve, g_e, g_pe, g_ce
+    part("e")
+
+    # (f) #14 on cos and sin
+    rows_f = {}
+    before = kernels.LAUNCHES["prim_probe"]
+    for op in ("cos", "sin"):
+        x, y, z = pp.inputs(op, dev)
+        r = pp.check_op(op, x, y, z)
+        rows_f[op] = r
+        expect(f"path 27 (f) #14 {op}: value and tangent within {pp.TOL:g} of plain and float64, "
+               f"the same NaN/inf pattern ({r})", r["ok"])
+        err["prim_probe"] = max(err.get("prim_probe", 0.0), r["err_value_plain"],
+                                r["err_tangent_plain"])
+    launches["prim_probe"] += kernels.LAUNCHES["prim_probe"] - before
+    expect("path 27 (f): prim_probe launched", launches["prim_probe"] > 0)
+    line["f"] = rows_f
+    part("f")
+
+    dt = time.perf_counter() - t0
+    line.update({"seconds": dt, "launches": launches})
+    print(f"path 27: {dt:.1f} s (parts {line['part_s']}), launches {launches}", flush=True)
+    if time_gate:
+        expect(f"path 27 within {PATH27_LIMIT_S:g} s", dt < PATH27_LIMIT_S)
+    return line, launches, err, prep
+
+
 # The two longest host-bound samplers, cells 7 (pd_conjugate) and 10
 # (mv_conjugate), run in a second process beside the other paths: the card
 # is idle through most of their host loops, and the script's phases came
@@ -6062,6 +6587,11 @@ def main():
     # --- the twenty-sixth: the remaining bijectors, CDF/Quantile ----------------
     p26_line, p26_launches, p26_err = run_bijectors_and_quantiles(dev)
     lap("bijectors and quantiles")
+    # --- the twenty-seventh: the remaining distribution families ------------
+    p27_line, p27_launches, p27_err, p27_prep = run_remaining_families(dev)
+    for k, e in p27_err.items():
+        err[k] = max(err.get(k, 0.0), e)
+    lap("remaining families")
     print(f"nuts from pathfinder's starts: warmup {pf_sampler_line['warmup_s']:.1f} s (the fit "
           f"included), step {pf_sampler_line['step_size']:.4f}, "
           f"{pf_sampler_line['leapfrogs_per_transition']:.2f} leapfrogs a transition; path 2: "
@@ -6070,7 +6600,8 @@ def main():
     for k in (SMALL, SIMPLEX_SMALL, "simplex_inverse_logdet", "lkj_inverse", "pd_inverse",
               "pd_logdensity", "pd_trace_grad"):
         new_launches[k] = new_launches.get(k, 0) + sum(d.get(k, 0) for d in (ls, ls2, ls3))
-    for k, n in list(p25_launches.items()) + list(p26_launches.items()):
+    for k, n in (list(p25_launches.items()) + list(p26_launches.items())
+                 + list(p27_launches.items())):
         new_launches[k] = new_launches.get(k, 0) + n
     prep_s = time_prep(dev)
     lap("_prep first calls")
@@ -6177,6 +6708,7 @@ def main():
     variants.update(repair_variants)
     variants.update(families_variants(fam_vT, fam_dvT, *fam_prep))
     variants.update(traced_variants(tr_preps))
+    variants.update(traced_variants({"remaining-served": p27_prep}))
     variants.update(engine_variants(dev, vT))
     rows = time_kernels(kernel_table(vT, xT, cf, ones, dvT, fam_vT, probe_in,
                                      tr_preps["generic-traced"]), launches, err, variants)
@@ -6220,6 +6752,7 @@ def main():
     print(json.dumps({"sampler": pf_sampler_line}), flush=True)
     print(json.dumps({"path25": p25_line, "path25_err": p25_err}), flush=True)
     print(json.dumps({"path26": p26_line, "path26_err": p26_err}), flush=True)
+    print(json.dumps({"path27": p27_line, "path27_err": p27_err}), flush=True)
 
     if failures:
         print("FAILED: " + "; ".join(failures), file=sys.stderr)

@@ -253,7 +253,10 @@ def jd_bij(dj):
     return QuantileBijector(dj)
 
 
-KNOWN_NO_CDF = {"SkewNormal"}
+# the continuous families with no cdf in the JAX package either
+KNOWN_NO_CDF = {"SkewNormal", "VonMises", "Rician", "NoncentralChisq", "NoncentralBeta",
+                "NoncentralF", "NoncentralT", "NormalInverseGaussian", "SkewedExponentialPower",
+                "StudentizedRange"}
 
 
 def _scalar_instances():
@@ -268,7 +271,7 @@ def _scalar_instances():
             d = cls(**F64)
         except TypeError:
             continue  # a family without defaults (the vector ones)
-        if d.event_ndims == 0:
+        if d.event_ndims == 0 and d.support.kind != "discrete":
             out.append((name, d))
     return out
 

@@ -162,9 +162,10 @@ def test_model_parts_not_ported_raise():
         FlowPosterior(None)
     assert tbt.Model(d, device="cpu").sample(g, n_chains=2, n_warmup=0, n_samples=1,
                                              init="laplace")[0].shape == (1, 2)
-    # a family not ported yet (Kumaraswamy, once the example here, is)
+    # a family the port does not have (VonMises, once the example here, is
+    # ported, as is every family of the JAX package)
     with pytest.raises(NotImplementedError):
-        tbt.dist_from_spec({"type": "VonMises", "params": {}}, **CPU64)
+        tbt.dist_from_spec({"type": "NoSuchFamily", "params": {}}, **CPU64)
 
 
 def test_bare_leaf_with_a_likelihood_samples_as_in_jax(rng):

@@ -17,14 +17,26 @@ parameters can be handed to the JAX package and to the port:
   {"type": "InverseWishart", "params": {"df": np.ndarray, "psi": np.ndarray}}
   {"type": "MvNormalTril", "params": {"loc": np.ndarray, "scale_tril": np.ndarray}}
 
-(and alike every scalar family of `dists/univariate*.py`, MvNormalDiag and
-MvLogNormal {loc, scale_diag}, MvStudentT {df, loc, scale_tril},
-MvNormalCanon {h, prec}: the JAX families' fields). The wrappers nest a
-spec under the field that holds a distribution:
+(and alike every family of `dists/univariate*.py` and `dists/discrete.py`,
+MvNormalDiag and MvLogNormal {loc, scale_diag}, MvStudentT {df, loc,
+scale_tril}, MvNormalCanon {h, prec}, MvLogitNormal {loc, scale_tril},
+Multinomial (n) {p}, MatrixBeta (p) {n1, n2}, MatrixTDist {df, loc,
+row_scale, col_scale}, MatrixNormal {loc, row_chol, col_chol}: the JAX
+families' fields; an int field such as Binomial's `n` is static, and
+Soliton's `delta` is a float). The wrappers nest a spec under the field
+that holds a distribution:
 
   {"type": "Truncated", "base": spec, "params": {"lower": -0.5, "upper": 2.0}}
+  {"type": "Censored", "base": spec, "params": {"lower": -1.0, "upper": 1.0}}
+  {"type": "Affine", "base": spec, "params": {"loc": 1.0, "scale": 2.0}}   (a
+      zero-dim loc or scale is a static float, as `d + 1` builds it)
   {"type": "Mixture", "components": spec, "params": {"log_weights": np.ndarray}}
+  {"type": "HeterogeneousMixture", "components": [spec, ...],
+      "params": {"log_weights": np.ndarray}}
   {"type": "JointOrderStatistics", "base": spec, "n": 4}
+  {"type": "OrderStatistic", "base": spec, "n": 5, "rank": 2}
+  {"type": "Reshaped", "base": spec, "shape": (2, 3)}   (or "params":
+      {"shape": np.ndarray})
 
 Any other key than "type", "params", "children" and "inner" is a static
 argument of the constructor (an int such as `n` or `dim`, a string such
@@ -57,9 +69,19 @@ _SCALAR = (
     "Exponential", "Gamma", "InverseGamma", "Chi", "Weibull", "Rayleigh", "Frechet",
     "HalfNormal", "HalfCauchy", "Beta", "LogitNormal", "Uniform", "Pareto", "Levy",
     "Kumaraswamy", "Arcsine", "SkewNormal", "BetaPrime", "InverseGaussian",
-    "TriangularDist", "JohnsonSU", "Mixture",
+    "TriangularDist", "JohnsonSU", "Mixture", "Chisq", "FDist", "VonMises", "Semicircle",
+    "Cosine", "Epanechnikov", "GeneralizedPareto", "GeneralizedExtremeValue", "Gompertz",
+    "Erlang", "LogUniform", "NormalCanon", "Biweight", "Triweight", "SymTriangularDist",
+    "PGeneralizedGaussian", "Rician", "Lindley", "Kolmogorov", "NoncentralChisq",
+    "NoncentralBeta", "NoncentralF", "NoncentralT", "NormalInverseGaussian",
+    "SkewedExponentialPower", "StudentizedRange", "KSOneSided",
 )
-_LEAVES = {name: getattr(dists, name) for name in _SCALAR}
+_DISCRETE = (
+    "Poisson", "Bernoulli", "Binomial", "Geometric", "Categorical", "NegativeBinomial",
+    "BernoulliLogit", "BetaBinomial", "Dirac", "DiscreteUniform", "DiscreteNonParametric",
+    "Hypergeometric", "PoissonBinomial", "Skellam", "Soliton", "Multinomial",
+)
+_LEAVES = {name: getattr(dists, name) for name in _SCALAR + _DISCRETE}
 _LEAVES.update({
     "Dirichlet": dists.Dirichlet,
     "LKJ": dists.LKJ,
@@ -71,6 +93,10 @@ _LEAVES.update({
     "MvLogNormal": dists.MvLogNormal,
     "MvStudentT": dists.MvStudentT,
     "MvNormalCanon": dists.MvNormalCanon,
+    "MvLogitNormal": dists.MvLogitNormal,
+    "MatrixBeta": dists.MatrixBeta,
+    "MatrixTDist": dists.MatrixTDist,
+    "MatrixNormal": dists.MatrixNormal,
 })
 
 
@@ -97,17 +123,35 @@ def dist_from_spec(spec: dict, *, device, dtype):
         return dists.arraydist(dist_from_spec(spec["inner"], device=device, dtype=dtype))
     if kind == "TransformedDistribution":
         return transformed(dist_from_spec(spec["inner"], device=device, dtype=dtype))
-    static = {
-        k: dist_from_spec(v, device=device, dtype=dtype) if isinstance(v, dict) else v
-        for k, v in spec.items() if k not in ("type", "params")
-    }
-    if kind in ("Truncated", "JointOrderStatistics"):
+
+    def rec(v):
+        if isinstance(v, dict):
+            return dist_from_spec(v, device=device, dtype=dtype)
+        if isinstance(v, (list, tuple)) and v and isinstance(v[0], dict):
+            return tuple(rec(c) for c in v)
+        return v
+
+    static = {k: rec(v) for k, v in spec.items() if k not in ("type", "params")}
+    params = dict(spec.get("params", {}))
+    if kind in ("Truncated", "Censored", "JointOrderStatistics", "OrderStatistic"):
         # static bounds and counts: no tensor parameter of their own
-        args = {**static, **{k: float(v) for k, v in spec.get("params", {}).items()}}
-        return getattr(dists, kind)(**args)
+        return getattr(dists, kind)(**static, **{k: float(v) for k, v in params.items()})
+    if kind == "Reshaped":
+        shape = static.pop("shape", params.pop("shape", None))
+        return dists.Reshaped(**static, shape=tuple(int(s) for s in np.ravel(shape)))
+    if kind == "Affine":
+        # a zero-dim loc or scale is static, as `d + 1` or `d * -3` build it
+        for k, v in params.items():
+            params[k] = float(v) if np.ndim(v) == 0 else torch.as_tensor(
+                np.asarray(v), dtype=dtype, device=device)
+        return dists.affine(static.pop("base"), **params)
+    if kind == "HeterogeneousMixture":
+        return dists.HeterogeneousMixture(**static, **params, device=device, dtype=dtype)
     if kind not in _LEAVES:
         raise NotImplementedError(f"no ported distribution named {kind!r}")
-    return _LEAVES[kind](**static, **spec.get("params", {}), device=device, dtype=dtype)
+    if kind == "Soliton" and "delta" in params:
+        static["delta"] = float(params.pop("delta"))  # a static float
+    return _LEAVES[kind](**static, **params, device=device, dtype=dtype)
 
 
 def bijector_from_spec(spec: dict, *, device, dtype):

@@ -69,3 +69,19 @@ def categorical(g, logits, shape):
     idx = torch.multinomial(probs.expand(max(n, 1), -1), 1, replacement=True, generator=g)
     return idx[:n, 0].reshape(tuple(shape))
 
+
+
+def poisson(g, rate, shape):
+    """Poisson(rate) counts of `shape` (rate broadcast to it), as floats."""
+    return torch.poisson(rate.expand(tuple(shape)).contiguous(), generator=g)
+
+
+def bernoulli(g, p, shape):
+    """1 with probability p, else 0 (u < p, the JAX sampler's), as floats."""
+    return (uniform(g, shape, p) < p).to(p.dtype)
+
+
+def binomial(g, count, p, shape):
+    """Binomial(count, p) counts of `shape` (both broadcast to it), as floats."""
+    return torch.binomial(count.expand(tuple(shape)).contiguous(),
+                          p.expand(tuple(shape)).contiguous(), generator=g)

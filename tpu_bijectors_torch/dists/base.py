@@ -31,7 +31,8 @@ from ..utils import resolve_device
 @dataclass(frozen=True)
 class Support:
     """Static support descriptor: kind 'interval' (with bounds and their
-    finiteness), 'real_vector', 'simplex', 'corr', 'chol_corr', 'pd' or
+    finiteness), 'real_vector', 'real_matrix', 'simplex', 'corr',
+    'chol_corr', 'pd', 'discrete', 'reshaped', 'joint_order' or
     'product'."""
 
     kind: str = "interval"
@@ -67,6 +68,8 @@ SIMPLEX = Support("simplex")
 CORRELATION = Support("corr")
 CHOLESKY_CORRELATION = Support("chol_corr")
 POSITIVE_DEFINITE = Support("pd")
+DISCRETE = Support("discrete")
+REAL_MATRIX = Support("real_matrix")
 
 
 class Distribution:
@@ -178,6 +181,35 @@ class Distribution:
     def to(self, device) -> "Distribution":
         """The same distribution with every parameter on `device`."""
         raise NotImplementedError(type(self).__name__)
+
+    # the affine algebra (`Logistic() + 2`, `Gamma(2, 3) * -3`: the JAX
+    # package's `dists/base.py:219-243`), building dists.affine.Affine
+
+    def __add__(self, c):
+        from .affine import affine
+
+        return affine(self, loc=c)
+
+    __radd__ = __add__
+
+    def __sub__(self, c):
+        return self + (-c)
+
+    def __rsub__(self, c):
+        return (-self) + c
+
+    def __mul__(self, c):
+        from .affine import affine
+
+        return affine(self, scale=c)
+
+    __rmul__ = __mul__
+
+    def __neg__(self):
+        return self * (-1.0)
+
+    def __truediv__(self, c):
+        return self * (1.0 / c)
 
 
 _EXPAND_STEPS, _BISECT_STEPS, _NEWTON_STEPS = 64, 80, 3
@@ -386,8 +418,11 @@ def _as_param(v, device, dtype):
 def first_param(d: Distribution):
     """The first tensor parameter of `d`, found through products, wrappers
     and a mixture's components (None where it has none): its dtype and
-    device are the distribution's."""
+    device are the distribution's. A family with no tensor parameter
+    (Kolmogorov, DiscreteUniform, ...) answers with its `_like`."""
     while not getattr(d, "_params", ()):
+        if getattr(d, "_like", None) is not None:
+            return d._like
         if hasattr(d, "components"):
             d = d.components[0] if isinstance(d.components, tuple) else d.components
         elif hasattr(d, "base"):
@@ -401,7 +436,9 @@ def first_param(d: Distribution):
 class LeafDistribution(Distribution):
     """A family with tensor parameters (named by `_params`), converted at
     construction to tensors of `dtype` (default: a floating tensor keeps
-    its own, anything else takes torch's default) on `device`."""
+    its own, anything else takes torch's default) on `device`. A family
+    with none keeps a zero-dim `_like` tensor of that dtype and device,
+    the dtype and device of its draws and of its trace."""
 
     _params: ClassVar[tuple] = ()
     # the parameters in which torch's cdf has no autograd derivative
@@ -416,6 +453,9 @@ class LeafDistribution(Distribution):
         dev = resolve_device(device)
         for name in self._params:
             object.__setattr__(self, name, _as_param(getattr(self, name), dev, dtype))
+        if not self._params:
+            object.__setattr__(self, "_like", torch.zeros(
+                (), dtype=dtype or torch.get_default_dtype(), device=dev))
 
     @property
     def batch_shape(self) -> tuple:
@@ -425,4 +465,17 @@ class LeafDistribution(Distribution):
 
     def to(self, device):
         moved = {p: getattr(self, p).to(device) for p in self._params}
+        if not self._params:
+            return dataclasses.replace(self, device=device, dtype=self._like.dtype)
         return dataclasses.replace(self, device=device, **moved)
+
+
+@dataclass(frozen=True)
+class DiscreteDistribution(LeafDistribution):
+    """A family on a discrete set: the registry's Identity link
+    (reference src/transformed_distribution.jl:75-76). Its `logpdf` is the
+    pmf's log."""
+
+    @property
+    def support(self):
+        return DISCRETE

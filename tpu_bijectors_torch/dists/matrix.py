@@ -1,6 +1,7 @@
 """Matrix-variate families, PyTorch counterpart of
-`tpu_bijectors/dists/matrix.py`: LKJ, LKJCholesky, Wishart and
-InverseWishart.
+`tpu_bijectors/dists/matrix.py`: LKJ, LKJCholesky, Wishart,
+InverseWishart, MatrixBeta (the PD link, its density from the link's
+factor L beside a Cholesky of I - U) and MatrixTDist (the identity link).
 
 LKJ and LKJCholesky fuse their linked densities on the log-diagonal of
 the factor that the inverse link computes anyway (`logpdf_from_factor`):
@@ -27,7 +28,13 @@ import torch
 from ..kernels.pd import MAX_K
 from ..utils import cholesky_lower
 from . import _random as R
-from .base import CHOLESKY_CORRELATION, CORRELATION, POSITIVE_DEFINITE, LeafDistribution
+from .base import (
+    CHOLESKY_CORRELATION,
+    CORRELATION,
+    POSITIVE_DEFINITE,
+    REAL_MATRIX,
+    LeafDistribution,
+)
 
 LOG2 = math.log(2.0)
 LOGPI = math.log(math.pi)
@@ -345,3 +352,133 @@ class InverseWishart(_PDFamily):
         Pinv_chol = cholesky_lower(torch.linalg.inv(self.psi))
         L = _bartlett_chol(generator, self.df, Pinv_chol, K, shape)
         return torch.linalg.inv(L @ L.transpose(-1, -2))
+
+
+@dataclass(frozen=True)
+class MatrixBeta(LeafDistribution):
+    """MatrixBeta(p, n1, n2) over p x p SPD matrices U with I - U SPD
+    (Gupta and Nagar ch. 5), on the PD link (reference
+    src/transformed_distribution.jl:138-139), which like the reference's
+    enforces U > 0 alone: logdet(I - U) is NaN or -inf outside U < I.
+
+      logpdf(U) = (n1 - p - 1)/2 logdet U + (n2 - p - 1)/2 logdet(I - U)
+                  - log B_p(n1/2, n2/2)
+
+    Draws: S1 ~ Wishart(n1, I), S2 ~ Wishart(n2, I), L = chol(S1 + S2),
+    U = L^-1 S1 L^-T."""
+
+    p: int
+    n1: object
+    n2: object
+
+    _params = ("n1", "n2")
+    event_ndims = 2
+
+    def __post_init__(self, device, dtype):
+        object.__setattr__(self, "p", int(self.p))
+        super().__post_init__(device, dtype)
+
+    @property
+    def event_shape(self):
+        return (self.p, self.p)
+
+    def _log_norm(self):
+        a, b = 0.5 * self.n1, 0.5 * self.n2
+        return _mv_lgamma(a, self.p) + _mv_lgamma(b, self.p) - _mv_lgamma(a + b, self.p)
+
+    def _from_logdets(self, logdetU, logdetImU):
+        p = self.p
+        return (0.5 * (self.n1 - p - 1.0) * logdetU + 0.5 * (self.n2 - p - 1.0) * logdetImU
+                - self._log_norm())
+
+    @staticmethod
+    def _logdet(M):
+        """log det M by Cholesky, its value and gradient NaN where M is not
+        positive definite (as the JAX package's factor makes them: U
+        outside U < I)."""
+        L, info = torch.linalg.cholesky_ex(0.5 * (M + M.transpose(-1, -2)))
+        logdet = 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), -1)
+        return logdet * torch.where(info == 0, 1.0, math.nan).to(logdet.dtype)
+
+    def logpdf(self, U):
+        eye = torch.eye(self.p, dtype=U.dtype, device=U.device)
+        return self._from_logdets(self._logdet(U), self._logdet(eye - U))
+
+    def logpdf_from_factor(self, L, x=None):
+        """The density from the lower Cholesky factor L of U = LL' (the
+        factor the PD inverse link computes anyway): logdet U is free; U
+        is formed from L where the caller has no x, for logdet(I - U)."""
+        logdetU = 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), -1)
+        U = x if x is not None else L @ L.transpose(-1, -2)
+        eye = torch.eye(self.p, dtype=L.dtype, device=L.device)
+        return self._from_logdets(logdetU, self._logdet(eye - U))
+
+    def sample(self, generator, sample_shape=()):
+        p = self.p
+        shape = tuple(sample_shape) + self.batch_shape
+        eye = torch.eye(p, dtype=self.n1.dtype, device=self.n1.device)
+        L1 = _bartlett_chol(generator, self.n1, eye, p, shape)
+        L2 = _bartlett_chol(generator, self.n2, eye, p, shape)
+        S1 = L1 @ L1.transpose(-1, -2)
+        S2 = L2 @ L2.transpose(-1, -2)
+        L = cholesky_lower(S1 + S2)
+        A = torch.linalg.solve_triangular(L, S1, upper=False)
+        U = torch.linalg.solve_triangular(L, A.transpose(-1, -2), upper=False)
+        return 0.5 * (U + U.transpose(-1, -2))  # symmetric against rounding
+
+    @property
+    def support(self):
+        return POSITIVE_DEFINITE
+
+
+@dataclass(frozen=True)
+class MatrixTDist(LeafDistribution):
+    """The matrix t-distribution MT(nu, M, Sigma, Omega) (Gupta and Nagar
+    thm 4.2.1; reference test/vector/matrix.jl:9): M (n, p), the row scale
+    Sigma (n, n) and the column scale Omega (p, p), both SPD. X | S ~
+    MN(M, S, Omega) with S ~ InverseWishart(nu + n - 1, Sigma); the
+    identity link (real-matrix support)."""
+
+    df: object
+    loc: object
+    row_scale: object
+    col_scale: object
+
+    _params = ("df", "loc", "row_scale", "col_scale")
+    event_ndims = 2
+
+    @property
+    def event_shape(self):
+        return tuple(self.loc.shape[-2:])
+
+    @property
+    def batch_shape(self):
+        return tuple(self.loc.shape[:-2])
+
+    def logpdf(self, X):
+        n, p = self.event_shape
+        v = self.df
+        Ls, Lo = cholesky_lower(self.row_scale), cholesky_lower(self.col_scale)
+        D = X - self.loc
+        batch = D.shape[:-2]
+        # A = Ls^-1 D Lo^-T: |I + Sigma^-1 D Omega^-1 D'| = |I + A A'|
+        A = torch.linalg.solve_triangular(Ls.expand(batch + (n, n)), D, upper=False)
+        A = torch.linalg.solve_triangular(Lo.expand(batch + (p, p)), A.transpose(-1, -2),
+                                          upper=False).transpose(-1, -2)
+        G = torch.eye(n, dtype=X.dtype, device=X.device) + A @ A.transpose(-1, -2)
+        logdet = lambda L: 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), -1)  # noqa: E731
+        a, b = 0.5 * (v + n + p - 1.0), 0.5 * (v + n - 1.0)
+        return (_mv_lgamma(a, n) - _mv_lgamma(b, n) - 0.5 * n * p * LOGPI
+                - 0.5 * p * logdet(Ls) - 0.5 * n * logdet(Lo) - a * logdet(cholesky_lower(G)))
+
+    def sample(self, generator, sample_shape=()):
+        n, p = self.event_shape
+        S = InverseWishart(self.df + n - 1.0, self.row_scale, device=self.df.device).sample(
+            generator, sample_shape)
+        Lo = cholesky_lower(self.col_scale)
+        Z = R.normal(generator, tuple(sample_shape) + self.batch_shape + (n, p), self.loc)
+        return self.loc + cholesky_lower(S) @ Z @ Lo.transpose(-1, -2)
+
+    @property
+    def support(self):
+        return REAL_MATRIX

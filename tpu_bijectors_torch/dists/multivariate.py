@@ -1,7 +1,8 @@
 """Multivariate families, PyTorch counterpart of
 `tpu_bijectors/dists/multivariate.py`: Dirichlet, the dense Gaussians
 (MvNormalDiag, MvNormalTril, the `MvNormal` constructor, MvNormalCanon),
-MvLogNormal and MvStudentT.
+MvLogNormal, MvStudentT, MvLogitNormal (the simplex link) and the
+discrete Multinomial (the Identity link).
 
 The Gaussian and t families take the identity link (MvLogNormal the
 elementwise log link). In the fused whole-model evaluation
@@ -21,8 +22,8 @@ from ..bijectors.base import Block, Identity
 from ..bijectors.simplex import SimplexBijector, _simplex_inverse_logdet_wlog
 from ..utils import cholesky_lower
 from . import _random as R
-from .base import REAL_VECTOR, SIMPLEX, LeafDistribution, positive
-from .univariate import _is_log_link
+from .base import REAL_VECTOR, SIMPLEX, DiscreteDistribution, LeafDistribution, positive
+from .univariate import _fx, _is_log_link
 
 LOG2PI = math.log(2.0 * math.pi)
 LOGPI = math.log(math.pi)
@@ -327,3 +328,88 @@ class MvNormalCanon(LeafDistribution):
         eps = R.normal(generator, shape, self.h)
         Lt = L.transpose(-1, -2).expand(shape[:-1] + L.shape[-2:])
         return mu + torch.linalg.solve_triangular(Lt, eps[..., None], upper=True)[..., 0]
+
+
+@dataclass(frozen=True)
+class MvLogitNormal(LeafDistribution):
+    """softmax([y; 0]) of y ~ MvNormalTril(loc, scale_tril): the simplex
+    support, its link the SimplexBijector (reference
+    src/vector/multivariate/simplex.jl), whose kernels #7-#9 run it on the
+    card."""
+
+    loc: object
+    scale_tril: object
+
+    _params = ("loc", "scale_tril")
+    event_ndims = 1
+
+    @property
+    def event_shape(self):
+        return (self.loc.shape[-1] + 1,)
+
+    @property
+    def batch_shape(self):
+        return tuple(self.loc.shape[:-1])
+
+    def _base(self):
+        return MvNormalTril(self.loc, self.scale_tril, device=self.loc.device)
+
+    def logpdf(self, x):
+        # y_i = log(x_i / x_K), i = 1 .. K-1
+        y = torch.log(x[..., :-1]) - torch.log(x[..., -1:])
+        return self._base().logpdf(y) - torch.sum(torch.log(x), -1)
+
+    @property
+    def support(self):
+        return SIMPLEX
+
+    def sample(self, generator, sample_shape=()):
+        y = self._base().sample(generator, sample_shape)
+        return torch.softmax(torch.cat([y, torch.zeros_like(y[..., :1])], -1), -1)
+
+
+@dataclass(frozen=True)
+class Multinomial(DiscreteDistribution):
+    """Multinomial(n, p): counts over K categories summing to n (the
+    Identity link, reference test/vector/multivariate.jl:2)."""
+
+    n: int = 1
+    p: object = None
+
+    _params = ("p",)
+    event_ndims = 1
+
+    def __post_init__(self, device, dtype):
+        object.__setattr__(self, "n", int(self.n))
+        super().__post_init__(device, dtype)
+
+    @property
+    def event_shape(self):
+        return (self.p.shape[-1],)
+
+    @property
+    def batch_shape(self):
+        return tuple(self.p.shape[:-1])
+
+    def logpdf(self, x):
+        p = self.p
+        x = _fx(x, p)
+        lp = (math.lgamma(self.n + 1.0) - torch.sum(torch.lgamma(x + 1.0), -1)
+              + torch.sum(torch.xlogy(x, p), -1))  # 0 log 0 = 0 for an empty category
+        return torch.where(torch.sum(x, -1) == self.n, lp, -math.inf)
+
+    def sample(self, generator, sample_shape=()):
+        """Sequential conditional binomials over the K categories."""
+        K = int(self.p.shape[-1])
+        shape = tuple(sample_shape) + self.batch_shape
+        p = self.p
+        rest = torch.flip(torch.cumsum(torch.flip(p, (-1,)), -1), (-1,))  # tail sums
+        remaining = torch.full(shape, float(self.n), dtype=p.dtype, device=p.device)
+        counts = []
+        for k in range(K - 1):
+            frac = torch.clamp(p[..., k] / torch.clamp_min(rest[..., k], 1e-30), 0.0, 1.0)
+            c = R.binomial(generator, remaining, frac, shape)
+            counts.append(c)
+            remaining = remaining - c
+        counts.append(remaining)
+        return torch.stack(counts, -1).long()

@@ -13,7 +13,13 @@ With no closed form in the fused slab, served by its traced entries
 `Truncated(base, lower, upper)`, any scalar base renormalised by
 cdf(upper) - cdf(lower) (the cdfs of Normal, StudentT, Cauchy, Logistic,
 Gumbel and LogNormal are here). SkewNormal's density reaches log_ndtr of
-the state, which those entries decline.
+the state, which those entries decline. Chisq (log link) takes a traced
+entry too.
+
+The discrete families (Identity link, `DiscreteDistribution`): Poisson,
+Bernoulli, Binomial, Geometric and Categorical, their `logpdf` the pmf's
+log (plain torch: its lgamma of the state declines the traced entries in
+both packages), their draws int64.
 
 Parameters broadcast: a family with (n,) parameters is n families side by
 side (`product.arraydist`). Every family with a transformed support has a
@@ -36,6 +42,7 @@ from ..utils import clamp, log1pexp
 from . import _random as R
 from ._special import betainc
 from .base import (
+    DiscreteDistribution,
     Distribution,
     LeafDistribution,
     Support,
@@ -889,3 +896,163 @@ class Truncated(Distribution):
         hi_c = self._bound_cdf(self.upper, like, 1.0)
         q = lo_c + (hi_c - lo_c) * R.uniform(generator, shape, like)
         return self.base.quantile(q)
+
+
+@dataclass(frozen=True)
+class Chisq(LeafDistribution):
+    """Chi-squared(df) (log link; no slab form: the traced entries serve it)."""
+
+    df: object = 1.0
+
+    _params = ("df",)
+    _cdf_fd = ("df",)  # gammainc has no derivative in a
+
+    def logpdf(self, x):
+        k2 = 0.5 * self.df
+        return (k2 - 1.0) * torch.log(x) - 0.5 * x - k2 * LOG2 - torch.lgamma(k2)
+
+    def cdf(self, x):
+        return torch.special.gammainc(0.5 * self.df, 0.5 * torch.clamp_min(x, 0.0))
+
+    @property
+    def support(self):
+        return positive()
+
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        return 2.0 * R.gamma(generator, 0.5 * self.df, shape)
+
+
+# ---------------------------------------------------------------------------
+# discrete (the registry's Identity link, reference
+# src/transformed_distribution.jl:75-76): the pmf's log, its draws as
+# int64 counts, its cdf
+# ---------------------------------------------------------------------------
+
+
+def _fx(x, like):
+    """x (a count, perhaps an integer tensor) in the parameters' dtype."""
+    return torch.as_tensor(x, device=like.device).to(like.dtype)
+
+
+@dataclass(frozen=True)
+class Poisson(DiscreteDistribution):
+    rate: object = 1.0
+
+    _params = ("rate",)
+
+    def logpdf(self, x):
+        x, r = _fx(x, self.rate), self.rate
+        return x * torch.log(r) - r - torch.lgamma(x + 1.0)
+
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        return R.poisson(generator, self.rate, shape).long()
+
+    def cdf(self, x):
+        k = torch.floor(_fx(x, self.rate))
+        c = torch.special.gammaincc(torch.clamp_min(k, 0.0) + 1.0, self.rate)
+        return torch.where(k >= 0, c, torch.zeros_like(c))
+
+
+@dataclass(frozen=True)
+class Bernoulli(DiscreteDistribution):
+    p: object = 0.5
+
+    _params = ("p",)
+
+    def logpdf(self, x):
+        x, p = _fx(x, self.p), self.p
+        return x * torch.log(p) + (1.0 - x) * torch.log1p(-p)
+
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        return R.bernoulli(generator, self.p, shape).long()
+
+    def cdf(self, x):
+        x, p = _fx(x, self.p), self.p
+        return torch.where(x < 0, 0.0, torch.where(x < 1, 1.0 - p, 1.0))
+
+
+@dataclass(frozen=True)
+class Binomial(DiscreteDistribution):
+    n: int = 1
+    p: object = 0.5
+
+    _params = ("p",)
+
+    def __post_init__(self, device, dtype):
+        object.__setattr__(self, "n", int(self.n))
+        super().__post_init__(device, dtype)
+
+    def logpdf(self, x):
+        x, p, n = _fx(x, self.p), self.p, float(self.n)
+        logc = math.lgamma(n + 1.0) - torch.lgamma(x + 1.0) - torch.lgamma(n - x + 1.0)
+        return logc + x * torch.log(p) + (n - x) * torch.log1p(-p)
+
+    def sample(self, generator, sample_shape=()):
+        """The sum of n Bernoulli(p) draws, as the JAX sampler's."""
+        shape = tuple(sample_shape) + self.batch_shape
+        return R.bernoulli(generator, self.p, (self.n,) + shape).sum(0).long()
+
+    def cdf(self, x):
+        p = self.p
+        k = torch.floor(_fx(x, p))
+        kc = torch.clamp(k, 0.0, self.n - 1.0)
+        val = betainc(self.n - kc, kc + 1.0, 1.0 - p)
+        return torch.where(k < 0, 0.0, torch.where(k >= self.n, 1.0, val))
+
+
+@dataclass(frozen=True)
+class Geometric(DiscreteDistribution):
+    """The number of failures before the first success."""
+
+    p: object = 0.5
+
+    _params = ("p",)
+
+    def logpdf(self, x):
+        x, p = _fx(x, self.p), self.p
+        return x * torch.log1p(-p) + torch.log(p)
+
+    def sample(self, generator, sample_shape=()):
+        """floor(log u / log(1 - p)), u in (0, 1]: the failures of the JAX
+        sampler's trial count."""
+        shape = tuple(sample_shape) + self.batch_shape
+        u = 1.0 - R.uniform(generator, shape, self.p)
+        return torch.floor(torch.log(u) / torch.log1p(-self.p)).long()
+
+    def cdf(self, x):
+        p = self.p
+        k = torch.floor(_fx(x, p))
+        c = -torch.expm1(torch.log1p(-p) * (torch.clamp_min(k, 0.0) + 1.0))
+        return torch.where(k >= 0, c, torch.zeros_like(c))
+
+
+@dataclass(frozen=True)
+class Categorical(DiscreteDistribution):
+    """Categories 0 .. K-1 with probabilities softmax(logits)."""
+
+    logits: object = None
+
+    _params = ("logits",)
+
+    @property
+    def batch_shape(self):
+        return tuple(self.logits.shape[:-1])
+
+    def logpdf(self, x):
+        logp = torch.log_softmax(self.logits, -1)
+        idx = torch.as_tensor(x, device=logp.device).long()[..., None]
+        shape = torch.broadcast_shapes(idx.shape[:-1], logp.shape[:-1])
+        return torch.take_along_dim(logp.expand(shape + logp.shape[-1:]),
+                                    idx.expand(shape + (1,)), dim=-1)[..., 0]
+
+    def sample(self, generator, sample_shape=()):
+        return R.categorical(generator, self.logits, tuple(sample_shape))
+
+    def cdf(self, x):
+        p = torch.softmax(self.logits, -1)
+        k = torch.floor(_fx(x, p))
+        idx = torch.arange(p.shape[-1], dtype=p.dtype, device=p.device)
+        return torch.sum(torch.where(idx <= k[..., None], p, 0.0), -1)

@@ -28,6 +28,9 @@
 // tangents are torch's forward-mode rules (pow's guards at base 0 and
 // exponent 0, clamp's slope 1 inside its closed bounds, 1/2 at the ties of
 // maximum and minimum, where's tangent of the selected branch alone).
+// cos and sin are the accurate cosf and sinf (no fast-math: the
+// __cosf / __sinf intrinsics lose accuracy once |x| passes a few pi), their
+// tangents -sin(x) t and cos(x) t.
 
 #pragma once
 
@@ -46,7 +49,7 @@ enum Opcode {
   kTanh = 15, kAsinh = 16, kAbs = 17, kSign = 18, kPow = 19, kLogaddexp = 20, kMax = 21,
   kMin = 22, kClampMin = 23, kClampMax = 24, kClamp = 25, kWhere = 26, kGe = 27, kGt = 28,
   kLe = 29, kLt = 30, kEq = 31, kNe = 32, kAnd = 33, kOr = 34, kNot = 35, kB2f = 36,
-  kMaxSg = 37, kFin0 = 38,
+  kMaxSg = 37, kFin0 = 38, kCos = 39, kSin = 40,
 };
 
 constexpr int kMaxSlots = 64;  // fused_decomp.MAX_SLOTS
@@ -205,6 +208,14 @@ __device__ __forceinline__ void step(int code, int bits, float x, float y, float
     case kB2f: r = b2f(x != 0.0f); break;
     case kMaxSg: r = nan_max(x, y); break;
     case kFin0: r = isinf(x) ? 0.0f : x; break;
+    case kCos:
+      r = cosf(x);
+      if (DUAL) t = -tx * sinf(x);
+      break;
+    case kSin:
+      r = sinf(x);
+      if (DUAL) t = tx * cosf(x);
+      break;
     default: r = __int_as_float(0x7fffffff); break;  // an unknown opcode: NaN
   }
 }

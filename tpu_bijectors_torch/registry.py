@@ -9,7 +9,10 @@ simplex -> SimplexBijector, corr -> VecCorrBijector, chol_corr ->
 VecCholeskyBijector in the family's triangle mode (`tpu_bijectors/
 registry.py:65-69`), pd -> PDVecBijector (`:61`), interval -> the
 Truncated(lb, ub) branch its finite bounds select, or Identity on the
-real line, real_vector -> elementwise Identity (`:79`), joint_order ->
+real line, real_vector and real_matrix -> elementwise Identity (`:79`),
+discrete -> elementwise Identity (`:57-58`, src/transformed_distribution.jl:
+75-76), reshaped -> Chain((bijector(base), Reshape)) (`:81-87`,
+src/transformed_distribution.jl:144-149), joint_order ->
 Chain(Invert(Ordered), Block(base link)), with a SignFlip sandwich for
 a decreasing base link (`:88-109`). A
 TransformedDistribution composes its wrapper away
@@ -59,6 +62,8 @@ def bijector(d: Distribution) -> Bijector:
         return Chain((bijector(d.base), inverse(d.transform)))
     s = d.support
     n = d.event_ndims
+    if s.kind == "discrete":
+        return elementwise(Identity(), n)
     if s.kind == "simplex":
         return SimplexBijector()
     if s.kind == "pd":
@@ -77,8 +82,14 @@ def bijector(d: Distribution) -> Bijector:
             upper_finite=s.upper_finite,
         )
         return elementwise(b, n)
-    if s.kind == "real_vector":
+    if s.kind in ("real_vector", "real_matrix"):
         return elementwise(Identity(), n)
+    if s.kind == "reshaped":
+        # inverse(Reshape) o b o Reshape: the base's link on its own event
+        from .bijectors.reshape import Reshape
+
+        inner_shape = tuple(int(v) for v in d.base.event_shape)
+        return Chain((bijector(d.base), Reshape(tuple(d.shape), inner_shape)))
     if s.kind == "joint_order":
         # JointOrderWrap (src/vector/order/order.jl:14-76): the base's link
         # elementwise, a sign-flip sandwich for a decreasing one, then

@@ -26,7 +26,9 @@ CPU tensor and as the kernel's reference. Both follow the same rules:
   (`JAX_NAMES`) are a subset of the JAX package's
   `fused_traced._SAFE_PRIMS`, so the port admits no leaf that the JAX
   package declines for want of a lowering; `erf`, `lgamma` and `atan` of
-  the state stay out (SkewNormal declines in both packages).
+  the state stay out (SkewNormal declines in both packages), and `cos`
+  and `sin` are in, as in the JAX package's (VonMises and Cosine take
+  traced entries in both).
 - The policy for custom autograd rules (`no_custom_rules`): a trace
   through an autograd.Function keeps its forward and loses its backward,
   so a leaf whose density calls one (the port's kernel wrappers, the
@@ -216,6 +218,12 @@ OPS = {
     # set to 0 (aten's `logsumexp`), neither carrying a tangent
     "max_sg": Op(37, 2, False, _max_value, None, ("reduce_max", "stop_gradient")),
     "fin0": Op(38, 1, False, _fin0, None, ("is_finite", "select_n")),
+    # VonMises' kappa cos(x - loc) and Cosine's log1p(cos(pi z)); torch's
+    # forward-mode rules -sin(x) t and cos(x) t
+    "cos": Op(39, 1, True, lambda x, y, z: torch.cos(x),
+              lambda x, y, z, r, tx, ty, tz: -tx * torch.sin(x), ("cos",), 3),
+    "sin": Op(40, 1, True, lambda x, y, z: torch.sin(x),
+              lambda x, y, z, r, tx, ty, tz: tx * torch.cos(x), ("sin",), 2),
 }
 
 _SAFE_PRIMS = frozenset(OPS)
@@ -237,6 +245,7 @@ _OPS = {
     _aten.expm1.default: "expm1", _aten.sqrt.default: "sqrt", _aten.rsqrt.default: "rsqrt",
     _aten.sigmoid.default: "sigmoid", _aten.softplus.default: "softplus",
     _aten.tanh.default: "tanh", _aten.asinh.default: "asinh", _aten.abs.default: "abs",
+    _aten.cos.default: "cos", _aten.sin.default: "sin",
     _aten.sign.default: "sign", _aten.square.default: "mul",
     _aten.pow.Tensor_Tensor: "pow", _aten.pow.Tensor_Scalar: "pow", _aten.pow.Scalar: "pow",
     _aten.logaddexp.default: "logaddexp",
