@@ -24,8 +24,10 @@ those of the fourteenth (MAP + Laplace with the evidence estimators,
 Pathfinder and NUTS from its starts) on two, those of the fifteenth
 (the flat-vector API, forward mode, parameter tangents, the samplers and
 the property sweep) on one, those of the sixteenth (the remaining
-bijectors, CDF/Quantile with implicit derivatives) on one, and the
-seventeenth's remaining distribution families on one:
+bijectors, CDF/Quantile with implicit derivatives) on one, the
+seventeenth's remaining distribution families on one, and the
+eighteenth's engines (parallel tempering, the ensemble sampler, SBC, the
+predictive checks), flows and NeuTra on one:
 
 1. transposed serving at B = 131072: `Model.batched_logdensity_t_fn()`
    (the slab value kernel), its `value_and_grad_fn` (the one-pass
@@ -193,6 +195,27 @@ seventeenth's remaining distribution families on one:
    B = 131072 against scipy.stats in float64; (e) the slab+structured
    model of tools/tpu_sweep.py:79-90, fused against plain and composed;
    (f) #14 on the cos and sin opcodes.
+28. the engines that need no flows, the flows and NeuTra
+   (`run_engines_and_flows`; tools/torch_path28.py runs it alone, its
+   last, warm run under PATH28_LIMIT_S): (a) `run_parallel_tempering`
+   on the bench model's batch-major prior (#5, #7) and the likelihood
+   hier_loglik(constrain(v)) (#6, #7), 4 rungs x 64 chains, 8 leapfrogs,
+   with no synchronization of the card in the run, gated on the cold
+   chains' w against Dirichlet(1 + counts), the TI evidence and each
+   pair's swap rate; (b) `run_ensemble` with 64 walkers on a Dirichlet(4)
+   and Beta conjugate model (#7) against its exact posterior means; (c)
+   `sbc_ranks` (kernel='nuts_batched', 64 simulations as chains, #7 and
+   #9) on a Dirichlet(4) and Normal model, every coordinate's uniformity
+   p-value >= 1e-3; (d) `prior_predictive` of (c)'s model at B = 131072
+   against its exact moments, `posterior_predictive` from (a)'s draws
+   and `ppc_pvalue` against a recount on the host; (e) the planar,
+   radial, RQS, batch-norm layers and the MAF and NSF-AR stacks at dim
+   151 and B = 131072 against their float64 evaluation on the same
+   weights, the round trips, the RQS's identity tails, find_alpha's
+   gradient against the implicit rule; (f) `neutra_sample` on
+   `Model(bench, hier_loglik)` with a MAF transport from
+   `fit_neutra_flow`, 64 chains, gated on the ELBO's descent, w, R-hat
+   and divergences. Cells (a) and (f) run in a third process.
 
 The dense paths also check that TF32 is off and the float32 matmul
 precision 'highest'. After them, #2's small-batch design (the item kernel, which the
@@ -268,7 +291,7 @@ crossover that sets simplex.SMALL_B), a `transcend_probe` line
 line, an `end_to_end` line (the
 entry points with host dispatch), a `phases_s` line (each phase's wall
 time), a `sampler` line per cell, a `map_laplace` and a `pathfinder`
-line (paths 23-24), a `{"kernels": [...]}` line, and as
+line (paths 23-24), a `path28` line, a `{"kernels": [...]}` line, and as
 the last line `{"ok": true, "device": {...}}`. Exits non-zero, with no
 result, when CUDA is absent or any check fails.
 """
@@ -6270,14 +6293,576 @@ def run_remaining_families(dev, time_gate=True):
     return line, launches, err, prep
 
 
+# --- path 28: the engines that need no flows, the flows and NeuTra ------------
+
+PATH28_LIMIT_S = 60.0
+# (a) parallel tempering on the bench model's prior / likelihood split
+P28_PT = dict(n_temps=4, n_warmup=100, n_samples=100, n_leapfrog=8)
+# (b) the ensemble on a small conjugate model: w ~ Dirichlet(1, 1, 1, 1),
+# p ~ Beta(2, 3); multinomial counts of w and Bernoulli draws of p
+P28_ENS = dict(n_warmup=300, n_samples=700)
+P28_ENS_WALKERS = 64
+P28_ENS_COUNTS = (12.0, 7.0, 3.0, 18.0)
+P28_ENS_BETA = (2.0, 3.0)
+P28_ENS_HEADS = (13, 40)  # heads of trials
+# (c) SBC on w ~ Dirichlet(1, 1, 1, 1), mu ~ N(0, 1), 20 categorical draws
+# of w and 5 N(mu, 1) observations a simulation
+P28_SBC = dict(n_sims=CHAINS, n_warmup=100, n_samples=128, thin=2)
+P28_SBC_DRAWS, P28_SBC_OBS = 20, 5
+P28_SBC_MIN_P = 1e-3
+P28_PRIOR_N = BATCH  # (d)'s prior predictive draws
+# (e) the flows at dim 151; the stacks' widths
+P28_FLOW = dict(n_layers=2, hidden=64)
+P28_RQS_K = 8
+P28_NSF_RT_B = 4096
+# (f) NeuTra on the bench model with the likelihood
+P28_NEUTRA_FIT = dict(n_steps=300, n_mc=32, n_layers=2, hidden=64)
+# NUTS at cell 4's settings: at 150 kept draws (after 150 or 250 warmup)
+# the max R-hat over the 151 coordinates was 1.052-1.054 on the card
+# (tools/torch_path28.py; PERF.md section 6)
+P28_NEUTRA = dict(n_chains=CHAINS, n_warmup=WARMUP, n_samples=KEPT, max_depth=MAX_DEPTH,
+                  target_accept=TARGET_ACCEPT)
+# (e)'s float32 flows against their float64 evaluation on the same weights
+# and inputs: |y32 - y64| <= P28_ULPS * eps32 * (|y64| + scale) elementwise,
+# the log-dets with their largest |value| + 1 as scale, the round trip
+# x -> y -> x against x likewise (the planar map's scales from its
+# condition: `planar_scales`)
+P28_ULPS = 64.0
+P28_KERNELS_A = ("lkj_logdet", "lkj_inverse")
+P28_SIMPLEX = ("simplex_inverse_logdet", SIMPLEX_SMALL)
+
+
+def p28_ensemble_model(dists, tbt, device, dtype):
+    """(b): a Dirichlet(1, 1, 1, 1) leaf and a Beta(2, 3) leaf with a
+    multinomial and a Bernoulli likelihood; returns (model, exact posterior
+    means of the constrained w and p)."""
+    kw = dict(device=device, dtype=dtype)
+    c = torch.tensor(P28_ENS_COUNTS, **kw)
+    h, n = P28_ENS_HEADS
+
+    def loglik(x):
+        return (torch.sum(c * torch.log(x["w"])) + h * torch.log(x["p"])
+                + (n - h) * torch.log1p(-x["p"]))
+
+    priors = dists.NamedProduct.of(w=dists.Dirichlet(np.ones(4), **kw),
+                                   p=dists.Beta(*P28_ENS_BETA, **kw))
+    a = 1.0 + np.asarray(P28_ENS_COUNTS)
+    pa, pb = P28_ENS_BETA[0] + h, P28_ENS_BETA[1] + n - h
+    return tbt.Model(priors, loglik, device=device), {"w": a / a.sum(), "p": pa / (pa + pb)}
+
+
+def p28_sbc_model(dists, device, dtype):
+    """(c) and (d): prior, simulate (the whole batch of draws: counts of
+    P28_SBC_DRAWS categorical draws of w, P28_SBC_OBS N(mu, 1) draws) and
+    the likelihood of one simulation."""
+    kw = dict(device=device, dtype=dtype)
+    prior = dists.NamedProduct.of(w=dists.Dirichlet(np.ones(4), **kw),
+                                  mu=dists.Normal(0.0, 1.0, **kw))
+
+    def simulate(generator, x):
+        w, mu = x["w"], x["mu"]
+        idx = torch.multinomial(w, P28_SBC_DRAWS, replacement=True, generator=generator)
+        counts = torch.nn.functional.one_hot(idx, 4).sum(1).to(w.dtype)
+        z = mu[:, None] + torch.randn((mu.shape[0], P28_SBC_OBS), generator=generator,
+                                      dtype=mu.dtype, device=mu.device)
+        return {"counts": counts, "z": z}
+
+    def loglik(data, x):
+        return (torch.sum(data["counts"] * torch.log(x["w"]))
+                - 0.5 * torch.sum((data["z"] - x["mu"]) ** 2))
+
+    return prior, simulate, loglik
+
+
+def p28_launches(before):
+    from tpu_bijectors_torch import kernels
+
+    return {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES
+            if kernels.LAUNCHES[k] != before[k]}
+
+
+def count_syncs(fn):
+    """(fn(), the card's synchronizations while it ran, their sources):
+    torch's sync debug mode in 'warn', each warning's Python stack (its
+    last frames) recorded."""
+    import traceback
+    import warnings
+
+    if not torch.cuda.is_available():
+        return fn(), 0, []
+    stacks = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if not f.filename.endswith("warnings.py")][-6:]
+            stacks.append(" <- ".join(f"{f.filename.split('/')[-1]}:{f.lineno}"
+                                      for f in reversed(frames)))
+
+    torch.cuda.synchronize()
+    # switching the mode on warns once itself (torch.cuda's own call), so it
+    # comes before the recording starts
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, len(stacks), sorted(set(stacks))
+
+
+def w_dev_in_mcse(w, counts):
+    """max over the 16 coordinates of |mean - Dirichlet(1 + counts) mean| /
+    MCSE, from draws (n, chains, 16)."""
+    from tpu_bijectors_torch import diagnostics
+
+    post = (1.0 + counts) / (16.0 + counts.sum())
+    mcse = diagnostics.mcse_mean(w)
+    return float(np.max(np.abs(w.double().mean(dim=(0, 1)).cpu().numpy() - post) / mcse))
+
+
+def run_p28_tempering(dev, loglik, counts):
+    """(a): `run_parallel_tempering` on the bench model's batch-major prior
+    (`Model(bench).batched_logdensity_fn()`: #5, #7) and the likelihood
+    hier_loglik(constrain(v)) (#6, #7), 4 rungs x 64 chains; then (d)'s
+    posterior predictive from the cold draws. Returns (line, launches,
+    cold draws constrained)."""
+    import tpu_bijectors_torch as tbt
+    from tpu_bijectors_torch import dists, kernels
+    from tpu_bijectors_torch.infer import hmc_batched, run_parallel_tempering
+
+    model = tbt.Model(bench_model(dists, dev, torch.float32), device=dev)
+    prior = model.batched_logdensity_fn()
+
+    def lik(v):
+        return torch.func.vmap(loglik)(model.constrain(v))
+
+    lik.batch_capable = True
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q0 = model.init_positions(gen, CHAINS, scale=0.3)
+    # first uses (the densities' tables of constants, made once; torch's
+    # own handles) come before the counted run: a run of one sweep each way
+    run_parallel_tempering(prior, lik, gen, q0, **{**P28_PT, "n_warmup": 1, "n_samples": 1})
+    syncs_before = dict(hmc_batched.SYNCS)
+    before = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    res, n_sync, where = count_syncs(lambda: run_parallel_tempering(
+        prior, lik, gen, q0, **P28_PT))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = p28_launches(before)
+    sweeps = P28_PT["n_warmup"] + P28_PT["n_samples"]
+    samples = model.constrain(res.samples)
+    dev_w = w_dev_in_mcse(samples["w"], counts)
+    from tpu_bijectors_torch import diagnostics
+
+    line = {
+        "rungs": P28_PT["n_temps"], "chains": CHAINS, **P28_PT, "seconds": dt,
+        "ms_per_sweep": 1e3 * dt / sweeps,
+        "ms_per_lattice_leapfrog": 1e3 * dt / (sweeps * (P28_PT["n_leapfrog"] + 1)),
+        "card_syncs": n_sync, "sync_sources": where,
+        "engine_reads": {k: hmc_batched.SYNCS[k] - syncs_before[k] for k in syncs_before},
+        "swap_accept": res.swap_accept.tolist(), "accept": res.accept.tolist(),
+        "eps": res.eps.tolist(), "betas": res.betas.tolist(),
+        "log_evidence": float(res.log_evidence),
+        "max_w_dev_in_mcse": dev_w,
+        "max_rhat": float(np.max(diagnostics.rhat(res.samples))),
+        "launches": launches,
+    }
+    expect(f"path 28 (a): cold draws {tuple(res.samples.shape)} finite",
+           tuple(res.samples.shape) == (P28_PT["n_samples"], CHAINS, 151)
+           and bool(torch.isfinite(res.samples).all()))
+    expect(f"path 28 (a): w means within 5 MCSE of Dirichlet(1 + counts) (max {dev_w:.2f})",
+           dev_w <= 5.0)
+    expect(f"path 28 (a): TI log-evidence finite ({line['log_evidence']:.3f})",
+           math.isfinite(line["log_evidence"]))
+    expect(f"path 28 (a): each pair's swap acceptance in (0, 1] ({line['swap_accept']})",
+           all(0.0 < a <= 1.0 for a in line["swap_accept"]))
+    expect(f"path 28 (a): no host read in a sweep (card syncs {n_sync} at {where}, "
+           f"engine reads {line['engine_reads']})",
+           n_sync == 0 and not any(line["engine_reads"].values()))
+    if dev.type == "cuda":
+        expect(f"path 28 (a): #5, #6, #7 launched ({launches})",
+               all(launches.get(k, 0) > 0 for k in P28_KERNELS_A)
+               and sum(launches.get(k, 0) for k in P28_SIMPLEX) > 0)
+    return line, launches, samples
+
+
+def run_p28_ensemble(dev):
+    """(b): `run_ensemble` with 64 walkers on the conjugate model, its
+    batch-major density (#7 on the half-ensembles)."""
+    import tpu_bijectors_torch as tbt
+    from tpu_bijectors_torch import diagnostics, dists, kernels
+    from tpu_bijectors_torch.infer import run_ensemble
+
+    model, exact = p28_ensemble_model(dists, tbt, dev, torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q0 = model.init_positions(gen, P28_ENS_WALKERS, scale=0.3)
+    before = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    res = run_ensemble(model.batched_logdensity_fn(), gen, q0, **P28_ENS)
+    x = model.constrain(res.samples)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = p28_launches(before)
+    devs = {}
+    for k in ("w", "p"):
+        mcse = np.atleast_1d(diagnostics.mcse_mean(x[k]))
+        mean = x[k].double().mean(dim=(0, 1)).cpu().numpy()
+        devs[k] = float(np.max(np.abs(mean - exact[k]) / mcse))
+    line = {"walkers": P28_ENS_WALKERS, **P28_ENS, "seconds": dt,
+            "ms_per_sweep": 1e3 * dt / (P28_ENS["n_warmup"] + P28_ENS["n_samples"]),
+            "accept_rate": float(res.accept_rate), "max_dev_in_mcse": devs,
+            "launches": launches}
+    expect(f"path 28 (b): means within 5 MCSE of the exact posterior ({devs})",
+           max(devs.values()) <= 5.0)
+    if dev.type == "cuda":
+        expect(f"path 28 (b): #7 launched ({launches})",
+               sum(launches.get(k, 0) for k in P28_SIMPLEX) > 0)
+    return line, launches
+
+
+def run_p28_sbc(dev):
+    """(c): `sbc_ranks` with kernel='nuts_batched', the simulations as 64
+    chains (`to_linked_vec` of the prior draws: #9; the density: #7)."""
+    from tpu_bijectors_torch import dists, kernels
+    from tpu_bijectors_torch.infer import sbc_ranks, sbc_uniformity
+
+    prior, simulate, loglik = p28_sbc_model(dists, dev, torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    before = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    res = sbc_ranks(prior, simulate, loglik, gen, max_depth=MAX_DEPTH, **P28_SBC)
+    p = sbc_uniformity(res.ranks, res.n_draws)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = p28_launches(before)
+    L = res.n_draws
+    line = {**P28_SBC, "seconds": dt, "n_draws": L, "p_values": p.tolist(),
+            "ranks_min": int(res.ranks.min()), "ranks_max": int(res.ranks.max()),
+            "launches": launches}
+    expect(f"path 28 (c): ranks {tuple(res.ranks.shape)} in 0 .. {L}",
+           tuple(res.ranks.shape) == (P28_SBC["n_sims"], 4)
+           and 0 <= line["ranks_min"] and line["ranks_max"] <= L)
+    expect(f"path 28 (c): every coordinate's uniformity p-value >= {P28_SBC_MIN_P:g} "
+           f"({line['p_values']})", min(line["p_values"]) >= P28_SBC_MIN_P)
+    if dev.type == "cuda":
+        expect(f"path 28 (c): #7 and #9 launched ({launches})",
+               sum(launches.get(k, 0) for k in P28_SIMPLEX) > 0
+               and launches.get("simplex_forward_logdet", 0) > 0)
+    return line, launches
+
+
+def run_p28_prior_predictive(dev):
+    """(d), first half: `prior_predictive` of (c)'s model at n = 131072, its
+    moments against the exact ones: E counts_k = 5, Var counts_k = 18
+    (w_k ~ Beta(1, 3)), E z = 0, Var z = 2."""
+    from tpu_bijectors_torch import dists
+    from tpu_bijectors_torch.infer import prior_predictive
+
+    prior, simulate, _ = p28_sbc_model(dists, dev, torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    theta, y = prior_predictive(prior, simulate, gen, P28_PRIOR_N)
+    n = P28_PRIOR_N
+    worst = {}
+    for key, mean, var in (("counts", P28_SBC_DRAWS / 4.0, 18.0), ("z", 0.0, 2.0)):
+        d = y[key].double()
+        c = d - d.mean(0)
+        m2 = (c * c).mean(0)
+        se_var = torch.sqrt(((c ** 4).mean(0) - m2 ** 2) / n)
+        worst[key] = max(float(((d.mean(0) - mean).abs() / math.sqrt(var / n)).max()),
+                         float(((m2 - var).abs() / se_var).max()))
+    dt = time.perf_counter() - t0
+    expect(f"path 28 (d): prior predictive draws ({tuple(y['counts'].shape)}, "
+           f"{tuple(y['z'].shape)})", tuple(y["counts"].shape) == (n, 4)
+           and tuple(y["z"].shape) == (n, P28_SBC_OBS) and theta["w"].shape == (n, 4))
+    expect(f"path 28 (d): prior predictive means and variances within 5 standard errors "
+           f"({worst})", max(worst.values()) <= 5.0)
+    return {"n": n, "seconds": dt, "worst_in_se": worst}
+
+
+def run_p28_posterior_predictive(dev, samples, counts):
+    """(d), second half: `posterior_predictive` from (a)'s cold draws
+    (leaves (n_kept, 64, ...): has_chains inferred), the 200 counts drawn
+    from w; `ppc_pvalue` of the largest count against a recount on the
+    host."""
+    from tpu_bijectors_torch.infer import posterior_predictive, ppc_pvalue
+
+    def simulate(generator, x):
+        idx = torch.multinomial(x["w"], int(counts.sum()), replacement=True,
+                                generator=generator)
+        return torch.nn.functional.one_hot(idx, 16).sum(1).to(x["w"].dtype)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    y_rep = posterior_predictive(simulate, samples, gen)
+    n_total = samples["w"].shape[0] * samples["w"].shape[1]
+    obs = torch.as_tensor(counts, dtype=torch.float32, device=dev)
+    p = float(ppc_pvalue(torch.amax, obs, y_rep))
+    # the host's count of replicated maxima at or above the observed one
+    recount = int(np.sum(y_rep.amax(1).cpu().numpy() >= counts.max()))
+    expect(f"path 28 (d): posterior predictive {tuple(y_rep.shape)} (has_chains inferred)",
+           tuple(y_rep.shape) == (n_total, 16))
+    expect(f"path 28 (d): ppc_pvalue {p} is the host's recount {recount} of {n_total}",
+           round(p * n_total) == recount and abs(p - recount / n_total) <= EPS32)
+    return {"n_total": n_total, "ppc_max_count": p, "recount": recount}
+
+
+def flow_err(got, ref, scale, ulps):
+    """max |got - ref| / (ulps eps32 (|ref| + scale)) (<= 1 passes)."""
+    got, ref = got.double(), ref.double()
+    return float(((got - ref).abs() / (ulps * EPS32 * (ref.abs() + scale))).max())
+
+
+def planar_scales(b64, x64):
+    """The planar map's per-state error scales in float32, from its float64
+    quantities: w'z carries eps32 |w| |z| of error, which moves y by
+    |u_hat| sech^2 of it and the log-det by |c| sech^2 / (1 + c sech^2)
+    times its 2|tanh|, c = w'u_hat; the inverse's root alpha takes it times
+    x = 1 / (1 + c sech^2) (the map's condition, large where c is near -1).
+    Returns (forward scale, round-trip scale), each (B,)."""
+    u_hat, c = b64._u_hat()
+    t = torch.tanh(x64 @ b64.w + b64.b.reshape(()))
+    sech2 = 1.0 - t * t
+    cond = 1.0 / (1.0 + c * sech2)
+    s = torch.linalg.vector_norm(b64.w) * torch.linalg.vector_norm(x64, dim=-1)
+    s_fwd = s * (torch.linalg.vector_norm(u_hat) + c.abs()) * sech2 * cond + 1.0
+    return s_fwd, s_fwd * cond
+
+
+def run_p28_flows(dev, batch=None):
+    """(e): every flow layer and the MAF and NSF-AR stacks at dim 151 and
+    B = 131072 in float32, against their float64 evaluation on the same
+    weights and inputs (forward and log-det), the round trip, the RQS's
+    identity tails at +-(B + 1) and +-1e10 with no NaN, and find_alpha's
+    gradient against the implicit rule in float64."""
+    from tpu_bijectors_torch import flows
+    from tpu_bijectors_torch.bijectors import Invert
+
+    dim, batch = 151, batch or BATCH
+    g64 = torch.Generator(device=dev).manual_seed(SEED)
+    f64 = dict(dtype=torch.float64, device=dev)
+    rng = np.random.default_rng(28)
+    x64 = torch.as_tensor(rng.standard_normal((batch, dim)), **f64)
+    x32 = x64.float()
+    made = {
+        # w and u at 1/sqrt(dim): w'u is O(1). With N(0, 1) entries w'u is
+        # N(0, 151), and where it is below about -17 w'u_hat = log1pexp(w'u)
+        # - 1 rounds to -1 in float32, so the layer's float32 log-det is
+        # -inf on the hyperplane w'z + b = 0 (in either package)
+        "planar": flows.PlanarLayer(*(t / math.sqrt(dim) for t in (
+            torch.randn(dim, generator=g64, **f64), torch.randn(dim, generator=g64, **f64))),
+            torch.randn((), generator=g64, **f64)),
+        "radial": flows.RadialLayer.init(g64, dim, **f64),
+        "rqs": flows.RationalQuadraticSpline.init(g64, P28_RQS_K, 3.0, event_dim=dim, **f64),
+        "batchnorm": flows.InvertibleBatchNorm(
+            0.1 * torch.randn(dim, generator=g64, **f64),
+            0.1 * torch.randn(dim, generator=g64, **f64),
+            0.1 * torch.randn(dim, generator=g64, **f64),
+            torch.rand(dim, generator=g64, **f64) + 0.5),
+        "maf_stack": flows.maf_stack(g64, dim, **P28_FLOW, **f64),
+        "nsf_stack": flows.nsf_ar_stack(g64, dim, **P28_FLOW, **f64),
+    }
+    rows, worst = {}, 0.0
+    for name, b64 in made.items():
+        b32 = flows.with_flow_parameters(b64, [p.float() for p in flows.flow_parameters(b64)])
+        # the NSF stack's inverse (151 fixed-point passes of (B, 151, K)
+        # spline tables a layer) on the first P28_NSF_RT_B states
+        n_rt = P28_NSF_RT_B if name == "nsf_stack" else batch
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            y, ld = b32.forward_and_log_det(x32)
+            y_ref, ld_ref = b64.forward_and_log_det(x64)
+            x_back = b32.inverse(y[:n_rt])
+            if name == "rqs":  # elementwise: the log-dets summed per state
+                ld, ld_ref = ld.sum(-1), ld_ref.sum(-1)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        s_fwd, s_rt = 1.0, 1.0
+        if name == "planar":
+            s_fwd, s_rt = planar_scales(b64, x64)
+        ld_scale = s_fwd if name == "planar" else float(ld_ref.abs().max()) + 1.0
+        r = {"y": flow_err(y, y_ref, s_fwd[:, None] if name == "planar" else 1.0, P28_ULPS),
+             "logdet": flow_err(ld, ld_ref, ld_scale, P28_ULPS),
+             "round_trip": flow_err(x_back, x64[:n_rt],
+                                    s_rt[:n_rt, None] if name == "planar" else 1.0,
+                                    P28_ULPS),
+             "seconds": dt}
+        rows[name] = r
+        worst = max(worst, r["y"], r["logdet"], r["round_trip"])
+        expect(f"path 28 (e) {name}: finite, y {r['y']:.3f}, log-det {r['logdet']:.3f}, "
+               f"round trip {r['round_trip']:.3f} of their bounds",
+               all(bool(torch.isfinite(t).all()) for t in (y, ld, x_back))
+               and max(r["y"], r["logdet"], r["round_trip"]) <= 1.0)
+        del y, ld, y_ref, ld_ref, x_back
+    # Invert of the MAF stack: the data-fitting direction, at a slice
+    inv = Invert(flows.with_flow_parameters(
+        made["maf_stack"], [p.float() for p in flows.flow_parameters(made["maf_stack"])]))
+    with torch.no_grad():
+        u, ld_u = inv.forward_and_log_det(x32[:4096])
+        u64, ld_u64 = Invert(made["maf_stack"]).forward_and_log_det(x64[:4096])
+    rows["invert_maf_stack"] = {"u": flow_err(u, u64, 1.0, P28_ULPS),
+                                "logdet": flow_err(ld_u, ld_u64, float(ld_u64.abs().max()) + 1.0,
+                                                   P28_ULPS)}
+    expect(f"path 28 (e): Invert(maf_stack) against float64 ({rows['invert_maf_stack']})",
+           max(rows["invert_maf_stack"].values()) <= 1.0)
+    # the RQS's identity tails and the NSF stack's outside the box
+    tails = torch.tensor([-1e10, -5.0, -4.0 - 1e-3, 4.0 + 1e-3, 5.0, 1e10], device=dev)
+    xt = tails.repeat(dim, 1).T.contiguous()
+    rqs32, nsf32 = (flows.with_flow_parameters(made[k], [p.float() for p in
+                                                        flows.flow_parameters(made[k])])
+                    for k in ("rqs", "nsf_stack"))
+    with torch.no_grad():
+        yr, ldr = rqs32.forward_and_log_det(xt)
+        xr = rqs32.inverse(yr)
+        yn, ldn = nsf32.forward_and_log_det(xt)
+    no_nan = all(not bool(torch.isnan(t).any()) for t in (yr, ldr, xr, yn, ldn))
+    expect("path 28 (e): RQS identity tails: y = x, log-det 0, inverse x, no NaN (also the "
+           "NSF stack's)", no_nan and bool(torch.equal(yr, xt)) and bool(torch.equal(xr, xt))
+           and bool((ldr == 0).all()))
+    # find_alpha's gradient (float32, autograd through the Function) against
+    # the implicit rule at the float64 root
+    W, U, Bb = (torch.as_tensor(a.ravel(), device=dev) for a in np.meshgrid(
+        np.linspace(-10.0, 20.0, 31), [-0.99, -0.5, 0.0, 0.5, 2.0, 10.0], [-3.0, 0.0, 1.0, 5.0],
+        indexing="ij"))
+    args = [a.float().requires_grad_(True) for a in (W, U, Bb)]
+    grads = torch.autograd.grad(flows.find_alpha(*args).sum(), args)
+    alpha64 = flows.find_alpha(W.double(), U.double(), Bb.double())
+    t = torch.tanh(alpha64 + Bb.double())
+    xx = 1.0 / (1.0 + U.double() * (1.0 - t * t))
+    rule = (xx, -t * xx, xx - 1.0)
+    # the float32 root sits within eps32 (|alpha| + |wt_y| + 2|u| + 1) of the
+    # float64 one (the last bracket's width); the partials move by their
+    # alpha-derivative (at most x + 2|u| x^2) times that
+    scale = ((xx + 2.0 * U.abs() * xx * xx)
+             * (alpha64.abs() + W.abs() + 2.0 * U.abs() + 1.0))
+    ga = max(flow_err(g, r, scale, P28_ULPS) for g, r in zip(grads, rule))
+    rows["find_alpha_grad"] = ga
+    expect(f"path 28 (e): find_alpha's gradient vs the implicit rule ({ga:.3f} of its bound)",
+           ga <= 1.0)
+    return {"dim": dim, "batch": batch, **P28_FLOW, "rows": rows, "worst_to_bound": worst}
+
+
+def run_p28_neutra(dev, loglik, counts, fit_kw=None):
+    """(f): `neutra_sample(Model(bench, hier_loglik), kernel='nuts_batched')`
+    with a MAF transport fitted by `fit_neutra_flow` (timed apart) at
+    `fit_kw` (default P28_NEUTRA_FIT), 64 chains: every leapfrog the
+    flow's masked products over the chains, then the batch-major density
+    with the likelihood (#6, #7; the prior's LKJ term from #6's factor, so
+    no #5). Returns (line, launches)."""
+    import tpu_bijectors_torch as tbt
+    from tpu_bijectors_torch import diagnostics, dists, kernels
+    from tpu_bijectors_torch.infer import fit_neutra_flow, neutra_sample
+
+    model = tbt.Model(bench_model(dists, dev, torch.float32), loglik=loglik, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    fit_kw = fit_kw or P28_NEUTRA_FIT
+    before = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    fit = fit_neutra_flow(model.batched_logdensity_fn(), gen, model.dim(), dtype=torch.float32,
+                          device=dev, **fit_kw)
+    sync()
+    t1 = time.perf_counter()
+    mid = dict(kernels.LAUNCHES)
+    v, res, stats = neutra_sample(model, gen, constrained=False, flow=fit.flow, **P28_NEUTRA)
+    sync()
+    t2 = time.perf_counter()
+    launches = p28_launches(before)
+    leapfrogs = kernels.LAUNCHES["lkj_inverse"] - mid["lkj_inverse"]  # one a batched leapfrog
+    w = model.constrain(v)["w"]
+    losses = fit.losses.double().cpu().numpy()
+    dev_w = w_dev_in_mcse(w, counts)
+    n_div = int(stats.diverging.sum())
+    n_trans = P28_NEUTRA["n_chains"] * P28_NEUTRA["n_samples"]
+    line = {**P28_NEUTRA, "fit": fit_kw, "seconds": t2 - t0, "fit_s": t1 - t0,
+            "ms_per_fit_step": 1e3 * (t1 - t0) / fit_kw["n_steps"], "sample_s": t2 - t1,
+            "batched_leapfrogs": leapfrogs, "ms_per_leapfrog": 1e3 * (t2 - t1) / max(leapfrogs, 1),
+            "loss_first_50": float(losses[:50].mean()), "loss_last_50": float(losses[-50:].mean()),
+            "leapfrogs_per_transition": float(stats.n_steps.float().mean()),
+            "divergences": n_div, "max_rhat": float(np.max(diagnostics.rhat(v))),
+            "max_w_dev_in_mcse": dev_w, "launches": launches}
+    expect(f"path 28 (f): the ELBO's last 50 losses below its first 50 "
+           f"({line['loss_last_50']:.3f} < {line['loss_first_50']:.3f})",
+           line["loss_last_50"] < line["loss_first_50"])
+    expect(f"path 28 (f): draws {tuple(v.shape)} finite",
+           tuple(v.shape) == (P28_NEUTRA["n_samples"], CHAINS, 151)
+           and bool(torch.isfinite(v).all()))
+    expect(f"path 28 (f): w means within 5 MCSE of Dirichlet(1 + counts) (max {dev_w:.2f})",
+           dev_w <= 5.0)
+    expect(f"path 28 (f): max R-hat {line['max_rhat']:.4f} <= 1.05", line["max_rhat"] <= 1.05)
+    expect(f"path 28 (f): divergences {n_div} <= 1% of {n_trans}", n_div <= 0.01 * n_trans)
+    if dev.type == "cuda":
+        expect(f"path 28 (f): #6, #7 launched ({launches})",
+               launches.get("lkj_inverse", 0) > 0
+               and sum(launches.get(k, 0) for k in P28_SIMPLEX) > 0)
+    return line, launches
+
+
+def run_engines_and_flows(dev, cells="abcdef", time_gate=True):
+    """Path 28 (float32): (a) parallel tempering, (b) the ensemble sampler,
+    (c) SBC, (d) the predictive checks (the posterior half from (a)'s
+    draws, with (a)), (e) the flows, (f) NeuTra, the cells named in
+    `cells`. The launch counters are read around each cell. Returns (the
+    `path28` line, the launches)."""
+    loglik, counts = hier_loglik_and_counts(dev)
+    line, launches, part_s = {}, {}, {}
+    t0 = time.perf_counter()
+
+    def add(ls):
+        for k, n in ls.items():
+            launches[k] = launches.get(k, 0) + n
+
+    for c in cells:
+        t = time.perf_counter()
+        if c == "a":
+            line["a"], ls, samples = run_p28_tempering(dev, loglik, counts)
+            line["d_posterior"] = run_p28_posterior_predictive(dev, samples, counts)
+            add(ls)
+        elif c == "b":
+            line["b"], ls = run_p28_ensemble(dev)
+            add(ls)
+        elif c == "c":
+            line["c"], ls = run_p28_sbc(dev)
+            add(ls)
+        elif c == "d":
+            line["d_prior"] = run_p28_prior_predictive(dev)
+        elif c == "e":
+            line["e"] = run_p28_flows(dev)
+        elif c == "f":
+            line["f"], ls = run_p28_neutra(dev, loglik, counts)
+            add(ls)
+        part_s[c] = time.perf_counter() - t
+    dt = time.perf_counter() - t0
+    line.update({"cells": cells, "seconds": dt, "part_s": part_s, "launches": launches})
+    print(f"path 28 ({cells}): {dt:.1f} s (parts {part_s}), launches {launches}", flush=True)
+    if time_gate:
+        expect(f"path 28 within {PATH28_LIMIT_S:g} s", dt < PATH28_LIMIT_S)
+    return line, launches
+
+
 # The two longest host-bound samplers, cells 7 (pd_conjugate) and 10
 # (mv_conjugate), run in a second process beside the other paths: the card
 # is idle through most of their host loops, and the script's phases came
 # within 17 s of its 1200 s limit on a slow machine with every path in one
-# process (PERF.md section 5). Their draws do not change: each seeds its
-# own generator and resets its own launch counts. The kernel timing waits
-# for the second process to end.
+# process (PERF.md section 5). Path 28's sampler cells, (a) tempering (with
+# (d)'s posterior half) and (f) NeuTra, run in a third: after cells 7 and
+# 10 they would make the second process the longest (PERF.md section 6).
+# Their draws do not change: each seeds its own generator and
+# reads its own launch counts. The kernel timing waits for both.
 SAMPLERS_CHILD_FLAG = "--samplers-child"
+PATH28_CHILD_FLAG = "--path28-child"
+P28_CHILD_CELLS = "af"
 
 
 def samplers_child():
@@ -6292,25 +6877,43 @@ def samplers_child():
     pd_line, pd_launches = run_pd_sampler(dev)
     t_pd = time.perf_counter() - t
     mv_line, _ = run_mv_sampler(dev)
-    print(json.dumps({"samplers_child": {
+    print(json.dumps({"child": {
         "pd": pd_line, "pd_launches": pd_launches, "mv": mv_line, "failures": failures,
         "seconds": {"pd_conjugate": t_pd, "mv_conjugate": time.perf_counter() - t - t_pd}}}),
         flush=True)
     return 0
 
 
-def start_samplers_child():
-    """Start `samplers_child` in a new process, its output to a temporary
+def path28_child():
+    """The third process: path 28's cells P28_CHILD_CELLS on the kernels
+    the first built; their check lines, then one JSON line with the path's
+    line, its launches and its failures."""
+    from tpu_bijectors_torch.kernels import build
+
+    build.load()
+    line, launches = run_engines_and_flows(torch.device("cuda"), P28_CHILD_CELLS,
+                                           time_gate=False)
+    print(json.dumps({"child": {"p28": line, "p28_launches": launches, "failures": failures}}),
+          flush=True)
+    return 0
+
+
+CHILDREN = {SAMPLERS_CHILD_FLAG: samplers_child, PATH28_CHILD_FLAG: path28_child}
+
+
+def start_child(flag):
+    """Start the child process `flag` names, its output to a temporary
     file."""
     out = tempfile.TemporaryFile(mode="w+")
-    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), SAMPLERS_CHILD_FLAG],
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), flag],
                             stdout=out, stderr=subprocess.STDOUT, text=True)
     return proc, out
 
 
-def join_samplers_child(child):
-    """Wait for the second process, print its output and take over its
-    failures; returns its result. Raises when it did not end with one."""
+def join_child(child, what):
+    """Wait for a child process, print its output and take over its
+    failures (tagged `what`); returns its result. Raises when it did not
+    end with one."""
     proc, out = child
     rc = proc.wait()
     out.seek(0)
@@ -6318,10 +6921,10 @@ def join_samplers_child(child):
     out.close()
     print(text, end="", flush=True)
     last = text.strip().splitlines()[-1] if text.strip() else ""
-    if rc != 0 or not last.startswith('{"samplers_child"'):
-        raise RuntimeError(f"the samplers' process (cells 7 and 10) exited {rc} with no result")
-    res = json.loads(last)["samplers_child"]
-    failures.extend(f"cells 7/10: {f}" for f in res["failures"])
+    if rc != 0 or not last.startswith('{"child"'):
+        raise RuntimeError(f"the process of {what} exited {rc} with no result")
+    res = json.loads(last)["child"]
+    failures.extend(f"{what}: {f}" for f in res["failures"])
     return res
 
 
@@ -6329,8 +6932,8 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    if sys.argv[1:] == [SAMPLERS_CHILD_FLAG]:
-        return samplers_child()
+    if len(sys.argv) == 2 and sys.argv[1] in CHILDREN:
+        return CHILDREN[sys.argv[1]]()
     import tpu_bijectors_torch as tbt
     from tpu_bijectors_torch import dists, kernels
     from tpu_bijectors_torch.kernels import build
@@ -6362,7 +6965,8 @@ def main():
     # registers, shared memory and spills of each kernel (-Xptxas=-v); a
     # library already built under build/ is loaded as it is, with no report
     print(json.dumps({"ptxas": ptxas or "not compiled in this run: no report"}), flush=True)
-    child = start_samplers_child()
+    child = start_child(SAMPLERS_CHILD_FLAG)
+    child28 = start_child(PATH28_CHILD_FLAG)
 
     model = tbt.Model(bench_model(dists, dev, torch.float32), device=dev)
     u = model.unconstrainer()
@@ -6592,6 +7196,10 @@ def main():
     for k, e in p27_err.items():
         err[k] = max(err.get(k, 0.0), e)
     lap("remaining families")
+    # --- the twenty-eighth: the engines that need no flows, the flows and ---
+    # NeuTra; (a) and (f) run in the third process (P28_CHILD_CELLS)
+    p28_line, p28_launches = run_engines_and_flows(dev, "bcde", time_gate=False)
+    lap("engines and flows")
     print(f"nuts from pathfinder's starts: warmup {pf_sampler_line['warmup_s']:.1f} s (the fit "
           f"included), step {pf_sampler_line['step_size']:.4f}, "
           f"{pf_sampler_line['leapfrogs_per_transition']:.2f} leapfrogs a transition; path 2: "
@@ -6601,7 +7209,7 @@ def main():
               "pd_logdensity", "pd_trace_grad"):
         new_launches[k] = new_launches.get(k, 0) + sum(d.get(k, 0) for d in (ls, ls2, ls3))
     for k, n in (list(p25_launches.items()) + list(p26_launches.items())
-                 + list(p27_launches.items())):
+                 + list(p27_launches.items()) + list(p28_launches.items())):
         new_launches[k] = new_launches.get(k, 0) + n
     prep_s = time_prep(dev)
     lap("_prep first calls")
@@ -6614,12 +7222,20 @@ def main():
     err["slab_value"] = max(err["slab_value"], check_run_walk(dev))
     lap("run-walk checks")
 
-    # --- cells 7 and 10, from the second process ------------------------------
-    res = join_samplers_child(child)
+    # --- cells 7 and 10 and path 28 (a), (f), from the other processes -------
+    res = join_child(child, "cells 7/10")
     pd_sampler_line, mv_sampler_line = res["pd"], res["mv"]
     launches["pd_inverse"] += res["pd_launches"]["pd_inverse"]
     lap("waiting for cells 7 and 10")
     print(json.dumps({"second_process_s": res["seconds"]}), flush=True)
+    res28 = join_child(child28, f"path 28 ({P28_CHILD_CELLS})")
+    for k, n in res28["p28_launches"].items():
+        launches[k] += n
+    lap("waiting for path 28 (a), (f)")
+    neutra = res28["p28"]["f"]
+    print(f"path 28 (f) NeuTra: {neutra['leapfrogs_per_transition']:.2f} leapfrogs a "
+          f"transition a chain; cell 4 (nuts_batched, the same model unwarped): "
+          f"{bm_sampler_line['leapfrogs_per_transition']:.2f}", flush=True)
 
     # --- timing ----------------------------------------------------------------
     # the variants the paths also run: the LKJ inverse writing W for the
@@ -6753,6 +7369,7 @@ def main():
     print(json.dumps({"path25": p25_line, "path25_err": p25_err}), flush=True)
     print(json.dumps({"path26": p26_line, "path26_err": p26_err}), flush=True)
     print(json.dumps({"path27": p27_line, "path27_err": p27_err}), flush=True)
+    print(json.dumps({"path28": p28_line, "path28_third_process": res28["p28"]}), flush=True)
 
     if failures:
         print("FAILED: " + "; ".join(failures), file=sys.stderr)

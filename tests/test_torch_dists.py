@@ -154,12 +154,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 def test_model_parts_not_ported_raise():
     d = td.Normal(0.0, 1.0, **CPU64)
     g = torch.Generator().manual_seed(0)
-    # ADVI's flow posterior needs the flows (the laplace/pathfinder inits,
-    # once the example here, are ported)
-    from tpu_bijectors_torch.infer import FlowPosterior
+    # tempering's chain-sharded run needs the shard layer (ADVI's flow
+    # posterior and the laplace/pathfinder inits, once the examples here,
+    # are ported)
+    from tpu_bijectors_torch.infer import run_parallel_tempering
 
     with pytest.raises(NotImplementedError):
-        FlowPosterior(None)
+        run_parallel_tempering(lambda v: -v.sum(-1), lambda v: -v.sum(-1), g,
+                               torch.zeros((4, 1), **CPU64), axis_name="chains")
     assert tbt.Model(d, device="cpu").sample(g, n_chains=2, n_warmup=0, n_samples=1,
                                              init="laplace")[0].shape == (1, 2)
     # a family the port does not have (VonMises, once the example here, is

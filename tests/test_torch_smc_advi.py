@@ -253,8 +253,12 @@ def test_fit_advi_raises_as_jax():
             jfit_advi(jlogp, jax.random.PRNGKey(0), DIM, **kw)
     with pytest.raises(ValueError, match="batch-capable"):
         fit_advi(per_sample, torch.Generator(), DIM, transposed=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        FlowPosterior(None)
+    # a flow posterior: the Gaussian-only estimator and layout raise in both
+    flow = tbt.flows.maf_stack(torch.Generator().manual_seed(0), DIM, n_layers=1, hidden=4,
+                               device="cpu", dtype=F64)
+    for kw in (dict(estimator="stl"), dict(transposed=True)):
+        with pytest.raises(ValueError, match="Gaussian families only"):
+            fit_advi(logp, torch.Generator(), DIM, q=FlowPosterior(flow), **kw)
 
 
 # ---------------------------------------------------------------------------

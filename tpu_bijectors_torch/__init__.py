@@ -8,7 +8,7 @@ log-density runs as hand-written CUDA kernels (`kernels/csrc/`); on the
 CPU as their plain PyTorch versions.
 """
 
-from . import dists, kernels
+from . import dists, flows, kernels
 from .bijectors import *  # noqa: F403
 from .bijectors import __all__ as _bijectors_all
 from .compat import (
@@ -22,6 +22,7 @@ from .compat import (
     with_logabsdet_jacobian,
 )
 from .convert import bijector_from_spec, dist_from_spec
+from .flows import InvertibleBatchNorm, PlanarLayer, RadialLayer, RationalQuadraticSpline
 from .infer.model import Model
 from .registry import bijector, invlink, link, logpdf_with_trans, register_bijector
 from .transformed import OrderedDistribution, TransformedDistribution, ordered, transformed
@@ -41,6 +42,11 @@ __all__ = _bijectors_all + [
     "bijector_from_spec",
     "dist_from_spec",
     "dists",
+    "flows",
+    "InvertibleBatchNorm",
+    "PlanarLayer",
+    "RadialLayer",
+    "RationalQuadraticSpline",
     "invlink",
     "kernels",
     "link",

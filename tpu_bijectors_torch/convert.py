@@ -54,6 +54,18 @@ A bijector's spec has the same form, from the fields of a JAX bijector:
   {"type": "NamedTransform", "children": {"a": spec, ...}}
   {"type": "Block", "inner": spec, "ndims": 1}
   {"type": "Invert", "inner": spec}
+
+and the flow layers alike (`flows`), their array fields, the MADE masks
+among them, under "params":
+
+  {"type": "PlanarLayer", "params": {"w": ..., "u": ..., "b": ...}}
+  {"type": "MaskedAutoregressive", "params": {"w1": ..., ..., "mask1": ...,
+      "mask2": ...}, "scale_cap": 3.0}
+  {"type": "MaskedAutoregressiveSpline", "params": {...}, "n_bins": 8, "B": 4.0}
+
+(RadialLayer, RationalQuadraticSpline with its static "B",
+InvertibleBatchNorm with "eps" and "mtm"); a stack is a "Chain" of them
+and Permutes.
 """
 
 from __future__ import annotations
@@ -61,7 +73,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import bijectors, dists
+from . import bijectors, dists, flows
 from .transformed import transformed
 
 _SCALAR = (
@@ -177,4 +189,5 @@ def bijector_from_spec(spec: dict, *, device, dtype):
     params = {k: torch.as_tensor(v, dtype=dtype, device=device) if isinstance(v, np.ndarray)
               else v for k, v in spec.get("params", {}).items()}
     static = {k: v for k, v in spec.items() if k not in ("type", "params")}
-    return getattr(bijectors, kind)(**static, **params)
+    cls = getattr(bijectors, kind, None) or getattr(flows, kind)
+    return cls(**static, **params)

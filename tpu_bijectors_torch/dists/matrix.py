@@ -46,7 +46,8 @@ def _lkj_log_normalizer(K: int, eta):
     c_K(eta) = prod_{k=1}^{K-1} 2^{(2 eta - 2 + K - k)(K - k)}
                * B(eta + (K-k-1)/2, eta + (K-k-1)/2)^{K-k}
     (Lewandowski-Kurowicka-Joe 2009)."""
-    km = torch.as_tensor(K - np.arange(1, K), dtype=eta.dtype, device=eta.device)
+    # made on eta's device: a copy from the host would wait for the card
+    km = K - torch.arange(1, K, dtype=eta.dtype, device=eta.device)
     a = eta + (km - 1.0) / 2.0
     lbeta = 2.0 * torch.lgamma(a) - torch.lgamma(2.0 * a)
     return torch.sum((2.0 * eta - 2.0 + km) * km * LOG2 + km * lbeta)

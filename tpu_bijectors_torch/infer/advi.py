@@ -1,6 +1,6 @@
 """ADVI, PyTorch counterpart of `tpu_bijectors/infer/advi.py`: automatic
 differentiation variational inference in unconstrained space with a
-mean-field or full-rank Gaussian posterior.
+mean-field or full-rank Gaussian or a normalizing-flow posterior.
 
 The variational family lives on the flat unconstrained vector of the
 vectorize layer; the ELBO
@@ -11,10 +11,12 @@ is estimated with reparameterized Monte-Carlo draws, one (n_mc, dim) block
 a step, or (dim, n_mc) in the transposed layout, where a
 `Model.batched_logdensity_t_fn` density runs the whole-model value kernel
 and its vector-Jacobian kernel as the backward. The families are
-`NamedTuple`s of tensors; the optimiser is a `torch.optim` optimiser over
-their fields (by default Adam with optax's defaults, the JAX package's
-`optax.adam`). The flow posterior is not ported yet (ROADMAP.md Queue 1,
-item 8).
+`NamedTuple`s of tensors, and `FlowPosterior` pushes standard normals
+through a trainable flow (the `flows` package); the optimiser is a
+`torch.optim` optimiser over the family's tensors (a Gaussian's fields, a
+flow's `flow_parameters`), by default Adam with optax's defaults, the JAX
+package's `optax.adam`. Both go through the same loop, which rebuilds the
+family around the optimiser's tensors each step.
 """
 
 from __future__ import annotations
@@ -24,10 +26,23 @@ from typing import NamedTuple
 
 import torch
 
+from ..flows.params import flow_parameters, with_flow_parameters
 from ..utils import resolve_device
 from .model import as_batched
 
 LOG_2PI = math.log(2.0 * math.pi)
+
+
+def _gaussian_draws_and_logq(q, eps):
+    """A Gaussian's draws of standard normals eps (n, dim) and their log q."""
+    v = q._from_eps(eps)
+    return v, q.logdensity(v)
+
+
+def _gaussian_elbo(q, blogp, eps, transposed):
+    """A Gaussian's ELBO estimate on eps, its entropy in closed form."""
+    v = q._from_eps_t(eps) if transposed else q._from_eps(eps)
+    return torch.mean(blogp(v)) + q.entropy()
 
 
 class MeanFieldGaussian(NamedTuple):
@@ -41,6 +56,12 @@ class MeanFieldGaussian(NamedTuple):
         dev = resolve_device(device)
         return cls(torch.zeros(dim, dtype=dtype, device=dev),
                    torch.full((dim,), -1.0, dtype=dtype, device=dev))
+
+    def _tensors(self):
+        return list(self)
+
+    def _rebuild(self, tensors):
+        return type(self)(*tensors)
 
     def _from_eps(self, eps):
         """The draws loc + scale * eps of standard normals eps (n, dim)."""
@@ -68,6 +89,9 @@ class MeanFieldGaussian(NamedTuple):
         z = (v - self.loc) * torch.exp(-self.log_scale)
         return -0.5 * torch.sum(z * z, dim=-1) - torch.sum(self.log_scale) - 0.5 * d * LOG_2PI
 
+    _draws_and_logq = _gaussian_draws_and_logq
+    _elbo = _gaussian_elbo
+
 
 class FullRankGaussian(NamedTuple):
     """q(v) = N(loc, L L^T), L lower-triangular with its diagonal exp of
@@ -85,6 +109,12 @@ class FullRankGaussian(NamedTuple):
     def _L(self):
         eye = torch.eye(self.loc.shape[-1], dtype=self.loc.dtype, device=self.loc.device)
         return torch.tril(self.tril_raw, -1) + eye * torch.exp(torch.diagonal(self.tril_raw))
+
+    def _tensors(self):
+        return list(self)
+
+    def _rebuild(self, tensors):
+        return type(self)(*tensors)
 
     def _from_eps(self, eps):
         return self.loc + eps @ self._L().T
@@ -114,15 +144,42 @@ class FullRankGaussian(NamedTuple):
         return (-0.5 * torch.sum(u * u, dim=-1) - torch.sum(torch.diagonal(self.tril_raw))
                 - 0.5 * d * LOG_2PI)
 
+    _draws_and_logq = _gaussian_draws_and_logq
+    _elbo = _gaussian_elbo
 
-class FlowPosterior:
-    """q = flow(N(0, I)): not ported yet; it waits for the flows
-    (ROADMAP.md Queue 1, item 8)."""
 
-    def __init__(self, flow):
-        raise NotImplementedError(
-            "FlowPosterior is not ported yet (ROADMAP.md Queue 1, item 8: flows)"
-        )
+class FlowPosterior(NamedTuple):
+    """q = flow(N(0, I)): reparameterized draws are base draws pushed through
+    the trainable flow (event_ndims 1), and log q uses the flow's forward
+    log-det (training never needs the iterative inverse)."""
+
+    flow: object
+
+    def _tensors(self):
+        return flow_parameters(self.flow)
+
+    def _rebuild(self, tensors):
+        return FlowPosterior(with_flow_parameters(self.flow, tensors))
+
+    def _draws_and_logq(self, eps):
+        """(v, log q(v)) of the base draws eps (n, dim)."""
+        dim = eps.shape[-1]
+        logq0 = -0.5 * torch.sum(eps * eps, dim=-1) - 0.5 * dim * LOG_2PI
+        v, ld = self.flow.forward_and_log_det(eps)
+        return v, logq0 - ld
+
+    def _elbo(self, blogp, eps, transposed):
+        v, logq = self._draws_and_logq(eps)
+        return torch.mean(blogp(v) - logq)
+
+    def sample_with_logq(self, generator, n: int, dim: int):
+        """n draws and their log q, from `generator` on the flow's device."""
+        return self._draws_and_logq(_normal(generator, _like(self), (n, dim)))
+
+
+def _like(q):
+    """A tensor of the family's dtype and device (its draws are made so)."""
+    return q._tensors()[0]
 
 
 class ADVIResult(NamedTuple):
@@ -137,18 +194,20 @@ def _normal(generator, like, shape):
 def _neg_elbo(q, blogp, eps, estimator: str, transposed: bool, n_iw: int):
     """The negative ELBO estimate of q on the standard normals eps: (n_mc,
     dim), (dim, n_mc) when transposed, (n_mc * n_iw, dim) for 'iwelbo'.
-    Differentiable in q's fields."""
+    Differentiable in q's tensors. Every family gives `_tensors`,
+    `_rebuild`, `_draws_and_logq` and `_elbo`; 'stl' (Gaussians only) its
+    `logdensity` too."""
     if estimator == "iwelbo":
-        v = q._from_eps(eps)
-        logw = (blogp(v) - q.logdensity(v)).reshape(-1, n_iw)
+        v, logq = q._draws_and_logq(eps)
+        logw = (blogp(v) - logq).reshape(-1, n_iw)
         return -torch.mean(torch.logsumexp(logw, dim=1) - math.log(float(n_iw)))
-    v = q._from_eps_t(eps) if transposed else q._from_eps(eps)
     if estimator == "stl":
         # sticking the landing: log q with q's parameters held fixed
-        q_stop = type(q)(*(t.detach() for t in q))
+        v = q._from_eps_t(eps) if transposed else q._from_eps(eps)
+        q_stop = q._rebuild([t.detach() for t in q._tensors()])
         vb = v.T if transposed else v
         return -torch.mean(blogp(v) - q_stop.logdensity(vb))
-    return -(torch.mean(blogp(v)) + q.entropy())
+    return -q._elbo(blogp, eps, transposed)
 
 
 def _adam(learning_rate: float):
@@ -161,18 +220,18 @@ def _adam(learning_rate: float):
 def _fit(q, blogp, opt_factory, eps_draws, estimator: str, transposed: bool, n_iw: int):
     """The optimisation loop over the given draws (one eps block a step):
     ADVIResult of the fitted q and the losses."""
-    params = [t.detach().clone().requires_grad_(True) for t in q]
+    params = [t.detach().clone().requires_grad_(True) for t in q._tensors()]
     opt = opt_factory(params)
     losses = []
     for eps in eps_draws:
-        loss = _neg_elbo(type(q)(*params), blogp, eps, estimator, transposed, n_iw)
+        loss = _neg_elbo(q._rebuild(params), blogp, eps, estimator, transposed, n_iw)
         opt.zero_grad(set_to_none=True)
         loss.backward()
         opt.step()
         losses.append(loss.detach())
-    fitted = type(q)(*(p.detach() for p in params))
+    fitted = q._rebuild([p.detach() for p in params])
     if not losses:
-        return ADVIResult(fitted, q.loc.new_empty((0,)))
+        return ADVIResult(fitted, _like(q).new_empty((0,)))
     return ADVIResult(fitted, torch.stack(losses))
 
 
@@ -191,10 +250,11 @@ def fit_advi(
     n_iw: int = 8,
     device=None,
 ) -> ADVIResult:
-    """Maximize the ELBO over q's fields; q defaults to
+    """Maximize the ELBO over q's tensors; q defaults to
     MeanFieldGaussian.init(dim) on `device` (default `cuda`; raises where
     CUDA is absent and no device was given), and a given q keeps its own
-    device. `optimizer` is a factory that
+    device. q may be a Gaussian family or a FlowPosterior (estimator
+    'elbo' or 'iwelbo', batch-major). `optimizer` is a factory that
     takes the list of parameter tensors and returns a `torch.optim`
     optimiser; the default is Adam with `learning_rate`.
 
@@ -215,8 +275,12 @@ def fit_advi(
         q = MeanFieldGaussian.init(dim, dtype, device)
     if estimator not in ("elbo", "stl", "iwelbo"):
         raise ValueError(f"unknown estimator {estimator!r}")
+    if estimator == "stl" and isinstance(q, FlowPosterior):
+        raise ValueError("estimator='stl' supports Gaussian families only")
     if estimator == "iwelbo" and transposed:
         raise ValueError("estimator='iwelbo' does not support transposed=True")
+    if transposed and isinstance(q, FlowPosterior):
+        raise ValueError("transposed=True supports Gaussian families only")
     if transposed and not getattr(logdensity_fn, "batch_capable", False):
         raise ValueError(
             "transposed=True requires a batch-capable log density "
@@ -224,6 +288,6 @@ def fit_advi(
         )
     n_draws = n_mc * n_iw if estimator == "iwelbo" else n_mc
     shape = (dim, n_draws) if transposed else (n_draws, dim)
-    eps_draws = (_normal(generator, q.loc, shape) for _ in range(n_steps))
+    eps_draws = (_normal(generator, _like(q), shape) for _ in range(n_steps))
     return _fit(q, as_batched(logdensity_fn), optimizer or _adam(learning_rate), eps_draws,
                 estimator, transposed, n_iw)
