@@ -27,7 +27,8 @@ the property sweep) on one, those of the sixteenth (the remaining
 bijectors, CDF/Quantile with implicit derivatives) on one, the
 seventeenth's remaining distribution families on one, and the
 eighteenth's engines (parallel tempering, the ensemble sampler, SBC, the
-predictive checks), flows and NeuTra on one:
+predictive checks), flows and NeuTra on one, and the nineteenth's serving
+export and sharded runners on one:
 
 1. transposed serving at B = 131072: `Model.batched_logdensity_t_fn()`
    (the slab value kernel), its `value_and_grad_fn` (the one-pass
@@ -216,6 +217,23 @@ predictive checks), flows and NeuTra on one:
    `Model(bench, hier_loglik)` with a MAF transport from
    `fit_neutra_flow`, 64 chains, gated on the ELBO's descent, w, R-hat
    and divergences. Cells (a) and (f) run in a third process.
+29. serving export and the sharded runners (`run_serving_and_shard`;
+   tools/torch_path29.py runs it alone): (a) `serving.export_logdensity`
+   of the bench model's transposed density and its value and gradient at
+   B = 131072, saved to bytes and loaded: the graph's `tbt::` nodes, #1 /
+   #2 launched once a call, the output bit for bit the live call's, a
+   wrong batch raising, an export with the kernels disabled raising; (b)
+   the batch-major density (#5, #7) and `export_constrain` (#6, #7) at
+   B = 4096 likewise; (c) `chain_parallel_nuts` (`kernel='nuts_batched_t'`)
+   on one NCCL rank against the unsharded run bit for bit, and at cell
+   2's settings over two gloo ranks on the one card (NCCL refuses two
+   ranks on one device), 32 chains each: the step size and inverse mass
+   bit for bit the same on both, the draws on their supports, the means
+   within 5 combined MCSE of cell 2's; (d) `param_parallel_logdensity` on
+   the bench prior and `param_parallel_from_linked` on two-block IID LKJ
+   and Dirichlet priors at B = 131072 over the same ranks (#5-#7) against
+   the unsharded density and links within RTOL_COMPOSED. The ranks are
+   processes of their own, started after the build beside the others.
 
 The dense paths also check that TF32 is off and the float32 matmul
 precision 'highest'. After them, #2's small-batch design (the item kernel, which the
@@ -291,7 +309,7 @@ crossover that sets simplex.SMALL_B), a `transcend_probe` line
 line, an `end_to_end` line (the
 entry points with host dispatch), a `phases_s` line (each phase's wall
 time), a `sampler` line per cell, a `map_laplace` and a `pathfinder`
-line (paths 23-24), a `path28` line, a `{"kernels": [...]}` line, and as
+line (paths 23-24), a `path28` and a `path29` line, a `{"kernels": [...]}` line, and as
 the last line `{"ok": true, "device": {...}}`. Exits non-zero, with no
 result, when CUDA is absent or any check fails.
 """
@@ -6295,7 +6313,15 @@ def run_remaining_families(dev, time_gate=True):
 
 # --- path 28: the engines that need no flows, the flows and NeuTra ------------
 
-PATH28_LIMIT_S = 60.0
+# Its limit holds the warm time alone (tools/torch_path28.py): 111.4-182.8 s
+# on the H100 (PERF.md sections 5-6, the slowest on a machine 1.6 times
+# slower at cell 2), most of it (f)'s NUTS, which needs cell 4's 300 + 200
+# transitions for its R-hat gate (150 kept draws failed it twice: 1.0520,
+# 1.0537) and takes 7979 batched leapfrogs at the bench density's 10.3-15.7
+# ms; (a) adds 21-30 s and (b)-(e) about 20 s. A longer or deeper NeuTra
+# fit does not shorten its trees (tools/neutra_fit_depth.py). 240 s leaves
+# that slowest run a margin of 1.3
+PATH28_LIMIT_S = 240.0
 # (a) parallel tempering on the bench model's prior / likelihood split
 P28_PT = dict(n_temps=4, n_warmup=100, n_samples=100, n_leapfrog=8)
 # (b) the ensemble on a small conjugate model: w ~ Dirichlet(1, 1, 1, 1),
@@ -6851,6 +6877,340 @@ def run_engines_and_flows(dev, cells="abcdef", time_gate=True):
     return line, launches
 
 
+# --- path 29: serving export and the sharded runners ----------------------------
+
+# The main process's part: (a) and (b), the world-size-1 run of (c) and the
+# wait for the ranks; the ranks of (c) and (d) start after the build, beside
+# the other paths, since their cell-2-sized NUTS run alone outlasts the
+# limit (its host-bound leapfrog, PERF.md section 5)
+PATH29_LIMIT_S = 60.0
+P29_BM_B = 4096  # (b)'s batch
+# (c): the world-size-1 run (NCCL) against the unsharded one, bit for bit,
+# short; the two ranks (gloo: NCCL refuses two ranks on one card) at cell
+# 2's settings, CHAINS / P29_RANKS chains each
+P29_WS1 = dict(n_warmup=30, n_samples=10, max_depth=MAX_DEPTH, target_accept=TARGET_ACCEPT)
+P29_RANKS = 2
+P29_RANK_FLAG = "--path29-rank"
+# (c)'s posterior means against cell 2's: |m - m2| <= P29_MCSE * sqrt(mcse^2
+# + mcse2^2) on each of the 151 linked coordinates, and w against
+# Dirichlet(1 + counts) within P29_MCSE of its own MCSE, as cell 2's gate
+P29_MCSE = 5.0
+P29_LINKS = ("lkj_logdet", "lkj_inverse", "simplex_inverse_logdet")
+
+
+def p29_iid_blocks(dists, dev):
+    """(d)'s IID blocks of the bench model's structured leaves, two each:
+    the parameter-parallel inverse links (#6; #7 with x)."""
+    kw = dict(device=dev, dtype=torch.float32)
+    return {"corr": dists.IIDProduct(dists.LKJ(16, 2.0, **kw), P29_RANKS),
+            "w": dists.IIDProduct(dists.Dirichlet(np.ones(16), **kw), P29_RANKS)}
+
+
+def run_p29_export(dev):
+    """Path 29 (a) and (b): the bench model's artifacts. (a) the transposed
+    density and its value and gradient at B = 131072, exported, saved to
+    bytes and loaded: the graph's `tbt::` nodes, one launch of #1 / #2 a
+    call of the loaded artifact, its output bit for bit the live one, a
+    wrong batch raising, and an export with the kernels disabled raising.
+    (b) the batch-major density (#5, #7) and `constrain` (#6, #7: the
+    port's `from_linked_vec` forms x with its log-det, so #8, the x-only
+    inverse, is not on it) at P29_BM_B likewise. Returns (the line's
+    parts, the launches)."""
+    import tpu_bijectors_torch as tbt
+    from tpu_bijectors_torch import dists, kernels, serving
+
+    model = tbt.Model(bench_model(dists, dev, torch.float32), device=dev)
+    v = 0.5 * np.random.default_rng(SEED).standard_normal((BATCH, 151))
+    vT = torch.as_tensor(np.ascontiguousarray(v.T), dtype=torch.float32, device=dev)
+    vb = torch.as_tensor(v[:P29_BM_B], dtype=torch.float32, device=dev)
+    ft, fb = model.batched_logdensity_t_fn(), model.batched_logdensity_fn()
+    cases = (
+        ("a value", lambda: serving.export_logdensity(model, BATCH, transposed=True), ft, vT,
+         ("slab_value",)),
+        ("a value_and_grad", lambda: serving.export_logdensity(
+            model, BATCH, with_grad=True, transposed=True), ft.value_and_grad_fn, vT,
+         ("slab_value_and_grad",)),
+        ("b density", lambda: serving.export_logdensity(model, P29_BM_B), fb, vb,
+         ("lkj_logdet", SIMPLEX_SMALL)),
+        ("b constrain", lambda: serving.export_constrain(model, P29_BM_B), model.constrain, vb,
+         ("lkj_inverse", SIMPLEX_SMALL)),
+    )
+    parts, launches = {}, {}
+    for name, export, live_fn, x, keys in cases:
+        t = time.perf_counter()
+        blob = export()
+        fn = serving.load(blob)
+        export_s = time.perf_counter() - t
+        ops = sorted({str(n.target)[4:-8] for n in fn.exported_program.graph.nodes
+                      if str(n.target).startswith("tbt.")})
+        expect(f"path 29 ({name}): the artifact's tbt:: nodes {ops} are {sorted(keys)} "
+               f"(#7's small design under its own name)",
+               ops == sorted(k.replace(SIMPLEX_SMALL, "simplex_inverse_logdet") for k in keys))
+        live = live_fn(x)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        got = fn(x)
+        torch.cuda.synchronize()
+        ls = {k: n for k, n in kernels.LAUNCHES.items() if n}
+        expect(f"path 29 ({name}): one launch of each of {keys} a call ({ls})",
+               ls == {k: 1 for k in keys})
+        pairs = (list(zip(got, live)) if isinstance(got, tuple)
+                 else [(got[k], live[k]) for k in live] if isinstance(got, dict)
+                 else [(got, live)])
+        equal = all(torch.equal(a, b) for a, b in pairs)
+        expect(f"path 29 ({name}): the loaded artifact's output equals the live one bit for bit",
+               equal)
+        bad = x[:, :-1] if name.startswith("a") else x[:-1]
+        try:
+            fn(bad.contiguous())
+            raised = False
+        except ValueError:
+            raised = True
+        expect(f"path 29 ({name}): the artifact raises on a state of shape "
+               f"{tuple(bad.shape)}", raised)
+        for k, n in ls.items():
+            launches[k] = launches.get(k, 0) + n
+        parts[name] = {"bytes": len(blob), "export_s": export_s, "equal": equal,
+                       "artifact_ms": time_slow_ms(lambda: fn(x), device_only=False),
+                       "live_ms": time_slow_ms(lambda: live_fn(x), device_only=False),
+                       "launches": ls}
+    kernels.enable(False)
+    try:
+        serving.export_logdensity(model, BATCH, transposed=True)
+        raised = ""
+    except RuntimeError as e:
+        raised = str(e)
+    finally:
+        kernels.enable(True)
+    expect(f"path 29 (a): an export with the kernels disabled raises ({raised[:60]})",
+           "disabled" in raised)
+    return parts, launches
+
+
+def p29_sampler_model(dev):
+    """Cell 2's model, density and starts: (model, the transposed density,
+    its generator (seed SEED) after CHAINS N(0, 1) starts, the starts)."""
+    import tpu_bijectors_torch as tbt
+    from tpu_bijectors_torch import dists
+
+    loglik, counts = hier_loglik_and_counts(dev)
+    model = tbt.Model(bench_model(dists, dev, torch.float32), loglik=loglik, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    return model, model.batched_logdensity_t_fn(), gen, model.init_positions(gen, CHAINS), counts
+
+
+def run_p29_world_size_one(dev):
+    """Path 29 (c) on one rank: chain_parallel_nuts on a one-rank NCCL
+    group (`kernel='nuts_batched_t'`) against the unsharded
+    warmup_and_sample from the same generator state: draws, step size and
+    inverse mass bit for bit."""
+    import torch.distributed as dist
+
+    from tpu_bijectors_torch import kernels
+    from tpu_bijectors_torch.infer import warmup_and_sample
+    from tpu_bijectors_torch.shard import chain_parallel_nuts, make_mesh
+
+    _, f, gen, q0, _ = p29_sampler_model(dev)
+    state0 = gen.get_state()
+    kw = dict(kernel="nuts_batched_t", **P29_WS1)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                init_method=f"file://{tmp}/store", rank=0, world_size=1)
+        try:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            sh = chain_parallel_nuts(f, make_mesh("chain"), gen, q0, **kw)
+            torch.cuda.synchronize()
+            launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
+        finally:
+            dist.destroy_process_group()
+    gen.set_state(state0)
+    ref = warmup_and_sample(f, gen, q0, **kw)
+    equal = (torch.equal(sh[0], ref[0]) and torch.equal(sh[1].eps, ref[1].eps)
+             and torch.equal(sh[1].inv_mass, ref[1].inv_mass))
+    expect("path 29 (c): chain_parallel_nuts on a one-rank NCCL group is the unsharded "
+           "warmup_and_sample bit for bit", equal)
+    expect(f"path 29 (c): its leapfrogs ran #2's small design ({launches})",
+           launches.get(SMALL, 0) > 0)
+    return {"equal": equal, "launches": launches}, launches
+
+
+def start_p29_ranks():
+    """Start path 29's ranks of (c) and (d), their store in a temporary
+    directory: (processes, the directory)."""
+    tmp = tempfile.TemporaryDirectory()
+    return [start_child(P29_RANK_FLAG, str(r), tmp.name) for r in range(P29_RANKS)], tmp
+
+
+def path29_rank(rank, tmp, dev="cuda"):
+    """A rank of path 29 (gloo over P29_RANKS processes on the one card):
+    (c) chain_parallel_nuts at cell 2's settings on this rank's
+    CHAINS / P29_RANKS chains, then (d) `param_parallel_logdensity` on the
+    bench prior (the tree layout) and `param_parallel_from_linked` on
+    `p29_iid_blocks` at B = 131072 against the unsharded density and
+    `from_linked_vec`; prints its checks, then one JSON line with its
+    results, launches, seconds and failures."""
+    import torch.distributed as dist
+
+    import tpu_bijectors_torch as tbt
+    from tpu_bijectors_torch import diagnostics, dists, kernels
+    from tpu_bijectors_torch.kernels import build
+    from tpu_bijectors_torch.shard import (
+        chain_parallel_nuts,
+        gather_chains,
+        make_mesh,
+        param_parallel_from_linked,
+        param_parallel_logdensity,
+        shard_chains,
+        shard_params,
+    )
+    from tpu_bijectors_torch.vectorize import unconstrain
+
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        build.load()
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank,
+                            world_size=P29_RANKS)
+    out = {"rank": rank}
+    try:
+        chains, params = make_mesh("chain"), make_mesh("param")
+        # (c)
+        model, f, gen, q0, counts = p29_sampler_model(dev)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        raw, state, stats = chain_parallel_nuts(
+            f, chains, gen, shard_chains(chains, q0), n_warmup=WARMUP, n_samples=KEPT,
+            max_depth=MAX_DEPTH, target_accept=TARGET_ACCEPT, kernel="nuts_batched_t")
+        torch.cuda.synchronize()
+        out["c_s"] = time.perf_counter() - t
+        out["c_launches"] = {k: n for k, n in kernels.LAUNCHES.items() if n}
+        out["eps"] = float(state.eps).hex()
+        out["inv_mass"] = digest([state.inv_mass])
+        out["divergences"] = int(stats.diverging.sum())
+        out["leapfrogs_per_transition"] = float(stats.n_steps.float().mean())
+        x = model.constrain(raw)
+        w, corr = x["w"], x["corr"]
+        expect(f"path 29 (c) rank {rank}: simplex sums 1",
+               bool(torch.all((w.sum(-1) - 1).abs() < 1e-5)) and bool(torch.all(w >= 0)))
+        expect(f"path 29 (c) rank {rank}: the correlation draws' unit diagonals",
+               bool(torch.all((torch.diagonal(corr, dim1=-2, dim2=-1) - 1).abs() < 1e-5)))
+        expect(f"path 29 (c) rank {rank}: the correlation draws positive definite",
+               bool(torch.all(torch.linalg.cholesky_ex(corr.double())[1] == 0)))
+        raw_all = gather_chains(chains, raw, dim=1)
+        if rank == 0:
+            post = (1.0 + counts) / (16.0 + counts.sum())
+            w_all = model.constrain(raw_all)["w"]
+            dev_w = (np.abs(w_all.double().mean(dim=(0, 1)).cpu().numpy() - post)
+                     / diagnostics.mcse_mean(w_all))
+            out["max_w_dev_in_mcse"] = float(np.max(dev_w))
+            out["max_rhat"] = float(np.max(diagnostics.rhat(raw_all)))
+            out["means"] = raw_all.double().mean(dim=(0, 1)).tolist()
+            out["mcse"] = np.asarray(diagnostics.mcse_mean(raw_all)).tolist()
+            expect(f"path 29 (c): w within {P29_MCSE:g} MCSE of Dirichlet(1 + counts) "
+                   f"(max {np.max(dev_w):.2f})", bool(np.all(dev_w <= P29_MCSE)))
+        del raw, raw_all, x, w, corr
+        # (d)
+        t = time.perf_counter()
+        u = tbt.Model(bench_model(dists, dev, torch.float32), device=dev).unconstrainer()
+        rng = np.random.default_rng(SEED)
+        v = torch.as_tensor(0.5 * rng.standard_normal((BATCH, 151)), dtype=torch.float32,
+                            device=dev)
+        fn = param_parallel_logdensity(u, params)
+        v_loc = shard_params(params, fn.layout.pack(v))
+        iid = {k: unconstrain(d, device=dev) for k, d in p29_iid_blocks(dists, dev).items()}
+        y = {k: torch.as_tensor(0.5 * rng.standard_normal((BATCH, b.linked_vec_length)),
+                                dtype=torch.float32, device=dev) for k, b in iid.items()}
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        lp = fn(v_loc)
+        xs = {k: param_parallel_from_linked(b, params)(shard_params(params, y[k]))
+              for k, b in iid.items()}
+        torch.cuda.synchronize()
+        out["d_launches"] = {k: n for k, n in kernels.LAUNCHES.items() if n}
+        owned = fn.layout.assign[params.get_local_rank("param")]
+        out["d_owned"] = [list(u.names)[c] for c in owned]
+        err = {"lp": check(f"path 29 (d) rank {rank}: the tree's density vs unsharded", lp,
+                           u.linked_logdensity(v), RTOL_COMPOSED)}
+        n = 1  # this rank's blocks of each IID pair
+        for k, b in iid.items():
+            x_ref, ld_ref = b.from_linked_vec(y[k])
+            x_got, ld_got = xs[k]
+            err[f"{k} x"] = check(f"path 29 (d) rank {rank}: {k} x vs unsharded", x_got,
+                                  x_ref[:, rank * n:(rank + 1) * n], RTOL_COMPOSED)
+            err[f"{k} logdet"] = check(f"path 29 (d) rank {rank}: {k} log-det vs unsharded",
+                                       ld_got, ld_ref, RTOL_COMPOSED)
+        out["d_s"] = time.perf_counter() - t
+        out["d_err"] = err
+        ls = out["d_launches"]
+        expect(f"path 29 (d) rank {rank}: #6 and #7 launched ({ls})",
+               ls.get("lkj_inverse", 0) > 0 and ls.get("simplex_inverse_logdet", 0) > 0)
+        expect(f"path 29 (d) rank {rank}: #5 launched where the rank owns corr ({owned})",
+               (ls.get("lkj_logdet", 0) > 0) == ("corr" in out["d_owned"]))
+    finally:
+        dist.destroy_process_group()
+    out["failures"] = failures
+    print(json.dumps({"child": out}), flush=True)
+    return 0
+
+
+def join_p29_ranks(ranks, cell2):
+    """Wait for path 29's ranks and check what crosses them: the adapted
+    step size and inverse mass bit for bit equal on every rank, the
+    posterior means against cell 2's (`cell2`: its means and MCSE, or
+    None) within P29_MCSE combined MCSE. Returns (the ranks' results, the
+    launches of (c) and (d) summed over the ranks)."""
+    procs, tmp = ranks
+    res = [join_child(p, f"path 29 rank {r}") for r, p in enumerate(procs)]
+    tmp.cleanup()
+    expect(f"path 29 (c): the step size the same on every rank ({[r['eps'] for r in res]})",
+           len({r["eps"] for r in res}) == 1)
+    expect("path 29 (c): the inverse mass the same on every rank bit for bit",
+           len({r["inv_mass"] for r in res}) == 1)
+    launches = {}
+    for r in res:
+        for k, n in list(r["c_launches"].items()) + list(r["d_launches"].items()):
+            launches[k] = launches.get(k, 0) + n
+    expect(f"path 29 (d): #5, #6 and #7 launched over the ranks ({launches})",
+           all(launches.get(k, 0) > 0 for k in P29_LINKS))
+    if cell2 is not None:
+        m, s = np.asarray(res[0]["means"]), np.asarray(res[0]["mcse"])
+        dev_m = np.abs(m - cell2[0]) / np.sqrt(s ** 2 + cell2[1] ** 2)
+        res[0]["max_mean_dev_from_cell2_in_mcse"] = float(np.max(dev_m))
+        expect(f"path 29 (c): the 151 linked means within {P29_MCSE:g} combined MCSE of cell "
+               f"2's (max {np.max(dev_m):.2f})", bool(np.all(dev_m <= P29_MCSE)))
+    return res, launches
+
+
+def run_serving_and_shard(dev, ranks, cell2=None, time_gate=True):
+    """Path 29 in the main process: (a) and (b) (`run_p29_export`), (c)'s
+    world-size-1 run, then the wait for the ranks (`start_p29_ranks`,
+    started earlier) and the checks across them. Returns (the `path29`
+    line, the launches)."""
+    t0 = time.perf_counter()
+    parts, launches = run_p29_export(dev)
+    t1 = time.perf_counter()
+    ws1, ls = run_p29_world_size_one(dev)
+    for k, n in ls.items():
+        launches[k] = launches.get(k, 0) + n
+    t2 = time.perf_counter()
+    res, ls = join_p29_ranks(ranks, cell2)
+    for k, n in ls.items():
+        launches[k] = launches.get(k, 0) + n
+    t3 = time.perf_counter()
+    dt = t3 - t0
+    line = {"seconds": dt, "part_s": {"ab": t1 - t0, "c_world_size_1": t2 - t1,
+                                      "waiting_for_ranks": t3 - t2},
+            "ab": parts, "c_world_size_1": ws1, "ranks": res, "launches": launches,
+            "ranks_backend": "gloo: NCCL refuses two ranks on one device; one H100 cannot "
+                             "check a multi-GPU run"}
+    print(f"path 29: {dt:.1f} s (parts {line['part_s']}; ranks (c) "
+          f"{[round(r['c_s'], 1) for r in res]} s, (d) {[round(r['d_s'], 1) for r in res]} s), "
+          f"launches {launches}", flush=True)
+    if time_gate:
+        expect(f"path 29 within {PATH29_LIMIT_S:g} s", dt < PATH29_LIMIT_S)
+    return line, launches
+
 # The two longest host-bound samplers, cells 7 (pd_conjugate) and 10
 # (mv_conjugate), run in a second process beside the other paths: the card
 # is idle through most of their host loops, and the script's phases came
@@ -6901,11 +7261,11 @@ def path28_child():
 CHILDREN = {SAMPLERS_CHILD_FLAG: samplers_child, PATH28_CHILD_FLAG: path28_child}
 
 
-def start_child(flag):
-    """Start the child process `flag` names, its output to a temporary
-    file."""
+def start_child(flag, *args):
+    """Start the child process `flag` names (with `args`), its output to a
+    temporary file."""
     out = tempfile.TemporaryFile(mode="w+")
-    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), flag],
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, *args],
                             stdout=out, stderr=subprocess.STDOUT, text=True)
     return proc, out
 
@@ -6934,6 +7294,8 @@ def main():
         return 2
     if len(sys.argv) == 2 and sys.argv[1] in CHILDREN:
         return CHILDREN[sys.argv[1]]()
+    if len(sys.argv) == 4 and sys.argv[1] == P29_RANK_FLAG:
+        return path29_rank(int(sys.argv[2]), sys.argv[3])
     import tpu_bijectors_torch as tbt
     from tpu_bijectors_torch import dists, kernels
     from tpu_bijectors_torch.kernels import build
@@ -6967,6 +7329,7 @@ def main():
     print(json.dumps({"ptxas": ptxas or "not compiled in this run: no report"}), flush=True)
     child = start_child(SAMPLERS_CHILD_FLAG)
     child28 = start_child(PATH28_CHILD_FLAG)
+    ranks29 = start_p29_ranks()
 
     model = tbt.Model(bench_model(dists, dev, torch.float32), device=dev)
     u = model.unconstrainer()
@@ -7178,6 +7541,11 @@ def main():
     # --- the twenty-third and twenty-fourth: MAP + Laplace with the ----------
     # evidence estimators, Pathfinder, and NUTS from Pathfinder's starts
     ml_line, ls = run_map_laplace(dev, loglik, sampler_raw)
+    # cell 2's linked means and their MCSE, for path 29 (c)'s two ranks
+    from tpu_bijectors_torch import diagnostics
+
+    cell2 = (sampler_raw.double().mean(dim=(0, 1)).cpu().numpy(),
+             np.asarray(diagnostics.mcse_mean(sampler_raw)))
     del sampler_raw
     lap("map_laplace")
     pf_line, ls2 = run_pathfinder(dev, loglik)
@@ -7200,6 +7568,10 @@ def main():
     # NeuTra; (a) and (f) run in the third process (P28_CHILD_CELLS)
     p28_line, p28_launches = run_engines_and_flows(dev, "bcde", time_gate=False)
     lap("engines and flows")
+    # --- the twenty-ninth: serving export and the sharded runners; (c)'s ----
+    # two ranks and (d) run in their own processes, started after the build
+    p29_line, p29_launches = run_serving_and_shard(dev, ranks29, cell2)
+    lap("serving and shard")
     print(f"nuts from pathfinder's starts: warmup {pf_sampler_line['warmup_s']:.1f} s (the fit "
           f"included), step {pf_sampler_line['step_size']:.4f}, "
           f"{pf_sampler_line['leapfrogs_per_transition']:.2f} leapfrogs a transition; path 2: "
@@ -7209,7 +7581,8 @@ def main():
               "pd_logdensity", "pd_trace_grad"):
         new_launches[k] = new_launches.get(k, 0) + sum(d.get(k, 0) for d in (ls, ls2, ls3))
     for k, n in (list(p25_launches.items()) + list(p26_launches.items())
-                 + list(p27_launches.items()) + list(p28_launches.items())):
+                 + list(p27_launches.items()) + list(p28_launches.items())
+                 + list(p29_launches.items())):
         new_launches[k] = new_launches.get(k, 0) + n
     prep_s = time_prep(dev)
     lap("_prep first calls")
@@ -7370,6 +7743,7 @@ def main():
     print(json.dumps({"path26": p26_line, "path26_err": p26_err}), flush=True)
     print(json.dumps({"path27": p27_line, "path27_err": p27_err}), flush=True)
     print(json.dumps({"path28": p28_line, "path28_third_process": res28["p28"]}), flush=True)
+    print(json.dumps({"path29": p29_line}), flush=True)
 
     if failures:
         print("FAILED: " + "; ".join(failures), file=sys.stderr)

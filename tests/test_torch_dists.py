@@ -154,12 +154,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 def test_model_parts_not_ported_raise():
     d = td.Normal(0.0, 1.0, **CPU64)
     g = torch.Generator().manual_seed(0)
-    # tempering's chain-sharded run needs the shard layer (ADVI's flow
-    # posterior and the laplace/pathfinder inits, once the examples here,
-    # are ported)
+    # tempering's chain-sharded run takes a process group (`group`), not
+    # the JAX package's `axis_name` (ADVI's flow posterior, the
+    # laplace/pathfinder inits and the shard layer, once the examples
+    # here, are ported)
     from tpu_bijectors_torch.infer import run_parallel_tempering
 
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="axis_name"):
         run_parallel_tempering(lambda v: -v.sum(-1), lambda v: -v.sum(-1), g,
                                torch.zeros((4, 1), **CPU64), axis_name="chains")
     assert tbt.Model(d, device="cpu").sample(g, n_chains=2, n_warmup=0, n_samples=1,

@@ -152,10 +152,26 @@ def test_pt_zero_likelihood_region_beta0_stays_alive():
     np.testing.assert_allclose(float(x.mean()), math.sqrt(2 / math.pi), atol=0.1)
 
 
-def test_pt_axis_name_not_ported():
-    with pytest.raises(NotImplementedError, match="shard"):
-        run_parallel_tempering(_bimodal_prior, _bimodal_lik, _gen(0),
-                               torch.zeros((4, 1), dtype=F64), axis_name="chains")
+def test_pt_axis_name_not_ported(tmp_path):
+    """The JAX package's `axis_name` is the port's `group` (a process
+    group, `shard.chain_parallel_pt`): the keyword is gone, and a run on a
+    one-rank gloo group is the unsharded run bit for bit."""
+    import torch.distributed as dist
+
+    q0 = torch.zeros((4, 1), dtype=F64)
+    with pytest.raises(TypeError, match="axis_name"):
+        run_parallel_tempering(_bimodal_prior, _bimodal_lik, _gen(0), q0, axis_name="chains")
+    kw = dict(n_temps=3, n_warmup=10, n_samples=10, n_leapfrog=4)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        got = run_parallel_tempering(_bimodal_prior, _bimodal_lik, _gen(0), q0,
+                                     group=dist.group.WORLD, **kw)
+    finally:
+        dist.destroy_process_group()
+    ref = run_parallel_tempering(_bimodal_prior, _bimodal_lik, _gen(0), q0, **kw)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------

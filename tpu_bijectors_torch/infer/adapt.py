@@ -1,8 +1,9 @@
 """Warmup adaptation, PyTorch counterpart of `tpu_bijectors/infer/adapt.py`:
 dual-averaging step size, the diagonal and dense Welford mass estimates
-and the Stan-style window schedule. Statistics are averaged over the chain axis of
-the one process (the JAX package's `axis_name` sharing across devices is
-not ported).
+and the Stan-style window schedule. Statistics are averaged over the chain
+axis, and with a `group` (a `torch.distributed` process group: the JAX
+package's `axis_name`, set by `shard.chain_parallel`) across its ranks too,
+one `all_reduce` a statistic.
 """
 
 from __future__ import annotations
@@ -12,6 +13,35 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+# ---------------------------------------------------------------------------
+# Sharing across the ranks of a process group
+# ---------------------------------------------------------------------------
+
+
+def group_size(group) -> int:
+    """The ranks of `group`; 1 for None (no sharing)."""
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def psum(x, group):
+    """The sum of x over the ranks of `group` (x itself for None): one
+    `all_reduce` of a copy (the JAX package's `psum`)."""
+    if group is None:
+        return x
+    y = x.detach().clone()
+    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+    return y
+
+
+def pmean(x, group):
+    """The mean of x over the ranks of `group` (x itself for None; on one
+    rank x / 1, the same bits)."""
+    if group is None:
+        return x
+    return psum(x, group) / group_size(group)
+
 
 # ---------------------------------------------------------------------------
 # Dual averaging step size (Hoffman & Gelman 2014, Nesterov 2009)
@@ -81,15 +111,22 @@ def welford_init(dim: int, dtype=torch.float64, device="cpu") -> WelfordState:
     )
 
 
-def welford_update_batch(s: WelfordState, xs) -> WelfordState:
-    """Fold a whole (chains, dim) batch in (Chan et al. parallel combine)."""
-    mean_b = torch.mean(xs, dim=0)
-    m2_b = torch.sum((xs - mean_b) ** 2, dim=0)
-    n = float(xs.shape[0])
+def welford_update_batch(s: WelfordState, xs, group=None) -> WelfordState:
+    """Fold a whole (chains, dim) batch in (Chan et al. parallel combine),
+    over the ranks of `group` too: the batch mean is their mean, the
+    within-batch M2 their sum (the spread between the ranks' means is
+    left out, as in the JAX package: the chains are iid), the count
+    theirs. Leading axes before the chain axis (..., chains, dim) are
+    independent accumulators."""
+    mean_b = torch.mean(xs, dim=-2)
+    m2_b = torch.sum((xs - mean_b.unsqueeze(-2)) ** 2, dim=-2)
+    n = float(xs.shape[-2])
+    if group is not None:
+        mean_b, m2_b, n = pmean(mean_b, group), psum(m2_b, group), n * group_size(group)
     count = s.count + n
     delta = mean_b - s.mean
-    mean = s.mean + delta * (n / count)
-    m2 = s.m2 + m2_b + delta * delta * (s.count * n / count)
+    mean = s.mean + delta * (n / count)[..., None]
+    m2 = s.m2 + m2_b + delta * delta * (s.count * n / count)[..., None]
     return WelfordState(count, mean, m2)
 
 
@@ -116,13 +153,16 @@ def welford_cov_init(dim: int, dtype=torch.float64, device="cpu") -> WelfordStat
     )
 
 
-def welford_cov_update_batch(s: WelfordState, xs) -> WelfordState:
+def welford_cov_update_batch(s: WelfordState, xs, group=None) -> WelfordState:
     """Fold a (chains, dim) batch into the covariance accumulator (Chan et
-    al. pairwise combine)."""
+    al. pairwise combine), over the ranks of `group` as the diagonal
+    version does."""
     mean_b = torch.mean(xs, dim=0)
     c = xs - mean_b
     m2_b = c.T @ c
     n = float(xs.shape[0])
+    if group is not None:
+        mean_b, m2_b, n = pmean(mean_b, group), psum(m2_b, group), n * group_size(group)
     count = s.count + n
     delta = mean_b - s.mean
     mean = s.mean + delta * (n / count)

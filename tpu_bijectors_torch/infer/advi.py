@@ -17,6 +17,13 @@ through a trainable flow (the `flows` package); the optimiser is a
 flow's `flow_parameters`), by default Adam with optax's defaults, the JAX
 package's `optax.adam`. Both go through the same loop, which rebuilds the
 family around the optimiser's tensors each step.
+
+With a `group` (`shard.chain_parallel_advi`: the JAX package's `axis_name`
+and `n_dev`), every rank draws the same full MC block from a generator of
+the same state, evaluates the density on its n_mc / n_ranks slice, and the
+loss and the gradient are averaged over the ranks (one `all_reduce` each a
+step): every rank takes the same optimiser steps, which equal the
+unsharded run's up to the order of the sums.
 """
 
 from __future__ import annotations
@@ -25,9 +32,11 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from ..flows.params import flow_parameters, with_flow_parameters
 from ..utils import resolve_device
+from .adapt import group_size, pmean
 from .model import as_batched
 
 LOG_2PI = math.log(2.0 * math.pi)
@@ -217,9 +226,12 @@ def _adam(learning_rate: float):
                                            eps=1e-8)
 
 
-def _fit(q, blogp, opt_factory, eps_draws, estimator: str, transposed: bool, n_iw: int):
-    """The optimisation loop over the given draws (one eps block a step):
-    ADVIResult of the fitted q and the losses."""
+def _fit(q, blogp, opt_factory, eps_draws, estimator: str, transposed: bool, n_iw: int,
+         group=None):
+    """The optimisation loop over the given draws (one eps block a step, of
+    this rank's slice where `group` is given): ADVIResult of the fitted q
+    and the losses, the loss and gradient averaged over the group's
+    ranks."""
     params = [t.detach().clone().requires_grad_(True) for t in q._tensors()]
     opt = opt_factory(params)
     losses = []
@@ -227,6 +239,11 @@ def _fit(q, blogp, opt_factory, eps_draws, estimator: str, transposed: bool, n_i
         loss = _neg_elbo(q._rebuild(params), blogp, eps, estimator, transposed, n_iw)
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        if group is not None:
+            loss = pmean(loss.detach(), group)
+            for p in params:
+                if p.grad is not None:
+                    p.grad = pmean(p.grad, group)
         opt.step()
         losses.append(loss.detach())
     fitted = q._rebuild([p.detach() for p in params])
@@ -249,6 +266,7 @@ def fit_advi(
     estimator: str = "elbo",
     n_iw: int = 8,
     device=None,
+    group=None,
 ) -> ADVIResult:
     """Maximize the ELBO over q's tensors; q defaults to
     MeanFieldGaussian.init(dim) on `device` (default `cuda`; raises where
@@ -270,7 +288,11 @@ def fit_advi(
     gradient vanishes when q matches the target. estimator='iwelbo'
     maximizes the importance-weighted bound (Burda, Grosse & Salakhutdinov
     2016), n_mc groups of n_iw draws (batch-major only). Every draw comes
-    from `generator` (on q's device)."""
+    from `generator` (on q's device).
+
+    group: the ranks share the fit (the module docstring); n_mc must be
+    divisible by their number, and every rank passes a generator of the
+    same state."""
     if q is None:
         q = MeanFieldGaussian.init(dim, dtype, device)
     if estimator not in ("elbo", "stl", "iwelbo"):
@@ -286,8 +308,16 @@ def fit_advi(
             "transposed=True requires a batch-capable log density "
             "mapping (dim, n) -> (n,) (e.g. Model.batched_logdensity_t_fn)"
         )
+    n_dev = group_size(group)
+    if n_mc % n_dev:
+        raise ValueError(f"n_mc={n_mc} not divisible by mesh size {n_dev}")
     n_draws = n_mc * n_iw if estimator == "iwelbo" else n_mc
     shape = (dim, n_draws) if transposed else (n_draws, dim)
     eps_draws = (_normal(generator, _like(q), shape) for _ in range(n_steps))
+    if group is not None:
+        # this rank's slice of each block: whole n_iw groups of rows
+        axis, n_loc = (1 if transposed else 0), n_draws // n_dev
+        start = dist.get_rank(group) * n_loc
+        eps_draws = (eps.narrow(axis, start, n_loc) for eps in eps_draws)
     return _fit(q, as_batched(logdensity_fn), optimizer or _adam(learning_rate), eps_draws,
-                estimator, transposed, n_iw)
+                estimator, transposed, n_iw, group)

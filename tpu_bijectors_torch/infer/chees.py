@@ -23,6 +23,12 @@ The JAX package runs a `fori_loop` of n_steps = ceil(u T / eps) (clipped
 to [1, max_steps]) leapfrogs; here n_steps is read to the host once a
 transition (`hmc_batched.SYNCS['trajectory']`) and exactly that many
 leapfrogs run. Every draw comes from the state's `torch.Generator`.
+
+With a `group` (`shard.chain_parallel_chees`), the chain means of the
+ChEES gradient, the harmonic acceptance and the Welford statistics are
+means over every rank's chains (one `all_reduce` each): the adapted step
+size and trajectory length come out the same on every rank, so the ranks'
+chain blocks march in lockstep too.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from .adapt import (
     StepSizeAdaptState,
     WelfordState,
     build_schedule,
+    pmean,
     stepsize_init,
     stepsize_update,
     welford_cov_init,
@@ -88,17 +95,19 @@ class CheesStats(NamedTuple):
     trajectory: torch.Tensor  # (iters,) T a transition
 
 
-def _chees_grad(q, q1, v_end, w, u: float, t):
+def _chees_grad(q, q1, v_end, w, u: float, t, group=None):
     """d ChEES / d log T from the proposed endpoints q1 and their velocity
-    v_end, chains weighted by w. A divergent chain has non-finite q1 or
-    v_end: its weight is 0 already, but 0 * inf = NaN would poison the Adam
-    moments for good, so its term is masked itself."""
-    qc_old = q - torch.mean(q, dim=0)
-    qc_new = q1 - torch.mean(q1, dim=0)
+    v_end, chains weighted by w, the means over `group`'s ranks too. A
+    divergent chain has non-finite q1 or v_end: its weight is 0 already,
+    but 0 * inf = NaN would poison the Adam moments for good, so its term
+    is masked itself."""
+    qc_old = q - pmean(torch.mean(q, dim=0), group)
+    qc_new = q1 - pmean(torch.mean(q1, dim=0), group)
     term = torch.sum(qc_new * qc_new, dim=-1) - torch.sum(qc_old * qc_old, dim=-1)
     per_chain = term * torch.sum(qc_new * v_end, dim=-1)
     per_chain = torch.where(torch.isfinite(per_chain), per_chain, 0.0)
-    g = torch.mean(w * per_chain) / torch.clamp_min(torch.mean(w), 1e-10)
+    g = pmean(torch.mean(w * per_chain), group) / torch.clamp_min(
+        pmean(torch.mean(w), group), 1e-10)
     return g * u * t  # chain rule: dh / dlog T = u T
 
 
@@ -116,7 +125,8 @@ def _adam_log_t(st: CheesState, g_logt, eps, lr_t: float, max_steps: int):
     return log_t, m, v
 
 
-def _transition(vg, q, logp, grad, eps, t, inv_mass, u: float, z, u_acc, max_steps: int):
+def _transition(vg, q, logp, grad, eps, t, inv_mass, u: float, z, u_acc, max_steps: int,
+                group=None):
     """One lockstep jittered trajectory for the whole chain block, given the
     momentum's standard normal z (chains, dim) and the accept uniforms
     u_acc (chains,): (q', logp', grad', accept_prob, diverging, harmonic
@@ -136,11 +146,11 @@ def _transition(vg, q, logp, grad, eps, t, inv_mass, u: float, z, u_acc, max_ste
         finite, torch.clamp_max(torch.exp(torch.clamp_max(-delta, 0.0)), 1.0), 0.0
     )
     accept = u_acc < accept_prob
-    g_logt = _chees_grad(q, s1.q, apply_inv_mass(inv_mass, s1.p), accept_prob, u, t)
+    g_logt = _chees_grad(q, s1.q, apply_inv_mass(inv_mass, s1.p), accept_prob, u, t, group)
     q1 = torch.where(accept[:, None], s1.q, q)
     logp1 = torch.where(accept, s1.logp, logp)
     grad1 = torch.where(accept[:, None], s1.grad, grad)
-    harm_acc = 1.0 / torch.mean(1.0 / torch.clamp_min(accept_prob, 1e-10))
+    harm_acc = 1.0 / pmean(torch.mean(1.0 / torch.clamp_min(accept_prob, 1e-10)), group)
     return q1, logp1, grad1, accept_prob, diverging, harm_acc, g_logt, n_steps
 
 
@@ -153,14 +163,15 @@ def _draws(st: CheesState):
 
 
 def _warmup_step(vg, st: CheesState, wid: int, wend: bool, z, u_acc, *, dense: bool,
-                 target_accept: float, lr_t: float, max_steps: int):
+                 target_accept: float, lr_t: float, max_steps: int, group=None):
     """One warmup transition given its draws, then the step-size, trajectory
-    and mass adaptation: (state, (accept_prob, diverging, n_steps, T))."""
+    and mass adaptation (shared across `group`'s ranks): (state,
+    (accept_prob, diverging, n_steps, T))."""
     dtype = st.q.dtype
     u = _halton2(st.iteration)
     t = torch.exp(st.log_t)
     q1, logp1, grad1, acc, div, harm_acc, g_logt, n_steps = _transition(
-        vg, st.q, st.logp, st.grad, st.eps, t, st.inv_mass, u, z, u_acc, max_steps
+        vg, st.q, st.logp, st.grad, st.eps, t, st.inv_mass, u, z, u_acc, max_steps, group
     )
     ss = stepsize_update(st.ss, harm_acc, target=target_accept)
     eps = torch.exp(ss.log_eps).to(dtype)
@@ -168,7 +179,7 @@ def _warmup_step(vg, st: CheesState, wid: int, wend: bool, z, u_acc, *, dense: b
     # windowed Welford mass (diagonal variance or dense covariance)
     wf = st.welford
     if wid >= 0:
-        wf = (welford_cov_update_batch if dense else welford_update_batch)(wf, q1)
+        wf = (welford_cov_update_batch if dense else welford_update_batch)(wf, q1, group)
     inv_mass = st.inv_mass
     if wend:
         inv_mass = (welford_covariance if dense else welford_variance)(wf).to(dtype)
@@ -218,6 +229,7 @@ def run_chees(
     lr_t: float = 0.05,
     max_steps: int = 1024,
     metric: str = "diag",
+    group=None,
 ):
     """Warmup (step size, trajectory and mass adaptation) then sampling with
     the tuned jittered-trajectory HMC. Accepts per-example or batch-capable
@@ -225,8 +237,11 @@ def run_chees(
     (`model.as_batched`); a density's `value_and_grad_fn` serves every
     leapfrog where it has one. metric: 'diag' (Welford variance) or 'dense'
     (full covariance, Stan's dense_e: the NUTS warmup's accumulators).
-    Every draw comes from `generator` (on q0's device). Returns (samples
-    (n_samples, chains, dim), CheesState, CheesStats)."""
+    Every draw comes from `generator` (on q0's device). With `group`, q0
+    is this rank's block of chains and the adaptation is shared across the
+    group's ranks (the module docstring); the sampling transitions share
+    nothing. Returns (samples (n_samples, chains, dim), CheesState,
+    CheesStats)."""
     if metric not in ("diag", "dense"):
         raise ValueError(f"unknown metric {metric!r}")
     dense = metric == "dense"
@@ -235,7 +250,8 @@ def run_chees(
     window_id, window_end = build_schedule(n_warmup)
     for wid, wend in zip(window_id, window_end):
         st, _ = _warmup_step(vg, st, int(wid), bool(wend), *_draws(st), dense=dense,
-                             target_accept=target_accept, lr_t=lr_t, max_steps=max_steps)
+                             target_accept=target_accept, lr_t=lr_t, max_steps=max_steps,
+                             group=group)
     # sampling at the dual-averaged eps and the tuned T
     st = st._replace(eps=torch.exp(st.ss.log_eps_bar).to(q0.dtype))
     samples, acc, div, n_steps, t_trace = [], [], [], [], []

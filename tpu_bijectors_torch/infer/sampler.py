@@ -12,18 +12,28 @@ the state's device (JAX's `key` arguments are `generator` arguments).
 Adaptation statistics stay on the device: a transition reads nothing back
 to the host beyond the tree loops' conditions (hmc_batched.SYNCS). The
 state checkpoints through shard/checkpoint.py.
+
+With a `group` (a `torch.distributed` process group, the JAX package's
+`axis_name`: `shard.chain_parallel_nuts` sets it), each rank runs its own
+block of chains: the step size adapts on the mean acceptance over every
+rank's chains and the mass on every rank's Welford statistics (one
+`all_reduce` each a warmup transition), and each rank draws from its own
+stream (`fold_rank`), rank 0 from the caller's generator itself.
 """
 
 from __future__ import annotations
 
+import hashlib
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from .adapt import (
     StepSizeAdaptState,
     WelfordState,
     build_schedule,
+    pmean,
     stepsize_init,
     stepsize_init_like,
     stepsize_update,
@@ -147,6 +157,21 @@ def _build_vkernel(logdensity_fn, kernel: str, max_depth: int, n_leapfrog: int =
     return vkernel, init_logdensity
 
 
+def fold_rank(generator, group):
+    """This rank's random stream in `group` (the JAX package's
+    `_fold_axis`): the generator itself on rank 0 and where group is None,
+    so that a run on one rank repeats the unsharded run bit for bit; on
+    rank r a new generator on its device, seeded from a hash of the
+    generator's state and r (the caller's generator is not advanced)."""
+    rank = 0 if group is None else dist.get_rank(group)
+    if rank == 0:
+        return generator
+    state = generator.get_state().numpy().tobytes() + rank.to_bytes(8, "little")
+    g = torch.Generator(device=generator.device)
+    g.manual_seed(int.from_bytes(hashlib.sha256(state).digest()[:8], "little") >> 1)
+    return g
+
+
 def _stats(info) -> RunStats:
     return RunStats(info.accept_prob, info.diverging, info.n_steps, info.tree_depth)
 
@@ -209,8 +234,10 @@ def resume_sampling(
     warmup_and_sample run with n_samples=0 returns. With the same density
     and kernel settings, the continuation repeats the tail of an
     uninterrupted warmup_and_sample run draw for draw (the state carries
-    its generator; shard/checkpoint.py's `load_sampler_state` restores
-    one). Returns (samples, state, stats) like warmup_and_sample."""
+    its generator, on each rank of a sharded run its own stream;
+    shard/checkpoint.py's `load_sampler_state` restores one). Sampling
+    shares nothing across ranks, so it takes no group. Returns (samples,
+    state, stats) like warmup_and_sample."""
     vkernel, _ = _build_vkernel(logdensity_fn, kernel, max_depth, n_leapfrog)
     return _run_sampling(vkernel, state, n_samples, thin)
 
@@ -229,19 +256,22 @@ def warmup_and_sample(
     thin: int = 1,
     metric: str = "diag",
     inv_mass0=None,
+    group=None,
 ):
     """Windowed-adaptation warmup (dual-averaged step size on the
     cross-chain mean acceptance, Welford variance in the mass windows, the
     step-size adaptation restarted after each metric refresh), then
     sampling at the dual-averaged step size. metric='dense' adapts the
     full covariance instead of the variance (the leapfrog's products at
-    float32's full precision on the card: hmc.py).
+    float32's full precision on the card: hmc.py). With `group`, q0 is
+    this rank's block of chains and the adaptation is shared across the
+    group's ranks (the module docstring).
 
     Returns (samples (n_samples // thin, chains, dim), SamplerState,
     RunStats)."""
     vkernel, init_logdensity = _build_vkernel(logdensity_fn, kernel, max_depth, n_leapfrog)
     state = init_sampler(
-        init_logdensity, generator, q0, eps0, metric=metric,
+        init_logdensity, fold_rank(generator, group), q0, eps0, metric=metric,
         batched=kernel.startswith("nuts_batched"), inv_mass0=inv_mass0,
     )
     window_id, window_end = build_schedule(n_warmup)
@@ -255,10 +285,11 @@ def warmup_and_sample(
             state.generator, state.q, state.logp, state.grad, state.eps, state.inv_mass
         )
         # step size: dual averaging on the cross-chain mean accept prob
-        ss = stepsize_update(state.ss, torch.mean(info.accept_prob), target=target_accept)
+        ss = stepsize_update(state.ss, pmean(torch.mean(info.accept_prob), group),
+                             target=target_accept)
         eps = torch.exp(ss.log_eps)
         # mass: Welford inside mass windows; refresh + reset at window ends
-        wf = wf_update(state.welford, q) if wid >= 0 else state.welford
+        wf = wf_update(state.welford, q, group) if wid >= 0 else state.welford
         inv_mass = state.inv_mass
         if wend:
             refresh = wf.count > 2

@@ -27,8 +27,14 @@ The JAX package's `lax.scan` over sweeps is a host loop here. The run
 reads nothing back to the host and copies nothing to the card: the
 accept, swap and adaptation steps are `torch.where`s on the device, and
 the run adds nothing to `hmc_batched.SYNCS` (chip_smoke.py counts the
-card's synchronizations during a run). The JAX package's `axis_name` (chains sharded across
-devices) belongs to the shard layer, which is not ported.
+card's synchronizations during a run).
+
+With a `group` (`shard.chain_parallel_pt`: the JAX package's `axis_name`),
+each rank runs its block of chain columns of the lattice: the per-rung
+acceptance, the swap rates, the Welford statistics and the
+thermodynamic-integration means are means over every rank's chains (one
+`all_reduce` each), so every rank adapts the same ladder; the swaps stay
+within a chain column and cross no rank.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ import torch
 
 from .adapt import (
     StepSizeAdaptState,
+    pmean,
     WelfordState,
     stepsize_update,
     welford_update_batch,
@@ -92,17 +99,14 @@ def run_parallel_tempering(
     eps0: float = 0.2,
     target_accept: float = 0.7,
     thin: int = 1,
-    axis_name=None,
+    group=None,
 ) -> PTResult:
     """q0: (n_chains, dim) starts, the same on every rung. Returns the cold
     chain's draws; `log_evidence` averages E_beta[log lik] over the
     sampling sweeps and integrates the ladder by trapezoid. Every draw
-    comes from `generator` (on q0's device). `axis_name` (the JAX
-    package's chain-sharded run, `shard.chain_parallel_pt`) is not ported:
-    it raises."""
-    if axis_name is not None:
-        raise NotImplementedError("axis_name: the chain-sharded run belongs to the shard "
-                                  "layer, which the port does not have")
+    comes from `generator` (on q0's device). With `group`, q0 is this
+    rank's block of chains and the statistics are shared across the
+    group's ranks (the module docstring)."""
     bprior, blik = as_batched(log_prior_fn), as_batched(log_lik_fn)
     prior_vg = _batched_logp_and_grad(bprior)
     n_chains, dim = q0.shape
@@ -196,7 +200,7 @@ def run_parallel_tempering(
         ll2 = torch.where(acc, ll[partner], ll)
         # each pair is attempted on its parity's sweeps only: the attempt
         # mask gives the per-attempt rate
-        pair_acc = torch.mean(acc_lo.to(dtype), dim=1)[:-1]
+        pair_acc = cmean(acc_lo.to(dtype))[:-1]
         return q2, lp2, ll2, pair_acc, is_lo[:-1].to(dtype)
 
     q = q0[None].expand(K, n_chains, dim).clone()
@@ -211,14 +215,21 @@ def run_parallel_tempering(
         torch.zeros(K, dtype=torch.int32, device=dev))
     wf = WelfordState(torch.zeros(K, **f), torch.zeros((K, dim), **f), torch.zeros((K, dim), **f))
     inv_mass = torch.ones((K, dim), dtype=dtype, device=dev)
-    wf_update = torch.func.vmap(welford_update_batch)
+    def cmean(x):
+        """The mean over the chain axis (1) of every rank's chains."""
+        return pmean(torch.mean(x, dim=1), group)
+
+    # one accumulator a rung: vmapped on one rank; across ranks the update
+    # takes the (K, N, dim) lattice whole (an all_reduce does not vmap)
+    wf_update = (torch.func.vmap(welford_update_batch) if group is None
+                 else lambda s, x: welford_update_batch(s, x, group))
 
     def sweep(it, q, logp, lp, ll, eps, inv_mass):
         """Sweep `it`: one HMC update and one swap round."""
         q, logp, acc_p = hmc_update(q, logp, eps, inv_mass)
         lp, ll = pieces(q)
         q, lp, ll, pair_acc, attempted = swap(q, lp, ll, it % 2)
-        return q, tempered(lp, ll), lp, ll, torch.mean(acc_p, dim=1), pair_acc, attempted
+        return q, tempered(lp, ll), lp, ll, cmean(acc_p), pair_acc, attempted
 
     for it in range(n_warmup):
         q, logp, lp, ll, acc_mean, _, _ = sweep(it, q, logp, lp, ll, torch.exp(ss.log_eps),
@@ -238,7 +249,7 @@ def run_parallel_tempering(
         accs.append(acc_mean)
         pair_accs.append(pair_acc)
         attempts.append(attempted)
-        mean_lls.append(torch.mean(ll, dim=1))
+        mean_lls.append(cmean(ll))
 
     log_z = torch.trapezoid(torch.mean(torch.stack(mean_lls), dim=0), betas)
     swap_accept = torch.sum(torch.stack(pair_accs), dim=0) / torch.clamp_min(

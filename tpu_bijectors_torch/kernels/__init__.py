@@ -26,7 +26,17 @@ the slab's per-element math, not on any model's path) and
 entries' interpreter, not on any model's path either). The traced entries
 themselves run inside the four slab wrappers (their loop kind `traced`):
 `slab_traced` counts the launches of those wrappers that ran it.
+
+Every launch on a model's path (the slab wrappers, the simplex, LKJ and
+PD links) is also an operator `tbt::<name>` (`kernel_op`), so that a
+trace records it where a fake tensor has no storage for the kernel
+(`serving.py`): on fake tensors, or while `torch.export` traces, a
+wrapper calls the operator; otherwise it launches directly, with no
+dispatch of its own. Either way
+the same C entry runs and the same `LAUNCHES` key counts it.
 """
+
+import functools
 
 _ENABLED = True
 
@@ -88,3 +98,35 @@ def launch(fn: str, name: str, device, *args):
     if err != 0:
         raise RuntimeError(f"{fn} launch failed: {lib.tbt_error_string(err).decode()}")
     LAUNCHES[name] += 1
+
+
+def kernel_op(name: str, schema: str, fake):
+    """Decorator: register the card's launch function `impl` as the
+    operator `tbt::name` (CUDA only; `schema` its signature, `fake` its
+    outputs' shapes and strides from its inputs) and return a function
+    that calls the operator on fake tensors (their first argument) or
+    while `torch.export` traces, and `impl` itself otherwise. Either route
+    raises while the kernels are disabled: a trace of the card route never
+    records a plain path."""
+
+    def wrap(impl):
+        import torch
+        from torch._subclasses.fake_tensor import FakeTensor
+
+        op = torch.library.custom_op(f"tbt::{name}", impl, mutates_args=(),
+                                     device_types="cuda", schema=schema)
+        op.register_fake(fake)
+
+        @functools.wraps(impl)
+        def call(*args):
+            if isinstance(args[0], FakeTensor) or torch.compiler.is_exporting():
+                if not _ENABLED:
+                    raise RuntimeError(
+                        f"kernels are disabled, and tbt::{name} has no plain path on the "
+                        "card; call kernels.enable(True) before the trace")
+                return op(*args)
+            return impl(*args)
+
+        return call
+
+    return wrap

@@ -110,20 +110,54 @@ def _check_cuda(y, K):
         raise ValueError(f"y must be (B, {K * (K - 1) // 2}); got {tuple(y.shape)}")
 
 
-def lkj_logdet(y, K: int, chol: bool = False):
-    """(logJ (B,), log diag W (B, K)) from y (B, K(K-1)/2)."""
-    if y.device.type == "cpu":
-        return lkj_logdet_plain(y, K, chol)
-    _check_cuda(y, K)
+def _empty(shape, like):
+    return torch.empty(shape, dtype=like.dtype, device=like.device)
+
+
+def _fake_logdet(y, K, chol):
+    return _empty((y.shape[0],), y), _empty((y.shape[0], K), y)
+
+
+@kernels.kernel_op("lkj_logdet", "(Tensor y, int K, bool chol) -> (Tensor, Tensor)",
+                   _fake_logdet)
+def _logdet_launch(y, K, chol):
+    """#5 on the card."""
     B = y.shape[0]
-    logJ = torch.empty(B, dtype=y.dtype, device=y.device)
-    log_diag = torch.empty((B, K), dtype=y.dtype, device=y.device)
+    logJ, log_diag = _fake_logdet(y, K, chol)
     kernels.launch(
         "tbt_lkj_logdet", "lkj_logdet_chol" if chol else "lkj_logdet", y.device,
         y.data_ptr(), y.stride(0), y.stride(1), logJ.data_ptr(), log_diag.data_ptr(),
         K, int(chol), B,
     )
     return logJ, log_diag
+
+
+def lkj_logdet(y, K: int, chol: bool = False):
+    """(logJ (B,), log diag W (B, K)) from y (B, K(K-1)/2)."""
+    if y.device.type == "cpu":
+        return lkj_logdet_plain(y, K, chol)
+    _check_cuda(y, K)
+    return _logdet_launch(y, K, chol)
+
+
+def _fake_inverse(y, K, want_w):
+    B = y.shape[0]
+    return (_empty((B, K, K), y), _empty((B,), y), _empty((B, K), y),
+            _empty((B, K, K) if want_w else (0,), y))
+
+
+@kernels.kernel_op("lkj_inverse", "(Tensor y, int K, bool want_w) -> (Tensor, Tensor, Tensor, Tensor)",
+                   _fake_inverse)
+def _inverse_launch(y, K, want_w):
+    """#6 on the card: (X, logJ, log diag W, W or an empty (0,))."""
+    B = y.shape[0]
+    X, logJ, log_diag, W = _fake_inverse(y, K, want_w)
+    kernels.launch(
+        "tbt_lkj_inverse", "lkj_inverse", y.device,
+        y.data_ptr(), y.stride(0), y.stride(1), X.data_ptr(), logJ.data_ptr(),
+        log_diag.data_ptr(), W.data_ptr() if want_w else None, K, B,
+    )
+    return X, logJ, log_diag, W
 
 
 def lkj_inverse(y, K: int, want_w: bool = False):
@@ -135,13 +169,5 @@ def lkj_inverse(y, K: int, want_w: bool = False):
             f"the LKJ inverse kernel takes K <= {MAX_K}; got K = {K} on {y.device}"
         )
     _check_cuda(y, K)
-    B = y.shape[0]
-    new = lambda *s: torch.empty(s, dtype=y.dtype, device=y.device)  # noqa: E731
-    X, logJ, log_diag = new(B, K, K), new(B), new(B, K)
-    W = new(B, K, K) if want_w else None
-    kernels.launch(
-        "tbt_lkj_inverse", "lkj_inverse", y.device,
-        y.data_ptr(), y.stride(0), y.stride(1), X.data_ptr(), logJ.data_ptr(),
-        log_diag.data_ptr(), None if W is None else W.data_ptr(), K, B,
-    )
-    return X, logJ, log_diag, W
+    X, logJ, log_diag, W = _inverse_launch(y, K, want_w)
+    return X, logJ, log_diag, (W if want_w else None)

@@ -152,20 +152,53 @@ def _check_mode(mode):
         raise ValueError(f"mode must be one of {MODES}; got {mode!r}")
 
 
-def pd_inverse(y, K: int):
-    """(X (B, K, K), logJ (B,), L (B, K, K)) from y (B, K(K+1)/2)."""
-    if y.device.type == "cpu":
-        return pd_inverse_plain(y, K)
-    _check_cuda(y, K)
+def _empty(shape, like):
+    return torch.empty(shape, dtype=like.dtype, device=like.device)
+
+
+def _fake_inverse(y, K):
     B = y.shape[0]
-    new = lambda *s: torch.empty(s, dtype=y.dtype, device=y.device)  # noqa: E731
-    X, logJ, L = new(B, K, K), new(B), new(B, K, K)
+    return _empty((B, K, K), y), _empty((B,), y), _empty((B, K, K), y)
+
+
+@kernels.kernel_op("pd_inverse", "(Tensor y, int K) -> (Tensor, Tensor, Tensor)", _fake_inverse)
+def _inverse_launch(y, K):
+    """#10 on the card."""
+    B = y.shape[0]
+    X, logJ, L = _fake_inverse(y, K)
     kernels.launch(
         "tbt_pd_inverse", "pd_inverse", y.device,
         y.data_ptr(), y.stride(0), y.stride(1), X.data_ptr(), logJ.data_ptr(),
         L.data_ptr(), K, B,
     )
     return X, logJ, L
+
+
+def pd_inverse(y, K: int):
+    """(X (B, K, K), logJ (B,), L (B, K, K)) from y (B, K(K+1)/2)."""
+    if y.device.type == "cpu":
+        return pd_inverse_plain(y, K)
+    _check_cuda(y, K)
+    return _inverse_launch(y, K)
+
+
+def _fake_logdensity(y, K, C, solve):
+    return tuple(_empty((y.shape[0],), y) for _ in range(3))
+
+
+@kernels.kernel_op("pd_logdensity",
+                   "(Tensor y, int K, Tensor C, bool solve) -> (Tensor, Tensor, Tensor)",
+                   _fake_logdensity)
+def _logdensity_launch(y, K, C, solve):
+    """#11 on the card."""
+    B = y.shape[0]
+    logJ, sumd, tr = _fake_logdensity(y, K, C, solve)
+    kernels.launch(
+        "tbt_pd_logdensity", "pd_logdensity", y.device,
+        y.data_ptr(), y.stride(0), y.stride(1), C.data_ptr(), logJ.data_ptr(),
+        sumd.data_ptr(), tr.data_ptr(), K, int(solve), B,
+    )
+    return logJ, sumd, tr
 
 
 def pd_logdensity(y, K: int, C, mode: str):
@@ -175,14 +208,26 @@ def pd_logdensity(y, K: int, C, mode: str):
         return pd_logdensity_plain(y, K, C, mode)
     _check_cuda(y, K, C)
     C = C.to(torch.float32).contiguous()  # the kernel takes (C + C') / 2 in dot mode
-    B = y.shape[0]
-    logJ, sumd, tr = (torch.empty(B, dtype=y.dtype, device=y.device) for _ in range(3))
+    return _logdensity_launch(y, K, C, mode == "solve")
+
+
+def _fake_trace_grad(y, K, C, solve):
+    B, P = y.shape
+    swapped = y.stride(0) == 1 and y.stride(1) != 1
+    return _empty((P, B), y).T if swapped else _empty((B, P), y)
+
+
+@kernels.kernel_op("pd_trace_grad", "(Tensor y, int K, Tensor C, bool solve) -> Tensor",
+                   _fake_trace_grad)
+def _trace_grad_launch(y, K, C, solve):
+    """#12 on the card: g in y's layout."""
+    g = _fake_trace_grad(y, K, C, solve)
     kernels.launch(
-        "tbt_pd_logdensity", "pd_logdensity", y.device,
-        y.data_ptr(), y.stride(0), y.stride(1), C.data_ptr(), logJ.data_ptr(),
-        sumd.data_ptr(), tr.data_ptr(), K, int(mode == "solve"), B,
+        "tbt_pd_trace_grad", "pd_trace_grad", y.device,
+        y.data_ptr(), y.stride(0), y.stride(1), C.data_ptr(), g.data_ptr(),
+        g.stride(0), g.stride(1), K, int(solve), y.shape[0],
     )
-    return logJ, sumd, tr
+    return g
 
 
 def pd_trace_grad(y, K: int, C, mode: str):
@@ -193,13 +238,4 @@ def pd_trace_grad(y, K: int, C, mode: str):
         return pd_trace_grad_plain(y, K, C, mode)
     _check_cuda(y, K, C)
     C = _sym(C.to(torch.float32), mode).contiguous()
-    B, P = y.shape
-    swapped = y.stride(0) == 1 and y.stride(1) != 1
-    g = (torch.empty((P, B), dtype=y.dtype, device=y.device).T if swapped
-         else torch.empty((B, P), dtype=y.dtype, device=y.device))
-    kernels.launch(
-        "tbt_pd_trace_grad", "pd_trace_grad", y.device,
-        y.data_ptr(), y.stride(0), y.stride(1), C.data_ptr(), g.data_ptr(),
-        g.stride(0), g.stride(1), K, int(mode == "solve"), B,
-    )
-    return g
+    return _trace_grad_launch(y, K, C, mode == "solve")

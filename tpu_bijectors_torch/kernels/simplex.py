@@ -211,6 +211,35 @@ def _check_cuda(y, am1=None):
             raise ValueError(f"am1 must be contiguous ({y.shape[1] + 1},); got {tuple(am1.shape)}")
 
 
+def _empty(shape, like):
+    return torch.empty(shape, dtype=like.dtype, device=like.device)
+
+
+def _fake_inverse_logdet(y, coeffs, am1, want_x, small):
+    B, Km1 = y.shape
+    return (_empty((B, Km1 + 1) if want_x else (0,), y), _empty((B,), y),
+            _empty((B,) if am1 is not None else (0,), y))
+
+
+@kernels.kernel_op(
+    "simplex_inverse_logdet",
+    "(Tensor y, Tensor coeffs, Tensor? am1, bool want_x, bool small) -> (Tensor, Tensor, Tensor)",
+    _fake_inverse_logdet)
+def _inverse_logdet_launch(y, coeffs, am1, want_x, small):
+    """#7 on the card: (x or an empty (0,), ld, wlog or an empty (0,))."""
+    B, Km1 = y.shape
+    x, ld, wlog = _fake_inverse_logdet(y, coeffs, am1, want_x, small)
+    ptr = lambda t, on: t.data_ptr() if on else None  # noqa: E731
+    kernels.launch(
+        "tbt_simplex_inverse_logdet",
+        "simplex_inverse_logdet_small" if small else "simplex_inverse_logdet", y.device,
+        y.data_ptr(), y.stride(0), y.stride(1), coeffs.data_ptr(),
+        ptr(am1, am1 is not None), ptr(x, want_x), ld.data_ptr(),
+        ptr(wlog, am1 is not None), Km1, int(small), B,
+    )
+    return x, ld, wlog
+
+
 def simplex_inverse_logdet(y, am1=None, want_x: bool = True, design=None):
     """(x (B, K) or None, ld (B,), wlog (B,) or None) from y (B, K-1).
     `design` ("small" or "wide") overrides `simplex_design(B)` on the card."""
@@ -219,17 +248,26 @@ def simplex_inverse_logdet(y, am1=None, want_x: bool = True, design=None):
     _check_cuda(y, am1)
     B, Km1 = y.shape
     small = _design(B, design) == "small"
-    x = torch.empty((B, Km1 + 1), dtype=y.dtype, device=y.device) if want_x else None
-    ld = torch.empty(B, dtype=y.dtype, device=y.device)
-    wlog = None if am1 is None else torch.empty(B, dtype=y.dtype, device=y.device)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    x, ld, wlog = _inverse_logdet_launch(y, _log_km1_minus_k(Km1 + 1, y), am1, want_x, small)
+    return (x if want_x else None), ld, (None if am1 is None else wlog)
+
+
+def _fake_inverse(y, coeffs, small):
+    return _empty((y.shape[0], y.shape[1] + 1), y)
+
+
+@kernels.kernel_op("simplex_inverse", "(Tensor y, Tensor coeffs, bool small) -> Tensor",
+                   _fake_inverse)
+def _inverse_launch(y, coeffs, small):
+    """#8 on the card."""
+    B, Km1 = y.shape
+    x = _fake_inverse(y, coeffs, small)
     kernels.launch(
-        "tbt_simplex_inverse_logdet",
-        "simplex_inverse_logdet_small" if small else "simplex_inverse_logdet", y.device,
-        y.data_ptr(), y.stride(0), y.stride(1), _log_km1_minus_k(Km1 + 1, y).data_ptr(),
-        ptr(am1), ptr(x), ld.data_ptr(), ptr(wlog), Km1, int(small), B,
+        "tbt_simplex_inverse", "simplex_inverse", y.device,
+        y.data_ptr(), y.stride(0), y.stride(1), coeffs.data_ptr(),
+        x.data_ptr(), Km1, int(small), B,
     )
-    return x, ld, wlog
+    return x
 
 
 def simplex_inverse(y, design=None):
@@ -239,13 +277,26 @@ def simplex_inverse(y, design=None):
         return simplex_inverse_plain(y)
     _check_cuda(y)
     B, Km1 = y.shape
-    x = torch.empty((B, Km1 + 1), dtype=y.dtype, device=y.device)
+    return _inverse_launch(y, _log_km1_minus_k(Km1 + 1, y), _design(B, design) == "small")
+
+
+def _fake_forward_logdet(x, coeffs):
+    B, K = x.shape
+    return _empty((B, K - 1), x), _empty((B,), x)
+
+
+@kernels.kernel_op("simplex_forward_logdet", "(Tensor x, Tensor coeffs) -> (Tensor, Tensor)",
+                   _fake_forward_logdet)
+def _forward_logdet_launch(x, coeffs):
+    """#9 on the card."""
+    B, K = x.shape
+    y, ld = _fake_forward_logdet(x, coeffs)
     kernels.launch(
-        "tbt_simplex_inverse", "simplex_inverse", y.device,
-        y.data_ptr(), y.stride(0), y.stride(1), _log_km1_minus_k(Km1 + 1, y).data_ptr(),
-        x.data_ptr(), Km1, int(_design(B, design) == "small"), B,
+        "tbt_simplex_forward_logdet", "simplex_forward_logdet", x.device,
+        x.data_ptr(), x.stride(0), x.stride(1), coeffs.data_ptr(),
+        y.data_ptr(), ld.data_ptr(), K, B,
     )
-    return x
+    return y, ld
 
 
 def simplex_forward_logdet(x):
@@ -256,12 +307,4 @@ def simplex_forward_logdet(x):
         raise TypeError(f"the simplex kernels take float32; got {x.dtype}")
     if x.ndim != 2 or x.shape[1] < 2:
         raise ValueError(f"x must be (B, K) with K >= 2; got {tuple(x.shape)}")
-    B, K = x.shape
-    y = torch.empty((B, K - 1), dtype=x.dtype, device=x.device)
-    ld = torch.empty(B, dtype=x.dtype, device=x.device)
-    kernels.launch(
-        "tbt_simplex_forward_logdet", "simplex_forward_logdet", x.device,
-        x.data_ptr(), x.stride(0), x.stride(1), _log_km1_minus_k(K, x).data_ptr(),
-        y.data_ptr(), ld.data_ptr(), K, B,
-    )
-    return y, ld
+    return _forward_logdet_launch(x, _log_km1_minus_k(x.shape[1], x))

@@ -45,6 +45,7 @@ from dataclasses import dataclass
 from typing import Callable
 
 import torch
+from torch.utils.weak import WeakTensorKeyDictionary
 
 from ..kernels.pd import affine_coeffs, pd_logdensity_plain, pd_trace_grad_plain
 
@@ -194,12 +195,20 @@ def _group_val_par(group, V, cf, used, value, partial, skip_mask):
     return val, par
 
 
+# cf -> its (groups, used), kept while cf lives: read from the host once
+# a table, not once a call, so that a traced export of the plain version
+# reads no host value
+_GROUPS = WeakTensorKeyDictionary()
+
+
 def _groups_and_used(cf):
     """The term groups and coefficient keys that `cf` assigns anywhere."""
-    nz = (cf[:, :NK] != 0).any(dim=0).tolist()
-    used = frozenset(k for k, on in zip(_COEF_KEYS, nz) if on)
-    groups = tuple(g for g, ks in _WEIGHT_OF.items() if ks & used)
-    return groups, used
+    hit = _GROUPS.get(cf)
+    if hit is None:
+        nz = (cf[:, :NK] != 0).any(dim=0).tolist()
+        used = frozenset(k for k, on in zip(_COEF_KEYS, nz) if on)
+        hit = _GROUPS[cf] = (tuple(g for g, ks in _WEIGHT_OF.items() if ks & used), used)
+    return hit
 
 
 # the loop kinds' codes in the kernel's entry table (csrc/fused_slab.cu)

@@ -380,18 +380,50 @@ def _check_cuda(vT, cf, loops, ct=None, dvT=None):
         raise ValueError(f"dvT must be {tuple(vT.shape)}; got {tuple(dvT.shape)}")
 
 
-def _launch(fn, name, vT, head, loops, *tail):
-    """Launch `fn` on vT, the slab's arguments `head`, the loop table of
-    `loops` and `tail`."""
+def _table(loops):
+    """The loop table's tensors and flags as the operators take them: (ent,
+    prm, tape, kmax, traced), with None and 0 where the model has no loop
+    entry."""
     if loops is None:
+        return None, None, None, 0, False
+    return loops.ent, loops.prm, loops.tape, loops.kmax, bool(loops.tapes)
+
+
+_LOOPS = "Tensor? ent, Tensor? prm, Tensor? tape, int kmax, bool traced"
+
+
+def _launch(fn, name, vT, head, loop_args, *tail):
+    """Launch `fn` on vT, the slab's arguments `head`, the loop table
+    `loop_args` (`_table`) and `tail`; count a launch that ran the traced
+    loop kind under `slab_traced` too."""
+    ent, prm, tape, kmax, traced = loop_args
+    if ent is None:
         table = (None, 0, None, 0, 0, None)
     else:
-        tape = None if loops.tape is None else loops.tape.data_ptr()
-        table = (loops.ent.data_ptr(), len(loops.entries), loops.prm.data_ptr(),
-                 loops.prm.numel(), loops.kmax, tape)
+        table = (ent.data_ptr(), ent.shape[0], prm.data_ptr(), prm.numel(), kmax,
+                 None if tape is None else tape.data_ptr())
     kernels.launch(fn, name, vT.device, vT.data_ptr(), *head, *table, *tail)
-    if loops is not None and loops.tapes:
-        kernels.LAUNCHES["slab_traced"] += 1  # a launch that ran the traced loop kind
+    if traced:
+        kernels.LAUNCHES["slab_traced"] += 1
+
+
+def _lp_like(vT):
+    return torch.empty(vT.shape[1], dtype=vT.dtype, device=vT.device)
+
+
+def _fake_value(vT, runs, packed, head0, head1, *loop_args):
+    return _lp_like(vT)
+
+
+@kernels.kernel_op("slab_value", f"(Tensor vT, Tensor runs, Tensor packed, int head0, "
+                   f"int head1, {_LOOPS}) -> Tensor", _fake_value)
+def _value_launch(vT, runs, packed, head0, head1, *loop_args):
+    """#1 on the card, over the model's runs."""
+    lp = _lp_like(vT)
+    _launch("tbt_slab_value", "slab_value", vT,
+            (runs.data_ptr(), runs.shape[0], head0, head1, packed.data_ptr(), packed.numel()),
+            loop_args, lp.data_ptr(), vT.shape[1])
+    return lp
 
 
 def slab_value(vT, cf, loops=None):
@@ -402,11 +434,39 @@ def slab_value(vT, cf, loops=None):
         return slab_value_plain(vT, cf, loops)
     _check_cuda(vT, cf, loops)
     runs, packed, head = run_table(cf)
-    lp = torch.empty(vT.shape[1], dtype=vT.dtype, device=vT.device)
-    _launch("tbt_slab_value", "slab_value", vT,
-            (runs.data_ptr(), runs.shape[0], *head, packed.data_ptr(), packed.numel()), loops,
-            lp.data_ptr(), vT.shape[1])
-    return lp
+    return _value_launch(vT, runs, packed, *head, *_table(loops))
+
+
+def _fake_value_and_grad(vT, cf, *rest):
+    return _lp_like(vT), torch.empty_like(vT)
+
+
+@kernels.kernel_op("slab_value_and_grad", f"(Tensor vT, Tensor cf, {_LOOPS}) -> (Tensor, Tensor)",
+                   _fake_value_and_grad)
+def _value_and_grad_launch(vT, cf, *loop_args):
+    """#2's wide design on the card: a thread a column."""
+    lp, g = _fake_value_and_grad(vT, cf)
+    _launch("tbt_slab_value_and_grad", "slab_value_and_grad", vT, (cf.data_ptr(),), loop_args,
+            lp.data_ptr(), g.data_ptr(), *vT.shape)
+    return lp, g
+
+
+@kernels.kernel_op("slab_value_and_grad_small",
+                   "(Tensor vT, Tensor cf, Tensor items, Tensor? prm, Tensor? tape, int scratch, "
+                   "bool traced) -> (Tensor, Tensor)", _fake_value_and_grad)
+def _value_and_grad_small_launch(vT, cf, items, prm, tape, scratch, traced):
+    """#2's small design on the card: the item kernel."""
+    lp, g = _fake_value_and_grad(vT, cf)
+    dim, B = vT.shape
+    kernels.launch(
+        "tbt_slab_value_and_grad_items", "slab_value_and_grad_small", vT.device,
+        vT.data_ptr(), cf.data_ptr(), items.data_ptr(), items.shape[0],
+        None if prm is None else prm.data_ptr(), None if tape is None else tape.data_ptr(),
+        scratch, int(prm is not None), lp.data_ptr(), g.data_ptr(), dim, B,
+    )
+    if traced:
+        kernels.LAUNCHES["slab_traced"] += 1
+    return lp, g
 
 
 def slab_value_and_grad(vT, cf, loops=None, design=None):
@@ -417,28 +477,13 @@ def slab_value_and_grad(vT, cf, loops=None, design=None):
         return slab_value_and_grad_plain(vT, cf, loops)
     _check_cuda(vT, cf, loops)
     design = design or slab_design(vT.shape[1])
-    lp = torch.empty(vT.shape[1], dtype=vT.dtype, device=vT.device)
-    g = torch.empty_like(vT)
     if design == "wide":
-        _launch("tbt_slab_value_and_grad", "slab_value_and_grad", vT, (cf.data_ptr(),), loops,
-                lp.data_ptr(), g.data_ptr(), *vT.shape)
-        return lp, g
+        return _value_and_grad_launch(vT, cf, *_table(loops))
     if design != "small":
         raise ValueError(f"design must be 'small' or 'wide'; got {design!r}")
     items, scratch = item_table(cf, loops)
-    prm = tape = None
-    if loops is not None:
-        prm = loops.prm.data_ptr()
-        tape = None if loops.tape is None else loops.tape.data_ptr()
-    dim, B = vT.shape
-    kernels.launch(
-        "tbt_slab_value_and_grad_items", "slab_value_and_grad_small", vT.device,
-        vT.data_ptr(), cf.data_ptr(), items.data_ptr(), items.shape[0], prm, tape, scratch,
-        int(loops is not None), lp.data_ptr(), g.data_ptr(), dim, B,
-    )
-    if loops is not None and loops.tapes:
-        kernels.LAUNCHES["slab_traced"] += 1
-    return lp, g
+    _, prm, tape, _, traced = _table(loops)
+    return _value_and_grad_small_launch(vT, cf, items, prm, tape, scratch, traced)
 
 
 def launch_floor(device):
@@ -447,15 +492,40 @@ def launch_floor(device):
     kernels.launch("tbt_empty", "launch_floor", torch.device(device))
 
 
+def _fake_vjp(vT, cf, ct, *loop_args):
+    return torch.empty_like(vT)
+
+
+@kernels.kernel_op("slab_vjp", f"(Tensor vT, Tensor cf, Tensor ct, {_LOOPS}) -> Tensor",
+                   _fake_vjp)
+def _vjp_launch(vT, cf, ct, *loop_args):
+    """#3 on the card."""
+    g = torch.empty_like(vT)
+    _launch("tbt_slab_vjp", "slab_vjp", vT, (cf.data_ptr(),), loop_args, ct.data_ptr(),
+            g.data_ptr(), *vT.shape)
+    return g
+
+
 def slab_vjp(vT, cf, ct, loops=None):
     """g = (d lp / d vT) * ct (dim, B) for a cotangent ct (B,)."""
     if vT.device.type == "cpu":
         return slab_vjp_plain(vT, cf, ct, loops)
     _check_cuda(vT, cf, loops, ct)
-    g = torch.empty_like(vT)
-    _launch("tbt_slab_vjp", "slab_vjp", vT, (cf.data_ptr(),), loops, ct.data_ptr(),
-            g.data_ptr(), *vT.shape)
-    return g
+    return _vjp_launch(vT, cf, ct, *_table(loops))
+
+
+def _fake_jvp(vT, cf, dvT, *loop_args):
+    return _lp_like(vT)
+
+
+@kernels.kernel_op("slab_jvp", f"(Tensor vT, Tensor cf, Tensor dvT, {_LOOPS}) -> Tensor",
+                   _fake_jvp)
+def _jvp_launch(vT, cf, dvT, *loop_args):
+    """#4 on the card."""
+    dlp = _lp_like(vT)
+    _launch("tbt_slab_jvp", "slab_jvp", vT, (cf.data_ptr(),), loop_args, dvT.data_ptr(),
+            dlp.data_ptr(), *vT.shape)
+    return dlp
 
 
 def slab_jvp(vT, cf, dvT, loops=None):
@@ -464,10 +534,7 @@ def slab_jvp(vT, cf, dvT, loops=None):
     if vT.device.type == "cpu":
         return slab_jvp_plain(vT, cf, dvT, loops)
     _check_cuda(vT, cf, loops, dvT=dvT)
-    dlp = torch.empty(vT.shape[1], dtype=vT.dtype, device=vT.device)
-    _launch("tbt_slab_jvp", "slab_jvp", vT, (cf.data_ptr(),), loops, dvT.data_ptr(),
-            dlp.data_ptr(), *vT.shape)
-    return dlp
+    return _jvp_launch(vT, cf, dvT, *_table(loops))
 
 
 class _OnStorage(torch.autograd.Function):
